@@ -1,0 +1,81 @@
+"""Shared functional layers: norms, RoPE, SwiGLU MLP, initializers
+(port of ``repro.models.layers``).
+
+Same mixed-precision policy as the reference: parameters in
+``cfg.param_dtype``, matmuls in ``cfg.compute_dtype``, normalization
+statistics and rotary angles in fp32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Initializers (same distributions as the reference; torch draws other bits)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, dtype, *, fan_in: int | None = None):
+    fan_in = fan_in if fan_in is not None else shape[-2] if len(shape) >= 2 else shape[-1]
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return x.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype):
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return x.mul_(0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm, stored as w under the (1 + w) convention
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x, weight, eps: float = 1e-5):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + weight.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (llama-style half rotation)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [B, S, H, hd]; positions: [B, S] or [S]."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # [hd/2]
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs  # [B, S, hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP (x @ W layout, as the reference)
+# ---------------------------------------------------------------------------
+
+
+def mlp_apply(lp, x):
+    return (F.silu(x @ lp["w1"]) * (x @ lp["w3"])) @ lp["w2"]

@@ -1,0 +1,31 @@
+"""Continuous-batching serving (port of ``repro.serving``).
+
+| layer | module | registry |
+|---|---|---|
+| paged cache | ``serving/paged.py`` | (block allocator + paged pool) |
+| schedulers | ``serving/schedulers.py`` | ``SCHEDULERS`` |
+| termination | ``serving/termination.py`` | ``TERMINATION`` |
+| workloads | ``serving/workloads.py`` | ``WORKLOADS`` |
+| engine | ``serving/engine.py`` | composes the four |
+
+Deciding when each in-flight request is done without a global barrier is
+the paper's convergence-detection problem: per-request termination runs
+the non-blocking MRD reduction of ``repro_torch.collectives.plans``, so at
+``dp > 1`` every replica retires the same slots on the same tick, at any
+(non-power-of-two) replica count.
+"""
+
+from repro_torch.serving.engine import (  # noqa: F401
+    Request,
+    RequestResult,
+    ServeConfig,
+    ServeEngine,
+)
+from repro_torch.serving.paged import BlockAllocator, PagedDecodePool  # noqa: F401
+from repro_torch.serving.schedulers import SCHEDULERS, get_scheduler  # noqa: F401
+from repro_torch.serving.termination import (  # noqa: F401
+    TERMINATION,
+    TerminationConfig,
+    get_termination,
+)
+from repro_torch.serving.workloads import WORKLOADS, get_workload, make_workload  # noqa: F401

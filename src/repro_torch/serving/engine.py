@@ -1,0 +1,287 @@
+"""The serving engine (port of ``repro.serving.engine``): a thin
+composition of workload x scheduler x termination.
+
+Per engine step:
+
+1. **admit** — the scheduler orders the queue and the first eligible
+   requests take the free slots; each admission prefills the prompt and
+   yields the request's first token (TTFT stops here);
+2. **tick** — one decode tick, advancing every active slot one token and
+   the termination protocol's staged MRD reduction one stage;
+3. **retire** — slots certified done by the agreed result (or frozen at
+   cache capacity) retire, free their blocks, and their outputs are
+   collected.
+
+The reference fuses several ticks into one device loop that ends at the
+first retirement or the next arrival.  A free slot or a new arrival is
+the only thing that can change admission, so one tick per step gives the
+same admission and retirement ticks.  The control plane (termination state, per-slot counters) lives on the host:
+each tick brings the slots' new tokens to the host once.
+
+Metrics: TTFT / TPOT (wall seconds, p50/p95/p99 in :meth:`summary`),
+token throughput, slot occupancy, and tick-domain admission/retirement
+ticks.  Resize, tenants, SLAs, retries and telemetry are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.serving.schedulers import get_scheduler
+from repro_torch.serving.termination import TerminationConfig, get_termination, make_signals
+
+# certified value of a request retired without agreement (frozen at cache
+# capacity); the reference's ``asynchrony.protocols.RES_INIT`` sentinel
+RES_INIT = 1e30
+# engine steps before run() gives up on a loop that does not drain
+MAX_STEPS = 100_000
+
+
+@dataclasses.dataclass
+class Request:
+    """One LLM decode request."""
+
+    id: int
+    arrival: int = 0  # tick at which the request enters the queue
+    prompt: Any = None  # 1-D int token array
+    max_new: int = 32  # generation budget
+    eos: int = -1  # EOS token id (-1 = never)
+
+
+@dataclasses.dataclass
+class RequestResult:
+    id: int
+    output: np.ndarray  # token ids, trimmed at EOS / budget
+    arrival: int
+    admit_tick: int
+    retire_tick: int
+    n_tokens: int
+    certified: float  # agreed done bit at retirement (RES_INIT if forced)
+    converged: bool  # False when force-retired at cache capacity
+    ttft_s: float
+    tpot_s: float  # NaN for n_tokens <= 1 (no inter-token interval)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    scheduler: str = "fcfs"
+    termination: str = "eos_maxlen"
+    dp: int = 1  # termination-agreement replicas (MRD over [dp])
+
+
+class ServeEngine:
+    """Continuous-batching serving loop over a workload's pool."""
+
+    def __init__(self, workload, cfg: ServeConfig = ServeConfig()):
+        self.workload = workload
+        self.cfg = cfg
+        self.slots = workload.slots
+        self.scheduler = get_scheduler(cfg.scheduler)
+        self.term = get_termination(cfg.termination)
+        self.tcfg = TerminationConfig(dp=cfg.dp)
+        # the control plane is a few bytes per tick: it lives on the host
+        self.tstate = self.term.init(self.tcfg, self.slots, device="cpu")
+
+        self.tick = 0
+        self.decode_ticks = 0  # ticks that ran a decode step
+        self.queue: List[Request] = []
+        self.pending: List[Request] = []  # submitted, not yet arrived
+        self.slot_req: List[Optional[Request]] = [None] * self.slots
+        self.results: Dict[int, RequestResult] = {}
+        self._active = np.zeros((self.slots,), bool)
+        self._admit_tick = np.zeros((self.slots,), np.int64)
+        self._new_tokens = np.zeros((self.slots,), np.int64)
+        self._max_new = np.ones((self.slots,), np.int64)
+        self._eos = np.full((self.slots,), -1, np.int64)
+        self._t_queue = np.zeros((self.slots,), np.float64)
+        self._t_first = np.zeros((self.slots,), np.float64)
+        self._t_submit: Dict[int, float] = {}
+        self._occupancy_ticks = 0
+        self._occupancy_sum = 0.0
+        self._forced_at_capacity = 0
+        self._t_start: Optional[float] = None
+        self._t_last = 0.0
+
+    # -- request intake -----------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        """Queue ``req`` (it becomes schedulable at ``req.arrival``)."""
+        if req.arrival <= self.tick:
+            req.arrival = self.tick
+            self._t_submit[req.id] = time.perf_counter()
+            self.queue.append(req)
+        else:
+            self.pending.append(req)
+
+    def _free_slots(self) -> List[int]:
+        return [s for s in range(self.slots) if self.slot_req[s] is None]
+
+    # -- one step -----------------------------------------------------------
+
+    def _admit(self, now: int) -> None:
+        """Fill free slots in scheduler order; a request the pool cannot
+        take yet (out of cache blocks) stays queued and the next one gets
+        the slot."""
+        free = self._free_slots()
+        if not (self.queue and free):
+            return
+        gate = getattr(self.workload, "can_admit", None)
+        for req in self.scheduler.order(list(self.queue), now):
+            if not free:
+                break
+            if gate is not None and not gate(req):
+                continue
+            slot = free.pop(0)
+            self.queue.remove(req)
+            t0 = time.perf_counter()
+            self.workload.admit(req, slot, now)
+            self.slot_req[slot] = req
+            self._active[slot] = True
+            self._admit_tick[slot] = now
+            self._new_tokens[slot] = self.workload.prefill_tokens
+            self._max_new[slot] = self.workload.clamp_max_new(req)
+            self._eos[slot] = req.eos
+            self._t_queue[slot] = self._t_submit.get(req.id, t0)
+            self._t_first[slot] = time.perf_counter()
+
+    def _tick(self, now: int):
+        """One decode tick + termination tick -> (retire, at_cap) masks."""
+        act = self._active.copy()
+        tokens = self.workload.step(act)
+        self.decode_ticks += 1
+        self._new_tokens[act] += 1
+        self.workload.collect_tick(tokens, act)
+        self._occupancy_sum += float(act.sum()) / self.slots
+        self._occupancy_ticks += 1
+        sig = make_signals(
+            tokens=torch.from_numpy(tokens.astype(np.int64)),
+            new_tokens=torch.from_numpy(self._new_tokens.copy()),
+            eos=torch.from_numpy(self._eos.copy()),
+            max_new=torch.from_numpy(self._max_new.copy()),
+            active=torch.from_numpy(act),
+            admit_tick=torch.from_numpy(self._admit_tick.copy()),
+            tick=now,
+        )
+        self.tstate, retire = self.term.tick(self.tstate, sig, self.tcfg)
+        retire = retire.numpy()
+        # a slot frozen at cache capacity but not naturally done can produce
+        # no further useful token: force-retire it, counted separately
+        natural = (tokens == self._eos) | (self._new_tokens >= self._max_new)
+        at_cap = act & self.workload.capacity_mask() & ~natural & ~retire
+        return retire, at_cap
+
+    def step(self) -> np.ndarray:
+        """Advance one engine step; returns the retired-slot mask ``[S]``."""
+        if self._t_start is None:
+            self._t_start = time.perf_counter()
+        now = self.tick
+        still = []
+        for r in self.pending:  # arrivals become schedulable (TTFT clock starts)
+            if r.arrival <= now:
+                self._t_submit[r.id] = time.perf_counter()
+                self.queue.append(r)
+            else:
+                still.append(r)
+        self.pending = still
+
+        self._admit(now)
+        if not self._active.any():
+            # nothing in flight: fast-forward the clock to the next arrival
+            self.tick = min(r.arrival for r in self.pending) if self.pending else now + 1
+            self._t_last = time.perf_counter()
+            return np.zeros((self.slots,), bool)
+
+        retire, at_cap = self._tick(now)
+        out_mask = retire | at_cap
+        if out_mask.any():
+            self._active[out_mask] = False
+            certified = self.tstate["certified"].numpy()
+            t_done = time.perf_counter()
+            for slot in np.nonzero(out_mask)[0]:
+                self._collect(int(slot), now, certified, bool(at_cap[slot]), t_done)
+        self.tick = now + 1
+        self._t_last = time.perf_counter()
+        return out_mask
+
+    def _collect(self, slot, now, certified, at_capacity, t_done):
+        req = self.slot_req[slot]
+        if at_capacity:
+            self._forced_at_capacity += 1
+        n_tok = int(self._new_tokens[slot])
+        toks = self.workload.output(slot)[: min(n_tok, int(self._max_new[slot]))]
+        hits = np.nonzero(toks == req.eos)[0]
+        if req.eos >= 0 and hits.size:
+            toks = toks[: hits[0] + 1]
+        n_tok = int(toks.shape[0])
+        tpot = (t_done - self._t_first[slot]) / (n_tok - 1) if n_tok > 1 else float("nan")
+        self.results[req.id] = RequestResult(
+            id=req.id, output=toks, arrival=req.arrival,
+            admit_tick=int(self._admit_tick[slot]), retire_tick=now, n_tokens=n_tok,
+            certified=RES_INIT if at_capacity else float(certified[slot]),
+            converged=not at_capacity,
+            ttft_s=self._t_first[slot] - self._t_queue[slot], tpot_s=tpot,
+        )
+        self.slot_req[slot] = None
+        release = getattr(self.workload, "release", None)
+        if release is not None:
+            release(slot)  # paged pools return the slot's blocks
+
+    # -- drive to completion ------------------------------------------------
+
+    def run(self, requests=None):
+        """Submit ``requests`` and step until everything submitted has
+        retired.  Returns ``results`` (request id -> RequestResult)."""
+        for r in requests or []:
+            self.submit(r)
+        steps = 0
+        while self.queue or self.pending or any(r is not None for r in self.slot_req):
+            if steps >= MAX_STEPS:
+                raise RuntimeError(
+                    f"serve loop did not drain within {MAX_STEPS} engine steps "
+                    f"({len(self.queue) + len(self.pending)} queued, "
+                    f"{sum(r is not None for r in self.slot_req)} in flight)"
+                )
+            self.step()
+            steps += 1
+        return self.results
+
+    # -- metrics ------------------------------------------------------------
+
+    def summary(self) -> Dict[str, Any]:
+        res = list(self.results.values())
+        wall = (self._t_last - self._t_start) if self._t_start else 0.0
+        tokens_out = int(sum(r.n_tokens for r in res))
+        return {
+            "completed": len(res),
+            "ticks": self.tick,
+            "decode_ticks": self.decode_ticks,
+            "wall_s": wall,
+            "tokens_out": tokens_out,
+            "throughput_tok_s": tokens_out / wall if wall > 0 else 0.0,
+            **_latency_percentiles(res),
+            "occupancy": (self._occupancy_sum / self._occupancy_ticks
+                          if self._occupancy_ticks else 0.0),
+            "converged": int(sum(r.converged for r in res)),
+            "forced_at_capacity": self._forced_at_capacity,
+        }
+
+
+def _pct_ms(seconds: np.ndarray, q: float) -> float:
+    """NaN-safe percentile in milliseconds (NaN when nothing to rank)."""
+    finite = seconds[np.isfinite(seconds)]
+    return float(np.percentile(finite, q) * 1e3) if finite.size else float("nan")
+
+
+def _latency_percentiles(res) -> Dict[str, float]:
+    ttft = np.asarray([r.ttft_s for r in res], np.float64)
+    tpot = np.asarray([r.tpot_s for r in res], np.float64)
+    out = {}
+    for q in (50, 95, 99):
+        out[f"ttft_p{q}_ms"] = _pct_ms(ttft, q)
+        out[f"tpot_p{q}_ms"] = _pct_ms(tpot, q)
+    return out

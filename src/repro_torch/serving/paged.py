@@ -1,0 +1,307 @@
+"""The block-paged decode pool (port of ``repro.serving.paged``).
+
+The cache is a shared physical pool of fixed-size blocks
+(``distributed.serve.init_paged_pool``):
+
+- :class:`BlockAllocator` — host-side free list with refcounts and a
+  content-addressed prefix registry.  Identical prompt prefixes map their
+  full blocks to the same physical blocks (stored once, refcounted per
+  sharer); :meth:`BlockAllocator.fork_private` is the copy-on-write guard
+  on any block a request may write.
+- :class:`PagedDecodePool` — the device half.  Admission reserves blocks
+  for the request's whole budget (``ceil((plen + max_new + 1) / bs)``), so
+  decode never faults on a missing block; a per-slot ``slot_cap`` freezes
+  a slot's length at the reservation edge.
+
+Block 0 is the trash block: device writes of inactive slots land there.
+
+Unlike the reference, a block may carry several registry keys (a set per
+block): the reference keeps one key per block, so registering a second
+key on a block overwrote the first and left it dangling.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.distributed import serve as dserve
+from repro_torch.models.config import ModelConfig
+
+
+class BlockAllocator:
+    """Free-list block allocator with refcounts and a prefix registry.
+
+    Block ids are ``1..num_blocks-1`` (0 is the reserved trash block).
+    Invariants (checked by :meth:`check`):
+
+    - a block is on the free list iff its refcount is 0;
+    - a block is never handed out twice while allocated;
+    - every registered key points at a live block that lists the key, and
+      a block's keys are dropped exactly when its last sharer releases it.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError("need at least 1 usable block + the trash block")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        # pop() from the end -> lowest ids first (deterministic layouts)
+        self._free: List[int] = list(range(num_blocks - 1, 0, -1))
+        self.ref = np.zeros((num_blocks,), np.int64)
+        self.ref[0] = 1  # trash block: permanently pinned
+        self._block_of: Dict[bytes, int] = {}  # prefix key -> block id
+        self._keys_of: Dict[int, Set[bytes]] = {}  # block id -> its keys
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        """Live blocks excluding the trash block."""
+        return self.num_blocks - 1 - len(self._free)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise MemoryError(f"out of cache blocks ({self.num_blocks - 1} usable)")
+        b = self._free.pop()
+        self.ref[b] = 1
+        return b
+
+    def retain(self, bid: int) -> None:
+        if bid == 0 or self.ref[bid] <= 0:
+            raise ValueError(f"retain of unallocated block {bid}")
+        self.ref[bid] += 1
+
+    def release(self, bid: int) -> bool:
+        """Drop one reference; returns True when the block was freed."""
+        if bid == 0 or self.ref[bid] <= 0:
+            raise ValueError(f"release of unallocated block {bid}")
+        self.ref[bid] -= 1
+        if self.ref[bid] == 0:
+            for key in self._keys_of.pop(bid, ()):
+                del self._block_of[key]
+            self._free.append(bid)
+            return True
+        return False
+
+    # -- prefix sharing ------------------------------------------------------
+
+    def lookup(self, key: bytes) -> Optional[int]:
+        """Adopt the block registered under ``key`` (bumps its refcount)."""
+        bid = self._block_of.get(key)
+        if bid is not None:
+            self.ref[bid] += 1
+        return bid
+
+    def peek(self, key: bytes) -> Optional[int]:
+        """Registry lookup without taking a reference (capacity planning)."""
+        return self._block_of.get(key)
+
+    def register(self, key: bytes, bid: int) -> None:
+        """Publish ``bid`` (which the caller holds) as the block for ``key``."""
+        if bid == 0 or self.ref[bid] <= 0:
+            raise ValueError(f"register of unallocated block {bid}")
+        if key in self._block_of:
+            return  # first registration wins (content is identical anyway)
+        self._block_of[key] = bid
+        self._keys_of.setdefault(bid, set()).add(key)
+
+    def fork_private(self, bid: int) -> Tuple[int, bool]:
+        """Copy-on-write: a block id the caller may safely write.
+
+        The sole owner keeps ``(bid, False)``; a sharer's reference moves to
+        a fresh block ``(new_bid, True)`` and every other sharer's view stays
+        untouched.  The caller fills the new block.
+        """
+        if self.ref[bid] == 1:
+            return bid, False
+        nb = self.alloc()  # before release: MemoryError must not leak the ref
+        self.release(bid)
+        return nb, True
+
+    def check(self) -> None:
+        """Raise AssertionError unless the allocator invariants hold."""
+        free = set(self._free)
+        assert len(free) == len(self._free), "duplicate block on free list"
+        assert 0 not in free, "trash block on free list"
+        assert self.ref[0] >= 1, "trash block unpinned"
+        for b in range(1, self.num_blocks):
+            assert (self.ref[b] == 0) == (b in free), (
+                f"block {b}: ref={self.ref[b]} free={b in free}"
+            )
+        for key, b in self._block_of.items():
+            assert key in self._keys_of.get(b, ()), f"registry asymmetry at {b}"
+            assert self.ref[b] > 0, f"registered block {b} is free"
+        for b, keys in self._keys_of.items():
+            for key in keys:
+                assert self._block_of.get(key) == b, f"dangling key on block {b}"
+
+
+class PagedDecodePool:
+    """Block-paged continuous-batching pool over one device.
+
+    Device state: the page pools, the block tables ``[slots, nb]`` and the
+    last token of each slot.  Host state: the allocator, each slot's block
+    list, and the per-slot ``lengths`` and ``slot_cap`` (the host advances
+    them, so reading them never waits on the device).
+    """
+
+    def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int, max_prompt_len: int,
+                 block_size: int = 8, num_blocks: Optional[int] = None,
+                 attn: str = "kernel", device="cuda"):
+        if max_prompt_len >= max_len:
+            raise ValueError("max_prompt_len must leave room to decode")
+        if max_len % block_size:
+            raise ValueError(f"max_len={max_len} must be a multiple of block_size={block_size}")
+        dserve.validate_pageable(cfg, max_len)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.slots, self.max_len, self.max_prompt_len = slots, max_len, max_prompt_len
+        self.block_size = block_size
+        self.blocks_per_slot = max_len // block_size
+        if num_blocks is None:
+            num_blocks = slots * self.blocks_per_slot + 1  # capacity parity + trash
+        self.num_blocks = num_blocks
+        self.attn = attn
+        self._pool_step = dserve.make_paged_pool_decode_step(cfg, block_size, attn=attn)
+        self._slot_prefill = dserve.make_paged_slot_prefill_step(
+            cfg, max_prompt_len, max_len, block_size
+        )
+        self.reset()
+
+    def reset(self):
+        self.allocator = BlockAllocator(self.num_blocks, self.block_size)
+        self.slot_blocks: List[List[int]] = [[] for _ in range(self.slots)]
+        self.prefix_saved_blocks = 0  # running count of share hits
+        self.pages = dserve.init_paged_pool(
+            self.cfg, self.max_len, self.num_blocks, self.block_size, self.device
+        )
+        dev = self.device
+        self.tables = torch.zeros((self.slots, self.blocks_per_slot), dtype=torch.int32, device=dev)
+        self.tokens = torch.zeros((self.slots,), dtype=torch.long, device=dev)
+        self.lengths = np.zeros((self.slots,), np.int32)
+        self.slot_cap = np.zeros((self.slots,), np.int32)
+
+    # -- decode --------------------------------------------------------------
+
+    def step(self, params, active: np.ndarray) -> torch.Tensor:
+        """Advance every active slot one token; returns the tokens [S] (on
+        the device; inactive slots keep their last token)."""
+        active_d = torch.from_numpy(active).to(self.device)
+        lengths_d = torch.from_numpy(self.lengths).to(self.device)
+        logits = self._pool_step(params, self.tokens, self.pages, self.tables,
+                                 lengths_d, active_d)
+        self.tokens = torch.where(active_d, torch.argmax(logits, dim=-1), self.tokens)
+        # freeze at the slot's reserved capacity: the reservation covers
+        # plen + max_new + 1, so useful tokens come strictly before it
+        adv = active & (self.lengths < self.slot_cap - 1)
+        self.lengths = np.where(adv, self.lengths + 1, self.lengths).astype(np.int32)
+        return self.tokens
+
+    def capacity_mask(self) -> np.ndarray:
+        """Slots frozen at their reserved capacity."""
+        return self.lengths >= self.slot_cap - 1
+
+    # -- host-side block planning -------------------------------------------
+
+    def _blocks_needed(self, plen: int, max_new: int) -> int:
+        need = min(self.max_len, plen + max_new + 1)
+        return -(-need // self.block_size)
+
+    def _plan_blocks(self, prompt: np.ndarray, plen: int, max_new: int):
+        """Map a request onto physical blocks.
+
+        Full prompt blocks are content-addressed by their cumulative prefix
+        (``prompt[:(j+1)*bs]``); any block the request may write (``j >=
+        plen // bs``) passes the copy-on-write guard.  Rolls back cleanly
+        when the pool runs out of blocks.
+        """
+        bs = self.block_size
+        n_need = self._blocks_needed(plen, max_new)
+        first_write = plen // bs
+        blocks: List[int] = []
+        write_mask: List[bool] = []
+        shared = 0
+        try:
+            for j in range(n_need):
+                if j < first_write:
+                    key = prompt[: (j + 1) * bs].tobytes()
+                    bid = self.allocator.lookup(key)
+                    if bid is not None:
+                        blocks.append(bid)
+                        write_mask.append(False)
+                        shared += 1
+                        continue
+                    bid = self.allocator.alloc()
+                    self.allocator.register(key, bid)
+                else:
+                    bid = self.allocator.alloc()
+                if j >= first_write:
+                    bid, _ = self.allocator.fork_private(bid)
+                blocks.append(bid)
+                write_mask.append(True)
+        except MemoryError:
+            for b in blocks:
+                self.allocator.release(b)
+            raise
+        return blocks, write_mask, shared
+
+    def can_admit(self, prompt, max_new: int) -> bool:
+        """Would :meth:`admit` succeed right now without evicting anyone?"""
+        prompt = np.asarray(prompt, np.int32)
+        plen = int(prompt.shape[0])
+        n_need = self._blocks_needed(plen, max_new)
+        if n_need > self.num_blocks - 1:
+            raise ValueError(
+                f"request needs {n_need} blocks but the pool only has "
+                f"{self.num_blocks - 1}: it can never be admitted"
+            )
+        bs = self.block_size
+        hits = sum(self.allocator.peek(prompt[: (j + 1) * bs].tobytes()) is not None
+                   for j in range(plen // bs))
+        return self.allocator.free_blocks >= n_need - hits
+
+    # -- admission / retirement ---------------------------------------------
+
+    def admit(self, params, prompt, slot: int, *, max_new: int) -> int:
+        """Reserve blocks for the request's whole budget, prefill the prompt
+        through the slot's new block table, return the first token."""
+        prompt = np.asarray(prompt, np.int32)
+        plen = int(prompt.shape[0])
+        if not 0 < plen <= self.max_prompt_len:
+            raise ValueError(f"prompt length {plen} not in (0, {self.max_prompt_len}]")
+        if self.slot_blocks[slot]:
+            self.release_slot(slot)  # defensive: the engine releases at retire
+        blocks, write_mask, shared = self._plan_blocks(prompt, plen, int(max_new))
+        self.slot_blocks[slot] = blocks
+        self.prefix_saved_blocks += shared
+        table_row = np.zeros((self.blocks_per_slot,), np.int32)
+        table_row[: len(blocks)] = blocks
+        mask = np.zeros((self.blocks_per_slot,), bool)
+        mask[: len(blocks)] = write_mask
+        dev = self.device
+        last_logits = self._slot_prefill(
+            params, torch.from_numpy(prompt).long().to(dev), self.pages, self.tables,
+            slot, torch.from_numpy(table_row).to(dev), torch.from_numpy(mask).to(dev),
+        )
+        tok0 = torch.argmax(last_logits)
+        self.tokens[slot] = tok0
+        self.lengths[slot] = plen
+        self.slot_cap[slot] = len(blocks) * self.block_size
+        return int(tok0)
+
+    def release_slot(self, slot: int) -> None:
+        """Return the slot's blocks to the allocator (slot recycling)."""
+        for b in self.slot_blocks[slot]:
+            self.allocator.release(b)
+        self.slot_blocks[slot] = []
+
+    @property
+    def cache_bytes(self) -> int:
+        return int(sum(t.numel() * t.element_size() for t in self.pages.values())
+                   + self.tables.numel() * self.tables.element_size())

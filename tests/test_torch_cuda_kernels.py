@@ -1,0 +1,67 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These need an NVIDIA card (the kernels have no CPU mode) and skip without
+one.  On the card, from the repository root:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+This file imports neither JAX nor the reference package, so it runs on a
+machine that has only the port's dependencies.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.paged_attention import ops  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# (S, H, KV, hd, nb, bs): served full width, smoke, rep 1, rep 4 with hd 16
+CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16), (3, 8, 2, 16, 5, 8)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(seed, S, H, KV, hd, nb, bs, dtype, device):
+    rng = np.random.default_rng(seed)
+    N = S * nb + 1
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(device, dtype)
+               for sh in ((S, H, hd), (N, bs, KV, hd), (N, bs, KV, hd)))
+    tables = rng.permutation(np.arange(1, N))[: S * nb].reshape(S, nb).astype(np.int32)
+    lengths = rng.integers(1, nb * bs + 1, size=S).astype(np.int32)
+    lengths[0], lengths[-1] = nb * bs, 1
+    return [q, k, v, torch.from_numpy(tables).to(device), torch.from_numpy(lengths).to(device)]
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_matches_plain(cuda, case, dtype, atol):
+    """fp32 within 1e-4 (summation order only); bf16 within 2e-2 of the
+    plain version computed in fp32 on the same bf16 inputs (output
+    rounding to bf16)."""
+    args = _inputs(0, *case, getattr(torch, dtype), cuda)
+    n0 = ops.paged_attention.launches
+    out = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == n0 + 1
+    assert out.dtype == args[0].dtype and out.device.type == "cuda"
+    ref = paged_attention_ref(*[a.float() if a.is_floating_point() else a for a in args])
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+def test_unsupported_shape_raises_on_the_card(cuda):
+    """No fallback to the plain version for a CUDA tensor."""
+    args = _inputs(1, 2, 4, 2, 32, 2, 8, torch.float32, cuda)  # head dim 32
+    n0 = ops.paged_attention.launches
+    with pytest.raises(ValueError):
+        ops.paged_attention(*args)
+    assert ops.paged_attention.launches == n0

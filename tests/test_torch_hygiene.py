@@ -1,0 +1,69 @@
+"""Rules the port keeps: no reference imports, no silent CPU fallback.
+
+- No file of ``src/repro_torch/``, nor ``chip_smoke.py``, imports ``jax``
+  or the reference package ``repro`` (``repro_torch`` itself is fine).
+- Entry points default to ``device="cuda"`` and raise when torch sees no
+  card, instead of running on the CPU.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.device import resolve_device  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    assert path.exists(), path
+    bad = [(ln, mod) for ln, mod in _imported_roots(path) if mod in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_import_scan_sees_forbidden_imports(tmp_path):
+    f = tmp_path / "x.py"
+    f.write_text("import os\nfrom repro.models import transformer\nimport jax.numpy as jnp\n"
+                 "from repro_torch import device\n")
+    assert [m for _, m in _imported_roots(f) if m in FORBIDDEN] == ["repro", "jax"]
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.serving import make_workload
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama3.2-1b", "--smoke", "--continuous", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_workload("llm_decode_paged", cfg=registry.get_smoke_config("llama3.2-1b"))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cli_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+
+    s = serve.main(["--arch", "llama3.2-1b", "--smoke", "--continuous", "--dp", "3",
+                    "--slots", "2", "--requests", "3", "--prompt-len", "6", "--gen", "5",
+                    "--device", "cpu"]).summary()
+    assert s["completed"] == 3 and s["tokens_out"] > 0
+    assert "llm_decode_paged[kernel]" in capsys.readouterr().out

@@ -1,0 +1,131 @@
+"""The port's paged decode attention against the reference's.
+
+On the CPU the port's wrapper runs its plain version
+(``repro_torch.kernels.paged_attention.ref``); it is held against the
+reference's plain oracle and against the reference's Pallas kernel in
+interpret mode, on the reference test's shape grid, ragged lengths
+(including 1 and full) and permuted physical blocks, at the reference
+test's own tolerance (atol = rtol = 1e-5, fp32).  The CUDA kernel itself
+runs only on a card: ``test_torch_cuda_kernels.py`` and ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.ops import paged_attention as ref_kernel  # noqa: E402
+from repro.kernels.flash_attention.ref import paged_attention_ref as ref_oracle  # noqa: E402
+from repro_torch.kernels.paged_attention import ops  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+GRID = [
+    (3, 4, 4, 64, 3, 8),  # MHA
+    (4, 8, 2, 64, 2, 8),  # GQA 4:1
+    (2, 6, 3, 80, 4, 16),  # odd head dim, bigger blocks
+    (1, 2, 1, 32, 2, 4),  # single sequence, tiny blocks
+    (8, 32, 8, 64, 7, 16),  # llama3.2-1b full width, the served shape
+    (8, 4, 2, 16, 3, 8),  # llama3.2-1b smoke
+]
+
+
+def _mk(seed, *, S, H, KV, hd, nb, bs):
+    """Random q + pools + a disjoint table over permuted physical blocks,
+    ragged lengths with a full row and (S > 1) a length-1 row."""
+    rng = np.random.default_rng(seed)
+    N = S * nb + 1
+    q = rng.standard_normal((S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((N, bs, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((N, bs, KV, hd)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, N))[: S * nb].reshape(S, nb).astype(np.int32)
+    lengths = rng.integers(1, nb * bs + 1, size=S).astype(np.int32)
+    lengths[0] = nb * bs
+    if S > 1:
+        lengths[-1] = 1
+    return q, k, v, tables, lengths
+
+
+def _port(q, k, v, tables, lengths):
+    out = ops.paged_attention(*(torch.from_numpy(a) for a in (q, k, v, tables, lengths)))
+    return out.numpy()
+
+
+@pytest.mark.parametrize("S,H,KV,hd,nb,bs", GRID)
+def test_plain_matches_reference_oracle(S, H, KV, hd, nb, bs):
+    args = _mk(0, S=S, H=H, KV=KV, hd=hd, nb=nb, bs=bs)
+    ref = ref_oracle(*(jnp.asarray(a) for a in args))
+    np.testing.assert_allclose(_port(*args), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("S,H,KV,hd,nb,bs", GRID[:4])
+def test_plain_matches_reference_pallas_interpret(S, H, KV, hd, nb, bs):
+    args = _mk(1, S=S, H=H, KV=KV, hd=hd, nb=nb, bs=bs)
+    ref = ref_kernel(*(jnp.asarray(a) for a in args), interpret=True)
+    np.testing.assert_allclose(_port(*args), np.asarray(ref), **TOL)
+
+
+def test_invariant_under_physical_permutation():
+    q, k, v, tables, lengths = _mk(3, S=2, H=4, KV=2, hd=32, nb=3, bs=8)
+    out0 = _port(q, k, v, tables, lengths)
+    rng = np.random.default_rng(4)
+    perm = np.concatenate([[0], rng.permutation(np.arange(1, k.shape[0]))])
+    inv = np.argsort(perm)
+    out1 = _port(q, k[perm], v[perm], inv[tables].astype(np.int32), lengths)
+    np.testing.assert_allclose(out0, out1, atol=1e-6, rtol=1e-6)
+
+
+def test_garbage_beyond_length_is_ignored():
+    q, k, v, tables, lengths = _mk(5, S=2, H=2, KV=2, hd=32, nb=2, bs=8)
+    lengths = np.array([5, 12], np.int32)
+    out0 = _port(q, k, v, tables, lengths)
+    k2, v2 = k.copy(), v.copy()
+    for s, L in enumerate(lengths):
+        for p in range(L, 2 * 8):
+            k2[tables[s, p // 8], p % 8] = 1e9
+            v2[tables[s, p // 8], p % 8] = -1e9
+    np.testing.assert_allclose(out0, _port(q, k2, v2, tables, lengths), atol=1e-6, rtol=1e-6)
+
+
+def test_plain_keeps_bf16_type():
+    q, k, v, tables, lengths = _mk(6, S=3, H=4, KV=2, hd=16, nb=2, bs=8)
+    t = [torch.from_numpy(a) for a in (q, k, v, tables, lengths)]
+    bf = [x.bfloat16() if x.is_floating_point() else x for x in t]
+    out = paged_attention_ref(*bf)
+    assert out.dtype == torch.bfloat16
+    ref = paged_attention_ref(*[x.float() if x.is_floating_point() else x for x in bf])
+    np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=2e-2)
+
+
+@pytest.mark.parametrize(
+    "change, err",
+    [
+        (dict(hd=32), ValueError),  # head dim the kernel does not take
+        (dict(H=6, KV=2), ValueError),  # rep 3
+        (dict(bs=4), ValueError),  # block size
+        (dict(dtype=torch.float16), TypeError),
+        (dict(tables_dtype=torch.int64), TypeError),
+        (dict(noncontig=True), ValueError),
+    ],
+)
+def test_kernel_input_checks_raise(change, err):
+    shape = dict(S=2, H=4, KV=2, hd=16, nb=2, bs=8)
+    shape.update({k: v for k, v in change.items() if k in shape})
+    q, k, v, tables, lengths = (torch.from_numpy(a) for a in _mk(7, **shape))
+    dt = change.get("dtype", torch.float32)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    tables = tables.to(change.get("tables_dtype", torch.int32))
+    if change.get("noncontig"):
+        q = q.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(err):
+        ops.check_inputs(q, k, v, tables, lengths)
+
+
+def test_kernel_input_checks_accept_served_shapes():
+    for S, H, KV, hd, nb, bs in (GRID[4], GRID[5]):
+        args = [torch.from_numpy(a) for a in _mk(8, S=S, H=H, KV=KV, hd=hd, nb=nb, bs=bs)]
+        ops.check_inputs(*args)
+        ops.check_inputs(*[a.bfloat16() if a.is_floating_point() else a for a in args])
