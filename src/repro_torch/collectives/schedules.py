@@ -1,5 +1,5 @@
-"""Communication schedules (port of ``repro.collectives.schedules``, the
-``mrd`` allreduce).
+"""Communication schedules (port of ``repro.collectives.schedules``: the
+``mrd`` allreduce and the reduce-scatter/all-gather primitives).
 
 The paper's modified recursive doubling Allreduce for any rank count
 ``p``: with ``p0 = 2^floor(log2 p)``, a backward shift folds the ``p - p0``
@@ -8,8 +8,9 @@ over the ``p0`` pivot ranks, and a forward shift hands the result back to
 the extra ranks.  Schedules are pure data (rank pairs and stage kinds);
 plans (``repro_torch.collectives.plans``) interpret them.
 
-The reference's reduce-scatter/all-gather primitives and the
-``rabenseifner``/``hierarchical`` families are not ported yet.
+The same shifts frame the recursive-halving reduce-scatter and the
+recursive-doubling all-gather that the ZeRO-1 gradient sync runs.  The
+reference's ``rabenseifner``/``hierarchical`` families are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Literal
 
-StageKind = Literal["bshift", "butterfly", "fshift"]
+StageKind = Literal["bshift", "butterfly", "fshift", "rs", "ag"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,11 +29,14 @@ class Stage:
       - ``bshift``:    dst (< extra) does ``x = op(x, recv)``
       - ``butterfly``: ranks < p0 do ``x = op(x, recv)`` (full-buffer exchange)
       - ``fshift``:    dst (>= p0) does ``x = recv``
+      - ``rs``:        reduce-scatter half-exchange; keep one half, reduce it
+      - ``ag``:        all-gather doubling; concat own + received halves
     """
 
     kind: StageKind
     pairs: tuple[tuple[int, int], ...]
-    distance: int = 0  # butterfly partner distance, 0 for shifts
+    distance: int = 0  # butterfly / rs / ag partner distance, 0 for shifts
+    payload_fraction: float = 1.0  # fraction of the full buffer sent per pair
 
 
 def pivot(p: int) -> tuple[int, int, int]:
@@ -71,14 +75,51 @@ def allreduce_schedule(p: int) -> list[Stage]:
     return stages
 
 
+def reduce_scatter_schedule(p: int) -> list[Stage]:
+    """Recursive-halving reduce-scatter over the p0 pivot ranks.
+
+    After the backward shift, stage s exchanges buffer halves with the
+    partner at distance ``p0 >> (s+1)`` (large -> small).  Rank r (< p0)
+    ends holding segment r (natural order) of the reduced vector; extra
+    ranks carry buffers the stages mask out.
+    """
+    p0, mu0, extra = pivot(p)
+    stages: list[Stage] = []
+    if extra:
+        stages.append(backward_shift_stage(p))
+    for s in range(mu0):
+        d = p0 >> (s + 1)
+        stages.append(Stage("rs", tuple((i, i ^ d) for i in range(p0)), distance=d,
+                            payload_fraction=0.5 ** (s + 1)))
+    return stages
+
+
+def allgather_schedule(p: int) -> list[Stage]:
+    """Recursive-doubling all-gather (inverse of
+    :func:`reduce_scatter_schedule`): stage s exchanges the current buffer
+    with the partner at distance ``p0 >> (mu0 - s)`` (small -> large), and
+    a forward shift delivers the full vector to the extra ranks."""
+    p0, mu0, extra = pivot(p)
+    stages: list[Stage] = []
+    for s in range(mu0):
+        d = 1 << s
+        stages.append(Stage("ag", tuple((i, i ^ d) for i in range(p0)), distance=d,
+                            payload_fraction=0.5 ** (mu0 - s)))
+    if extra:
+        stages.append(forward_shift_stage(p))
+    return stages
+
+
 # ---------------------------------------------------------------------------
 # Schedule registry: name -> phase decomposition over the plan's axes.
 # ---------------------------------------------------------------------------
 
-Collective = Literal["allreduce"]
+Collective = Literal["allreduce", "reduce_scatter", "allgather"]
 
 PRIMITIVES: dict[str, Callable[[int], list[Stage]]] = {
     "allreduce": allreduce_schedule,
+    "reduce_scatter": reduce_scatter_schedule,
+    "allgather": allgather_schedule,
 }
 
 

@@ -1,7 +1,7 @@
 """Architecture registry (port of ``repro.configs.registry``).
 
-Only the archs the port can serve are registered: the full config of each
-and its reduced smoke config, with the reference's numbers.
+Only the archs the port can serve and train are registered: the full
+config of each and its reduced smoke config, with the reference's numbers.
 """
 
 from __future__ import annotations

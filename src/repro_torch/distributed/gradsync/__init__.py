@@ -1,0 +1,57 @@
+"""Grad-sync strategy registry (port of ``repro.distributed.gradsync``).
+
+Each strategy is one module registering a builder ``make(cfg, tcfg, *,
+dp, device) -> train_step`` under its mode name; ``train_step(state,
+batch) -> (state, metrics)`` and ``train_step.init_state(generator)``.
+
+- ``mrd_paper``: the paper's recursive-doubling Allreduce of the full
+  bucketed fp32 gradient (paper S2) and replicated optimizer rows.
+- ``mrd_zero1``: the butterfly as a ZeRO-1 distributed optimizer:
+  recursive-halving reduce-scatter, shard-local AdamW, recursive-doubling
+  all-gather of the params.  Non-power-of-two rank counts work natively.
+- ``compressed``: mrd_zero1 with int8 wire payloads, combined on receive
+  by the ``mrd_combine`` kernel on the card, and the EF-SGD residual carry.
+
+The reference's ``gspmd``, ``mrd_leaf`` and ``local_sgd`` modes, its
+overlap path and its elastic resize hooks are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+GRAD_SYNC: Dict[str, Callable] = {}
+
+
+def register(name: str):
+    """Decorator: register a strategy builder under ``name``."""
+
+    def deco(fn: Callable) -> Callable:
+        GRAD_SYNC[name] = fn
+        return fn
+
+    return deco
+
+
+def get(name: str) -> Callable:
+    try:
+        return GRAD_SYNC[name]
+    except KeyError:
+        raise ValueError(f"unknown grad_sync {name!r}; registered: {sorted(GRAD_SYNC)}") from None
+
+
+def available() -> list[str]:
+    return sorted(GRAD_SYNC)
+
+
+def make_train_step(cfg, tcfg, *, dp: int, device="cuda"):
+    """The train step of ``tcfg.grad_sync`` over ``dp`` ranks."""
+    return get(tcfg.grad_sync)(cfg, tcfg, dp=dp, device=device)
+
+
+# populate the registry (import order = doc order)
+from repro_torch.distributed.gradsync import (  # noqa: E402,F401
+    compressed,
+    mrd_paper,
+    mrd_zero1,
+)

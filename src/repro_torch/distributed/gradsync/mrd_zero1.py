@@ -1,0 +1,236 @@
+"""Grad-sync strategy ``mrd_zero1``: the paper's butterfly as a ZeRO-1
+distributed optimizer (port of ``repro.distributed.gradsync.mrd_zero1``).
+
+The data-parallel ranks are the rows of stacked ``[dp, ...]`` tensors on
+one device.  Each rank computes the gradient of its batch shard; the fp32
+gradients are packed into size-capped buckets (``collectives.buckets``,
+in the reference's leaf order) and each bucket is reduce-scattered over
+the ranks with the recursive-halving schedule, stage-major across buckets
+(:meth:`CollectivePlan.run_buffers`).  Each pivot rank runs AdamW on the
+segments it owns, and the updated params are all-gathered back per
+bucket.  Non-power-of-two rank counts (the paper's headline case) work
+natively: at dp 3 the backward shift folds rank 2 onto rank 0, rank 2
+owns no segment, and the all-gather's forward shift hands it the params.
+
+``mrd_paper`` and ``compressed`` reuse this builder with another binding:
+the full-bucket butterfly allreduce with replicated optimizer rows, and
+int8 wire payloads with the EF-SGD residual carry.
+
+Memory: the fp32 optimizer rows (``master``/``mu``/``nu`` [dp, m], and
+``ef`` [dp, n] under the compressed sync) are updated in place; a
+functional update would hold a second copy of them (22 GB at full width,
+dp 3).  The params are held once: the all-gather's copy stages move raw
+bytes, so every rank's row of the gathered buffers is the same, and the
+step keeps row 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.collectives import buckets, plans
+from repro_torch.collectives import transforms as tf_lib
+from repro_torch.collectives.schedules import pivot
+from repro_torch.device import resolve_device
+from repro_torch.distributed.gradsync import common, register
+from repro_torch.distributed.gradsync.common import TrainConfig
+from repro_torch.models import convert, transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
+from repro_torch.optim import optimizer as opt_lib
+
+BLOCK = tf_lib.BLOCK
+
+
+def zero1_prod_p0(dp: int) -> int:
+    """Pivot rank count: the live reduce-scatter segment count."""
+    return pivot(dp)[0]
+
+
+def zero1_layout(params, dp: int, *, bucket_bytes: Optional[int] = buckets.DEFAULT_BUCKET_BYTES,
+                 block: int = BLOCK) -> tuple[buckets.BucketLayout, int]:
+    """(bucket layout, prod_p0) of the bucketed reduce-scatter over ``dp``
+    ranks: the fp32 view of ``params`` in the reference's leaf order, every
+    bucket padded to ``prod_p0 * block`` so the halving divides evenly and
+    int8 blocks stay aligned.  Master/moment rows concatenate each
+    bucket's owned segment: shard length ``layout.total_padded /
+    prod_p0``."""
+    prod_p0 = zero1_prod_p0(dp)
+    layout = buckets.build_layout(convert.reference_tree(params), bucket_bytes=bucket_bytes,
+                                  quantum=prod_p0 * block, dtype=torch.float32)
+    return layout, prod_p0
+
+
+def zero1_owner_segments(dp: int) -> list:
+    """For each rank, the segment it owns after the reduce-scatter, or
+    None (a non-pivot rank of a non-power-of-two extent)."""
+    p0 = zero1_prod_p0(dp)
+    return [r if r < p0 else None for r in range(dp)]
+
+
+def zero1_masters_from_params(params, dp: int, *,
+                              bucket_bytes: Optional[int] = buckets.DEFAULT_BUCKET_BYTES,
+                              paper_mode: bool = False) -> torch.Tensor:
+    """``[dp, m]`` fp32 master rows in :func:`make_zero1`'s shard layout
+    (``paper_mode``: every row the full padded vector)."""
+    layout, prod_p0 = zero1_layout(params, dp, bucket_bytes=bucket_bytes)
+    bufs = buckets.pack(convert.reference_tree(params), layout)
+    if paper_mode:
+        return torch.cat(bufs).repeat(dp, 1)
+    seg_bufs = [b.reshape(prod_p0, -1) for b in bufs]
+    m = layout.total_padded // prod_p0
+    rows = [torch.cat([sb[o] for sb in seg_bufs]) if o is not None
+            else bufs[0].new_zeros((m,)) for o in zero1_owner_segments(dp)]
+    return torch.stack(rows)
+
+
+@dataclasses.dataclass
+class Zero1Step:
+    """``(state, batch) -> (state, metrics)`` of one ZeRO-1 train step
+    over ``dp`` ranks, and :meth:`init_state`."""
+
+    cfg: ModelConfig
+    tcfg: TrainConfig
+    dp: int
+    device: torch.device
+    transform: str = "identity"
+    paper_mode: bool = False
+
+    def __post_init__(self):
+        self.monitor = common.build_monitor(self.tcfg, self.dp)
+        self.use_ef = self.tcfg.error_feedback and self.transform != "identity"
+        executor = common.resolve_executor(self.tcfg, compressed=self.transform != "identity")
+        if self.paper_mode:
+            self.grad_plan = plans.allreduce_plan(schedule="mrd", p=self.dp, op="sum",
+                                                  transform=self.transform, executor=executor)
+        else:
+            self.grad_plan = plans.reduce_scatter_plan(p=self.dp, op="sum",
+                                                       transform=self.transform,
+                                                       executor=executor)
+            self.ag_plan = plans.allgather_plan(p=self.dp, executor=executor)
+            self.scalar_ar = plans.allreduce_plan(schedule="mrd", p=self.dp, op="sum")
+
+    def _layout(self, params):
+        return zero1_layout(params, self.dp, bucket_bytes=self.tcfg.bucket_bytes)
+
+    def init_state(self, generator: torch.Generator):
+        """Random params from ``generator`` (on the step's device), master
+        rows from them, zero moments and EF residuals, a fresh monitor."""
+        params = transformer.init_params(self.cfg, generator, self.device)
+        layout, _ = self._layout(params)
+        masters = zero1_masters_from_params(params, self.dp, bucket_bytes=self.tcfg.bucket_bytes,
+                                            paper_mode=self.paper_mode)
+        opt = {"master": masters, "mu": torch.zeros_like(masters), "nu": torch.zeros_like(masters)}
+        if self.use_ef:
+            opt["ef"] = torch.zeros((self.dp, layout.total_padded), dtype=torch.float32,
+                                    device=self.device)
+        state = {"params": params, "opt": opt, "step": 0}
+        if self.monitor is not None:
+            state["monitor"] = common.monitor_rows_init(self.monitor, self.device)
+        return state
+
+    def _grads(self, params, batch, layout):
+        """Every rank's gradient of its batch shard, packed into fp32
+        ``[dp, len]`` bucket rows; returns (buffers, losses [dp], monitor
+        metrics [dp]).  The ranks' gradients are kept in the params' type
+        until all are computed, and each bucket's leaves are released as
+        soon as that bucket is packed: the fp32 rows (14.8 GB at full
+        width, dp 3) never coexist with a backward pass."""
+        B = batch["tokens"].shape[0]
+        if B % self.dp:
+            raise ValueError(f"batch {B} does not split over dp={self.dp} ranks")
+        per = B // self.dp
+        rank_leaves, losses, metric = [], [], []
+        for r in range(self.dp):
+            local = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
+            grads, loss, metrics = common.microbatched_grads(
+                params, local, self.cfg, self.tcfg.remat, self.tcfg.microbatches)
+            rank_leaves.append(buckets.tree_flatten(convert.reference_tree(grads))[0])
+            del grads
+            losses.append(loss)
+            metric.append(metrics["per_example"].mean())
+        bufs = []
+        for i, b in enumerate(layout.buckets):
+            buf = torch.zeros((self.dp, b.length), dtype=torch.float32, device=self.device)
+            for r, leaves in enumerate(rank_leaves):
+                buckets.pack_bucket(leaves, layout, i, out=buf[r])
+                for s in b.slots:
+                    leaves[s.index] = None
+            bufs.append(buf)
+        return bufs, torch.stack(losses), torch.stack(metric)
+
+    def __call__(self, state, batch):
+        params, opt, step = state["params"], state["opt"], state["step"]
+        layout, _ = self._layout(params)
+        bufs, losses, metric = self._grads(params, batch, layout)
+        if self.use_ef:
+            # EF-SGD: send the grid round trip of (grad + residual) and
+            # carry what the quantizer dropped into the next step
+            for i, ef in enumerate(torch.split(opt["ef"], layout.bucket_lengths, dim=1)):
+                bufs[i] = tf_lib.ef_roundtrip_(bufs[i], ef)
+        # the paper's full-bucket butterfly allreduce (mrd_paper) or the
+        # recursive-halving reduce-scatter: one stage-major pass over all
+        # buckets (run_buffers consumes the list, freeing each bucket early)
+        red = self.grad_plan.run_buffers(bufs)
+        seg_lens = [r.shape[1] for r in red]
+        # a tensor divisor: CUDA's division by a Python number multiplies
+        # by its reciprocal (not bit-equal to the reference's division)
+        gshard = torch.cat(red, dim=1).div_(torch.tensor(float(self.dp), device=self.device))
+        del red
+        sq = torch.stack([torch.dot(g, g) for g in gshard])
+        if self.paper_mode:
+            gnorm = torch.sqrt(sq)
+        else:
+            # global grad norm via the paper's MRD allreduce of the owners'
+            # squared norms (a non-pivot rank holds no segment)
+            own = torch.tensor([o is not None for o in zero1_owner_segments(self.dp)],
+                               device=self.device)
+            gnorm = torch.sqrt(self.scalar_ar.run(torch.where(own, sq, 0.0)))
+        ocfg = self.tcfg.optimizer
+        if ocfg.grad_clip > 0:
+            clip = torch.full_like(gnorm, ocfg.grad_clip)  # true division, as above
+            scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+            gshard.mul_(scale[:, None])
+        # shard-local AdamW, row by row and bucket segment by segment (the
+        # update is elementwise), written back into the optimizer rows
+        starts = [sum(seg_lens[:i]) for i in range(len(seg_lens))]
+        for r in range(self.dp):
+            for a, n in zip(starts, seg_lens):
+                part = {k: opt[k][r, a:a + n] for k in ("master", "mu", "nu")}
+                _, new = opt_lib.apply_update_vector(gshard[r, a:a + n], part, ocfg, step)
+                for k, v in part.items():
+                    v.copy_(new[k])
+        del gshard
+        pdt = dtype_of(self.cfg.param_dtype)
+        master = opt["master"].to(pdt)
+        if self.paper_mode:
+            out = list(torch.split(master, layout.bucket_lengths, dim=1))
+        else:
+            # recursive-doubling all-gather of the updated params, per bucket
+            out = self.ag_plan.run_buffers(list(torch.split(master, seg_lens, dim=1)))
+        del master
+        new_params = convert.port_tree(buckets.unpack([b[0] for b in out], layout, dtype=pdt))
+        del out
+        mon, done, val = common.local_monitor_tick(self.monitor, state.get("monitor"), metric,
+                                                   step)
+        new_state = {"params": new_params, "opt": opt, "step": step + 1}
+        if self.monitor is not None:
+            new_state["monitor"] = mon
+        metrics = {"loss": losses.mean(), "grad_norm": gnorm[0], "converged": done[0],
+                   "monitor_value": val[0]}
+        return new_state, metrics
+
+
+def make_zero1(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda",
+               transform: str = "identity", paper_mode: bool = False) -> Zero1Step:
+    """Shared builder of the bucketed MRD strategies: the step object,
+    callable as ``train_step(state, batch)``, with ``init_state``."""
+    return Zero1Step(cfg, tcfg, dp, resolve_device(device), transform, paper_mode)
+
+
+@register("mrd_zero1")
+def make(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda"):
+    return make_zero1(cfg, tcfg, dp=dp, device=device)

@@ -1,0 +1,28 @@
+"""Train step wiring: a thin facade over the grad-sync registry (port of
+``repro.distributed.step``).
+
+The strategies live in ``repro_torch.distributed.gradsync`` (one module
+per mode), composing the shared monitor, optimizer and microbatching
+pieces of ``gradsync.common`` with their own gradient-crossing plan; every
+collective they issue runs through a
+:class:`repro_torch.collectives.plans.CollectivePlan`.
+"""
+
+from __future__ import annotations
+
+from repro_torch.distributed.gradsync import (  # noqa: F401
+    GRAD_SYNC,
+    available as available_grad_sync,
+    make_train_step,
+)
+from repro_torch.distributed.gradsync.common import (  # noqa: F401
+    REMAT_POLICIES,
+    TrainConfig,
+    build_monitor,
+    microbatched_grads,
+)
+from repro_torch.distributed.gradsync.mrd_zero1 import (  # noqa: F401
+    zero1_layout,
+    zero1_masters_from_params,
+    zero1_owner_segments,
+)

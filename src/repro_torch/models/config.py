@@ -1,8 +1,8 @@
 """Model configuration (port of ``repro.models.config``, dense family only).
 
 The reference dataclass covers every family (moe, ssm, hybrid, vlm,
-audio); the port so far serves dense decoders, so it keeps the fields that
-family reads and refuses the others rather than ignoring them.
+audio); the port so far serves and trains dense decoders, so it keeps the
+fields that family reads and refuses the others rather than ignoring them.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Carry the reference's weights across to the port.
+"""Carry the reference's weights and train state across to the port.
 
 The reference's ``transformer.init_params`` tree (dense family), already
 turned into numpy arrays by the caller, maps onto the port's parameter
@@ -7,6 +7,10 @@ stacked on a leading ``[L, ...]`` axis, the ``x @ W`` layout of the
 attention and SwiGLU matrices, norm weights ``w`` under the ``(1 + w)``
 convention, and a tied head read as ``embed.T``; only the nesting
 differs (the reference groups ``attn``/``mlp`` sub-dicts per layer).
+
+:func:`reference_tree` gives the port's params (or gradients) the
+reference's nesting, whose flatten order (sorted keys) decides the
+gradient buckets and so the int8 blocks of the compressed sync.
 """
 
 from __future__ import annotations
@@ -26,18 +30,44 @@ def _tensor(x, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32)).to(device=device, dtype=dtype)
 
 
+# the port's layer key -> its path under the reference's per-layer dict
+LAYER_PATHS = {
+    "wq": ("attn", "wq"), "wk": ("attn", "wk"), "wv": ("attn", "wv"), "wo": ("attn", "wo"),
+    "ln1": ("ln1",), "ln2": ("ln2",),
+    "w1": ("mlp", "w1"), "w3": ("mlp", "w3"), "w2": ("mlp", "w2"),
+}
+
+
+def reference_tree(params: Mapping[str, Any]) -> dict[str, Any]:
+    """The port's params (or any tree of the same keys) nested as the
+    reference nests them; the leaves are the same objects."""
+    layers: dict[str, Any] = {}
+    for k, path in LAYER_PATHS.items():
+        node = layers
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = params["layers"][k]
+    return {**{k: v for k, v in params.items() if k != "layers"}, "layers": layers}
+
+
+def port_tree(tree: Mapping[str, Any]) -> dict[str, Any]:
+    """Inverse of :func:`reference_tree`."""
+    def get(path):
+        node = tree["layers"]
+        for part in path:
+            node = node[part]
+        return node
+
+    return {**{k: v for k, v in tree.items() if k != "layers"},
+            "layers": {k: get(path) for k, path in LAYER_PATHS.items()}}
+
+
 def params_from_reference(np_params: Mapping[str, Any], cfg: ModelConfig,
                           device="cuda") -> dict[str, Any]:
     """Reference params (numpy leaves) -> the port's params on ``device``."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
-    lay = np_params["layers"]
-    src = {
-        "wq": lay["attn"]["wq"], "wk": lay["attn"]["wk"],
-        "wv": lay["attn"]["wv"], "wo": lay["attn"]["wo"],
-        "ln1": lay["ln1"], "ln2": lay["ln2"],
-        "w1": lay["mlp"]["w1"], "w3": lay["mlp"]["w3"], "w2": lay["mlp"]["w2"],
-    }
+    src = port_tree(np_params)["layers"]
     for name, leaf in src.items():
         if np.shape(leaf)[0] != cfg.n_layers:
             raise ValueError(f"layer leaf {name}: leading axis {np.shape(leaf)[0]} "
@@ -49,4 +79,35 @@ def params_from_reference(np_params: Mapping[str, Any], cfg: ModelConfig,
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = _tensor(np_params["lm_head"], dtype, device)
+    return out
+
+
+def train_state_from_reference(state: Mapping[str, Any], cfg: ModelConfig,
+                               device="cuda") -> dict[str, Any]:
+    """A reference ZeRO-1 train state (``make_zero1``'s, numpy leaves) ->
+    the port's: params, the ``opt`` rows (``master``/``mu``/``nu``, and
+    ``ef`` under the compressed sync), ``step`` and the ``monitor`` rows.
+    Both sides then start the same step from the same state."""
+    device = resolve_device(device)
+
+    def f32(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    out = {
+        "params": params_from_reference(state["params"], cfg, device),
+        "opt": {k: f32(v) for k, v in state["opt"].items()},
+        "step": int(np.asarray(state["step"])),
+    }
+    mon = state.get("monitor")
+    if mon is not None:
+        nb = mon["nb"]
+        out["monitor"] = {
+            # the reference keeps the counters per rank; they agree
+            "nb": {"stage": int(np.asarray(nb["stage"])[0]), "buf": f32(nb["buf"]),
+                   "result": f32(nb["result"]), "flag": bool(np.asarray(nb["flag"])[0]),
+                   "cycles": int(np.asarray(nb["cycles"])[0])},
+            "m": {k: f32(v) for k, v in mon.get("m", {}).items()},
+            "value": f32(mon["value"]),
+            "done": torch.from_numpy(np.array(mon["done"], bool)).to(device),
+        }
     return out

@@ -1,5 +1,5 @@
-"""Dense decoder stack for serving (port of ``repro.models.transformer``,
-dense family).
+"""Dense decoder stack for training and serving (port of
+``repro.models.transformer``, dense family).
 
 Parameters are a plain dict of tensors with the layers stacked on a
 leading ``[L, ...]`` axis and the reference's ``x @ W`` layout::
@@ -10,6 +10,7 @@ leading ``[L, ...]`` axis and the reference's ``x @ W`` layout::
 
 Interfaces:
   init_params(cfg, generator, device)                         -> params
+  forward_train(params, batch, cfg, remat)                    -> (loss, metrics)
   init_cache(cfg, batch, max_len, device)                     -> cache
   forward_prefill(params, tokens, cfg)                        -> (logits, k, v)
   forward_decode(params, tokens, cache, lengths, cfg)         -> (logits, cache)
@@ -25,9 +26,11 @@ the pool would cost more than the tick.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -99,6 +102,61 @@ def _logits(params, x, cfg):
 
 def _mlp_block(lp, x, cfg):
     return x + mlp_apply(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps))
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+REMAT = ("none", "full")
+
+
+def _decoder_layer(lp, x, cfg, positions):
+    """One full-sequence causal layer: x [B, S, d] -> [B, S, d]."""
+    B, S = x.shape[:2]
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = qkv_project(lp, h, cfg, positions, cfg.rope_theta)
+    x = x + attention(q, k, v, causal=True).reshape(B, S, -1) @ lp["wo"]
+    return _mlp_block(lp, x, cfg)
+
+
+def _train_head(params, x, batch, cfg: ModelConfig):
+    """Final norm + tied/untied logits + token cross-entropy on the stack
+    output ``x``; labels < 0 are masked.  Returns (loss, metrics) with the
+    per-sequence mean loss ``per_example`` [B]."""
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, x, cfg)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    ll = shifted.gather(-1, labels.clamp(min=0)[..., None])[..., 0] - lse
+    ntok = mask.sum().clamp(min=1.0)
+    loss = -(ll * mask).sum() / ntok
+    per_example = -(ll * mask).sum(-1) / mask.sum(-1).clamp(min=1.0)
+    return loss, {"loss": loss, "ntok": ntok, "per_example": per_example}
+
+
+def forward_train(params, batch, cfg: ModelConfig, remat: str = "none"):
+    """Causal LM loss of ``batch`` (``tokens``/``labels`` [B, S]).
+
+    ``remat="full"`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint`` per layer, the reference's
+    ``nothing_saveable`` policy on its scan body); ``"none"`` keeps every
+    activation.  The stacked layer tensors are unbound once, so their
+    gradients are stacked in one pass.  Returns (loss, metrics)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} is not ported; choose one of {REMAT}")
+    x = _embed(params, batch["tokens"], cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    layer_fn = functools.partial(_decoder_layer, cfg=cfg, positions=positions)
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in per_layer.items()}
+        x = layer_fn(lp, x) if remat == "none" else checkpoint(layer_fn, lp, x,
+                                                                use_reentrant=False)
+    return _train_head(params, x, batch, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,77 @@
+"""AdamW on flat fp32 shards, with cosine, WSD and constant learning-rate
+schedules (port of ``repro.optim.optimizer``, the vector form the ZeRO-1
+gradient sync runs; the reference's Lion and SGD and its tree form are
+not ported yet).
+
+The scalar arithmetic (learning rate, bias corrections) runs in float32,
+as the reference's does on its int32 step counter.  Divisors are tensors:
+PyTorch's CUDA division by a Python number multiplies by its reciprocal,
+which can differ from true division in the last bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    schedule: str = "cosine"  # 'cosine' | 'wsd' | 'const'
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    wsd_decay_frac: float = 0.1  # minicpm's WSD: final decay fraction
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def schedule_lr(ocfg: OptimizerConfig, step) -> float:
+    """Learning rate at ``step`` (an int), computed in float32."""
+    step = _f32(step)
+    if ocfg.warmup_steps <= 0:
+        warm = _f32(1.0)
+    else:
+        warm = torch.clamp(step / _f32(ocfg.warmup_steps), max=1.0)
+    lr = _f32(ocfg.lr)
+    if ocfg.schedule == "const":
+        return float(lr * warm)
+    total = float(max(ocfg.total_steps, 1))
+    if ocfg.schedule == "cosine":
+        t = torch.clamp((step - ocfg.warmup_steps) / _f32(max(total - ocfg.warmup_steps, 1)), 0, 1)
+        return float(lr * warm * 0.5 * (1 + torch.cos(_f32(math.pi) * t)))
+    if ocfg.schedule == "wsd":  # warmup -> stable -> linear decay tail
+        decay_start = total * (1 - ocfg.wsd_decay_frac)
+        tail = torch.clamp((step - decay_start) / _f32(max(total - decay_start, 1)), 0, 1)
+        return float(lr * warm * (1 - tail))
+    raise ValueError(ocfg.schedule)
+
+
+def init_opt_vector(n: int, device="cpu") -> dict[str, torch.Tensor]:
+    return {k: torch.zeros((n,), dtype=torch.float32, device=device)
+            for k in ("master", "mu", "nu")}
+
+
+def apply_update_vector(g, opt, ocfg: OptimizerConfig, step):
+    """AdamW on g: fp32 [n] gradient shard; opt: ``master``/``mu``/``nu``
+    [n] fp32; step: int.  Returns (new_master [n], new_opt)."""
+    lr = schedule_lr(ocfg, step)
+    t = _f32(step + 1)
+    m, mu, nu = opt["master"], opt["mu"], opt["nu"]
+    bc1 = (1 - _f32(ocfg.beta1) ** t).to(g.device)
+    bc2 = (1 - _f32(ocfg.beta2) ** t).to(g.device)
+    new_mu = ocfg.beta1 * mu + (1 - ocfg.beta1) * g
+    new_nu = ocfg.beta2 * nu + (1 - ocfg.beta2) * g * g
+    mu_hat = new_mu / bc1
+    nu_hat = new_nu / bc2
+    new_m = m - lr * (mu_hat / (torch.sqrt(nu_hat) + ocfg.eps) + ocfg.weight_decay * m)
+    return new_m, {"master": new_m, "mu": new_mu, "nu": new_nu}

@@ -118,3 +118,179 @@ def test_eos_maxlen_retire_masks_match_reference_tick_by_tick(dp):
         state[0][retire.numpy()] = False  # the engine deactivates retired slots
         n_retired += int(retire.sum())
     assert n_retired > 0
+
+
+# ---------------------------------------------------------------------------
+# int8 wire format, reduce-scatter / all-gather plans, buckets (the
+# gradient sync's collectives).  Same inputs on both sides; every
+# comparison is exact: quantize divides by a correctly rounded scale and
+# rounds half to even in both frameworks, and the plans' sums and
+# dequant-accumulates are single rounded fp32 operations on both sides.
+# ---------------------------------------------------------------------------
+
+from repro.collectives import buckets as ref_buckets  # noqa: E402
+from repro.collectives import transforms as ref_tf  # noqa: E402
+from repro.configs import registry as ref_registry  # noqa: E402
+from repro.models import transformer as ref_model  # noqa: E402
+from repro_torch.collectives import buckets, transforms  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.convert import reference_tree  # noqa: E402
+
+
+def _quant_cases():
+    """Random blocks, an all-zero block, a block whose values sit exactly
+    on +-amax, and a block of half-way points (amax 127 -> scale 1.0, so
+    v.5 must round half to even)."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(256 * 6) * 3).astype(np.float32)
+    x[256:512] = 0.0
+    x[512:768] = np.where(rng.random(256) < 0.5, 2.5, -2.5)
+    x[512] = 2.5
+    halves = (np.arange(256) % 254 - 126.5).astype(np.float32)
+    halves[0], halves[1] = 127.0, -127.0
+    x[768:1024] = halves
+    x[1024:1280] *= 1e-30  # tiny scales
+    return x
+
+
+def test_quantize_bytes_and_scales_equal_the_reference():
+    x = _quant_cases()
+    q, s = transforms.quantize(torch.from_numpy(x))
+    rq, rs = ref_tf.quantize(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(rs))
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert s[1] == 1.0 and (q[256:512] == 0).all()  # all-zero block
+    assert set(q[768:1024].tolist()) >= {127, -127, -126, 126, 2, -2}  # ties to even
+    np.testing.assert_array_equal(transforms.dequantize(q, s).numpy(),
+                                  np.asarray(ref_tf.dequantize(rq, rs)))
+    # stacked rows quantize row by row
+    q2, s2 = transforms.quantize(torch.from_numpy(x.reshape(2, -1)))
+    np.testing.assert_array_equal(q2.numpy().reshape(-1), q.numpy())
+    np.testing.assert_array_equal(s2.numpy().reshape(-1), s.numpy())
+    assert transforms.wire_bytes_factor() == ref_tf.wire_bytes_factor()
+
+
+def test_ef_roundtrip_equals_the_reference():
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal(1024) * 2).astype(np.float32)
+    ef = (rng.standard_normal(1024) * 1e-2).astype(np.float32)
+    send, new_ef = transforms.ef_roundtrip(torch.from_numpy(x), torch.from_numpy(ef))
+    rsend, rnew = ref_tf.ef_roundtrip(jnp.asarray(x), jnp.asarray(ef))
+    np.testing.assert_array_equal(send.numpy(), np.asarray(rsend))
+    np.testing.assert_array_equal(new_ef.numpy(), np.asarray(rnew))
+
+
+def _stacked(p, n, seed):
+    return np.random.default_rng(seed).standard_normal((p, n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("transform", ["identity", "int8"])
+@pytest.mark.parametrize("p", range(2, 10))
+def test_rs_ag_allreduce_plans_match_reference(p, transform):
+    p0 = schedules.pivot(p)[0]
+    n = p0 * 256 * 2
+    x = _stacked(p, n, p)
+    rs = plans.reduce_scatter_plan(p=p, transform=transform)
+    rrs = ref_plans.reduce_scatter_plan(p=p, executor="sim", transform=transform)
+    assert rs.pad_quantum() == rrs.pad_quantum()
+    assert [(st.kind, st.pairs, st.distance, st.payload_fraction) for st, _ in rs.stage_table] \
+        == [(st.kind, st.pairs, st.distance, st.payload_fraction)
+            for st, *_ in rrs.bound_stage_table()]
+    red = rs.run(torch.from_numpy(x))
+    np.testing.assert_array_equal(red.numpy(), np.asarray(rrs.run(jnp.asarray(x))))
+    ag = plans.allgather_plan(p=p)
+    rag = ref_plans.allgather_plan(p=p, executor="sim")
+    np.testing.assert_array_equal(ag.run(red).numpy(), np.asarray(rag.run(jnp.asarray(red.numpy()))))
+    ar = plans.allreduce_plan(p=p, transform=transform)
+    rar = ref_plans.allreduce_plan(p=p, executor="sim", transform=transform)
+    np.testing.assert_array_equal(ar.run(torch.from_numpy(x)).numpy(),
+                                  np.asarray(rar.run(jnp.asarray(x))))
+    if transform == "identity":  # the halving's owners hold the reduced segments
+        full = x.sum(0).reshape(p0, -1)
+        for r in range(p0):
+            np.testing.assert_allclose(red[r].numpy(), full[r], atol=1e-5)
+
+
+@pytest.mark.parametrize("transform", ["identity", "int8"])
+@pytest.mark.parametrize("p", [2, 3, 5, 6])
+def test_run_buffers_is_run_per_buffer(p, transform):
+    """Stage-major execution across buffers changes no bit of any buffer."""
+    p0 = schedules.pivot(p)[0]
+    xs = [_stacked(p, p0 * 256 * k, 10 * p + k) for k in (1, 3, 2)]
+    for plan in (plans.reduce_scatter_plan(p=p, transform=transform),
+                 plans.allreduce_plan(p=p, transform=transform), plans.allgather_plan(p=p)):
+        bufs = [torch.from_numpy(x) for x in xs]
+        out = plan.run_buffers(bufs)
+        assert bufs == []  # the list is consumed
+        for x, o in zip(xs, out):
+            assert torch.equal(o, plan.run(torch.from_numpy(x)))
+    with pytest.raises(ValueError):
+        plans.reduce_scatter_plan(p=p, transform="int8").run_buffers(
+            [torch.zeros((p, p0 * 256 + 256))])
+
+
+@pytest.mark.parametrize("bucket_bytes", [32 * 2**20, 1 << 15, None])
+def test_bucket_layout_of_the_llama_tree_equals_the_reference(bucket_bytes):
+    """Same slots, offsets, lengths and bucket order as the reference's
+    layout of its own param tree (fp32 view, quantum 512 = p0 2 x 256)."""
+    cfg = registry.get_smoke_config("llama3.2-1b")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    layout = buckets.build_layout(reference_tree(params), bucket_bytes=bucket_bytes,
+                                  quantum=512, dtype=torch.float32)
+    rcfg = ref_registry.get_smoke_config("llama3.2-1b")
+    rshape = jax.eval_shape(lambda: ref_model.init_params(rcfg, jax.random.PRNGKey(0)))
+    rshape = jax.tree.map(lambda l: jax.ShapeDtypeStruct(l.shape, jnp.float32), rshape)
+    rlayout = ref_buckets.build_layout(rshape, bucket_bytes=bucket_bytes, quantum=512)
+
+    def desc(lay):
+        return [(b.dtype, b.length, [(s.index, s.shape, s.offset, s.size) for s in b.slots])
+                for b in lay.buckets]
+
+    assert desc(layout) == desc(rlayout)
+    assert len(layout.buckets) == (1 if bucket_bytes is None else
+                                   {32 * 2**20: 1, 1 << 15: 8}[bucket_bytes])
+    # pack / unpack round trip, in the reference's bytes
+    bufs = buckets.pack(reference_tree(params), layout)
+    rparams = jax.tree.map(lambda a: jnp.asarray(a.numpy()),
+                           reference_tree({k: v if not isinstance(v, dict) else dict(v)
+                                           for k, v in params.items()}))
+    for b, rb in zip(bufs, ref_buckets.pack(rparams, rlayout)):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(rb))
+    back = buckets.unpack(bufs, layout)
+    for a, b in zip(buckets.tree_flatten(back)[0], buckets.tree_flatten(reference_tree(params))[0]):
+        assert torch.equal(a, b)
+
+
+def test_full_width_bucket_layout():
+    """llama3.2-1b at full width, 32 MiB cap: embed and each stacked matrix
+    alone, the two norm stacks together (layout only; nothing allocated)."""
+    cfg = registry.get_config("llama3.2-1b")
+    shapes = {"embed": (cfg.vocab, cfg.d_model), "final_norm": (cfg.d_model,),
+              "layers": {"wq": (16, 2048, 2048), "wk": (16, 2048, 512), "wv": (16, 2048, 512),
+                         "wo": (16, 2048, 2048), "ln1": (16, 2048), "ln2": (16, 2048),
+                         "w1": (16, 2048, 8192), "w3": (16, 2048, 8192),
+                         "w2": (16, 8192, 2048)}}
+    meta = {k: (torch.empty(v, device="meta", dtype=torch.bfloat16) if isinstance(v, tuple)
+                else {k2: torch.empty(v2, device="meta", dtype=torch.bfloat16)
+                      for k2, v2 in v.items()}) for k, v in shapes.items()}
+    layout = buckets.build_layout(reference_tree(meta), bucket_bytes=32 * 2**20, quantum=512,
+                                  dtype=torch.float32)
+    names = [[layout.treedef[s.index][-1] for s in b.slots] for b in layout.buckets]
+    assert names == [["embed"], ["final_norm"], ["wk"], ["wo"], ["wq"], ["wv"], ["ln1", "ln2"],
+                     ["w1"], ["w2"], ["w3"]]
+    assert max(layout.bucket_lengths) == 16 * 2048 * 8192
+
+
+def test_ef_roundtrip_in_place_equals_the_functional_form():
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((rng.standard_normal((3, 1024)) * 2).astype(np.float32))
+    ef = torch.from_numpy((rng.standard_normal((3, 1024)) * 1e-2).astype(np.float32))
+    send, new_ef = transforms.ef_roundtrip(x, ef)
+    ef_rows = torch.zeros((3, 2048))
+    ef_rows[:, 512:1536] = ef  # a strided view, as the EF rows of a bucket are
+    view = ef_rows[:, 512:1536]
+    send_ = transforms.ef_roundtrip_(x.clone(), view)
+    assert torch.equal(send_, send) and torch.equal(view, new_ef)
+    assert not ef_rows[:, :512].any() and not ef_rows[:, 1536:].any()

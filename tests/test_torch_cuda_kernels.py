@@ -65,3 +65,66 @@ def test_unsupported_shape_raises_on_the_card(cuda):
     with pytest.raises(ValueError):
         ops.paged_attention(*args)
     assert ops.paged_attention.launches == n0
+
+
+# --- mrd_combine ------------------------------------------------------------
+
+from repro_torch.kernels.mrd_combine import ops as mc_ops  # noqa: E402
+from repro_torch.kernels.mrd_combine.ref import mrd_combine_ref  # noqa: E402
+
+
+def _combine_inputs(seed, n, dtype, device):
+    """x ~ N(0, 1), q uniform in [-127, 127], scales amax/127-sized with an
+    all-ones (amax 0) block, as the int8 transform makes them."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device, dtype)
+    q = torch.from_numpy(rng.integers(-127, 128, size=n).astype(np.int8)).to(device)
+    s = rng.uniform(1e-4, 1e-1, size=n // 256).astype(np.float32)
+    s[0] = 1.0
+    return x, q, torch.from_numpy(s).to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [256, 3 * 512 * 7, 3 * 512 * 4099])
+def test_mrd_combine_matches_plain_bit_for_bit(cuda, n, dtype):
+    """Exact in both types: the kernel rounds the product and the sum
+    separately (no FMA), as the plain version does, and casts the fp32
+    sum to bf16 round-to-nearest-even."""
+    x, q, s = _combine_inputs(n, n, getattr(torch, dtype), cuda)
+    n0 = mc_ops.mrd_combine.launches
+    out = mc_ops.mrd_combine(x, q, s)
+    torch.cuda.synchronize()
+    assert mc_ops.mrd_combine.launches == n0 + 1
+    assert out.dtype == x.dtype and out.device.type == "cuda"
+    assert torch.equal(out, mrd_combine_ref(x, q, s))
+
+
+def test_mrd_combine_refuses_what_it_does_not_take_on_the_card(cuda):
+    """No fallback to the plain version for a CUDA tensor."""
+    x, q, s = _combine_inputs(0, 512, torch.float32, cuda)
+    n0 = mc_ops.mrd_combine.launches
+    with pytest.raises(ValueError):
+        mc_ops.mrd_combine(x[:300], q[:300], s[:1])
+    with pytest.raises(TypeError):
+        mc_ops.mrd_combine(x.half(), q, s)
+    with pytest.raises(ValueError):
+        mc_ops.mrd_combine(x, q.cpu(), s)
+    assert mc_ops.mrd_combine.launches == n0
+
+
+def test_int8_reduce_scatter_on_the_card_equals_the_cpu(cuda):
+    """The compressed reduce-scatter at dp 3 and dp 6: quantize, permute and
+    the kernel's combine on the card give the CPU's plain result bit for bit."""
+    from repro_torch.collectives import plans, transforms
+
+    rng = np.random.default_rng(4)
+    for p, n in ((3, 512 * 9), (6, 1024 * 5)):
+        x = torch.from_numpy(rng.standard_normal((p, n)).astype(np.float32) * 3)
+        q, s = transforms.quantize(x.to(cuda))
+        rq, rs = transforms.quantize(x)
+        assert torch.equal(q.cpu(), rq) and torch.equal(s.cpu(), rs)
+        plan = plans.reduce_scatter_plan(p=p, transform="int8")
+        n0 = mc_ops.mrd_combine.launches
+        out = plan.run(x.to(cuda))
+        assert mc_ops.mrd_combine.launches > n0
+        assert torch.equal(out.cpu(), plan.run(x))

@@ -67,3 +67,20 @@ def test_cli_runs_on_cpu_when_asked(capsys):
                     "--device", "cpu"]).summary()
     assert s["completed"] == 3 and s["tokens_out"] > 0
     assert "llm_decode_paged[kernel]" in capsys.readouterr().out
+
+
+def test_train_entry_point_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "llama3.2-1b", "--smoke", "--steps", "1", "--dp", "3"])
+    cfg = registry.get_smoke_config("llama3.2-1b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        step_lib.make_train_step(cfg, step_lib.TrainConfig(), dp=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticPipeline(cfg, DataConfig(batch=2, seq_len=8))
