@@ -16,20 +16,42 @@ Phases, in order (any failure ends the run with a non-zero exit):
    (atol 1e-4) and bf16 (atol 2e-2 against the plain version in fp32);
    ``mrd_combine`` at n = 256, at a [3, 512 k] stacked shape and at the
    largest full-width gradient bucket's [3, len] rows, fp32 and bf16,
-   equal bit for bit;
+   equal bit for bit; ``flash_attention`` at the gemma3-12b shape (4096
+   and 1755 tokens, 16 heads, 8 KV heads, hd 256, causal, no window and
+   window 1024), the llama3.2-1b shape (2048 and 37 tokens) and the smoke
+   shapes, fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain version
+   in fp32), and every (token, head) row within a relative error of 1e-4
+   (fp32) or 1e-2 (bf16) of the plain row; ``rmsnorm`` at the rows and
+   widths of both served models and the smoke configs ([32768, 3840],
+   [4, 3840], [8, 2048], [64, 2048], [40, 64]), fp32 (1e-5) and bf16
+   (2e-2);
 4. the serving path at full width: ``repro_torch.launch.serve`` serves 16
    requests of llama3.2-1b (bf16, random weights from the seed) with
    block-paged decode through the kernel and MRD-agreed retirement across
-   3 simulated replicas; every request must retire and the kernel must
-   have launched once per layer per decode tick; then a profile of steady
-   decode ticks with every slot busy (wall and device-busy time per tick,
-   the costliest kernels);
+   3 simulated replicas; every request must retire, ``paged_attention``
+   must have launched once per layer per decode tick, ``flash_attention``
+   once per layer per admission and ``rmsnorm`` 33 times a forward
+   (admissions and decode ticks); then a profile of steady decode ticks
+   with every slot busy (wall and device-busy time per tick, the costliest
+   kernels);
 4c. the training path at full width: ``repro_torch.launch.train`` trains
    llama3.2-1b (bf16, random weights from the seed) for 4 steps of 6 x
    1024 tokens at dp 3 with the ``compressed`` gradient sync, after a
    1-step warm-up; every loss must be finite and ``mrd_combine`` must have
-   launched once per reducing stage per bucket per step; then a profile
+   launched once per reducing stage per bucket per step, and no serving
+   kernel (autograd takes the plain versions); then a profile
    of one step (device busy time, idle share, the costliest kernels);
+4e. gemma3-12b at full width (bf16, random weights from the seed, 48
+   layers: 40 local with a 1024-token window, 8 global): the contiguous
+   ``llm_decode`` workload serves 8 requests of 1024-8192-token prompts
+   at dp 3 with 4 slots; every request must retire, ``flash_attention``
+   must have launched 48 times an admission and ``rmsnorm`` 97 times a
+   forward (prefills and decode ticks); then a profile of steady decode
+   ticks with every slot busy;
+4f. the whole-prompt ``make_prefill_step`` of gemma3-12b at 32,768 tokens,
+   batch 1 (the reference's ``prefill_32k`` length; its global batch of 32
+   cut to 1 for one card): wall time, tokens/s, peak memory and a profile
+   (device busy time; attention, GEMM and rmsnorm shares);
 5. correctness: one fp32 full-width paged decode step through the kernel
    against the gather path (logits atol 1e-3), and the smoke config served
    on the card and on the CPU, from the same weights, with identical
@@ -37,12 +59,24 @@ Phases, in order (any failure ends the run with a non-zero exit):
    for 3 steps on the card and on the CPU, from the same weights and
    batches (losses atol 1e-4, grad norms rtol 5e-4); the full-width
    reduce-scatter plan on fixed fp32 buckets through the kernel on the
-   card and through the plain version on the CPU, equal bit for bit;
+   card and through the plain version on the CPU, equal bit for bit; one
+   full-width gemma3 prefill of 8192 tokens through the flash kernel
+   against ``flash_scan`` (plain torch on the card): in bf16 the same
+   argmax, and the kernel's last logits no further from either plain
+   version (``flash_scan``, materialized ``full``) than twice the two plain
+   versions' spread, in fp32 logits within 5e-2 and the same argmax; the
+   gemma3 smoke
+   config served on the card and on the CPU from the same weights,
+   identical tokens and ticks;
 6. timings with CUDA events after warm-up, L2 flushed before each launch:
-   each kernel and its plain version, with ``scaled_dot_product_attention``
-   on gathered views beside ``paged_attention`` (a yardstick only; the
-   port never calls it; no single PyTorch call computes ``mrd_combine``),
-   beside the least time the card could take (bytes at 3.35 TB/s);
+   each kernel and its plain version, beside a PyTorch call that computes
+   the same function where there is one (a yardstick only; the port never
+   calls it): ``scaled_dot_product_attention`` on gathered views beside
+   ``paged_attention``, causal or under a boolean window mask beside
+   ``flash_attention``, ``rms_norm`` with weight ``1 + w`` beside
+   ``rmsnorm``; no single PyTorch call computes ``mrd_combine``; and the
+   least time the card could take (bytes at 3.35 TB/s, operations at the
+   bf16 or fp32 peak);
 7. the kernels line, then the device line as the last line of stdout.
 """
 
@@ -85,6 +119,28 @@ BIG_BUCKET = 16 * 2048 * 8192
 # mrd_combine element counts: one block, a [3, 512 k] stacked shape, the
 # largest bucket's [3, len] rows flattened
 COMBINE_CASES = [256, 3 * 512 * 7, 3 * BIG_BUCKET]
+GEMMA_SERVE_ARGV = [
+    "--arch", "gemma3-12b", "--continuous", "--workload", "llm_decode", "--dp", "3",
+    "--slots", "4", "--requests", "8", "--min-prompt-len", "1024", "--prompt-len", "8192",
+    "--gen", "32", "--device", "cuda",
+]
+PREFILL_LEN = 32768  # the reference's prefill_32k sequence length
+# (B, S, H, KV, hd, window), causal: gemma3-12b global and local layers
+# (4096 tokens, then a served prompt's length that ends in a partial tile),
+# llama3.2-1b (2048 tokens, then a served prompt's length), the gemma3 smoke
+# config's local and global layers
+FLASH_CASES = [(1, 4096, 16, 8, 256, None), (1, 4096, 16, 8, 256, 1024),
+               (1, 1755, 16, 8, 256, None), (1, 1755, 16, 8, 256, 1024),
+               (1, 2048, 32, 8, 64, None), (1, 37, 32, 8, 64, None),
+               (1, 40, 4, 2, 16, 16), (1, 40, 4, 2, 16, None)]
+# flash_attention per-row tolerance: the largest |out - ref| / |ref| over
+# the hd-vectors of one (token, head); an atol alone passes late causal rows
+# (outputs ~0.03 at 4096 keys) with any error below the atol
+FLASH_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# [T, d]: gemma3-12b (a 32k prefill's rows, a 4-slot decode tick), llama3.2-1b
+# (an 8-slot decode tick, a 64-token prompt), the smoke configs; fp32 and
+# bf16 rows of these widths cover every template instance the paths launch
+RMSNORM_CASES = [(32768, 3840), (4, 3840), (8, 2048), (64, 2048), (40, 64)]
 # (S, H, KV, hd, nb, bs): the served full-width shape first, then the smoke
 # shape, then rep 1 with 16-token blocks (every template family once)
 KERNEL_CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16)]
@@ -205,6 +261,60 @@ def combine_inputs(n: int, dtype, seed: int):
     return x, q, s
 
 
+def flash_inputs(B, S, H, KV, hd, dtype, seed):
+    """q, k, v ~ N(0, 1) drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(sh, generator=gen, device="cuda").to(dtype)
+            for sh in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def sdpa_ms(q, k, v, mask, iters: int):
+    """Time of ``scaled_dot_product_attention`` (a yardstick: the port never
+    calls it) on q [B,S,H,hd], k/v [B,S,KV,hd]: causal, or under a boolean
+    ``mask``.  Fused backends only (the math backend would materialize the
+    scores); GQA through ``enable_gqa`` where a fused backend takes it, else
+    on K/V repeated to every head.  Returns (ms, how)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kw = dict(attn_mask=mask, is_causal=mask is None)
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    with sdpa_kernel(fused):
+        try:
+            sdpa(qt, kt, vt, enable_gqa=True, **kw)
+            how = "enable_gqa"
+        except RuntimeError:
+            rep = q.shape[2] // k.shape[2]
+            kt, vt = kt.repeat_interleave(rep, dim=1), vt.repeat_interleave(rep, dim=1)
+            how = "K/V repeated to every head"
+        gqa = {"enable_gqa": True} if how == "enable_gqa" else {}
+        ms = time_ms(lambda: sdpa(qt, kt, vt, **gqa, **kw), iters=iters, warmup=2)
+    return ms, f"{'causal' if mask is None else 'boolean window mask'}, {how}"
+
+
+def visible_pairs(S: int, window) -> int:
+    """(query, key) pairs a causal attention over S tokens computes."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def kernel_classes(per_rep: dict, busy_ms: float) -> dict:
+    """Device time per rep by class: the port's kernels, GEMMs, the rest."""
+    kernels = {"flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
+               "rmsnorm": ("rmsnorm_kernel",), "mrd_combine": ("mrd_combine_kernel",),
+               "GEMM": ("nvjet", "gemm", "cutlass", "sm90_")}
+    classes = dict.fromkeys([*kernels, "other"], 0.0)
+    for name, (ms, _) in per_rep.items():
+        key = next((k for k, marks in kernels.items()
+                    if any(m in name.lower() for m in marks)), "other")
+        classes[key] += ms
+    log("  device time by class: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / busy_ms:.3f})" for k, v in classes.items()))
+    return classes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -218,12 +328,17 @@ def main() -> int:
     from repro_torch.distributed import serve as dserve
     from repro_torch.distributed import step as step_lib
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.mrd_combine import ops as mc_ops
     from repro_torch.kernels.mrd_combine.ref import mrd_combine_ref
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.launch import serve, train
     from repro_torch.models import transformer
+    from repro_torch.models.attention import attention
     from repro_torch.optim.optimizer import OptimizerConfig
     from repro_torch.serving import PagedDecodePool, ServeConfig, ServeEngine, make_workload
 
@@ -240,17 +355,22 @@ def main() -> int:
     t = phase("device", t0)
 
     # 2. build: one nvcc per source, all started together
-    sources = {"paged_attention": ops.SOURCE, "mrd_combine": mc_ops.SOURCE}
+    sources = {"paged_attention": ops.SOURCE, "mrd_combine": mc_ops.SOURCE,
+               "flash_attention": fa_ops.SOURCE, "rmsnorm": rn_ops.SOURCE}
     with ThreadPoolExecutor(len(sources)) as pool:
         futs = {name: pool.submit(build.build_shared_library, src, name)
                 for name, src in sources.items()}
         built = {name: f.result() for name, f in futs.items()}
-    ops.library()
-    mc_ops.library()
+    for lib_ops in (ops, mc_ops, fa_ops, rn_ops):
+        lib_ops.library()
     for name, so in built.items():
         log(f"built {so.relative_to(ROOT)}")
+        entry = ""
         for line in so.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            entry = line if "Compiling entry" in line else entry
+            # flash_attention: its hd 256 instantiations (gemma3's) only
+            if ("registers" in line or "spill" in line) and (
+                    name != "flash_attention" or "ILi256E" in entry):
                 log(f"  ptxas ({name}): {line.strip()}")
     log(f"build of {len(built)} kernels: {time.perf_counter() - t:.1f} s")
     t = phase("build", t)
@@ -286,6 +406,43 @@ def main() -> int:
             if not torch.equal(out, ref):
                 raise SystemExit(f"mrd_combine kernel differs from its plain version: {err}")
             del x, q, sc, out, ref
+    for case in FLASH_CASES:
+        B, S, H, KV, hd, window = case
+        for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            q, k, v = flash_inputs(B, S, H, KV, hd, dtype, seed=S + hd)
+            out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+            ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window)
+            torch.cuda.synchronize()
+            if out.dtype != dtype or out.shape != ref.shape:
+                raise SystemExit(f"flash_attention output {out.dtype} {tuple(out.shape)} is wrong")
+            delta = out.float() - ref
+            err = delta.abs().max().item()
+            row_err = (delta.norm(dim=-1) / ref.norm(dim=-1)).max().item()
+            rtol = FLASH_ROW_RTOL[str(dtype)[6:]]
+            errs[(case, dtype)] = err
+            log(f"  flash_attention vs plain B,S,H,KV,hd,window={case} {str(dtype)[6:]}: "
+                f"max abs err {err:.3e} (atol {atol:g}), largest row error relative to the "
+                f"row {row_err:.3e} (at most {rtol:g})")
+            if not (err <= atol and row_err <= rtol):
+                raise SystemExit(f"flash_attention kernel disagrees with its plain version: "
+                                 f"{err}, rows {row_err}")
+            del q, k, v, out, ref, delta
+    for T, d in RMSNORM_CASES:
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            gen = torch.Generator(device="cuda").manual_seed(T)
+            x = (torch.randn(T, d, generator=gen, device="cuda") * 3).to(dtype)
+            w = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
+            out = rn_ops.rmsnorm(x, w, 1e-6)
+            ref = rmsnorm_ref(x.float(), w.float(), 1e-6)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            errs[((T, d), dtype)] = err
+            ok = out.dtype == dtype and torch.allclose(out.float(), ref, atol=tol, rtol=tol)
+            log(f"  rmsnorm vs plain [{T}, {d}] {str(dtype)[6:]}: max abs err {err:.3e} "
+                f"(atol = rtol = {tol:g}): {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"rmsnorm kernel disagrees with its plain version: {err}")
+            del x, w, out, ref
     torch.cuda.empty_cache()
     t = phase("kernel-vs-plain", t)
 
@@ -294,15 +451,22 @@ def main() -> int:
     serve.main(SERVE_ARGV + ["--requests", "2", "--gen", "4", "--device", "cuda"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ops.paged_attention.launches = mc_ops.mrd_combine.launches = 0
+    all_ops = (ops.paged_attention, mc_ops.mrd_combine, fa_ops.flash_attention, rn_ops.rmsnorm)
+    for op in all_ops:
+        op.launches = 0
     eng = serve.main(SERVE_ARGV + ["--device", "cuda"])
     launches = ops.paged_attention.launches
+    llama_fa, llama_rn = fa_ops.flash_attention.launches, rn_ops.rmsnorm.launches
     if mc_ops.mrd_combine.launches:
         raise SystemExit("the serving path launched mrd_combine")
     s = eng.summary()
     n_layers = registry.get_config("llama3.2-1b").n_layers
+    admissions = eng.workload.prefills
     log(f"served {s['completed']}/16 requests, {s['decode_ticks']} decode ticks, "
         f"kernel launches {launches} (= {s['decode_ticks']} x {n_layers} layers expected)")
+    log(f"  flash_attention launches {llama_fa} (= {n_layers} layers x {admissions} admissions "
+        f"expected) | rmsnorm launches {llama_rn} (= {2 * n_layers + 1} x "
+        f"{admissions + s['decode_ticks']} forwards expected)")
     log(f"  tok/s {s['throughput_tok_s']:.1f} | TTFT p50 {s['ttft_p50_ms']:.2f} ms | "
         f"TPOT p50 {s['tpot_p50_ms']:.3f} ms | peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -310,6 +474,10 @@ def main() -> int:
         raise SystemExit(f"not every request retired naturally: {s}")
     if launches != s["decode_ticks"] * n_layers or launches == 0:
         raise SystemExit(f"kernel launches {launches} != decode ticks x layers")
+    if llama_fa != n_layers * admissions or not llama_fa:
+        raise SystemExit(f"flash_attention launches {llama_fa} != layers x admissions")
+    if llama_rn != (2 * n_layers + 1) * (admissions + s["decode_ticks"]):
+        raise SystemExit(f"rmsnorm launches {llama_rn} != 33 x forwards")
     vocab = registry.get_config("llama3.2-1b").vocab
     for r in eng.results.values():
         if not (1 <= r.n_tokens and ((r.output >= 0) & (r.output < vocab)).all()):
@@ -338,11 +506,14 @@ def main() -> int:
     train.main(TRAIN_ARGV + ["--steps", "1"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ops.paged_attention.launches = mc_ops.mrd_combine.launches = 0
+    for op in all_ops:
+        op.launches = 0
     rec = train.main(TRAIN_ARGV)
     train_launches = mc_ops.mrd_combine.launches
-    if ops.paged_attention.launches:
-        raise SystemExit("the training path launched paged_attention")
+    # under autograd the forward takes the plain attention and rmsnorm
+    # (neither kernel has a backward)
+    if ops.paged_attention.launches or fa_ops.flash_attention.launches or rn_ops.rmsnorm.launches:
+        raise SystemExit("the training path launched a serving kernel")
     targs = train.build_parser().parse_args(TRAIN_ARGV)
     layout, _ = step_lib.zero1_layout(rec["state"]["params"], targs.dp)
     stages = [st for st, _ in plans.reduce_scatter_plan(p=targs.dp).stage_table
@@ -380,14 +551,7 @@ def main() -> int:
         f"busy {step_busy_ms:.1f} ms, device idle share {1 - step_busy_ms / step_wall_ms:.3f}")
     for name, (ms_s, n_s) in top_kernels(per_step, 12):
         log(f"  {ms_s:10.3f} ms/step {n_s:6.0f} launches/step  {name[:110]}")
-    classes = {"GEMM": 0.0, "mrd_combine": 0.0, "other": 0.0}
-    for name, (ms_s, _) in per_step.items():
-        key = ("mrd_combine" if "mrd_combine_kernel" in name else
-               "GEMM" if any(w in name.lower() for w in ("nvjet", "gemm", "cutlass", "sm90_"))
-               else "other")
-        classes[key] += ms_s
-    log("  device time by class: " + ", ".join(
-        f"{k} {v:.3f} ms ({v / step_busy_ms:.3f})" for k, v in classes.items()))
+    classes = kernel_classes(per_step, step_busy_ms)
     mc = [v for k, v in per_step.items() if "mrd_combine_kernel" in k]
     if not mc:
         raise SystemExit("the profiled train step launched no mrd_combine kernel")
@@ -398,6 +562,136 @@ def main() -> int:
     del state, train_step, pipe, batch, rec, layout
     torch.cuda.empty_cache()
     t = phase("profile-train", t)
+
+    # 4e. gemma3-12b served at full width through the contiguous pool (after
+    # a short warm-up run that initializes the GEMM libraries)
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"device memory allocated before gemma3: {left:.3f} GiB")
+    if left > 1.0:
+        raise SystemExit(f"{left:.3f} GiB still allocated after the llama paths")
+    serve.main(GEMMA_SERVE_ARGV + ["--requests", "2", "--min-prompt-len", "16",
+                                   "--prompt-len", "64", "--gen", "4"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for op in all_ops:
+        op.launches = 0
+    geng = serve.main(GEMMA_SERVE_ARGV)
+    fa_launches, rn_launches = fa_ops.flash_attention.launches, rn_ops.rmsnorm.launches
+    if ops.paged_attention.launches or mc_ops.mrd_combine.launches:
+        raise SystemExit("gemma3 serving launched paged_attention or mrd_combine")
+    gs, gwl = geng.summary(), geng.workload
+    gcfg = gwl.cfg
+    n_fwd = gwl.prefills + gs["decode_ticks"]
+    log(f"gemma3-12b served {gs['completed']}/8 requests ({gwl.prefills} admissions, prompts "
+        f"{sorted(len(r.prompt) for r in serve.make_requests(gcfg, 8, 8192, 32, 0, 1024))}), "
+        f"{gs['decode_ticks']} decode ticks")
+    log(f"  flash_attention launches {fa_launches} (= {gcfg.n_layers} layers x "
+        f"{gwl.prefills} admissions expected) | rmsnorm launches {rn_launches} (= "
+        f"{2 * gcfg.n_layers + 1} x {n_fwd} forwards expected)")
+    log(f"  tok/s {gs['throughput_tok_s']:.1f} | TTFT p50 {gs['ttft_p50_ms']:.2f} ms | "
+        f"TPOT p50 {gs['tpot_p50_ms']:.3f} ms | cache {gwl.cache_bytes / 2**30:.3f} GiB | "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if gs["completed"] != 8 or gs["forced_at_capacity"]:
+        raise SystemExit(f"not every gemma3 request retired naturally: {gs}")
+    if fa_launches != gcfg.n_layers * gwl.prefills or not fa_launches:
+        raise SystemExit(f"flash_attention launches {fa_launches} != layers x admissions")
+    if rn_launches != (2 * gcfg.n_layers + 1) * n_fwd:
+        raise SystemExit(f"rmsnorm launches {rn_launches} != 97 x forwards")
+    for r in geng.results.values():
+        if not (1 <= r.n_tokens and ((r.output >= 0) & (r.output < gcfg.vocab)).all()):
+            raise SystemExit(f"gemma3 request {r.id}: bad output {r.output}")
+    gemma_stats = {k: gs[k] for k in ("completed", "decode_ticks", "tokens_out",
+                                      "throughput_tok_s", "ttft_p50_ms", "tpot_p50_ms", "wall_s")}
+    gemma_stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    t = phase("gemma3-serve-full-width", t)
+
+    wall_ms, busy_ms, per_tick = profile_decode(
+        gwl, serve.make_requests(gcfg, 4, 8192, 32, seed=1, min_prompt_len=1024), ticks=4)
+    log(f"gemma3 steady decode tick, 4 slots: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
+    for name, (ms_tick, n_tick) in top_kernels(per_tick):
+        log(f"  {ms_tick * 1e3:9.2f} us/tick {n_tick:6.1f} launches/tick  {name[:110]}")
+    kernel_classes(per_tick, busy_ms)
+    gemma_stats.update(tick_wall_ms=wall_ms, tick_busy_ms=busy_ms)
+    t = phase("gemma3-profile-decode", t)
+
+    # 4f. the whole-prompt prefill at 32k tokens, batch 1 (the reference's
+    # prefill_32k cell has a global batch of 32: cut to 1 for one card)
+    params = gwl.params
+    prefill = dserve.make_prefill_step(gcfg)
+    tokens = torch.randint(0, gcfg.vocab, (1, PREFILL_LEN), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(7))
+    prefill(params, {"tokens": tokens[:, :2048]})  # warm-up
+    del geng, gwl
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.flash_attention.launches = rn_ops.rmsnorm.launches = 0
+    t1 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    pf_wall = time.perf_counter() - t1
+    pf_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"prefill of {PREFILL_LEN} tokens, batch 1 (reference prefill_32k: batch 32, cut to 1 "
+        f"for one card): {pf_wall * 1e3:.1f} ms wall, {PREFILL_LEN / pf_wall:.1f} tokens/s, peak "
+        f"device memory {pf_peak:.3f} GiB; flash_attention launches "
+        f"{fa_ops.flash_attention.launches}, rmsnorm launches {rn_ops.rmsnorm.launches}")
+    if not (logits.shape == (1, gcfg.vocab) and torch.isfinite(logits).all()):
+        raise SystemExit(f"32k prefill logits {tuple(logits.shape)} are not finite")
+    if (fa_ops.flash_attention.launches, rn_ops.rmsnorm.launches) != (
+            gcfg.n_layers, 2 * gcfg.n_layers + 1):
+        raise SystemExit("the 32k prefill did not run every layer through both kernels")
+    pf_busy, per_pf = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
+    log(f"  profiled prefill: device busy {pf_busy:.1f} ms ({pf_busy / (pf_wall * 1e3):.3f} of "
+        f"the unprofiled wall time)")
+    for name, (ms_p, n_p) in top_kernels(per_pf, 10):
+        log(f"  {ms_p:10.3f} ms {n_p:6.0f} launches  {name[:110]}")
+    pf_classes = kernel_classes(per_pf, pf_busy)
+    prefill_stats = {"tokens": PREFILL_LEN, "wall_ms": pf_wall * 1e3,
+                     "tokens_per_s": PREFILL_LEN / pf_wall, "peak_gib": pf_peak,
+                     "busy_ms": pf_busy, "busy_ms_by_class": pf_classes}
+    t = phase("gemma3-prefill-32k", t)
+
+    # 5-gemma. one full-width prefill of 8192 tokens through the flash
+    # kernel against flash_scan (plain torch on the card).  In bf16, the
+    # served type, the argmax must agree, and the last logits of every pair
+    # of implementations (materialized "full" as a third) are printed: each
+    # rounds to bf16 at other places, and 48 layers carry the rounding into
+    # the logits.  In fp32 (the same draw of weights, not rounded) the two
+    # must agree within 5e-2.
+    tok8 = {"tokens": tokens[:, :8192]}
+    out = {impl: dserve.make_prefill_step(registry.override(gcfg, attn_impl=impl))(params, tok8)
+           for impl in ("kernel", "flash_scan", "full")}
+    pairs = [("kernel", "flash_scan"), ("kernel", "full"), ("flash_scan", "full")]
+    spread = {f"{a} vs {b}": (out[a] - out[b]).abs().max().item() for a, b in pairs}
+    same = bool((out["kernel"].argmax(-1) == out["flash_scan"].argmax(-1)).all())
+    # the kernel may differ from each plain version by at most twice what
+    # the two plain versions differ by from each other
+    near = max(spread["kernel vs flash_scan"], spread["kernel vs full"]) <= (
+        2 * spread["flash_scan vs full"])
+    log(f"gemma3-12b prefill of 8192 tokens, bf16: last logits max abs diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in spread.items())
+        + f" (kernel's at most 2 x flash_scan vs full: {near}); kernel and flash_scan argmax "
+        f"equal {same}; logits max abs {out['flash_scan'].abs().max().item():.3f}")
+    if not (same and near):
+        raise SystemExit("gemma3 bf16 prefill: the flash kernel strays from the plain versions")
+    del params, prefill, logits, out
+    torch.cuda.empty_cache()
+    cfg32 = registry.override(gcfg, param_dtype="float32", compute_dtype="float32")
+    p32 = transformer.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    out = {impl: dserve.make_prefill_step(registry.override(cfg32, attn_impl=impl))(p32, tok8)
+           for impl in ("kernel", "flash_scan")}
+    diff = (out["kernel"] - out["flash_scan"]).abs().max().item()
+    same = bool((out["kernel"].argmax(-1) == out["flash_scan"].argmax(-1)).all())
+    log(f"gemma3-12b prefill of 8192 tokens, fp32: flash kernel vs flash_scan last logits max "
+        f"abs diff {diff:.3e} (atol 5e-2), argmax equal {same}")
+    if not (diff <= 5e-2 and same):
+        raise SystemExit("gemma3 fp32 prefill through the flash kernel disagrees with flash_scan")
+    gemma_stats["prefill_8192_bf16_spread"] = spread
+    gemma_stats["prefill_8192_fp32_diff"] = diff
+    del p32, out, tokens, tok8
+    torch.cuda.empty_cache()
+    log(f"device memory allocated after gemma3: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    t = phase("gemma3-prefill-vs-flash-scan", t)
 
     # 5a. fp32 full width: kernel path vs gather path on the same state
     cfg32 = registry.override(registry.get_config("llama3.2-1b"),
@@ -447,6 +741,27 @@ def main() -> int:
             raise SystemExit(f"smoke request {i}: card {g} != cpu {r}")
     log(f"smoke serve at dp 3: {len(res['cpu'])} requests, card (kernel) == cpu (plain) "
         f"token for token and tick for tick")
+
+    # 5b'. gemma3 smoke config through the contiguous pool, card (the flash
+    # and rmsnorm kernels, fp32) against CPU (plain versions), same weights
+    gsmoke = registry.get_smoke_config("gemma3-12b")
+    cpu_params = transformer.init_params(gsmoke, torch.Generator().manual_seed(0), "cpu")
+    res = {}
+    n0 = fa_ops.flash_attention.launches
+    for dev in ("cuda", "cpu"):
+        wl = make_workload("llm_decode", cfg=gsmoke, slots=3, max_len=48, max_prompt_len=24,
+                           params=to_device(cpu_params, dev), device=dev)
+        reqs = serve.make_requests(gsmoke, 6, 24, 20, seed=0, min_prompt_len=6)
+        res[dev] = ServeEngine(wl, ServeConfig(dp=3)).run(reqs)
+    for i, r in res["cpu"].items():
+        g = res["cuda"][i]
+        if not (np.array_equal(g.output, r.output)
+                and (g.admit_tick, g.retire_tick) == (r.admit_tick, r.retire_tick)):
+            raise SystemExit(f"gemma3 smoke request {i}: card {g} != cpu {r}")
+    if fa_ops.flash_attention.launches == n0:
+        raise SystemExit("the gemma3 smoke serve on the card launched no flash_attention kernel")
+    log(f"gemma3 smoke serve (llm_decode) at dp 3: {len(res['cpu'])} requests, card (kernels) "
+        f"== cpu (plain) token for token and tick for tick")
 
     # 5c. smoke config trained with the compressed sync on the card (kernel)
     # and on the CPU (plain version): same weights (drawn once on the CPU)
@@ -537,6 +852,62 @@ def main() -> int:
         f"{mc_plain_ms:.4f} ms | bound {mc_bound_ms:.4f} ms ({mc_bytes} bytes at 3.35 TB/s; "
         f"ops bound {mc_ops_ms:.4f} ms) | no single PyTorch call computes it")
     del x, q, sc
+
+    # flash_attention at 32k tokens, gemma3-12b's heads (bf16): a global
+    # layer (causal, no window) and a local layer (window 1024); the plain
+    # version is flash_scan (the materialized scores do not fit); the
+    # library yardstick is scaled_dot_product_attention (causal, GQA; with a
+    # boolean window mask at 8192 tokens, where the mask fits)
+    B, H, KV, hd = 1, gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim
+    fa_t = {}
+    for S, window in ((PREFILL_LEN, None), (PREFILL_LEN, gcfg.local_window),
+                      (8192, gcfg.local_window)):
+        q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, seed=11)
+        long_run = window is None
+        ms_k = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True, window=window),
+                       iters=5 if long_run else 20, warmup=2)
+        ms_p = float("nan")
+        if S == PREFILL_LEN:
+            ms_p = time_ms(lambda: attention(q, k, v, causal=True, window=window,
+                                             impl="flash_scan", chunk=1024),
+                           iters=2 if long_run else 5, warmup=1)
+        mask, ms_l, how = None, float("nan"), "not timed: an S x S mask"
+        if window is not None and S <= 8192:
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        if window is None or mask is not None:
+            ms_l, how = sdpa_ms(q, k, v, mask, iters=5 if long_run else 20)
+        pairs = visible_pairs(S, window)
+        n_ops = 4 * H * hd * pairs * B
+        n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v in; out
+        b_ms, o_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_FLOPS * 1e3
+        fa_t[(S, window)] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
+                                 bound_ms=max(b_ms, o_ms),
+                                 bound_by="bytes" if b_ms >= o_ms else "operations")
+        log(f"timings flash_attention S={S} H={H} KV={KV} hd={hd} window={window} bf16: kernel "
+            f"{ms_k:.4f} ms | plain (flash_scan) {ms_p:.4f} ms | sdpa ({how}) "
+            f"{ms_l:.4f} ms | bound {max(b_ms, o_ms):.4f} ms ({pairs} visible pairs, {n_ops:.4e} "
+            f"flop at 989 TFLOP/s = {o_ms:.4f} ms; {n_bytes} bytes at 3.35 TB/s = {b_ms:.4f} ms) | "
+            f"{n_ops / (ms_k * 1e-3) / 1e12:.1f} TFLOP/s")
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+
+    # rmsnorm at the 32k prefill's rows, gemma3's width (bf16)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(PREFILL_LEN, gcfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(gcfg.d_model, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    w1 = (1.0 + w.float()).to(torch.bfloat16)
+    rn_ms = time_ms(lambda: rn_ops.rmsnorm(x, w, gcfg.norm_eps))
+    rn_plain_ms = time_ms(lambda: rmsnorm_ref(x, w, gcfg.norm_eps))
+    rn_lib_ms = time_ms(lambda: torch.nn.functional.rms_norm(x, (gcfg.d_model,), weight=w1,
+                                                             eps=gcfg.norm_eps))
+    rn_bytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    rn_b_ms, rn_o_ms = rn_bytes / HBM_BYTES_PER_S * 1e3, 4 * x.numel() / FP32_FLOPS * 1e3
+    rn_bound_ms = max(rn_b_ms, rn_o_ms)
+    log(f"timings rmsnorm [{PREFILL_LEN}, {gcfg.d_model}] bf16: kernel {rn_ms:.4f} ms | plain "
+        f"{rn_plain_ms:.4f} ms | F.rms_norm(weight=1+w) {rn_lib_ms:.4f} ms | bound "
+        f"{rn_bound_ms:.4f} ms ({rn_bytes} bytes at 3.35 TB/s; ops bound {rn_o_ms:.4f} ms)")
+    del x, w, w1
     t = phase("timings", t)
 
     # 7. results
@@ -544,6 +915,8 @@ def main() -> int:
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
     log(json.dumps({"train": train_stats}))
+    log(json.dumps({"gemma3_serve": gemma_stats}))
+    log(json.dumps({"gemma3_prefill_32k": prefill_stats}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
@@ -569,6 +942,26 @@ def main() -> int:
         "bound_ms": mc_bound_ms,
         "bound_by": "bytes" if mc_bytes_ms >= mc_ops_ms else "operations",
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+        "launches": fa_launches,
+        "max_abs_err": errs[(FLASH_CASES[0], torch.bfloat16)],
+        **fa_t[(PREFILL_LEN, None)],
+    }, {
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
+        "launches": rn_launches,
+        "max_abs_err": errs[(RMSNORM_CASES[0], torch.bfloat16)],
+        "ms": rn_ms,
+        "plain_ms": rn_plain_ms,
+        "bound_ms": rn_bound_ms,
+        "bound_by": "bytes" if rn_b_ms >= rn_o_ms else "operations",
+        "library_ms": rn_lib_ms,
     }]}))
     log(f"gpu: {smi}")
     log(json.dumps({"ok": True, "device": {

@@ -34,6 +34,24 @@ _register(
 )
 
 
+_register(
+    # [hf:google/gemma-3-12b] 5:1 local:global, local window 1024
+    ModelConfig(
+        name="gemma3-12b", family="dense", n_layers=48, d_model=3840,
+        n_heads=16, n_kv_heads=8, d_ff=15360, vocab=262144,
+        head_dim=256, pattern_local=5, pattern_global=1, local_window=1024,
+        rope_theta=1e4, rope_theta_global=1e6, tie_embeddings=True,
+    ),
+    ModelConfig(
+        name="gemma3-12b", family="dense", n_layers=3, d_model=64,
+        n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+        pattern_local=2, pattern_global=1, local_window=16,
+        rope_theta=1e4, rope_theta_global=1e6, tie_embeddings=True,
+        param_dtype="float32", compute_dtype="float32",
+    ),
+)
+
+
 def get_config(name: str) -> ModelConfig:
     return _FULL[name]
 

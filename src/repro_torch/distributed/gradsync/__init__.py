@@ -46,6 +46,10 @@ def available() -> list[str]:
 
 def make_train_step(cfg, tcfg, *, dp: int, device="cuda"):
     """The train step of ``tcfg.grad_sync`` over ``dp`` ranks."""
+    if cfg.pattern_local:
+        raise NotImplementedError(
+            f"{cfg.name}: training a grouped local/global stack is not ported yet "
+            "(serving is)")
     return get(tcfg.grad_sync)(cfg, tcfg, dp=dp, device=device)
 
 

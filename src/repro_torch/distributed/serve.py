@@ -1,20 +1,24 @@
-"""Serving step factories for the block-paged decode pool (port of the
-paged half of ``repro.distributed.serve``).
+"""Serving step factories (port of ``repro.distributed.serve``).
 
 Single device: there is no mesh and no sharding rule; the factories return
-plain functions over tensors.  Two decode paths:
+plain functions over tensors.
 
-- ``attn="kernel"`` (the reference's ``"pallas"``):
-  :func:`repro_torch.models.transformer.forward_decode_paged` reads K/V
-  through the block table inside the paged-attention CUDA kernel, with no
-  contiguous view materialized.
-- ``attn="gather"``: gather each slot's blocks into exactly the contiguous
-  cache layout, run the contiguous decode step, and scatter the one row
-  each slot wrote back to its physical (block, offset).
+- :func:`make_prefill_step`: the whole-prompt forward that returns the
+  last position's logits (the reference's ``prefill_32k`` shape cell).
+- The contiguous decode pool (``serving.pool.DecodePool``):
+  :func:`make_pool_decode_step` advances every slot one token at its own
+  length, and :func:`make_slot_prefill_step` admits a prompt into one slot
+  of the cache.  Rolling local windows (gemma3) live here.
+- The block-paged pool (``serving.paged.PagedDecodePool``), dense caches
+  without a rolling window only: ``attn="kernel"`` (the reference's
+  ``"pallas"``) reads K/V through the block table inside the
+  paged-attention CUDA kernel; ``attn="gather"`` gathers each slot's
+  blocks into the contiguous layout, runs the contiguous decode step and
+  scatters back the one row each slot wrote.
 
-Admission prefill runs one causal forward over the prompt in plain torch
-(the reference scans its decode step over the padded prompt; the math is
-the same) and writes whole blocks into the pool.
+Admission prefill runs one causal forward over the prompt (the flash
+kernel on the card) where the reference scans its decode step over the
+padded prompt; the cache rows and tokens are the same.
 """
 
 from __future__ import annotations
@@ -29,6 +33,63 @@ from repro_torch.models.config import ModelConfig
 # reference also pages int8 scale planes and hybrid attention caches; the
 # dense family's cache is just K and V.
 PAGED_LEAVES = ("k", "v")
+# cache leaf -> its batch (slot) axis in the transformer.init_cache layout
+CACHE_BATCH_AXIS = {"k": 1, "v": 1, "global_k": 1, "global_v": 1, "local_k": 2, "local_v": 2}
+
+
+def make_prefill_step(cfg: ModelConfig, device="cuda"):
+    """``prefill_step(params, batch) -> last-position logits [B, V]``: the
+    whole-prompt forward over ``batch["tokens"]`` [B, S] (moved to
+    ``device``, where the params live), keeping no cache: on the card every
+    attention runs the flash kernel and every norm the rmsnorm kernel."""
+    device = resolve_device(device)
+
+    def prefill_step(params, batch):
+        return transformer.forward_last_logits(params, batch["tokens"].to(device), cfg)
+
+    return prefill_step
+
+
+def make_pool_decode_step(cfg: ModelConfig):
+    """``pool_step(params, tokens [S], cache, lengths [S], active [S]) ->
+    logits [S, V]``: every slot advances at its own length; the cache is
+    written in place, and only for active slots.  (The reference decodes
+    every slot and keeps the inactive slots' old caches with
+    ``select_slots``; here the select is on the one row a slot writes, so
+    a tick never copies the cache.)"""
+
+    def pool_step(params, tokens, cache, lengths, active):
+        logits, _ = transformer.forward_decode(params, tokens, cache, lengths, cfg,
+                                               write_ok=active)
+        return logits
+
+    return pool_step
+
+
+def make_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int):
+    """Offset-prefill into a live cache slot (slot recycling).
+
+    ``slot_prefill(params, prompt [plen], cache, slot) -> last_logits
+    [V]``: one causal forward over the prompt; the slot's cache slice gets
+    the prompt's K/V rows (a rolling window its last rows, at p % W) and
+    zeros past them, so nothing of the previous request survives.  The
+    other slots are untouched and keep decoding across admissions.
+    """
+
+    def slot_prefill(params, prompt, cache, slot):
+        plen = int(prompt.shape[0])
+        if not 0 < plen <= max_prompt_len:
+            raise ValueError(f"prompt length {plen} not in (0, {max_prompt_len}]")
+        last_logits, rows = transformer.forward_prefill(params, prompt[None], cfg)
+        for n, leaf in cache.items():
+            ax = CACHE_BATCH_AXIS[n]
+            dst, src = leaf.select(ax, slot), rows[n].select(ax, 0)
+            w = src.shape[ax]  # after select, the sequence axis sits at ax
+            dst.narrow(ax, 0, w).copy_(src)
+            dst.narrow(ax, w, dst.shape[ax] - w).zero_()
+        return last_logits[0]
+
+    return slot_prefill
 
 
 def split_paged_cache(cache):
@@ -39,10 +100,23 @@ def split_paged_cache(cache):
 
 
 def validate_pageable(cfg: ModelConfig, max_len: int) -> None:
-    """Raise unless this config's decode cache can be block-paged (the
-    ported dense configs have no rolling window, so any ``max_len`` pages)."""
+    """Raise unless this config's decode cache can be block-paged: a dense
+    cache with no rolling window (a modular write index breaks the
+    position -> block mapping).  The reference's rules and messages."""
     if cfg.family != "dense":
         raise ValueError(f"family {cfg.family!r} has no ported paged decode path")
+    if cfg.pattern_local:
+        raise ValueError(
+            f"{cfg.name}: local-attention layers write their cache "
+            "modulo the window; rolling windows are not pageable — "
+            "use the contiguous pool"
+        )
+    if cfg.sliding_window and cfg.sliding_window < max_len:
+        raise ValueError(
+            f"{cfg.name}: sliding_window={cfg.sliding_window} < "
+            f"max_len={max_len} writes the cache modulo the window; "
+            "rolling windows are not pageable — use the contiguous pool"
+        )
 
 
 def init_paged_pool(cfg: ModelConfig, max_len: int, num_blocks: int, block_size: int,
@@ -116,10 +190,10 @@ def make_paged_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int, max_len:
         plen = int(prompt.shape[0])
         if not 0 < plen <= max_prompt_len:
             raise ValueError(f"prompt length {plen} not in (0, {max_prompt_len}]")
-        last_logits, k, v = transformer.forward_prefill(params, prompt[None], cfg)
+        last_logits, rows = transformer.forward_prefill(params, prompt[None], cfg)
         dst = torch.where(write_mask, table_row, 0).long()
-        for n, rows in (("k", k), ("v", v)):
-            leaf = rows[:, 0]  # [L, plen, KV, hd]
+        for n in PAGED_LEAVES:
+            leaf = rows[n][:, 0]  # [L, plen, KV, hd]
             full = leaf.new_zeros((leaf.shape[0], nb * block_size) + leaf.shape[2:])
             full[:, :plen] = leaf
             pages[n][:, dst] = full.reshape(leaf.shape[0], nb, block_size, *leaf.shape[2:])

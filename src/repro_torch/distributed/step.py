@@ -1,5 +1,6 @@
-"""Train step wiring: a thin facade over the grad-sync registry (port of
-``repro.distributed.step``).
+"""Step wiring (port of ``repro.distributed.step``): the train step, a thin
+facade over the grad-sync registry, and the serving steps of
+``distributed.serve``.
 
 The strategies live in ``repro_torch.distributed.gradsync`` (one module
 per mode), composing the shared monitor, optimizer and microbatching
@@ -25,4 +26,11 @@ from repro_torch.distributed.gradsync.mrd_zero1 import (  # noqa: F401
     zero1_layout,
     zero1_masters_from_params,
     zero1_owner_segments,
+)
+from repro_torch.distributed.serve import (  # noqa: F401
+    make_paged_pool_decode_step,
+    make_paged_slot_prefill_step,
+    make_pool_decode_step,
+    make_prefill_step,
+    make_slot_prefill_step,
 )

@@ -1,0 +1,5 @@
+"""RMSNorm: CUDA kernel (``csrc/``), its wrapper (``ops``) and its plain
+PyTorch version (``ref``)."""
+
+from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: F401
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: F401

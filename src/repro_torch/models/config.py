@@ -1,14 +1,18 @@
 """Model configuration (port of ``repro.models.config``, dense family only).
 
 The reference dataclass covers every family (moe, ssm, hybrid, vlm,
-audio); the port so far serves and trains dense decoders, so it keeps the
-fields that family reads and refuses the others rather than ignoring them.
+audio); the port so far serves and trains dense decoders, including the
+grouped local/global stack of gemma3, so it keeps the fields that family
+reads and refuses the others rather than ignoring them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+ATTN_IMPLS = ("auto", "full", "flash_scan", "kernel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,11 +27,18 @@ class ModelConfig:
     vocab: int
     head_dim: Optional[int] = None  # defaults to d_model // n_heads
     rope_theta: float = 10000.0
+    rope_theta_global: Optional[float] = None  # gemma3 global layers (1M)
+    sliding_window: Optional[int] = None  # window on every attention layer
+    local_window: Optional[int] = None  # gemma3 local layers
+    pattern_local: int = 0  # gemma3: local layers per group
+    pattern_global: int = 0  # gemma3: global layers per group
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "silu"  # SwiGLU
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    attn_impl: str = "auto"  # auto | full | flash_scan | kernel (the reference's pallas)
+    attn_chunk: int = 1024  # flash_scan tile length
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -40,6 +51,23 @@ class ModelConfig:
             raise ValueError(f"{self.name}: act {self.act!r} is not ported (silu only)")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads must be a multiple of n_kv_heads")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"{self.name}: attn_impl {self.attn_impl!r} not in {ATTN_IMPLS}")
+        if self.pattern_local:
+            # the reference stacks one global layer per group ([G, ...] leaves)
+            if self.pattern_global != 1 or self.n_layers % (self.pattern_local + 1):
+                raise ValueError(
+                    f"{self.name}: a grouped stack needs pattern_global == 1 and n_layers "
+                    f"divisible by pattern_local + 1"
+                )
+            if self.sliding_window is not None:
+                raise ValueError(f"{self.name}: a grouped stack windows its local layers "
+                                 "(local_window), not every layer")
+
+    @property
+    def n_groups(self) -> int:
+        """Groups of (pattern_local local + 1 global) layers; 0 for a plain stack."""
+        return self.n_layers // (self.pattern_local + 1) if self.pattern_local else 0
 
     @property
     def qk_dim(self) -> int:

@@ -1,12 +1,14 @@
 """Carry the reference's weights and train state across to the port.
 
-The reference's ``transformer.init_params`` tree (dense family), already
-turned into numpy arrays by the caller, maps onto the port's parameter
-dict so that both packages compute the same function.  Both keep layers
-stacked on a leading ``[L, ...]`` axis, the ``x @ W`` layout of the
-attention and SwiGLU matrices, norm weights ``w`` under the ``(1 + w)``
-convention, and a tied head read as ``embed.T``; only the nesting
-differs (the reference groups ``attn``/``mlp`` sub-dicts per layer).
+The reference's ``transformer.init_params`` tree (dense family, plain or
+gemma3's grouped stack), already turned into numpy arrays by the caller,
+maps onto the port's parameter dict so that both packages compute the
+same function.  Both keep each stack's layers on leading axes (``layers``
+[L, ...]; ``local_layers`` [G, P, ...] and ``global_layers`` [G, ...]),
+the ``x @ W`` layout of the attention and SwiGLU matrices, norm weights
+``w`` under the ``(1 + w)`` convention, and a tied head read as
+``embed.T``; only the nesting differs (the reference groups ``attn``/
+``mlp`` sub-dicts per layer).
 
 :func:`reference_tree` gives the port's params (or gradients) the
 reference's nesting, whose flatten order (sorted keys) decides the
@@ -23,6 +25,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
+from repro_torch.models.transformer import STACKS
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -38,28 +41,35 @@ LAYER_PATHS = {
 }
 
 
-def reference_tree(params: Mapping[str, Any]) -> dict[str, Any]:
-    """The port's params (or any tree of the same keys) nested as the
-    reference nests them; the leaves are the same objects."""
-    layers: dict[str, Any] = {}
+def _nest(flat: Mapping[str, Any]) -> dict[str, Any]:
+    nested: dict[str, Any] = {}
     for k, path in LAYER_PATHS.items():
-        node = layers
+        node = nested
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = params["layers"][k]
-    return {**{k: v for k, v in params.items() if k != "layers"}, "layers": layers}
+        node[path[-1]] = flat[k]
+    return nested
 
 
-def port_tree(tree: Mapping[str, Any]) -> dict[str, Any]:
-    """Inverse of :func:`reference_tree`."""
+def _unnest(nested: Mapping[str, Any]) -> dict[str, Any]:
     def get(path):
-        node = tree["layers"]
+        node = nested
         for part in path:
             node = node[part]
         return node
 
-    return {**{k: v for k, v in tree.items() if k != "layers"},
-            "layers": {k: get(path) for k, path in LAYER_PATHS.items()}}
+    return {k: get(path) for k, path in LAYER_PATHS.items()}
+
+
+def reference_tree(params: Mapping[str, Any]) -> dict[str, Any]:
+    """The port's params (or any tree of the same keys) nested as the
+    reference nests them; the leaves are the same objects."""
+    return {k: _nest(v) if k in STACKS else v for k, v in params.items()}
+
+
+def port_tree(tree: Mapping[str, Any]) -> dict[str, Any]:
+    """Inverse of :func:`reference_tree`."""
+    return {k: _unnest(v) if k in STACKS else v for k, v in tree.items()}
 
 
 def params_from_reference(np_params: Mapping[str, Any], cfg: ModelConfig,
@@ -67,16 +77,22 @@ def params_from_reference(np_params: Mapping[str, Any], cfg: ModelConfig,
     """Reference params (numpy leaves) -> the port's params on ``device``."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
-    src = port_tree(np_params)["layers"]
-    for name, leaf in src.items():
-        if np.shape(leaf)[0] != cfg.n_layers:
-            raise ValueError(f"layer leaf {name}: leading axis {np.shape(leaf)[0]} "
-                             f"!= n_layers {cfg.n_layers}")
+    if cfg.pattern_local:
+        leads = {"local_layers": (cfg.n_groups, cfg.pattern_local),
+                 "global_layers": (cfg.n_groups,)}
+    else:
+        leads = {"layers": (cfg.n_layers,)}
+    src = port_tree(np_params)
     out = {
         "embed": _tensor(np_params["embed"], dtype, device),
         "final_norm": _tensor(np_params["final_norm"], dtype, device),
-        "layers": {k: _tensor(v, dtype, device) for k, v in src.items()},
     }
+    for stack, lead in leads.items():
+        for name, leaf in src[stack].items():
+            if tuple(np.shape(leaf)[:len(lead)]) != lead:
+                raise ValueError(f"{stack} leaf {name}: leading axes {np.shape(leaf)} "
+                                 f"do not start with {lead}")
+        out[stack] = {k: _tensor(v, dtype, device) for k, v in src[stack].items()}
     if not cfg.tie_embeddings:
         out["lm_head"] = _tensor(np_params["lm_head"], dtype, device)
     return out

@@ -13,6 +13,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import needs_grad
+from repro_torch.kernels.rmsnorm.ops import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
@@ -42,10 +46,14 @@ def embed_init(gen: torch.Generator, shape, dtype):
 
 
 def rmsnorm(x, weight, eps: float = 1e-5):
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + weight.float())).to(x.dtype)
+    """x: [..., d] -> [..., d] in x's type.  On the card, the rmsnorm
+    kernel over the rows flattened to [T, d]; on the CPU its plain version.
+    The kernel has no backward, so inputs that autograd would differentiate
+    (training) take the plain version on any device."""
+    if needs_grad(x, weight):
+        return rmsnorm_ref(x, weight, eps)
+    d = x.shape[-1]
+    return rmsnorm_kernel(x.reshape(-1, d).contiguous(), weight, eps).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -1,33 +1,40 @@
-"""Dense decoder stack for training and serving (port of
-``repro.models.transformer``, dense family).
+"""Dense decoder stacks for training and serving (port of
+``repro.models.transformer``, dense family): the plain stack (llama) and
+gemma3's grouped stack of G groups of (``pattern_local`` local layers with
+a ``local_window``-token window and RoPE theta ``rope_theta``, then one
+global layer with no window and theta ``rope_theta_global``).
 
-Parameters are a plain dict of tensors with the layers stacked on a
-leading ``[L, ...]`` axis and the reference's ``x @ W`` layout::
+Parameters are a plain dict of tensors in the reference's ``x @ W``
+layout, each layer's tensors stacked on leading layer axes::
 
     embed [V, d], final_norm [d], (lm_head [d, V] unless tied),
-    layers: wq [L, d, H*hd], wk/wv [L, d, KV*hd], wo [L, H*hd, d],
-            ln1/ln2 [L, d], w1/w3 [L, d, f], w2 [L, f, d]
+    layers [L, ...]                       (plain stack)
+    local_layers [G, P, ...], global_layers [G, ...]   (grouped stack)
+    each: wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d], ln1/ln2 [d],
+          w1/w3 [d, f], w2 [f, d]
 
 Interfaces:
   init_params(cfg, generator, device)                         -> params
   forward_train(params, batch, cfg, remat)                    -> (loss, metrics)
   init_cache(cfg, batch, max_len, device)                     -> cache
-  forward_prefill(params, tokens, cfg)                        -> (logits, k, v)
-  forward_decode(params, tokens, cache, lengths, cfg)         -> (logits, cache)
+  forward_prefill(params, tokens, cfg)                        -> (logits, cache)
+  forward_last_logits(params, tokens, cfg)                    -> logits
+  forward_decode(params, tokens, cache, lengths, cfg, write_ok) -> (logits, cache)
   forward_decode_paged(params, tokens, pages, tables, lengths, cfg, ...)
                                                               -> (logits, pages)
 
-A Python loop over layers replaces the reference's ``lax.scan``, and an
-explicit batch dimension with per-sequence lengths replaces its ``vmap``
-over slots.  Cache writes update the given tensors in place (the reference
-returns new arrays): a decode tick writes one row per sequence, so copying
-the pool would cost more than the tick.
+A Python loop over :func:`layer_specs` replaces the reference's nested
+``lax.scan``, and an explicit batch dimension with per-sequence lengths
+replaces its ``vmap`` over slots.  Cache writes update the given tensors
+in place (the reference returns new arrays): a decode tick writes one row
+per sequence, so copying the pool would cost more than the tick.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -44,12 +51,67 @@ from repro_torch.models.layers import (
     rmsnorm,
 )
 
-LAYER_KEYS = ("wq", "wk", "wv", "wo", "ln1", "ln2", "w1", "w3", "w2")
+# stacked parameter trees and the number of leading layer axes of each
+STACKS = {"layers": 1, "local_layers": 2, "global_layers": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """Where one layer's weights and cache live, and how it attends."""
+
+    stack: str  # params key (a key of STACKS)
+    cache: str  # cache key prefix: "", "local_" or "global_"
+    index: tuple  # index into the stack's leading layer axes
+    flat: int  # the same index with those axes flattened
+    theta: float  # RoPE theta
+    window: Optional[int]  # attention window (None: the whole prefix)
+
+
+def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
+    """Every layer in forward order."""
+    if not cfg.pattern_local:
+        return [LayerSpec("layers", "", (i,), i, cfg.rope_theta, cfg.sliding_window)
+                for i in range(cfg.n_layers)]
+    P = cfg.pattern_local
+    theta_g = cfg.rope_theta_global or cfg.rope_theta
+    specs = []
+    for g in range(cfg.n_groups):
+        specs += [LayerSpec("local_layers", "local_", (g, p), g * P + p, cfg.rope_theta,
+                            cfg.local_window) for p in range(P)]
+        specs.append(LayerSpec("global_layers", "global_", (g,), g, theta_g, None))
+    return specs
+
+
+def layer_params(params, cfg: ModelConfig) -> list[dict[str, torch.Tensor]]:
+    """Each layer's parameters in forward order.  Every stacked leaf is
+    unbound once (views), so autograd stacks its gradient in one pass."""
+    views = {
+        stack: {k: v.flatten(0, STACKS[stack] - 1).unbind(0) for k, v in params[stack].items()}
+        for stack in STACKS if stack in params
+    }
+    return [{k: leaves[s.flat] for k, leaves in views[s.stack].items()}
+            for s in layer_specs(cfg)]
 
 
 # ---------------------------------------------------------------------------
 # Param init
 # ---------------------------------------------------------------------------
+
+
+def _layer_stack(gen, lead: tuple, cfg: ModelConfig, dtype, device) -> dict[str, torch.Tensor]:
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    zeros = torch.zeros(lead + (d,), dtype=dtype, device=device)
+    return {
+        "wq": dense_init(gen, lead + (d, cfg.n_heads * hd), dtype),
+        "wk": dense_init(gen, lead + (d, cfg.n_kv_heads * hd), dtype),
+        "wv": dense_init(gen, lead + (d, cfg.n_kv_heads * hd), dtype),
+        "wo": dense_init(gen, lead + (cfg.n_heads * hd, d), dtype, fan_in=cfg.n_heads * hd),
+        "ln1": zeros.clone(),
+        "ln2": zeros.clone(),
+        "w1": dense_init(gen, lead + (d, f), dtype),
+        "w3": dense_init(gen, lead + (d, f), dtype),
+        "w2": dense_init(gen, lead + (f, d), dtype, fan_in=f),
+    }
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict[str, Any]:
@@ -59,31 +121,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, params on {device}")
     dtype = dtype_of(cfg.param_dtype)
-    d, f, L, hd = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.head_dim
     params: dict[str, Any] = {
-        "embed": embed_init(generator, (cfg.vocab, d), dtype),
-        "final_norm": torch.zeros((d,), dtype=dtype, device=device),
+        "embed": embed_init(generator, (cfg.vocab, cfg.d_model), dtype),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, (d, cfg.vocab), dtype)
-    zeros = torch.zeros((L, d), dtype=dtype, device=device)
-    params["layers"] = {
-        "wq": dense_init(generator, (L, d, cfg.n_heads * hd), dtype),
-        "wk": dense_init(generator, (L, d, cfg.n_kv_heads * hd), dtype),
-        "wv": dense_init(generator, (L, d, cfg.n_kv_heads * hd), dtype),
-        "wo": dense_init(generator, (L, cfg.n_heads * hd, d), dtype, fan_in=cfg.n_heads * hd),
-        "ln1": zeros.clone(),
-        "ln2": zeros.clone(),
-        "w1": dense_init(generator, (L, d, f), dtype),
-        "w3": dense_init(generator, (L, d, f), dtype),
-        "w2": dense_init(generator, (L, f, d), dtype, fan_in=f),
-    }
+        params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
+    if cfg.pattern_local:
+        G = cfg.n_groups
+        params["local_layers"] = _layer_stack(generator, (G, cfg.pattern_local), cfg, dtype,
+                                              device)
+        params["global_layers"] = _layer_stack(generator, (G,), cfg, dtype, device)
+    else:
+        params["layers"] = _layer_stack(generator, (cfg.n_layers,), cfg, dtype, device)
     return params
-
-
-def layer(params, i: int) -> dict[str, torch.Tensor]:
-    """Layer ``i``'s parameters (views into the stacked tensors)."""
-    return {k: v[i] for k, v in params["layers"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -104,20 +155,52 @@ def _mlp_block(lp, x, cfg):
     return x + mlp_apply(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps))
 
 
+def _decoder_layer(lp, x, cfg, positions, spec: LayerSpec):
+    """One full-sequence causal layer: x [B, S, d] -> (x, k, v), with k/v
+    [B, S, KV, hd] after RoPE (what the layer's cache keeps)."""
+    B, S = x.shape[:2]
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = qkv_project(lp, h, cfg, positions, spec.theta)
+    o = attention(q, k, v, causal=True, window=spec.window, impl=cfg.attn_impl,
+                  chunk=min(cfg.attn_chunk, S))
+    x = x + o.reshape(B, S, -1) @ lp["wo"]
+    return _mlp_block(lp, x, cfg), k, v
+
+
+def _layer_output(lp, x, cfg, positions, spec: LayerSpec):
+    return _decoder_layer(lp, x, cfg, positions, spec)[0]
+
+
+def _prefill_rows(leaf, rows):
+    """Write a prompt's K or V rows ``[B, S, KV, hd]`` into a cache leaf
+    ``[B, W, KV, hd]`` (W <= S): a rolling window keeps the last W
+    positions, position p at row p % W, as the decode step writes them."""
+    S, W = rows.shape[1], leaf.shape[1]
+    leaf.copy_(torch.roll(rows[:, S - W:], shifts=(S - W) % W, dims=1))
+
+
+def _run_stack(params, x, cfg, *, remat: str = "none", cache=None):
+    """Every layer over the full sequence x [B, S, d]; with ``cache`` (the
+    :func:`init_cache` layout for max_len S) each layer's K/V rows are kept
+    there."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
+        if remat == "full":  # recompute in the backward pass; no cache
+            fn = functools.partial(_layer_output, cfg=cfg, positions=positions, spec=spec)
+            x = checkpoint(fn, lp, x, use_reentrant=False)
+            continue
+        x, k, v = _decoder_layer(lp, x, cfg, positions, spec)
+        if cache is not None:
+            _prefill_rows(cache[spec.cache + "k"][spec.index], k)
+            _prefill_rows(cache[spec.cache + "v"][spec.index], v)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Training forward
 # ---------------------------------------------------------------------------
 
 REMAT = ("none", "full")
-
-
-def _decoder_layer(lp, x, cfg, positions):
-    """One full-sequence causal layer: x [B, S, d] -> [B, S, d]."""
-    B, S = x.shape[:2]
-    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = qkv_project(lp, h, cfg, positions, cfg.rope_theta)
-    x = x + attention(q, k, v, causal=True).reshape(B, S, -1) @ lp["wo"]
-    return _mlp_block(lp, x, cfg)
 
 
 def _train_head(params, x, batch, cfg: ModelConfig):
@@ -144,18 +227,10 @@ def forward_train(params, batch, cfg: ModelConfig, remat: str = "none"):
     ``remat="full"`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint`` per layer, the reference's
     ``nothing_saveable`` policy on its scan body); ``"none"`` keeps every
-    activation.  The stacked layer tensors are unbound once, so their
-    gradients are stacked in one pass.  Returns (loss, metrics)."""
+    activation.  Returns (loss, metrics)."""
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r} is not ported; choose one of {REMAT}")
-    x = _embed(params, batch["tokens"], cfg)
-    positions = torch.arange(x.shape[1], device=x.device)
-    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
-    layer_fn = functools.partial(_decoder_layer, cfg=cfg, positions=positions)
-    for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in per_layer.items()}
-        x = layer_fn(lp, x) if remat == "none" else checkpoint(layer_fn, lp, x,
-                                                                use_reentrant=False)
+    x = _run_stack(params, _embed(params, batch["tokens"], cfg), cfg, remat=remat)
     return _train_head(params, x, batch, cfg)
 
 
@@ -165,55 +240,73 @@ def forward_train(params, batch, cfg: ModelConfig, remat: str = "none"):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Contiguous KV cache ``{"k", "v": [L, batch, max_len, KV, hd]}``."""
+    """Contiguous KV cache.  Plain stack: ``k``/``v`` [L, batch, W, KV, hd]
+    with W = min(max_len, sliding_window).  Grouped stack: ``local_k``/
+    ``local_v`` [G, P, batch, min(max_len, local_window), KV, hd] and
+    ``global_k``/``global_v`` [G, batch, max_len, KV, hd].  A windowed
+    leaf is a rolling buffer: position p lives at row p % W."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    tail = (cfg.n_kv_heads, cfg.head_dim)
+    if cfg.pattern_local:
+        G, Wl = cfg.n_groups, min(max_len, cfg.local_window or max_len)
+        shapes = {"local_": (G, cfg.pattern_local, batch, Wl) + tail,
+                  "global_": (G, batch, max_len) + tail}
+    else:
+        shapes = {"": (cfg.n_layers, batch, min(max_len, cfg.sliding_window or max_len)) + tail}
     dtype = dtype_of(cfg.compute_dtype)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    return {prefix + n: torch.zeros(shape, dtype=dtype, device=device)
+            for prefix, shape in shapes.items() for n in ("k", "v")}
 
 
 def forward_prefill(params, tokens, cfg: ModelConfig):
     """One causal forward over a prompt.  tokens: [B, S] ->
-    (last-position logits [B, V] fp32, k, v [L, B, S, KV, hd])."""
-    B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
-    positions = torch.arange(S, device=tokens.device)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = layer(params, i)
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv_project(lp, h, cfg, positions, cfg.rope_theta)
-        ks.append(k)
-        vs.append(v)
-        o = attention(q, k, v, causal=True)
-        x = x + o.reshape(B, S, -1) @ lp["wo"]
-        x = _mlp_block(lp, x, cfg)
+    (last-position logits [B, V] fp32, the :func:`init_cache` cache of
+    max_len S holding the prompt's K/V rows)."""
+    cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], tokens.device)
+    x = _run_stack(params, _embed(params, tokens, cfg), cfg, cache=cache)
     x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
-    return _logits(params, x, cfg), torch.stack(ks), torch.stack(vs)
+    return _logits(params, x, cfg), cache
 
 
-def forward_decode(params, tokens, cache, lengths, cfg: ModelConfig):
+def forward_last_logits(params, tokens, cfg: ModelConfig):
+    """Whole-prompt forward that keeps no cache: tokens [B, S] ->
+    last-position logits [B, V] fp32."""
+    x = _run_stack(params, _embed(params, tokens, cfg), cfg)
+    x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    return _logits(params, x, cfg)
+
+
+def _write_rows(leaf, rows, idx, new, write_ok):
+    """leaf[b, idx[b]] = new[b] for every sequence b, or keep the old row
+    where ``write_ok[b]`` is False."""
+    if write_ok is not None:
+        new = torch.where(write_ok[:, None, None], new, leaf[rows, idx])
+    leaf[rows, idx] = new
+
+
+def forward_decode(params, tokens, cache, lengths, cfg: ModelConfig, write_ok=None):
     """One decode step over a contiguous cache with a per-sequence length.
 
-    tokens: [B] int; cache: ``{"k","v": [L, B, W, KV, hd]}``, written in
-    place at row ``lengths[b]``; lengths: [B] int (valid entries before
-    this token).  Returns (logits [B, V] fp32, cache).
+    tokens: [B] int; cache: the :func:`init_cache` layout, written in place
+    at row ``lengths[b]`` (``lengths[b] % W`` in a rolling window leaf);
+    lengths: [B] int (positions before this token); write_ok: [B] bool
+    (False keeps the sequence's cache rows as they were).  Returns (logits
+    [B, V] fp32, cache).
     """
     B = tokens.shape[0]
     rows = torch.arange(B, device=tokens.device)
     lengths = lengths.long()
     x = _embed(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        lp = layer(params, i)
+    for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
+        kc = cache[spec.cache + "k"][spec.index]
+        vc = cache[spec.cache + "v"][spec.index]
+        W = kc.shape[1]
+        idx = lengths % W if spec.window is not None else lengths
         h = rmsnorm(x[:, None], lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv_project(lp, h, cfg, lengths[:, None], cfg.rope_theta)
-        kc, vc = cache["k"][i], cache["v"][i]
-        kc[rows, lengths] = k[:, 0]
-        vc[rows, lengths] = v[:, 0]
-        o = decode_attention(q, kc, vc, lengths + 1)
+        q, k, v = qkv_project(lp, h, cfg, lengths[:, None], spec.theta)
+        _write_rows(kc, rows, idx, k[:, 0], write_ok)
+        _write_rows(vc, rows, idx, v[:, 0], write_ok)
+        o = decode_attention(q, kc, vc, (lengths + 1).clamp(max=W))
         x = _mlp_block(lp, x + o.reshape(B, -1) @ lp["wo"], cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), cache
@@ -277,8 +370,8 @@ def forward_decode_paged(params, tokens, pages, tables, lengths, cfg: ModelConfi
     positions = lengths.long()[:, None]
     valid = (lengths + 1).to(torch.int32).contiguous()
     x = _embed(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        x = _paged_attn_layer(layer(params, i), x, pages["k"][i], pages["v"][i], tables,
-                              positions, valid, pb, off, cfg, theta=cfg.rope_theta)
+    for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
+        x = _paged_attn_layer(lp, x, pages["k"][spec.flat], pages["v"][spec.flat], tables,
+                              positions, valid, pb, off, cfg, theta=spec.theta)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), pages

@@ -2,6 +2,7 @@
 
 | layer | module | registry |
 |---|---|---|
+| contiguous pool | ``serving/pool.py`` | (decode pool) |
 | paged cache | ``serving/paged.py`` | (block allocator + paged pool) |
 | schedulers | ``serving/schedulers.py`` | ``SCHEDULERS`` |
 | termination | ``serving/termination.py`` | ``TERMINATION`` |
@@ -22,6 +23,7 @@ from repro_torch.serving.engine import (  # noqa: F401
     ServeEngine,
 )
 from repro_torch.serving.paged import BlockAllocator, PagedDecodePool  # noqa: F401
+from repro_torch.serving.pool import DecodePool  # noqa: F401
 from repro_torch.serving.schedulers import SCHEDULERS, get_scheduler  # noqa: F401
 from repro_torch.serving.termination import (  # noqa: F401
     TERMINATION,

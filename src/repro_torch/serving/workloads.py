@@ -3,15 +3,17 @@
 A workload binds a pool to a request type and gives the engine one
 surface: ``admit(request, slot, now)``, ``step(active) -> tokens``,
 ``collect_tick``, ``output(slot)``, plus the paged hooks ``can_admit`` and
-``release``.  Registered:
+``release``.  Registered (requests carry a token prompt, a generation budget and an EOS
+id, and terminate with ``eos_maxlen``):
 
+- ``llm_decode`` — greedy LLM decode over the contiguous
+  :class:`~repro_torch.serving.pool.DecodePool`; serves every ported
+  config, rolling local windows (gemma3) included;
 - ``llm_decode_paged`` — greedy LLM decode over a
-  :class:`~repro_torch.serving.paged.PagedDecodePool`; requests carry a
-  token prompt, a generation budget and an EOS id, and terminate with
-  ``eos_maxlen``.
+  :class:`~repro_torch.serving.paged.PagedDecodePool` (configs without a
+  rolling window).
 
-The reference's contiguous ``llm_decode`` and its ``fixedpoint_solve``
-workloads are not ported yet.
+The reference's ``fixedpoint_solve`` workload is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.serving.paged import PagedDecodePool
+from repro_torch.serving.pool import DecodePool
 
 WORKLOADS: Dict[str, Callable[..., Any]] = {}
 
@@ -50,7 +53,8 @@ def make_workload(name: str, **kwargs):
 
 
 class LLMDecodeWorkload:
-    """Continuous greedy decode over a pool built by :meth:`_make_pool`."""
+    """Continuous greedy decode over a :class:`DecodePool` (subclasses
+    build another pool in :meth:`_make_pool`)."""
 
     default_termination = "eos_maxlen"
     prefill_tokens = 1  # admission's prefill emits the first token
@@ -71,7 +75,10 @@ class LLMDecodeWorkload:
         self.prefills = 0  # admissions served (one prefill each)
 
     def _make_pool(self, cfg, **kw):
-        raise NotImplementedError
+        return DecodePool(cfg, **kw)
+
+    def _prefill(self, req, slot: int) -> int:
+        return self.pool.admit(self.params, req.prompt, slot)
 
     @property
     def cache_bytes(self) -> int:
@@ -88,8 +95,7 @@ class LLMDecodeWorkload:
         return max(1, min(int(req.max_new), self.pool.max_len - plen - 1))
 
     def admit(self, req, slot: int, now: int) -> None:
-        tok0 = self.pool.admit(self.params, req.prompt, slot, max_new=self.clamp_max_new(req))
-        self._out[slot] = [tok0]
+        self._out[slot] = [self._prefill(req, slot)]
         self.prefills += 1
 
     def step(self, active: np.ndarray) -> np.ndarray:
@@ -121,6 +127,9 @@ class PagedLLMWorkload(LLMDecodeWorkload):
     def _make_pool(self, cfg, **kw):
         return PagedDecodePool(cfg, **kw)
 
+    def _prefill(self, req, slot: int) -> int:
+        return self.pool.admit(self.params, req.prompt, slot, max_new=self.clamp_max_new(req))
+
     def can_admit(self, req) -> bool:
         return self.pool.can_admit(np.asarray(req.prompt, np.int32), self.clamp_max_new(req))
 
@@ -130,6 +139,12 @@ class PagedLLMWorkload(LLMDecodeWorkload):
     @property
     def prefix_saved_blocks(self) -> int:
         return self.pool.prefix_saved_blocks
+
+
+@register_workload("llm_decode")
+def llm_decode(**kwargs) -> LLMDecodeWorkload:
+    """Contiguous LLM decode over a :class:`DecodePool`."""
+    return LLMDecodeWorkload(**kwargs)
 
 
 @register_workload("llm_decode_paged")

@@ -128,3 +128,119 @@ def test_int8_reduce_scatter_on_the_card_equals_the_cpu(cuda):
         out = plan.run(x.to(cuda))
         assert mc_ops.mrd_combine.launches > n0
         assert torch.equal(out.cpu(), plan.run(x))
+
+
+# --- flash_attention --------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+
+# (B, Sq, Skv, H, KV, hd, causal, window, q_offset): the gemma3 smoke shape
+# (local and global layers), llama full width, gemma3 full width with and
+# without its 1024 window, hd 128 bidirectional at rep 1, a decode-style
+# offset query block at rep 4
+FLASH_CASES = [
+    (2, 40, 40, 4, 2, 16, True, 16, 0),
+    (2, 40, 40, 4, 2, 16, True, None, 0),
+    (1, 300, 300, 32, 8, 64, True, None, 0),
+    (1, 1100, 1100, 16, 8, 256, True, 1024, 0),
+    (1, 1100, 1100, 16, 8, 256, True, None, 0),
+    (2, 77, 130, 4, 4, 128, False, None, 0),
+    (1, 5, 70, 8, 2, 64, True, 48, 65),
+]
+
+
+def _flash_inputs(seed, B, Sq, Skv, H, KV, hd, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(device, dtype)
+            for sh in ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))]
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, case, dtype, atol):
+    """fp32 within 1e-4 (summation order only; CUDA cores, no TF32); bf16
+    within 2e-2 of the plain version computed in fp32 on the same bf16
+    inputs (P rounded to bf16 before P.V, output rounding to bf16).  Each
+    (token, head) row also within a relative error of 1e-4 (fp32) or 1e-2
+    (bf16) of the plain row: late causal rows are small, an atol alone
+    would not see their errors."""
+    B, Sq, Skv, H, KV, hd, causal, window, q_offset = case
+    q, k, v = _flash_inputs(0, B, Sq, Skv, H, KV, hd, getattr(torch, dtype), cuda)
+    n0 = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == n0 + 1
+    assert out.dtype == q.dtype and out.shape == q.shape and torch.isfinite(out).all()
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window,
+                              q_offset=q_offset)
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+    row_err = ((out.float() - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+    assert row_err <= {"float32": 1e-4, "bfloat16": 1e-2}[dtype], row_err
+
+
+def test_flash_attention_takes_strided_views(cuda):
+    """The model hands the kernel q/k/v views after RoPE and reshapes."""
+    q, k, v = _flash_inputs(1, 2, 33, 33, 8, 4, 64, torch.bfloat16, cuda)
+    out = fa_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k[:, :, :],
+                                 v, causal=True)
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=0)
+
+
+def test_flash_attention_refuses_what_it_does_not_take_on_the_card(cuda):
+    """No fallback to the plain version for a CUDA tensor."""
+    q, k, v = _flash_inputs(2, 1, 8, 8, 4, 2, 32, torch.float32, cuda)  # head dim 32
+    n0 = fa_ops.flash_attention.launches
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, v)
+    q, k, v = _flash_inputs(2, 1, 8, 8, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q.detach(), k, v, window=0)
+    assert fa_ops.flash_attention.launches == n0
+
+
+# --- rmsnorm ----------------------------------------------------------------
+
+from repro_torch.kernels.rmsnorm import ops as rn_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,atol", [
+    ("float32", "float32", 1e-5), ("bfloat16", "bfloat16", 2e-2), ("bfloat16", "float32", 2e-2)])
+@pytest.mark.parametrize("T,d", [(4, 3840), (2048, 3840), (7, 64), (8, 2048), (33, 2048), (5, 8)])
+def test_rmsnorm_matches_plain(cuda, T, d, x_dtype, w_dtype, atol):
+    """fp32 within 1e-5 (summation order of the row's sum of squares);
+    bf16 within 2e-2 (one bf16 rounding of the output)."""
+    rng = np.random.default_rng(T * d)
+    x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32) * 3).to(
+        cuda, getattr(torch, x_dtype))
+    w = torch.from_numpy(rng.standard_normal(d).astype(np.float32) * 0.1).to(
+        cuda, getattr(torch, w_dtype))
+    n0 = rn_ops.rmsnorm.launches
+    out = rn_ops.rmsnorm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert rn_ops.rmsnorm.launches == n0 + 1
+    assert out.dtype == x.dtype and out.shape == x.shape
+    ref = rmsnorm_ref(x.float(), w.float(), 1e-6)
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=atol)
+
+
+def test_rmsnorm_refuses_what_it_does_not_take_on_the_card(cuda):
+    """No fallback to the plain version for a CUDA tensor."""
+    x = torch.randn(4, 64, device=cuda)
+    w = torch.zeros(64, device=cuda)
+    n0 = rn_ops.rmsnorm.launches
+    with pytest.raises(ValueError):
+        rn_ops.rmsnorm(x[:, :60], w[:60])  # d % 8
+    with pytest.raises(ValueError):
+        rn_ops.rmsnorm(x, w.cpu())
+    with pytest.raises(ValueError):
+        rn_ops.rmsnorm(x, w.clone().requires_grad_())
+    with pytest.raises(TypeError):
+        rn_ops.rmsnorm(x.half(), w)
+    assert rn_ops.rmsnorm.launches == n0

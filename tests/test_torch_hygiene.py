@@ -57,6 +57,17 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_workload("llm_decode_paged", cfg=registry.get_smoke_config("llama3.2-1b"))
     assert resolve_device("cpu") == torch.device("cpu")
+    # the contiguous pool and the whole-prompt prefill (gemma3's path)
+    from repro_torch.distributed import serve as dserve
+
+    gemma = registry.get_smoke_config("gemma3-12b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "gemma3-12b", "--smoke", "--continuous", "--workload",
+                    "llm_decode", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_workload("llm_decode", cfg=gemma)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dserve.make_prefill_step(gemma)
 
 
 def test_cli_runs_on_cpu_when_asked(capsys):
@@ -67,6 +78,26 @@ def test_cli_runs_on_cpu_when_asked(capsys):
                     "--device", "cpu"]).summary()
     assert s["completed"] == 3 and s["tokens_out"] > 0
     assert "llm_decode_paged[kernel]" in capsys.readouterr().out
+
+
+def test_gemma3_cli_runs_on_cpu_when_asked(capsys):
+    """The contiguous workload serves gemma3's rolling local windows; the
+    prompts are longer than the smoke config's 16-token window."""
+    from repro_torch.launch import serve
+
+    s = serve.main(["--arch", "gemma3-12b", "--smoke", "--continuous", "--workload",
+                    "llm_decode", "--dp", "3", "--slots", "2", "--requests", "3",
+                    "--min-prompt-len", "17", "--prompt-len", "24", "--gen", "8",
+                    "--device", "cpu"]).summary()
+    assert s["completed"] == 3 and s["tokens_out"] > 0 and s["forced_at_capacity"] == 0
+    assert "llm_decode x fcfs" in capsys.readouterr().out
+
+
+def test_the_import_scan_covers_every_kernel_package():
+    """The scan lists files by walking the package: new kernel packages
+    are in it without being named anywhere."""
+    kernels = {p.parent.name for p in PORT_FILES if p.name == "ops.py"}
+    assert kernels >= {"flash_attention", "mrd_combine", "paged_attention", "rmsnorm"}
 
 
 def test_train_entry_point_raises_without_a_card():

@@ -147,7 +147,8 @@ def test_contiguous_decode_matches_prefill(setup):
     attention paths agree with each other)."""
     cfg, _, params, _, _ = setup
     prompt = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 7)))
-    last, k, v = transformer.forward_prefill(params, prompt, cfg)
+    last, rows = transformer.forward_prefill(params, prompt, cfg)
+    k, v = rows["k"], rows["v"]
     cache = transformer.init_cache(cfg, 2, 8, device="cpu")
     for i in range(7):
         logits, cache = transformer.forward_decode(
