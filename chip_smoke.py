@@ -22,9 +22,15 @@ Phases, in order (any failure ends the run with a non-zero exit):
    shapes, fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain version
    in fp32), and every (token, head) row within a relative error of 1e-4
    (fp32) or 1e-2 (bf16) of the plain row; ``rmsnorm`` at the rows and
-   widths of both served models and the smoke configs ([32768, 3840],
-   [4, 3840], [8, 2048], [64, 2048], [40, 64]), fp32 (1e-5) and bf16
-   (2e-2);
+   widths of the served models and the smoke configs ([32768, 3840],
+   [4, 3840], [8, 2048], [64, 2048], [40, 64], [32768, 4096], [8, 4096]),
+   fp32 (1e-5) and bf16 (2e-2); ``selective_scan`` in its materialized
+   form at the reference kernel test's shapes and [1, 2048, 8192, 16], fp32
+   and bf16 inputs, and in its fused form (the model's) at [1, 4096, 8192,
+   16] from a nonzero h0 and at the decode shape [8, 1, 8192, 16], writing
+   the state over h0 as a decode tick does: y and h_final within 1e-5 +
+   1e-4 |plain| (both sides compute in fp32), and the batches whose
+   write_ok is False keep their state bit for bit;
 4. the serving path at full width: ``repro_torch.launch.serve`` serves 16
    requests of llama3.2-1b (bf16, random weights from the seed) with
    block-paged decode through the kernel and MRD-agreed retirement across
@@ -52,6 +58,17 @@ Phases, in order (any failure ends the run with a non-zero exit):
    batch 1 (the reference's ``prefill_32k`` length; its global batch of 32
    cut to 1 for one card): wall time, tokens/s, peak memory and a profile
    (device busy time; attention, GEMM and rmsnorm shares);
+4g. falcon-mamba-7b at full width (bf16, random weights from the seed, 64
+   mamba1 layers, d 4096, d_inner 8192, state 16): the contiguous
+   ``llm_decode`` workload serves 16 requests of 1024-8192-token prompts
+   and budgets up to 64 at dp 3 with 8 slots; every request must retire,
+   ``selective_scan`` must have launched 64 times a forward (admissions
+   and decode ticks), ``rmsnorm`` 65 times a forward, and no other kernel;
+   then a profile of steady decode ticks with every slot busy;
+4h. its whole-prompt ``make_prefill_step`` at 32,768 tokens, batch 1 (the
+   reference's ``prefill_32k``, cut to batch 1 as for gemma3): 64
+   ``selective_scan`` and 65 ``rmsnorm`` launches; wall time, tokens/s,
+   peak memory and device time by class;
 5. correctness: one fp32 full-width paged decode step through the kernel
    against the gather path (logits atol 1e-3), and the smoke config served
    on the card and on the CPU, from the same weights, with identical
@@ -65,18 +82,19 @@ Phases, in order (any failure ends the run with a non-zero exit):
    argmax, and the kernel's last logits no further from either plain
    version (``flash_scan``, materialized ``full``) than twice the two plain
    versions' spread, in fp32 logits within 5e-2 and the same argmax; the
-   gemma3 smoke
-   config served on the card and on the CPU from the same weights,
-   identical tokens and ticks;
+   gemma3 and falcon-mamba smoke configs served on the card and on the CPU
+   from the same weights, identical tokens and ticks;
 6. timings with CUDA events after warm-up, L2 flushed before each launch:
    each kernel and its plain version, beside a PyTorch call that computes
    the same function where there is one (a yardstick only; the port never
    calls it): ``scaled_dot_product_attention`` on gathered views beside
    ``paged_attention``, causal or under a boolean window mask beside
    ``flash_attention``, ``rms_norm`` with weight ``1 + w`` beside
-   ``rmsnorm``; no single PyTorch call computes ``mrd_combine``; and the
-   least time the card could take (bytes at 3.35 TB/s, operations at the
-   bf16 or fp32 peak);
+   ``rmsnorm``; no single PyTorch call computes ``mrd_combine`` or
+   ``selective_scan``; and the least time the card could take (bytes at
+   3.35 TB/s, operations at the bf16 or fp32 peak, exponentials at the
+   special function units' 16 a clock an SM at the card's largest SM
+   clock);
 7. the kernels line, then the device line as the last line of stdout.
 """
 
@@ -125,6 +143,19 @@ GEMMA_SERVE_ARGV = [
     "--gen", "32", "--device", "cuda",
 ]
 PREFILL_LEN = 32768  # the reference's prefill_32k sequence length
+FALCON_SERVE_ARGV = [
+    "--arch", "falcon-mamba-7b", "--continuous", "--workload", "llm_decode", "--dp", "3",
+    "--slots", "8", "--requests", "16", "--min-prompt-len", "1024", "--prompt-len", "8192",
+    "--gen", "64", "--max-len", "8320", "--device", "cuda",
+]
+# selective_scan, materialized form (B, S, D, N): the reference kernel test's
+# shapes, then falcon-mamba-7b's channels and state over 2048 steps
+SCAN_CASES = [(1, 64, 16, 8), (2, 128, 32, 16), (1, 96, 64, 4), (1, 2048, 8192, 16)]
+# fused form (the model's): a 4096-token prompt of falcon-mamba-7b from a
+# nonzero state, and an 8-slot decode tick (one step from the state)
+FUSED_SCAN_CASES = [(1, 4096, 8192, 16), (8, 1, 8192, 16)]
+MUFU_EXP_PER_CLOCK = 16  # exponentials a clock an SM (sm_90 special function units)
+H100_SMS = 132
 # (B, S, H, KV, hd, window), causal: gemma3-12b global and local layers
 # (4096 tokens, then a served prompt's length that ends in a partial tile),
 # llama3.2-1b (2048 tokens, then a served prompt's length), the gemma3 smoke
@@ -138,9 +169,11 @@ FLASH_CASES = [(1, 4096, 16, 8, 256, None), (1, 4096, 16, 8, 256, 1024),
 # (outputs ~0.03 at 4096 keys) with any error below the atol
 FLASH_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # [T, d]: gemma3-12b (a 32k prefill's rows, a 4-slot decode tick), llama3.2-1b
-# (an 8-slot decode tick, a 64-token prompt), the smoke configs; fp32 and
+# (an 8-slot decode tick, a 64-token prompt), the smoke configs, falcon-mamba-7b
+# (a 32k prefill's rows, an 8-slot decode tick); fp32 and
 # bf16 rows of these widths cover every template instance the paths launch
-RMSNORM_CASES = [(32768, 3840), (4, 3840), (8, 2048), (64, 2048), (40, 64)]
+RMSNORM_CASES = [(32768, 3840), (4, 3840), (8, 2048), (64, 2048), (40, 64), (32768, 4096),
+                 (8, 4096)]
 # (S, H, KV, hd, nb, bs): the served full-width shape first, then the smoke
 # shape, then rep 1 with 16-token blocks (every template family once)
 KERNEL_CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16)]
@@ -268,6 +301,35 @@ def flash_inputs(B, S, H, KV, hd, dtype, seed):
             for sh in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
 
 
+def scan_inputs(B, S, D, N, dtype, seed):
+    """The materialized scan's inputs, drawn on the card: decay in (0, 1) (a
+    well-conditioned recurrence, like exp(dt A)), bx ~ 0.1 N(0, 1), cs ~
+    N(0, 1), all in ``dtype``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    decay = torch.sigmoid(torch.randn(B, S, D, N, generator=gen, device="cuda")).to(dtype)
+    bx = (torch.randn(B, S, D, N, generator=gen, device="cuda") * 0.1).to(dtype)
+    return decay, bx, torch.randn(B, S, N, generator=gen, device="cuda").to(dtype)
+
+
+def fused_scan_inputs(B, S, D, N, dtype, seed):
+    """The mamba1 block's scan inputs at its scales, drawn on the card: dt =
+    softplus(N(-4, 1)) fp32, x, Bs, Cs ~ N(0, 1) in ``dtype``, A = -(1..N)
+    for every channel (``-exp(A_log)`` at init), h0 ~ 0.5 N(0, 1) fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, D, generator=gen, device="cuda") - 4)
+    x = torch.randn(B, S, D, generator=gen, device="cuda").to(dtype)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda").expand(D, N).contiguous()
+    Bs, Cs = (torch.randn(B, S, N, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    return dt, x, A, Bs, Cs, torch.randn(B, D, N, generator=gen, device="cuda") * 0.5
+
+
+def scan_err(out, ref) -> tuple:
+    """(max abs error, elements outside |out - ref| <= 1e-5 + 1e-4 |ref|):
+    kernel and plain version both compute in fp32 from the same inputs."""
+    delta = (out - ref).abs()
+    return delta.max().item(), int((delta > 1e-5 + 1e-4 * ref.abs()).sum())
+
+
 def sdpa_ms(q, k, v, mask, iters: int):
     """Time of ``scaled_dot_product_attention`` (a yardstick: the port never
     calls it) on q [B,S,H,hd], k/v [B,S,KV,hd]: causal, or under a boolean
@@ -304,6 +366,7 @@ def kernel_classes(per_rep: dict, busy_ms: float) -> dict:
     """Device time per rep by class: the port's kernels, GEMMs, the rest."""
     kernels = {"flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
                "rmsnorm": ("rmsnorm_kernel",), "mrd_combine": ("mrd_combine_kernel",),
+               "selective_scan": ("selective_scan_kernel",),
                "GEMM": ("nvjet", "gemm", "cutlass", "sm90_")}
     classes = dict.fromkeys([*kernels, "other"], 0.0)
     for name, (ms, _) in per_rep.items():
@@ -336,6 +399,11 @@ def main() -> int:
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_fused_ref,
+        selective_scan_ref,
+    )
     from repro_torch.launch import serve, train
     from repro_torch.models import transformer
     from repro_torch.models.attention import attention
@@ -349,6 +417,11 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"gpu: {smi}")
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
+    log(f"largest SM clock {max_sm_mhz:.0f} MHz")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -356,21 +429,24 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     sources = {"paged_attention": ops.SOURCE, "mrd_combine": mc_ops.SOURCE,
-               "flash_attention": fa_ops.SOURCE, "rmsnorm": rn_ops.SOURCE}
+               "flash_attention": fa_ops.SOURCE, "rmsnorm": rn_ops.SOURCE,
+               "selective_scan": ss_ops.SOURCE}
+    # the instances whose -Xptxas=-v lines are printed: flash_attention's hd
+    # 256 (gemma3's), selective_scan's fused N = 16 (falcon-mamba's)
+    shown = {"flash_attention": ("ILi256E",), "selective_scan": ("ILb1E", "Li16E")}
     with ThreadPoolExecutor(len(sources)) as pool:
         futs = {name: pool.submit(build.build_shared_library, src, name)
                 for name, src in sources.items()}
         built = {name: f.result() for name, f in futs.items()}
-    for lib_ops in (ops, mc_ops, fa_ops, rn_ops):
+    for lib_ops in (ops, mc_ops, fa_ops, rn_ops, ss_ops):
         lib_ops.library()
     for name, so in built.items():
         log(f"built {so.relative_to(ROOT)}")
         entry = ""
         for line in so.with_suffix(".log").read_text().splitlines():
             entry = line if "Compiling entry" in line else entry
-            # flash_attention: its hd 256 instantiations (gemma3's) only
-            if ("registers" in line or "spill" in line) and (
-                    name != "flash_attention" or "ILi256E" in entry):
+            if ("registers" in line or "spill" in line) and all(
+                    m in entry for m in shown.get(name, ())):
                 log(f"  ptxas ({name}): {line.strip()}")
     log(f"build of {len(built)} kernels: {time.perf_counter() - t:.1f} s")
     t = phase("build", t)
@@ -443,6 +519,35 @@ def main() -> int:
             if not ok:
                 raise SystemExit(f"rmsnorm kernel disagrees with its plain version: {err}")
             del x, w, out, ref
+    for form, cases in (("materialized", SCAN_CASES), ("fused", FUSED_SCAN_CASES)):
+        for case in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                kept = True
+                if form == "fused":  # from a nonzero state, in place, as a decode tick calls
+                    # it: odd batches have write_ok False and must keep their state
+                    args = fused_scan_inputs(*case, dtype, seed=case[1] + 1)
+                    h0, ok = args[5], torch.arange(case[0], device="cuda") % 2 == 0
+                    state = h0.clone()
+                    y, h = ss_ops.selective_scan_fused(*args[:5], h0=state, h_final=state,
+                                                       write_ok=ok)
+                    ry, rh = selective_scan_fused_ref(*args[:5], h0=h0)
+                    torch.cuda.synchronize()
+                    kept = h is state and torch.equal(state[~ok], h0[~ok])
+                    h, rh = h[ok], rh[ok]
+                else:
+                    args = scan_inputs(*case, dtype, seed=case[1])
+                    (y, h), (ry, rh) = (fn(*args) for fn in (
+                        ss_ops.selective_scan, selective_scan_ref))
+                torch.cuda.synchronize()
+                (ey, oy), (eh, oh) = scan_err(y, ry), scan_err(h, rh)
+                errs[(form, case, dtype)] = max(ey, eh)
+                log(f"  selective_scan ({form}) vs plain B,S,D,N={case} {str(dtype)[6:]} "
+                    f"inputs: y max abs err {ey:.3e}, h_final {eh:.3e}; elements outside "
+                    f"1e-5 + 1e-4 |plain|: {oy} and {oh}; write_ok-False rows kept: {kept}")
+                if oy or oh or not kept or y.shape != ry.shape or h.shape != rh.shape:
+                    raise SystemExit(f"selective_scan kernel disagrees with its plain version "
+                                     f"({form}, {case}, {dtype})")
+                del args, y, h, ry, rh
     torch.cuda.empty_cache()
     t = phase("kernel-vs-plain", t)
 
@@ -451,14 +556,15 @@ def main() -> int:
     serve.main(SERVE_ARGV + ["--requests", "2", "--gen", "4", "--device", "cuda"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    all_ops = (ops.paged_attention, mc_ops.mrd_combine, fa_ops.flash_attention, rn_ops.rmsnorm)
+    all_ops = (ops.paged_attention, mc_ops.mrd_combine, fa_ops.flash_attention, rn_ops.rmsnorm,
+               ss_ops.selective_scan)
     for op in all_ops:
         op.launches = 0
     eng = serve.main(SERVE_ARGV + ["--device", "cuda"])
     launches = ops.paged_attention.launches
     llama_fa, llama_rn = fa_ops.flash_attention.launches, rn_ops.rmsnorm.launches
-    if mc_ops.mrd_combine.launches:
-        raise SystemExit("the serving path launched mrd_combine")
+    if mc_ops.mrd_combine.launches or ss_ops.selective_scan.launches:
+        raise SystemExit("the llama serving path launched mrd_combine or selective_scan")
     s = eng.summary()
     n_layers = registry.get_config("llama3.2-1b").n_layers
     admissions = eng.workload.prefills
@@ -512,7 +618,8 @@ def main() -> int:
     train_launches = mc_ops.mrd_combine.launches
     # under autograd the forward takes the plain attention and rmsnorm
     # (neither kernel has a backward)
-    if ops.paged_attention.launches or fa_ops.flash_attention.launches or rn_ops.rmsnorm.launches:
+    if (ops.paged_attention.launches or fa_ops.flash_attention.launches
+            or rn_ops.rmsnorm.launches or ss_ops.selective_scan.launches):
         raise SystemExit("the training path launched a serving kernel")
     targs = train.build_parser().parse_args(TRAIN_ARGV)
     layout, _ = step_lib.zero1_layout(rec["state"]["params"], targs.dp)
@@ -577,8 +684,8 @@ def main() -> int:
         op.launches = 0
     geng = serve.main(GEMMA_SERVE_ARGV)
     fa_launches, rn_launches = fa_ops.flash_attention.launches, rn_ops.rmsnorm.launches
-    if ops.paged_attention.launches or mc_ops.mrd_combine.launches:
-        raise SystemExit("gemma3 serving launched paged_attention or mrd_combine")
+    if ops.paged_attention.launches or mc_ops.mrd_combine.launches or ss_ops.selective_scan.launches:
+        raise SystemExit("gemma3 serving launched paged_attention, mrd_combine or selective_scan")
     gs, gwl = geng.summary(), geng.workload
     gcfg = gwl.cfg
     n_fwd = gwl.prefills + gs["decode_ticks"]
@@ -693,6 +800,104 @@ def main() -> int:
     log(f"device memory allocated after gemma3: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     t = phase("gemma3-prefill-vs-flash-scan", t)
 
+    # 4g. falcon-mamba-7b served at full width through the contiguous pool
+    # (after a short warm-up run that initializes the GEMM libraries)
+    left = torch.cuda.memory_allocated() / 2**30
+    if left > 1.0:
+        raise SystemExit(f"{left:.3f} GiB still allocated before falcon-mamba")
+    serve.main(FALCON_SERVE_ARGV + ["--requests", "2", "--min-prompt-len", "16",
+                                    "--prompt-len", "64", "--gen", "4"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for op in all_ops:
+        op.launches = 0
+    feng = serve.main(FALCON_SERVE_ARGV)
+    ss_launches, f_rn_launches = ss_ops.selective_scan.launches, rn_ops.rmsnorm.launches
+    stray = {op.__name__: op.launches for op in (ops.paged_attention, fa_ops.flash_attention,
+                                                  mc_ops.mrd_combine) if op.launches}
+    fs, fwl = feng.summary(), feng.workload
+    fcfg = fwl.cfg
+    n_fwd = fwl.prefills + fs["decode_ticks"]
+    log(f"falcon-mamba-7b served {fs['completed']}/16 requests ({fwl.prefills} admissions, "
+        f"prompts {sorted(len(r.prompt) for r in serve.make_requests(fcfg, 16, 8192, 64, 0, 1024))}"
+        f"), {fs['decode_ticks']} decode ticks")
+    log(f"  selective_scan launches {ss_launches} (= {fcfg.n_layers} layers x {n_fwd} forwards "
+        f"expected) | rmsnorm launches {f_rn_launches} (= {fcfg.n_layers + 1} x {n_fwd} "
+        f"expected) | other kernels {stray or 'none'}")
+    log(f"  tok/s {fs['throughput_tok_s']:.1f} | TTFT p50 {fs['ttft_p50_ms']:.2f} ms | "
+        f"TPOT p50 {fs['tpot_p50_ms']:.3f} ms | state {fwl.cache_bytes / 2**30:.3f} GiB | "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if fs["completed"] != 16 or fs["forced_at_capacity"]:
+        raise SystemExit(f"not every falcon-mamba request retired naturally: {fs}")
+    if ss_launches != fcfg.n_layers * n_fwd or not ss_launches:
+        raise SystemExit(f"selective_scan launches {ss_launches} != layers x forwards")
+    if f_rn_launches != (fcfg.n_layers + 1) * n_fwd:
+        raise SystemExit(f"rmsnorm launches {f_rn_launches} != 65 x forwards")
+    if stray:
+        raise SystemExit(f"falcon-mamba serving launched {stray}")
+    for r in feng.results.values():
+        if not (1 <= r.n_tokens and ((r.output >= 0) & (r.output < fcfg.vocab)).all()):
+            raise SystemExit(f"falcon-mamba request {r.id}: bad output {r.output}")
+    falcon_stats = {k: fs[k] for k in ("completed", "decode_ticks", "tokens_out",
+                                       "throughput_tok_s", "ttft_p50_ms", "tpot_p50_ms",
+                                       "wall_s")}
+    falcon_stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    t = phase("falcon-serve-full-width", t)
+
+    wall_ms, busy_ms, per_tick = profile_decode(
+        fwl, serve.make_requests(fcfg, 8, 8192, 64, seed=1, min_prompt_len=1024))
+    log(f"falcon-mamba steady decode tick, 8 slots: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
+    for name, (ms_tick, n_tick) in top_kernels(per_tick):
+        log(f"  {ms_tick * 1e3:9.2f} us/tick {n_tick:6.1f} launches/tick  {name[:110]}")
+    tick_classes = kernel_classes(per_tick, busy_ms)
+    falcon_stats.update(tick_wall_ms=wall_ms, tick_busy_ms=busy_ms,
+                        tick_idle_share=1 - busy_ms / wall_ms, tick_busy_ms_by_class=tick_classes)
+    t = phase("falcon-profile-decode", t)
+
+    # 4h. its whole-prompt prefill at 32k tokens, batch 1 (the reference's
+    # prefill_32k, falcon-mamba among its long-context archs; batch 32 cut
+    # to 1 for one card, as for gemma3)
+    params = fwl.params
+    prefill = dserve.make_prefill_step(fcfg)
+    tokens = torch.randint(0, fcfg.vocab, (1, PREFILL_LEN), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(7))
+    prefill(params, {"tokens": tokens[:, :2048]})  # warm-up
+    del feng, fwl
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for op in all_ops:
+        op.launches = 0
+    t1 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    pf_wall = time.perf_counter() - t1
+    pf_peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = tuple(op.launches for op in all_ops)
+    log(f"falcon-mamba prefill of {PREFILL_LEN} tokens, batch 1: {pf_wall * 1e3:.1f} ms wall, "
+        f"{PREFILL_LEN / pf_wall:.1f} tokens/s, peak device memory {pf_peak:.3f} GiB; "
+        f"selective_scan launches {ss_ops.selective_scan.launches}, rmsnorm launches "
+        f"{rn_ops.rmsnorm.launches}")
+    if not (logits.shape == (1, fcfg.vocab) and torch.isfinite(logits).all()):
+        raise SystemExit(f"falcon-mamba 32k prefill logits {tuple(logits.shape)} are not finite")
+    if counts != (0, 0, 0, fcfg.n_layers + 1, fcfg.n_layers):
+        raise SystemExit(f"the falcon-mamba 32k prefill's launches {counts} != 65 rmsnorm and "
+                         "64 selective_scan")
+    pf_busy, per_pf = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
+    log(f"  profiled prefill: device busy {pf_busy:.1f} ms ({pf_busy / (pf_wall * 1e3):.3f} of "
+        f"the unprofiled wall time)")
+    for name, (ms_p, n_p) in top_kernels(per_pf, 10):
+        log(f"  {ms_p:10.3f} ms {n_p:6.0f} launches  {name[:110]}")
+    falcon_prefill_stats = {"tokens": PREFILL_LEN, "wall_ms": pf_wall * 1e3,
+                            "tokens_per_s": PREFILL_LEN / pf_wall, "peak_gib": pf_peak,
+                            "busy_ms": pf_busy,
+                            "busy_ms_by_class": kernel_classes(per_pf, pf_busy)}
+    del params, prefill, logits, tokens
+    torch.cuda.empty_cache()
+    log(f"device memory allocated after falcon-mamba: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    t = phase("falcon-prefill-32k", t)
+
     # 5a. fp32 full width: kernel path vs gather path on the same state
     cfg32 = registry.override(registry.get_config("llama3.2-1b"),
                               param_dtype="float32", compute_dtype="float32")
@@ -762,6 +967,29 @@ def main() -> int:
         raise SystemExit("the gemma3 smoke serve on the card launched no flash_attention kernel")
     log(f"gemma3 smoke serve (llm_decode) at dp 3: {len(res['cpu'])} requests, card (kernels) "
         f"== cpu (plain) token for token and tick for tick")
+
+    # 5b''. falcon-mamba smoke config through the contiguous pool, card (the
+    # selective-scan and rmsnorm kernels, fp32) against CPU (plain versions),
+    # same weights
+    fsmoke = registry.get_smoke_config("falcon-mamba-7b")
+    cpu_params = transformer.init_params(fsmoke, torch.Generator().manual_seed(0), "cpu")
+    res = {}
+    n0 = ss_ops.selective_scan.launches
+    for dev in ("cuda", "cpu"):
+        wl = make_workload("llm_decode", cfg=fsmoke, slots=3, max_len=48, max_prompt_len=24,
+                           params=to_device(cpu_params, dev), device=dev)
+        reqs = serve.make_requests(fsmoke, 6, 24, 20, seed=0)
+        res[dev] = ServeEngine(wl, ServeConfig(dp=3)).run(reqs)
+    for i, r in res["cpu"].items():
+        g = res["cuda"][i]
+        if not (np.array_equal(g.output, r.output)
+                and (g.admit_tick, g.retire_tick) == (r.admit_tick, r.retire_tick)):
+            raise SystemExit(f"falcon-mamba smoke request {i}: card {g} != cpu {r}")
+    if ss_ops.selective_scan.launches == n0:
+        raise SystemExit("the falcon-mamba smoke serve on the card launched no selective_scan")
+    log(f"falcon-mamba smoke serve (llm_decode) at dp 3: {len(res['cpu'])} requests, card "
+        f"({ss_ops.selective_scan.launches - n0} selective_scan launches) == cpu (plain) token "
+        f"for token and tick for tick")
 
     # 5c. smoke config trained with the compressed sync on the card (kernel)
     # and on the CPU (plain version): same weights (drawn once on the CPU)
@@ -908,6 +1136,34 @@ def main() -> int:
         f"{rn_plain_ms:.4f} ms | F.rms_norm(weight=1+w) {rn_lib_ms:.4f} ms | bound "
         f"{rn_bound_ms:.4f} ms ({rn_bytes} bytes at 3.35 TB/s; ops bound {rn_o_ms:.4f} ms)")
     del x, w, w1
+    torch.cuda.empty_cache()
+
+    # selective_scan, fused (the model's form), at the 32k prefill's shape of
+    # falcon-mamba-7b, bf16 activations (the served type), no h0; the plain
+    # version materializes decay and bx (2 x 17.2 GB) and loops over S
+    B, S, D, N = 1, PREFILL_LEN, fcfg.d_inner, fcfg.ssm_state
+    dt, x, A, Bs, Cs, _ = fused_scan_inputs(B, S, D, N, torch.bfloat16, seed=17)
+    ss_ms = time_ms(lambda: ss_ops.selective_scan_fused(dt, x, A, Bs, Cs), iters=10, warmup=2)
+    ss_plain_ms = time_ms(lambda: selective_scan_fused_ref(dt, x, A, Bs, Cs), iters=2, warmup=1)
+    # dt, x, Bs, Cs and A read once; y and h_final written once
+    ss_bytes = (B * S * D * (4 + 2) + 2 * B * S * N * 2 + D * N * 4
+                + B * S * D * 4 + B * D * N * 4)
+    ss_bytes_ms = ss_bytes / HBM_BYTES_PER_S * 1e3
+    # one exponential a (step, channel, state) on the special function units;
+    # fp32 arithmetic: dt * A, (dt x) * B and two multiply-adds a state, dt * x
+    # a channel
+    ss_exp_ms = B * S * D * N / (MUFU_EXP_PER_CLOCK * H100_SMS * max_sm_mhz * 1e6) * 1e3
+    ss_flop_ms = (6 * B * S * D * N + B * S * D) / FP32_FLOPS * 1e3
+    ss_ops_ms = max(ss_exp_ms, ss_flop_ms)
+    ss_bound_ms = max(ss_bytes_ms, ss_ops_ms)
+    log(f"timings selective_scan (fused) B,S,D,N=({B}, {S}, {D}, {N}) bf16 x/B/C: kernel "
+        f"{ss_ms:.4f} ms | plain (materialized, a loop over S) {ss_plain_ms:.4f} ms | bound "
+        f"{ss_bound_ms:.4f} ms ({B * S * D * N:.4e} exponentials at {MUFU_EXP_PER_CLOCK} a clock "
+        f"x {H100_SMS} SMs x {max_sm_mhz:.0f} MHz = {ss_exp_ms:.4f} ms; fp32 flop at 67 TFLOP/s "
+        f"{ss_flop_ms:.4f} ms; {ss_bytes} bytes at 3.35 TB/s = {ss_bytes_ms:.4f} ms) | no single "
+        f"PyTorch call computes it")
+    del dt, x, A, Bs, Cs
+    torch.cuda.empty_cache()
     t = phase("timings", t)
 
     # 7. results
@@ -917,6 +1173,8 @@ def main() -> int:
     log(json.dumps({"train": train_stats}))
     log(json.dumps({"gemma3_serve": gemma_stats}))
     log(json.dumps({"gemma3_prefill_32k": prefill_stats}))
+    log(json.dumps({"falcon_serve": falcon_stats}))
+    log(json.dumps({"falcon_prefill_32k": falcon_prefill_stats}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
@@ -962,6 +1220,18 @@ def main() -> int:
         "bound_ms": rn_bound_ms,
         "bound_by": "bytes" if rn_b_ms >= rn_o_ms else "operations",
         "library_ms": rn_lib_ms,
+    }, {
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/selective_scan/kernel.py:43",
+        "launches": ss_launches,
+        "max_abs_err": errs[("fused", FUSED_SCAN_CASES[0], torch.bfloat16)],
+        "ms": ss_ms,
+        "plain_ms": ss_plain_ms,
+        "bound_ms": ss_bound_ms,
+        "bound_by": "bytes" if ss_bytes_ms >= ss_ops_ms else "operations",
+        "library_ms": None,
     }]}))
     log(f"gpu: {smi}")
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Architecture registry (port of ``repro.configs.registry``).
 
-Only the archs the port can serve and train are registered: the full
-config of each and its reduced smoke config, with the reference's numbers.
+Only the archs the port can serve (and, dense ones, train) are registered:
+the full config of each and its reduced smoke config, with the reference's
+numbers.
 """
 
 from __future__ import annotations
@@ -47,6 +48,21 @@ _register(
         n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
         pattern_local=2, pattern_global=1, local_window=16,
         rope_theta=1e4, rope_theta_global=1e6, tie_embeddings=True,
+        param_dtype="float32", compute_dtype="float32",
+    ),
+)
+
+_register(
+    # [arXiv:2410.05355] mamba1, attention-free
+    ModelConfig(
+        name="falcon-mamba-7b", family="ssm", n_layers=64, d_model=4096,
+        n_heads=0, n_kv_heads=0, d_ff=0, vocab=65024,
+        head_dim=1, ssm_state=16, ssm_version=1, tie_embeddings=True,
+    ),
+    ModelConfig(
+        name="falcon-mamba-7b", family="ssm", n_layers=2, d_model=64,
+        n_heads=0, n_kv_heads=0, d_ff=0, vocab=256,
+        head_dim=1, ssm_state=8, ssm_version=1, tie_embeddings=True,
         param_dtype="float32", compute_dtype="float32",
     ),
 )

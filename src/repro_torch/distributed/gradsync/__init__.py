@@ -50,6 +50,10 @@ def make_train_step(cfg, tcfg, *, dp: int, device="cuda"):
         raise NotImplementedError(
             f"{cfg.name}: training a grouped local/global stack is not ported yet "
             "(serving is)")
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: training the mamba1 family is not ported yet (serving is; the "
+            "selective-scan kernel has no backward)")
     return get(tcfg.grad_sync)(cfg, tcfg, dp=dp, device=device)
 
 

@@ -8,7 +8,8 @@ plain functions over tensors.
 - The contiguous decode pool (``serving.pool.DecodePool``):
   :func:`make_pool_decode_step` advances every slot one token at its own
   length, and :func:`make_slot_prefill_step` admits a prompt into one slot
-  of the cache.  Rolling local windows (gemma3) live here.
+  of the cache.  Rolling local windows (gemma3) and the mamba1 state
+  (falcon-mamba) live here.
 - The block-paged pool (``serving.paged.PagedDecodePool``), dense caches
   without a rolling window only: ``attn="kernel"`` (the reference's
   ``"pallas"``) reads K/V through the block table inside the
@@ -17,8 +18,9 @@ plain functions over tensors.
   scatters back the one row each slot wrote.
 
 Admission prefill runs one causal forward over the prompt (the flash
-kernel on the card) where the reference scans its decode step over the
-padded prompt; the cache rows and tokens are the same.
+kernel, or one selective scan a mamba1 layer, on the card) where the
+reference scans its decode step over the padded prompt; the cache rows,
+the state and the tokens are the same.
 """
 
 from __future__ import annotations
@@ -34,14 +36,16 @@ from repro_torch.models.config import ModelConfig
 # dense family's cache is just K and V.
 PAGED_LEAVES = ("k", "v")
 # cache leaf -> its batch (slot) axis in the transformer.init_cache layout
-CACHE_BATCH_AXIS = {"k": 1, "v": 1, "global_k": 1, "global_v": 1, "local_k": 2, "local_v": 2}
+CACHE_BATCH_AXIS = {"k": 1, "v": 1, "global_k": 1, "global_v": 1, "local_k": 2, "local_v": 2,
+                    "h": 1, "conv": 1}
 
 
 def make_prefill_step(cfg: ModelConfig, device="cuda"):
     """``prefill_step(params, batch) -> last-position logits [B, V]``: the
     whole-prompt forward over ``batch["tokens"]`` [B, S] (moved to
     ``device``, where the params live), keeping no cache: on the card every
-    attention runs the flash kernel and every norm the rmsnorm kernel."""
+    attention runs the flash kernel, every mamba1 scan the selective-scan
+    kernel and every norm the rmsnorm kernel."""
     device = resolve_device(device)
 
     def prefill_step(params, batch):
@@ -72,8 +76,9 @@ def make_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int):
     ``slot_prefill(params, prompt [plen], cache, slot) -> last_logits
     [V]``: one causal forward over the prompt; the slot's cache slice gets
     the prompt's K/V rows (a rolling window its last rows, at p % W) and
-    zeros past them, so nothing of the previous request survives.  The
-    other slots are untouched and keep decoding across admissions.
+    zeros past them, or the prompt's whole mamba1 state, so nothing of the
+    previous request survives.  The other slots are untouched and keep
+    decoding across admissions.
     """
 
     def slot_prefill(params, prompt, cache, slot):
@@ -84,6 +89,9 @@ def make_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int):
         for n, leaf in cache.items():
             ax = CACHE_BATCH_AXIS[n]
             dst, src = leaf.select(ax, slot), rows[n].select(ax, 0)
+            if n in transformer.STATE_LEAVES:  # a state, not rows of positions
+                dst.copy_(src)
+                continue
             w = src.shape[ax]  # after select, the sequence axis sits at ax
             dst.narrow(ax, 0, w).copy_(src)
             dst.narrow(ax, w, dst.shape[ax] - w).zero_()
@@ -103,8 +111,11 @@ def validate_pageable(cfg: ModelConfig, max_len: int) -> None:
     """Raise unless this config's decode cache can be block-paged: a dense
     cache with no rolling window (a modular write index breaks the
     position -> block mapping).  The reference's rules and messages."""
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r} has no ported paged decode path")
+    if cfg.family == "ssm":
+        raise ValueError(
+            f"family {cfg.family!r} has no pageable KV cache (recurrent state "
+            "is O(1) per slot already) — use the contiguous pool"
+        )
     if cfg.pattern_local:
         raise ValueError(
             f"{cfg.name}: local-attention layers write their cache "

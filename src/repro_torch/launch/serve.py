@@ -7,19 +7,24 @@ path).
   python -m repro_torch.launch.serve --arch gemma3-12b --continuous \\
       --workload llm_decode --dp 3 --slots 4 --requests 8 \\
       --min-prompt-len 1024 --prompt-len 8192 --gen 32
+  python -m repro_torch.launch.serve --arch falcon-mamba-7b --continuous \\
+      --workload llm_decode --dp 3 --slots 8 --requests 16 \\
+      --min-prompt-len 1024 --prompt-len 8192 --gen 64 --max-len 8320
 
 serve the full-width config with random bf16 weights made from ``--seed``
 on the card; ``--smoke`` takes the reduced config.  ``llm_decode`` keeps
-a contiguous cache per slot (rolling local windows included);
-``llm_decode_paged`` a block-paged one (configs without a rolling window).
-Every admission prefills its prompt in one causal forward (the
-flash-attention kernel on the card).  ``--dp`` replicas are simulated:
-they agree on every retirement through the MRD plan, as the reference's
-continuous path does.  ``--device`` defaults to ``cuda`` and raises when
-there is no card; ``--device cpu`` runs on the CPU, where every kernel is
-its plain PyTorch version.  The reference's static batch path, its
-fixed-point workload, tenants, elastic resize and telemetry are not
-ported yet.
+a contiguous cache per slot (rolling local windows and the mamba1 state
+included); ``llm_decode_paged`` a block-paged one (attention caches
+without a rolling window).  Every admission prefills its prompt in one
+causal forward (on the card: the flash-attention kernel, or one
+selective-scan kernel launch a mamba1 layer); a mamba1 decode tick runs
+the same kernel one step from the slot's state.  ``--dp`` replicas are
+simulated: they agree on every retirement through the MRD plan, as the
+reference's continuous path does.  ``--device`` defaults to ``cuda`` and
+raises when there is no card; ``--device cpu`` runs on the CPU, where
+every kernel is its plain PyTorch version.  The reference's static batch
+path, its fixed-point workload, tenants, elastic resize and telemetry are
+not ported yet.
 """
 
 from __future__ import annotations

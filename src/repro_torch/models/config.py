@@ -1,9 +1,12 @@
-"""Model configuration (port of ``repro.models.config``, dense family only).
+"""Model configuration (port of ``repro.models.config``: the dense and
+mamba1 ``ssm`` families).
 
 The reference dataclass covers every family (moe, ssm, hybrid, vlm,
 audio); the port so far serves and trains dense decoders, including the
-grouped local/global stack of gemma3, so it keeps the fields that family
-reads and refuses the others rather than ignoring them.
+grouped local/global stack of gemma3, and serves the attention-free
+mamba1 stack of falcon-mamba, so it keeps the fields those families read
+and refuses the others (mamba2 and hybrid included) rather than ignoring
+them.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ ATTN_IMPLS = ("auto", "full", "flash_scan", "kernel")
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense only (the other families are not ported yet)
+    family: str  # dense | ssm (mamba1); the other families are not ported yet
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,6 +35,10 @@ class ModelConfig:
     local_window: Optional[int] = None  # gemma3 local layers
     pattern_local: int = 0  # gemma3: local layers per group
     pattern_global: int = 0  # gemma3: global layers per group
+    ssm_state: int = 0  # ssm (mamba1)
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_version: int = 1  # 1 = mamba1 (the only version ported)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "silu"  # SwiGLU
@@ -43,10 +50,17 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
-        if self.family != "dense":
+        if self.family not in ("dense", "ssm"):
             raise ValueError(
-                f"{self.name}: family {self.family!r} is not ported yet (dense only)"
+                f"{self.name}: family {self.family!r} is not ported yet (dense and ssm only)"
             )
+        if self.family == "ssm":
+            if self.ssm_state <= 0:
+                raise ValueError(f"{self.name}: ssm family needs ssm_state > 0")
+            if self.ssm_version != 1:
+                raise ValueError(f"{self.name}: mamba{self.ssm_version} is not ported "
+                                 "(mamba1 only)")
+            return
         if self.act != "silu":
             raise ValueError(f"{self.name}: act {self.act!r} is not ported (silu only)")
         if self.n_heads % self.n_kv_heads:
@@ -77,9 +91,25 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(1, -(-self.d_model // 16))  # ceil(d/16), mamba1 default
+
     def n_params(self) -> int:
         """Analytic total parameter count."""
         d, f, V, hd = self.d_model, self.d_ff, self.vocab, self.head_dim
         emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":  # the reference's count, which leaves out dt_bias [di]
+            di, st, dtr = self.d_inner, self.ssm_state, self.dt_rank
+            per = (
+                d * 2 * di + self.ssm_conv * di + di
+                + di * (dtr + 2 * st) + dtr * di + di * st + di
+                + di * d + d
+            )
+            return emb + self.n_layers * per + d
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.qk_dim * d
         return emb + self.n_layers * (attn + 3 * d * f + 2 * d) + d

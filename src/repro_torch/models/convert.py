@@ -1,14 +1,16 @@
 """Carry the reference's weights and train state across to the port.
 
 The reference's ``transformer.init_params`` tree (dense family, plain or
-gemma3's grouped stack), already turned into numpy arrays by the caller,
-maps onto the port's parameter dict so that both packages compute the
-same function.  Both keep each stack's layers on leading axes (``layers``
-[L, ...]; ``local_layers`` [G, P, ...] and ``global_layers`` [G, ...]),
-the ``x @ W`` layout of the attention and SwiGLU matrices, norm weights
-``w`` under the ``(1 + w)`` convention, and a tied head read as
-``embed.T``; only the nesting differs (the reference groups ``attn``/
-``mlp`` sub-dicts per layer).
+gemma3's grouped stack, or the mamba1 stack), already turned into numpy
+arrays by the caller, maps onto the port's parameter dict so that both
+packages compute the same function.  Both keep each stack's layers on
+leading axes (``layers`` [L, ...]; ``local_layers`` [G, P, ...] and
+``global_layers`` [G, ...]), the ``x @ W`` layout of the attention,
+SwiGLU and mamba1 matrices, norm weights ``w`` under the ``(1 + w)``
+convention, and a tied head read as ``embed.T``; only the nesting differs
+(the reference groups ``attn``/``mlp``/``mamba`` sub-dicts per layer).
+mamba1's ``A_log`` and ``D`` stay fp32 whatever the param dtype, as in
+the reference.
 
 :func:`reference_tree` gives the port's params (or gradients) the
 reference's nesting, whose flatten order (sorted keys) decides the
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import ssm
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import STACKS
 
@@ -41,9 +44,13 @@ LAYER_PATHS = {
 }
 
 
+SSM_LAYER_PATHS = {"ln": ("ln",), **{k: ("mamba", k) for k in (
+    "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D", "out_proj")}}
+
+
 def _nest(flat: Mapping[str, Any]) -> dict[str, Any]:
     nested: dict[str, Any] = {}
-    for k, path in LAYER_PATHS.items():
+    for k, path in (SSM_LAYER_PATHS if "in_proj" in flat else LAYER_PATHS).items():
         node = nested
         for part in path[:-1]:
             node = node.setdefault(part, {})
@@ -58,7 +65,8 @@ def _unnest(nested: Mapping[str, Any]) -> dict[str, Any]:
             node = node[part]
         return node
 
-    return {k: get(path) for k, path in LAYER_PATHS.items()}
+    paths = SSM_LAYER_PATHS if "mamba" in nested else LAYER_PATHS
+    return {k: get(path) for k, path in paths.items()}
 
 
 def reference_tree(params: Mapping[str, Any]) -> dict[str, Any]:
@@ -92,7 +100,8 @@ def params_from_reference(np_params: Mapping[str, Any], cfg: ModelConfig,
             if tuple(np.shape(leaf)[:len(lead)]) != lead:
                 raise ValueError(f"{stack} leaf {name}: leading axes {np.shape(leaf)} "
                                  f"do not start with {lead}")
-        out[stack] = {k: _tensor(v, dtype, device) for k, v in src[stack].items()}
+        out[stack] = {k: _tensor(v, torch.float32 if k in ssm.FP32_LEAVES else dtype, device)
+                      for k, v in src[stack].items()}
     if not cfg.tie_embeddings:
         out["lm_head"] = _tensor(np_params["lm_head"], dtype, device)
     return out

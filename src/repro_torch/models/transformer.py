@@ -1,17 +1,20 @@
-"""Dense decoder stacks for training and serving (port of
-``repro.models.transformer``, dense family): the plain stack (llama) and
-gemma3's grouped stack of G groups of (``pattern_local`` local layers with
-a ``local_window``-token window and RoPE theta ``rope_theta``, then one
-global layer with no window and theta ``rope_theta_global``).
+"""Decoder stacks for training and serving (port of
+``repro.models.transformer``, dense and mamba1 families): the plain dense
+stack (llama), gemma3's grouped stack of G groups of (``pattern_local``
+local layers with a ``local_window``-token window and RoPE theta
+``rope_theta``, then one global layer with no window and theta
+``rope_theta_global``), and the attention-free mamba1 stack of
+falcon-mamba (``family="ssm"``, serving only).
 
 Parameters are a plain dict of tensors in the reference's ``x @ W``
 layout, each layer's tensors stacked on leading layer axes::
 
     embed [V, d], final_norm [d], (lm_head [d, V] unless tied),
-    layers [L, ...]                       (plain stack)
+    layers [L, ...]                       (plain stack, dense or ssm)
     local_layers [G, P, ...], global_layers [G, ...]   (grouped stack)
-    each: wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d], ln1/ln2 [d],
-          w1/w3 [d, f], w2 [f, d]
+    dense: wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d], ln1/ln2 [d],
+           w1/w3 [d, f], w2 [f, d]
+    ssm:   ln [d] and the mamba1 leaves of ``models.ssm``
 
 Interfaces:
   init_params(cfg, generator, device)                         -> params
@@ -41,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.models import ssm
 from repro_torch.models.attention import attention, decode_attention, qkv_project
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -53,6 +57,8 @@ from repro_torch.models.layers import (
 
 # stacked parameter trees and the number of leading layer axes of each
 STACKS = {"layers": 1, "local_layers": 2, "global_layers": 1}
+# the mamba1 cache: a recurrent state per layer and slot, not rows per position
+STATE_LEAVES = ("h", "conv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +133,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
-    if cfg.pattern_local:
+    if cfg.family == "ssm":
+        layers = ssm.mamba1_init(generator, (cfg.n_layers,), cfg, dtype)
+        layers["ln"] = torch.zeros((cfg.n_layers, cfg.d_model), dtype=dtype, device=device)
+        params["layers"] = layers
+    elif cfg.pattern_local:
         G = cfg.n_groups
         params["local_layers"] = _layer_stack(generator, (G, cfg.pattern_local), cfg, dtype,
                                               device)
@@ -179,10 +189,29 @@ def _prefill_rows(leaf, rows):
     leaf.copy_(torch.roll(rows[:, S - W:], shifts=(S - W) % W, dims=1))
 
 
+def _mamba_block(lp, x, cfg):
+    """One full-sequence mamba1 layer: x [B, S, d] -> (x, its final state)."""
+    y, state = ssm.mamba1_apply(lp, rmsnorm(x, lp["ln"], cfg.norm_eps), cfg)
+    return x + y, state
+
+
+def _run_mamba_stack(params, x, cfg, *, cache):
+    for i, lp in enumerate(layer_params(params, cfg)):
+        x, state = _mamba_block(lp, x, cfg)
+        if cache is not None:
+            for n in STATE_LEAVES:
+                cache[n][i].copy_(state[n])
+    return x
+
+
 def _run_stack(params, x, cfg, *, remat: str = "none", cache=None):
     """Every layer over the full sequence x [B, S, d]; with ``cache`` (the
-    :func:`init_cache` layout for max_len S) each layer's K/V rows are kept
-    there."""
+    :func:`init_cache` layout for max_len S) each layer's K/V rows (mamba1:
+    its final state) are kept there."""
+    if cfg.family == "ssm":
+        if remat != "none":  # the scan kernel has no backward: ssm training is not ported
+            raise ValueError(f"{cfg.name}: remat {remat!r} is not ported for the ssm family")
+        return _run_mamba_stack(params, x, cfg, cache=cache)
     positions = torch.arange(x.shape[1], device=x.device)
     for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
         if remat == "full":  # recompute in the backward pass; no cache
@@ -244,8 +273,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     with W = min(max_len, sliding_window).  Grouped stack: ``local_k``/
     ``local_v`` [G, P, batch, min(max_len, local_window), KV, hd] and
     ``global_k``/``global_v`` [G, batch, max_len, KV, hd].  A windowed
-    leaf is a rolling buffer: position p lives at row p % W."""
+    leaf is a rolling buffer: position p lives at row p % W.  mamba1: the
+    recurrent state, ``h`` [L, batch, di, N] fp32 and ``conv`` [L, batch,
+    K-1, di] in the compute type, whatever ``max_len``."""
     device = resolve_device(device)
+    if cfg.family == "ssm":
+        L = cfg.n_layers
+        state = ssm.mamba1_init_state(cfg, L * batch, dtype_of(cfg.compute_dtype), device)
+        return {n: t.unflatten(0, (L, batch)) for n, t in state.items()}
     tail = (cfg.n_kv_heads, cfg.head_dim)
     if cfg.pattern_local:
         G, Wl = cfg.n_groups, min(max_len, cfg.local_window or max_len)
@@ -261,7 +296,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 def forward_prefill(params, tokens, cfg: ModelConfig):
     """One causal forward over a prompt.  tokens: [B, S] ->
     (last-position logits [B, V] fp32, the :func:`init_cache` cache of
-    max_len S holding the prompt's K/V rows)."""
+    max_len S holding the prompt's K/V rows, or its mamba1 state)."""
     cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], tokens.device)
     x = _run_stack(params, _embed(params, tokens, cfg), cfg, cache=cache)
     x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
@@ -284,15 +319,28 @@ def _write_rows(leaf, rows, idx, new, write_ok):
     leaf[rows, idx] = new
 
 
+def _decode_mamba_stack(params, x, cache, cfg, write_ok):
+    """The mamba1 layers of one decode step; each layer's state in the cache
+    is updated in place, except where ``write_ok`` is False."""
+    for i, lp in enumerate(layer_params(params, cfg)):
+        state = {n: cache[n][i] for n in STATE_LEAVES}
+        x = x + ssm.mamba1_decode(lp, rmsnorm(x, lp["ln"], cfg.norm_eps), state, cfg, write_ok)
+    return x
+
+
 def forward_decode(params, tokens, cache, lengths, cfg: ModelConfig, write_ok=None):
     """One decode step over a contiguous cache with a per-sequence length.
 
     tokens: [B] int; cache: the :func:`init_cache` layout, written in place
-    at row ``lengths[b]`` (``lengths[b] % W`` in a rolling window leaf);
-    lengths: [B] int (positions before this token); write_ok: [B] bool
-    (False keeps the sequence's cache rows as they were).  Returns (logits
-    [B, V] fp32, cache).
+    at row ``lengths[b]`` (``lengths[b] % W`` in a rolling window leaf; the
+    mamba1 state replaced); lengths: [B] int (positions before this token);
+    write_ok: [B] bool (False keeps the sequence's cache rows or state as
+    they were).  Returns (logits [B, V] fp32, cache).
     """
+    if cfg.family == "ssm":
+        x = _decode_mamba_stack(params, _embed(params, tokens, cfg), cache, cfg, write_ok)
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return _logits(params, x, cfg), cache
     B = tokens.shape[0]
     rows = torch.arange(B, device=tokens.device)
     lengths = lengths.long()

@@ -4,7 +4,10 @@ A fixed number of slots over the contiguous decode cache
 (``transformer.init_cache``) with per-slot lengths, and slot recycling: a
 retired slot is re-used by prefilling the next request into that slot's
 cache slice while every other slot keeps decoding.  Unlike the block-paged
-pool, it holds rolling local windows (gemma3), which cannot be paged.
+pool, it holds rolling local windows (gemma3) and the mamba1 state
+(falcon-mamba), which are not paged.  ``max_len`` bounds a slot's
+sequence in both (the reference's rule), though an SSM's state does not
+grow with it.
 """
 
 from __future__ import annotations

@@ -8,10 +8,11 @@ id, and terminate with ``eos_maxlen``):
 
 - ``llm_decode`` — greedy LLM decode over the contiguous
   :class:`~repro_torch.serving.pool.DecodePool`; serves every ported
-  config, rolling local windows (gemma3) included;
+  config, rolling local windows (gemma3) and the mamba1 state
+  (falcon-mamba) included;
 - ``llm_decode_paged`` — greedy LLM decode over a
-  :class:`~repro_torch.serving.paged.PagedDecodePool` (configs without a
-  rolling window).
+  :class:`~repro_torch.serving.paged.PagedDecodePool` (dense configs
+  without a rolling window).
 
 The reference's ``fixedpoint_solve`` workload is not ported yet.
 """

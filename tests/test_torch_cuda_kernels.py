@@ -244,3 +244,127 @@ def test_rmsnorm_refuses_what_it_does_not_take_on_the_card(cuda):
     with pytest.raises(TypeError):
         rn_ops.rmsnorm(x.half(), w)
     assert rn_ops.rmsnorm.launches == n0
+
+
+# --- selective_scan ---------------------------------------------------------
+
+from repro_torch.kernels.selective_scan import ops as ss_ops  # noqa: E402
+from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
+    selective_scan_fused_ref,
+    selective_scan_ref,
+)
+
+# (B, S, D, N): the reference's kernel test shapes, then S across several
+# staged chunks with a ragged last one, and D not a multiple of a block's
+# channels
+SCAN_CASES = [(1, 64, 16, 8), (2, 128, 32, 16), (1, 96, 64, 4), (2, 300, 512, 16),
+              (3, 77, 80, 16)]
+# (B, S, D, N): the smoke config's prompt, the full width's decode tick (one
+# step from the state), a prompt at full width with a ragged last chunk
+FUSED_CASES = [(2, 40, 128, 8), (8, 1, 8192, 16), (1, 333, 8192, 16)]
+
+
+def _close(out, ref):
+    """|out - ref| <= 1e-5 + 1e-4 |ref|: both sides compute in fp32 from the
+    same inputs (FMA contraction, expf and the order of the N-way sum)."""
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    bad = ((out - ref).abs() > 1e-5 + 1e-4 * ref.abs()).sum().item()
+    assert bad == 0, f"{bad} elements off, max abs err {(out - ref).abs().max().item()}"
+
+
+def _scan_inputs(seed, B, S, D, N, dtype, device):
+    rng = np.random.default_rng(seed)
+    decay = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, S, D, N))))
+    arrs = [decay, rng.standard_normal((B, S, D, N)) * 0.1, rng.standard_normal((B, S, N)),
+            rng.standard_normal((B, D, N)) * 0.5]
+    return [torch.from_numpy(a.astype(np.float32)).to(device, dtype if i < 3 else torch.float32)
+            for i, a in enumerate(arrs)]
+
+
+def _fused_inputs(seed, B, S, D, N, dtype, device):
+    """The block's inputs at model-like scales: dt = softplus(N(-4, 1)) fp32,
+    x, Bs, Cs ~ N(0, 1) in ``dtype``, A = -(1..N), h0 ~ 0.5 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, D)) - 4.0))
+    A = -np.broadcast_to(np.arange(1, N + 1), (D, N))
+    f32 = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+           for a in (dt, A, rng.standard_normal((B, D, N)) * 0.5)]
+    typed = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(device, dtype)
+             for sh in ((B, S, D), (B, S, N), (B, S, N))]
+    return f32[0], typed[0], f32[1], typed[1], typed[2], f32[2]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_selective_scan_matches_plain(cuda, case, dtype):
+    """The materialized form (the Pallas kernel's contract), with and
+    without h0, against the plain version on the same inputs."""
+    decay, bx, cs, h0 = _scan_inputs(0, *case, getattr(torch, dtype), cuda)
+    for init in (None, h0):
+        n0 = ss_ops.selective_scan.launches
+        y, h = ss_ops.selective_scan(decay, bx, cs, h0=init)
+        torch.cuda.synchronize()
+        assert ss_ops.selective_scan.launches == n0 + 1
+        ry, rh = selective_scan_ref(decay, bx, cs, h0=init)
+        _close(y, ry)
+        _close(h, rh)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_selective_scan_fused_matches_plain(cuda, case, dtype):
+    """The fused form (the model's path: decay and bx formed in the kernel)
+    from a nonzero h0 against the fused plain version."""
+    dt, x, A, Bs, Cs, h0 = _fused_inputs(1, *case, getattr(torch, dtype), cuda)
+    n0 = ss_ops.selective_scan.launches
+    y, h = ss_ops.selective_scan_fused(dt, x, A, Bs, Cs, h0=h0)
+    torch.cuda.synchronize()
+    assert ss_ops.selective_scan.launches == n0 + 1
+    ry, rh = selective_scan_fused_ref(dt, x, A, Bs, Cs, h0=h0)
+    _close(y, ry)
+    _close(h, rh)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES[:2])
+def test_selective_scan_fused_updates_the_state_in_place(cuda, case):
+    """A decode tick's call: ``h_final`` is ``h0`` itself and a batch where
+    ``write_ok`` is False keeps its state; y and the written rows hold to
+    the plain version, the kept rows are bit for bit the old state."""
+    dt, x, A, Bs, Cs, h0 = _fused_inputs(3, *case, torch.bfloat16, cuda)
+    write_ok = torch.arange(case[0], device=cuda) % 2 == 0
+    ry, rh = selective_scan_fused_ref(dt, x, A, Bs, Cs, h0=h0)
+    state = h0.clone()
+    n0 = ss_ops.selective_scan.launches
+    y, h = ss_ops.selective_scan_fused(dt, x, A, Bs, Cs, h0=state, h_final=state,
+                                       write_ok=write_ok)
+    torch.cuda.synchronize()
+    assert ss_ops.selective_scan.launches == n0 + 1 and h is state
+    _close(y, ry)
+    _close(state[write_ok], rh[write_ok])
+    assert torch.equal(state[~write_ok], h0[~write_ok])
+
+
+def test_selective_scan_refuses_what_it_does_not_take_on_the_card(cuda):
+    """No fallback to the plain version for a CUDA tensor."""
+    decay, bx, cs, h0 = _scan_inputs(2, 1, 8, 16, 8, torch.float32, cuda)
+    dt, x, A, Bs, Cs, fh0 = _fused_inputs(2, 1, 8, 16, 8, torch.float32, cuda)
+    n0 = ss_ops.selective_scan.launches
+    with pytest.raises(ValueError):  # N = 2
+        ss_ops.selective_scan(decay[..., :2].contiguous(), bx[..., :2].contiguous(),
+                              cs[..., :2].contiguous())
+    with pytest.raises(TypeError):
+        ss_ops.selective_scan(decay.half(), bx.half(), cs.half())
+    with pytest.raises(ValueError):
+        ss_ops.selective_scan(decay, bx, cs, h0=h0.cpu())
+    with pytest.raises(ValueError):
+        ss_ops.selective_scan(decay, bx.clone().requires_grad_(), cs)
+    with pytest.raises(TypeError):
+        ss_ops.selective_scan_fused(dt.bfloat16(), x, A, Bs, Cs)
+    with pytest.raises(ValueError):
+        ss_ops.selective_scan_fused(dt, x, A, Bs, Cs, h0=fh0[:, :8])
+    with pytest.raises(ValueError):
+        ss_ops.selective_scan_fused(dt, x, A, Bs, Cs, h0=fh0, h_final=fh0.cpu())
+    with pytest.raises(ValueError):
+        ss_ops.selective_scan_fused(dt, x, A, Bs, Cs, h0=fh0,
+                                    write_ok=torch.ones(1, dtype=torch.uint8, device=cuda))
+    assert ss_ops.selective_scan.launches == n0

@@ -1,8 +1,8 @@
 """The port's contiguous ``llm_decode`` serving against the reference's.
 
 The reference ``ServeEngine`` serves four requests on ``llm_decode``
-(fp32 smoke configs: llama3.2-1b, and gemma3-12b with its 16-token local
-window) at dp 1 and dp 3, with 3 slots so a slot is recycled, staggered
+(fp32 smoke configs: llama3.2-1b, gemma3-12b with its 16-token local
+window, and falcon-mamba-7b with its recurrent state) at dp 1 and dp 3, with 3 slots so a slot is recycled, staggered
 arrivals, prompts of 6-24 tokens and budgets that carry every gemma3
 request past the window.  The port's engine serves the same requests on
 the CPU from the converted weights: every request's output token ids and
@@ -67,7 +67,7 @@ def _port(arch, dp, workload="llm_decode", **kw):
 
 
 @pytest.mark.parametrize("dp", [1, 3])
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-12b", "falcon-mamba-7b"])
 def test_tokens_and_ticks_match_reference_engine(arch, dp):
     ref_res, _ = _reference(arch, dp)
     wl, eng, res = _port(arch, dp)

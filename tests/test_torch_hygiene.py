@@ -68,6 +68,15 @@ def test_entry_points_raise_without_a_card():
         make_workload("llm_decode", cfg=gemma)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dserve.make_prefill_step(gemma)
+    # falcon-mamba (the mamba1 state in the contiguous pool)
+    falcon = registry.get_smoke_config("falcon-mamba-7b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--continuous", "--workload",
+                    "llm_decode", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_workload("llm_decode", cfg=falcon)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dserve.make_prefill_step(falcon)
 
 
 def test_cli_runs_on_cpu_when_asked(capsys):
@@ -93,11 +102,27 @@ def test_gemma3_cli_runs_on_cpu_when_asked(capsys):
     assert "llm_decode x fcfs" in capsys.readouterr().out
 
 
+def test_falcon_cli_runs_on_cpu_when_asked(capsys):
+    """The contiguous workload serves falcon-mamba's recurrent state; the
+    CPU runs the selective scan's plain version, no kernel."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.launch import serve
+
+    n0 = ss_ops.selective_scan.launches
+    s = serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--continuous", "--workload",
+                    "llm_decode", "--dp", "3", "--slots", "2", "--requests", "3",
+                    "--prompt-len", "12", "--gen", "8", "--device", "cpu"]).summary()
+    assert s["completed"] == 3 and s["tokens_out"] > 0 and s["forced_at_capacity"] == 0
+    assert ss_ops.selective_scan.launches == n0
+    assert "falcon-mamba-7b smoke, cpu" in capsys.readouterr().out
+
+
 def test_the_import_scan_covers_every_kernel_package():
     """The scan lists files by walking the package: new kernel packages
     are in it without being named anywhere."""
     kernels = {p.parent.name for p in PORT_FILES if p.name == "ops.py"}
-    assert kernels >= {"flash_attention", "mrd_combine", "paged_attention", "rmsnorm"}
+    assert kernels >= {"flash_attention", "mrd_combine", "paged_attention", "rmsnorm",
+                       "selective_scan"}
 
 
 def test_train_entry_point_raises_without_a_card():
