@@ -10,7 +10,8 @@ Phases, in order (any failure ends the run with a non-zero exit):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build every CUDA kernel of the serving and training paths from
-   ``src/`` (one ``nvcc`` per source, all started together);
+   ``src/`` (one ``nvcc`` per source, all started together); the bf16
+   flash kernel's hd 256 instance must not spill;
 3. each kernel against its plain PyTorch version on the card:
    ``paged_attention`` at the served shapes and the smoke shapes, fp32
    (atol 1e-4) and bf16 (atol 2e-2 against the plain version in fp32);
@@ -18,9 +19,12 @@ Phases, in order (any failure ends the run with a non-zero exit):
    largest full-width gradient bucket's [3, len] rows, fp32 and bf16,
    equal bit for bit; ``flash_attention`` at the gemma3-12b shape (4096
    and 1755 tokens, 16 heads, 8 KV heads, hd 256, causal, no window and
-   window 1024), the llama3.2-1b shape (2048 and 37 tokens) and the smoke
-   shapes, fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain version
-   in fp32), and every (token, head) row within a relative error of 1e-4
+   window 1024), the llama3.2-1b shape (2048 and 37 tokens), the smoke
+   shapes and the edges of the bf16 kernel's tiling at every hd x rep
+   instance (partial q and key tiles, windows that cut a key tile,
+   q_offset, bidirectional, queries that see no key and must write 0),
+   fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain version in
+   fp32), and every (token, head) row within a relative error of 1e-4
    (fp32) or 1e-2 (bf16) of the plain row; ``rmsnorm`` at the rows and
    widths of the served models and the smoke configs ([32768, 3840],
    [4, 3840], [8, 2048], [64, 2048], [40, 64], [32768, 4096], [8, 4096]),
@@ -156,14 +160,26 @@ SCAN_CASES = [(1, 64, 16, 8), (2, 128, 32, 16), (1, 96, 64, 4), (1, 2048, 8192, 
 FUSED_SCAN_CASES = [(1, 4096, 8192, 16), (8, 1, 8192, 16)]
 MUFU_EXP_PER_CLOCK = 16  # exponentials a clock an SM (sm_90 special function units)
 H100_SMS = 132
-# (B, S, H, KV, hd, window), causal: gemma3-12b global and local layers
-# (4096 tokens, then a served prompt's length that ends in a partial tile),
-# llama3.2-1b (2048 tokens, then a served prompt's length), the gemma3 smoke
-# config's local and global layers
-FLASH_CASES = [(1, 4096, 16, 8, 256, None), (1, 4096, 16, 8, 256, 1024),
-               (1, 1755, 16, 8, 256, None), (1, 1755, 16, 8, 256, 1024),
-               (1, 2048, 32, 8, 64, None), (1, 37, 32, 8, 64, None),
-               (1, 40, 4, 2, 16, 16), (1, 40, 4, 2, 16, None)]
+# (B, Sq, Skv, H, KV, hd, causal, window, q_offset): gemma3-12b global and
+# local layers (4096 tokens, then a served prompt's length that ends in a
+# partial tile), llama3.2-1b (2048 tokens, then a served prompt's length),
+# the gemma3 smoke config's local and global layers; then the edges of the
+# bf16 kernel's tiling at every other hd x rep instance: q tiles (128 rows
+# / rep) and key tiles (64 keys at hd 256, else 128) that end partway,
+# windows that cut through a key tile, q_offset with a window, bidirectional
+# attention, and query blocks whose rows see no key (they must write 0)
+FLASH_CASES = [(1, 4096, 4096, 16, 8, 256, True, None, 0),
+               (1, 4096, 4096, 16, 8, 256, True, 1024, 0),
+               (1, 1755, 1755, 16, 8, 256, True, None, 0),
+               (1, 1755, 1755, 16, 8, 256, True, 1024, 0),
+               (1, 2048, 2048, 32, 8, 64, True, None, 0), (1, 37, 37, 32, 8, 64, True, None, 0),
+               (1, 40, 40, 4, 2, 16, True, 16, 0), (1, 40, 40, 4, 2, 16, True, None, 0),
+               (1, 150, 150, 2, 2, 16, True, 40, 0), (2, 70, 90, 8, 2, 16, False, 33, 0),
+               (1, 260, 200, 4, 4, 64, True, None, 60), (2, 129, 129, 8, 4, 64, True, 100, 0),
+               (1, 200, 100, 4, 2, 64, True, 64, 90), (2, 77, 130, 4, 4, 128, False, None, 0),
+               (1, 333, 333, 8, 4, 128, True, 200, 0), (1, 100, 257, 8, 2, 128, True, 150, 157),
+               (1, 517, 517, 4, 4, 256, True, 300, 0), (1, 90, 200, 16, 4, 256, False, None, 0),
+               (1, 40, 70, 4, 1, 256, True, 16, 300)]
 # flash_attention per-row tolerance: the largest |out - ref| / |ref| over
 # the hd-vectors of one (token, head); an atol alone passes late causal rows
 # (outputs ~0.03 at 4096 keys) with any error below the atol
@@ -294,11 +310,11 @@ def combine_inputs(n: int, dtype, seed: int):
     return x, q, s
 
 
-def flash_inputs(B, S, H, KV, hd, dtype, seed):
+def flash_inputs(B, Sq, Skv, H, KV, hd, dtype, seed):
     """q, k, v ~ N(0, 1) drawn on the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(sh, generator=gen, device="cuda").to(dtype)
-            for sh in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+            for sh in ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))]
 
 
 def scan_inputs(B, S, D, N, dtype, seed):
@@ -335,36 +351,35 @@ def sdpa_ms(q, k, v, mask, iters: int):
     calls it) on q [B,S,H,hd], k/v [B,S,KV,hd]: causal, or under a boolean
     ``mask``.  Fused backends only (the math backend would materialize the
     scores); GQA through ``enable_gqa`` where a fused backend takes it, else
-    on K/V repeated to every head.  Returns (ms, how)."""
+    on K/V repeated to every head.  Returns (ms, how); (nan, the error) when
+    no fused backend takes the call."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     kw = dict(attn_mask=mask, is_causal=mask is None)
+    what = "causal" if mask is None else "boolean window mask"
     fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
              SDPBackend.CUDNN_ATTENTION]
     with sdpa_kernel(fused):
         try:
             sdpa(qt, kt, vt, enable_gqa=True, **kw)
-            how = "enable_gqa"
+            how, gqa = "enable_gqa", {"enable_gqa": True}
         except RuntimeError:
             rep = q.shape[2] // k.shape[2]
             kt, vt = kt.repeat_interleave(rep, dim=1), vt.repeat_interleave(rep, dim=1)
-            how = "K/V repeated to every head"
-        gqa = {"enable_gqa": True} if how == "enable_gqa" else {}
+            how, gqa = "K/V repeated to every head", {}
+            try:
+                sdpa(qt, kt, vt, **kw)
+            except RuntimeError as e:
+                return float("nan"), f"{what}: no fused backend takes it ({str(e)[:300]})"
         ms = time_ms(lambda: sdpa(qt, kt, vt, **gqa, **kw), iters=iters, warmup=2)
-    return ms, f"{'causal' if mask is None else 'boolean window mask'}, {how}"
-
-
-def visible_pairs(S: int, window) -> int:
-    """(query, key) pairs a causal attention over S tokens computes."""
-    w = S if window is None else min(window, S)
-    return w * (w + 1) // 2 + (S - w) * w
+    return ms, f"{what}, {how}"
 
 
 def kernel_classes(per_rep: dict, busy_ms: float) -> dict:
     """Device time per rep by class: the port's kernels, GEMMs, the rest."""
-    kernels = {"flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
+    kernels = {"flash_attention": ("flash_wgmma_kernel", "flash_f32_kernel"),
                "rmsnorm": ("rmsnorm_kernel",), "mrd_combine": ("mrd_combine_kernel",),
                "selective_scan": ("selective_scan_kernel",),
                "GEMM": ("nvjet", "gemm", "cutlass", "sm90_")}
@@ -392,7 +407,7 @@ def main() -> int:
     from repro_torch.distributed import step as step_lib
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref, visible_mask
     from repro_torch.kernels.mrd_combine import ops as mc_ops
     from repro_torch.kernels.mrd_combine.ref import mrd_combine_ref
     from repro_torch.kernels.paged_attention import ops
@@ -431,9 +446,10 @@ def main() -> int:
     sources = {"paged_attention": ops.SOURCE, "mrd_combine": mc_ops.SOURCE,
                "flash_attention": fa_ops.SOURCE, "rmsnorm": rn_ops.SOURCE,
                "selective_scan": ss_ops.SOURCE}
-    # the instances whose -Xptxas=-v lines are printed: flash_attention's hd
-    # 256 (gemma3's), selective_scan's fused N = 16 (falcon-mamba's)
-    shown = {"flash_attention": ("ILi256E",), "selective_scan": ("ILb1E", "Li16E")}
+    # the instances whose -Xptxas=-v lines are printed: flash_attention's bf16
+    # hd 256 (gemma3's), selective_scan's fused N = 16 (falcon-mamba's)
+    shown = {"flash_attention": ("flash_wgmma_kernelILi256E",),
+             "selective_scan": ("ILb1E", "Li16E")}
     with ThreadPoolExecutor(len(sources)) as pool:
         futs = {name: pool.submit(build.build_shared_library, src, name)
                 for name, src in sources.items()}
@@ -448,6 +464,11 @@ def main() -> int:
             if ("registers" in line or "spill" in line) and all(
                     m in entry for m in shown.get(name, ())):
                 log(f"  ptxas ({name}): {line.strip()}")
+                # the bf16 flash kernel at hd 256 must not spill (its consumer
+                # warpgroups run at 240 registers a thread after setmaxnreg)
+                if name == "flash_attention" and "spill" in line and (
+                        "0 bytes spill stores, 0 bytes spill loads" not in line):
+                    raise SystemExit(f"flash_attention's hd 256 instance spills: {line.strip()}")
     log(f"build of {len(built)} kernels: {time.perf_counter() - t:.1f} s")
     t = phase("build", t)
 
@@ -483,25 +504,31 @@ def main() -> int:
                 raise SystemExit(f"mrd_combine kernel differs from its plain version: {err}")
             del x, q, sc, out, ref
     for case in FLASH_CASES:
-        B, S, H, KV, hd, window = case
+        B, Sq, Skv, H, KV, hd, causal, window, q_offset = case
+        masks = dict(causal=causal, window=window, q_offset=q_offset)
+        # a query that sees no key writes 0 (the plain softmax would average v)
+        seen = visible_mask(Sq, Skv, causal, window, q_offset, device="cuda").any(-1)
         for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            q, k, v = flash_inputs(B, S, H, KV, hd, dtype, seed=S + hd)
-            out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
-            ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window)
+            q, k, v = flash_inputs(B, Sq, Skv, H, KV, hd, dtype, seed=Sq + hd)
+            out = fa_ops.flash_attention(q, k, v, **masks)
+            ref = flash_attention_ref(q.float(), k.float(), v.float(), **masks)
             torch.cuda.synchronize()
             if out.dtype != dtype or out.shape != ref.shape:
                 raise SystemExit(f"flash_attention output {out.dtype} {tuple(out.shape)} is wrong")
-            delta = out.float() - ref
-            err = delta.abs().max().item()
-            row_err = (delta.norm(dim=-1) / ref.norm(dim=-1)).max().item()
+            unseen_zero = bool((out[:, ~seen] == 0).all())
+            delta = out[:, seen].float() - ref[:, seen]
+            err = delta.abs().max().item() if seen.any() else 0.0
+            row_err = ((delta.norm(dim=-1) / ref[:, seen].norm(dim=-1)).max().item()
+                       if seen.any() else 0.0)
             rtol = FLASH_ROW_RTOL[str(dtype)[6:]]
             errs[(case, dtype)] = err
-            log(f"  flash_attention vs plain B,S,H,KV,hd,window={case} {str(dtype)[6:]}: "
-                f"max abs err {err:.3e} (atol {atol:g}), largest row error relative to the "
-                f"row {row_err:.3e} (at most {rtol:g})")
-            if not (err <= atol and row_err <= rtol):
+            log(f"  flash_attention vs plain B,Sq,Skv,H,KV,hd,causal,window,q_offset={case} "
+                f"{str(dtype)[6:]}: max abs err {err:.3e} (atol {atol:g}), largest row error "
+                f"relative to the row {row_err:.3e} (at most {rtol:g}); "
+                f"{int((~seen).sum())} queries see no key, all 0: {unseen_zero}")
+            if not (err <= atol and row_err <= rtol and unseen_zero):
                 raise SystemExit(f"flash_attention kernel disagrees with its plain version: "
-                                 f"{err}, rows {row_err}")
+                                 f"{err}, rows {row_err}, unseen rows 0: {unseen_zero}")
             del q, k, v, out, ref, delta
     for T, d in RMSNORM_CASES:
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
@@ -1082,15 +1109,16 @@ def main() -> int:
     del x, q, sc
 
     # flash_attention at 32k tokens, gemma3-12b's heads (bf16): a global
-    # layer (causal, no window) and a local layer (window 1024); the plain
-    # version is flash_scan (the materialized scores do not fit); the
-    # library yardstick is scaled_dot_product_attention (causal, GQA; with a
-    # boolean window mask at 8192 tokens, where the mask fits)
+    # layer (causal, no window) and a local layer (window 1024), both timed
+    # against the library call in this run; the plain version is flash_scan
+    # (the materialized scores do not fit); the library yardstick is
+    # scaled_dot_product_attention (causal, GQA; under an S x S boolean window
+    # mask for a local layer, 1.07 GB at 32k tokens)
     B, H, KV, hd = 1, gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim
     fa_t = {}
     for S, window in ((PREFILL_LEN, None), (PREFILL_LEN, gcfg.local_window),
                       (8192, gcfg.local_window)):
-        q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, seed=11)
+        q, k, v = flash_inputs(B, S, S, H, KV, hd, torch.bfloat16, seed=11)
         long_run = window is None
         ms_k = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True, window=window),
                        iters=5 if long_run else 20, warmup=2)
@@ -1099,13 +1127,9 @@ def main() -> int:
             ms_p = time_ms(lambda: attention(q, k, v, causal=True, window=window,
                                              impl="flash_scan", chunk=1024),
                            iters=2 if long_run else 5, warmup=1)
-        mask, ms_l, how = None, float("nan"), "not timed: an S x S mask"
-        if window is not None and S <= 8192:
-            pos = torch.arange(S, device="cuda")
-            mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
-        if window is None or mask is not None:
-            ms_l, how = sdpa_ms(q, k, v, mask, iters=5 if long_run else 20)
-        pairs = visible_pairs(S, window)
+        mask = None if window is None else visible_mask(S, S, True, window, device="cuda")
+        ms_l, how = sdpa_ms(q, k, v, mask, iters=5 if long_run or S == PREFILL_LEN else 20)
+        pairs = fa_ops.visible_pairs(S, S, True, window)
         n_ops = 4 * H * hd * pairs * B
         n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v in; out
         b_ms, o_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_FLOPS * 1e3

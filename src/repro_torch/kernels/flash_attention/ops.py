@@ -43,6 +43,18 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def visible_pairs(Sq: int, Skv: int, causal: bool, window=None, q_offset: int = 0) -> int:
+    """(query, key) pairs the kernel's mask keeps: ``ref.visible_mask(...).sum()``
+    without the [Sq, Skv] mask.  Query i at ``q_offset + i`` sees keys
+    [max(0, pos - window + 1), min(Skv - 1, pos)] (no upper clamp to pos
+    without ``causal``, no lower one without ``window``).  Each pair costs
+    the kernel 4 * hd flops, so this sets its operations bound."""
+    pos = q_offset + torch.arange(Sq, dtype=torch.int64)
+    hi = pos.clamp(max=Skv - 1) if causal else torch.full_like(pos, Skv - 1)
+    lo = (pos - window + 1).clamp(min=0) if window is not None else torch.zeros_like(pos)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
 def check_inputs(q, k, v, window) -> None:
     """Raise unless the kernel takes these tensors (any device: the shape,
     type and mask rules; the wrapper adds the device rule)."""

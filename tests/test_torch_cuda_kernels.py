@@ -133,12 +133,16 @@ def test_int8_reduce_scatter_on_the_card_equals_the_cpu(cuda):
 # --- flash_attention --------------------------------------------------------
 
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref, visible_mask  # noqa: E402
 
 # (B, Sq, Skv, H, KV, hd, causal, window, q_offset): the gemma3 smoke shape
 # (local and global layers), llama full width, gemma3 full width with and
 # without its 1024 window, hd 128 bidirectional at rep 1, a decode-style
-# offset query block at rep 4
+# offset query block at rep 4; then every other bf16 instance (hd 16, 64,
+# 128, 256 x rep 1, 2, 4) with the edges of the kernel's tiling: q tiles of
+# 128 rows / rep and key tiles of 64 (hd 256) or 128 keys that end partway,
+# windows that cut through a key tile, q_offset with a window, and query
+# blocks whose rows see no key (they write 0)
 FLASH_CASES = [
     (2, 40, 40, 4, 2, 16, True, 16, 0),
     (2, 40, 40, 4, 2, 16, True, None, 0),
@@ -147,6 +151,16 @@ FLASH_CASES = [
     (1, 1100, 1100, 16, 8, 256, True, None, 0),
     (2, 77, 130, 4, 4, 128, False, None, 0),
     (1, 5, 70, 8, 2, 64, True, 48, 65),
+    (1, 150, 150, 2, 2, 16, True, 40, 0),
+    (2, 70, 90, 8, 2, 16, False, 33, 0),
+    (1, 260, 200, 4, 4, 64, True, None, 60),
+    (2, 129, 129, 8, 4, 64, True, 100, 0),
+    (1, 200, 100, 4, 2, 64, True, 64, 90),
+    (1, 333, 333, 8, 4, 128, True, 200, 0),
+    (1, 100, 257, 8, 2, 128, True, 150, 157),
+    (1, 517, 517, 4, 4, 256, True, 300, 0),
+    (1, 90, 200, 16, 4, 256, False, None, 0),
+    (1, 40, 70, 4, 1, 256, True, 16, 300),
 ]
 
 
@@ -164,7 +178,8 @@ def test_flash_attention_matches_plain(cuda, case, dtype, atol):
     inputs (P rounded to bf16 before P.V, output rounding to bf16).  Each
     (token, head) row also within a relative error of 1e-4 (fp32) or 1e-2
     (bf16) of the plain row: late causal rows are small, an atol alone
-    would not see their errors."""
+    would not see their errors.  A query that sees no key writes exactly 0
+    (the plain version's softmax over masked scores would average v)."""
     B, Sq, Skv, H, KV, hd, causal, window, q_offset = case
     q, k, v = _flash_inputs(0, B, Sq, Skv, H, KV, hd, getattr(torch, dtype), cuda)
     n0 = fa_ops.flash_attention.launches
@@ -174,9 +189,13 @@ def test_flash_attention_matches_plain(cuda, case, dtype, atol):
     assert out.dtype == q.dtype and out.shape == q.shape and torch.isfinite(out).all()
     ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window,
                               q_offset=q_offset)
-    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
-    row_err = ((out.float() - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
-    assert row_err <= {"float32": 1e-4, "bfloat16": 1e-2}[dtype], row_err
+    seen = visible_mask(Sq, Skv, causal, window, q_offset, device=cuda).any(-1)
+    assert torch.equal(out[:, ~seen], torch.zeros_like(out[:, ~seen]))
+    out, ref = out[:, seen].float(), ref[:, seen]
+    torch.testing.assert_close(out, ref, atol=atol, rtol=0)
+    if seen.any():
+        row_err = ((out - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+        assert row_err <= {"float32": 1e-4, "bfloat16": 1e-2}[dtype], row_err
 
 
 def test_flash_attention_takes_strided_views(cuda):

@@ -26,7 +26,7 @@ from repro.kernels.flash_attention.ops import flash_attention as ref_flash  # no
 from repro.kernels.flash_attention.ref import flash_attention_ref as ref_oracle  # noqa: E402
 from repro.models import attention as ref_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref, visible_mask  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -141,3 +141,22 @@ def test_flash_scan_is_differentiable_like_full():
         grads[impl] = [t.grad.numpy() for t in (q, k, v)]
     for a, b in zip(grads["full"], grads["flash_scan"]):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+# (Sq, Skv, causal, window, q_offset): square causal with and without a
+# window, a decode-style offset block, bidirectional with and without a
+# window, queries past the window's reach (some or all see no key), Skv < Sq
+PAIR_CASES = [(40, 40, True, None, 0), (40, 40, True, 16, 0), (9, 75, True, 48, 66),
+              (50, 130, False, 48, 0), (77, 130, False, None, 0), (200, 100, True, 64, 90),
+              (40, 70, True, 16, 300), (33, 17, True, 5, 3), (1, 1, True, 1, 0)]
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window,q_offset", PAIR_CASES)
+def test_visible_pairs_counts_the_reference_mask(Sq, Skv, causal, window, q_offset):
+    """The kernel's operation count (chip_smoke.py's bound) is the number of
+    True entries of the reference's mask, and of the plain version's."""
+    m = ref_attention._mask(q_offset + jnp.arange(Sq), jnp.arange(Skv), causal=causal,
+                            window=window)
+    n = fa_ops.visible_pairs(Sq, Skv, causal, window, q_offset)
+    assert n == int(np.asarray(m).sum())
+    assert n == int(visible_mask(Sq, Skv, causal, window, q_offset).sum())
