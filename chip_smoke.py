@@ -13,8 +13,10 @@ Phases, in order (any failure ends the run with a non-zero exit):
    ``src/`` (one ``nvcc`` per source, all started together); the bf16
    flash kernel's hd 256 instance must not spill;
 3. each kernel against its plain PyTorch version on the card:
-   ``paged_attention`` at the served shapes and the smoke shapes, fp32
-   (atol 1e-4) and bf16 (atol 2e-2 against the plain version in fp32);
+   ``paged_attention`` at the served shapes, the smoke shapes and 8
+   sequences of up to 4,096 positions (16 splits merged by the combine
+   kernel), fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain
+   version in fp32);
    ``mrd_combine`` at n = 256, at a [3, 512 k] stacked shape and at the
    largest full-width gradient bucket's [3, len] rows, fp32 and bf16,
    equal bit for bit; ``flash_attention`` at the gemma3-12b shape (4096
@@ -31,10 +33,12 @@ Phases, in order (any failure ends the run with a non-zero exit):
    fp32 (1e-5) and bf16 (2e-2); ``selective_scan`` in its materialized
    form at the reference kernel test's shapes and [1, 2048, 8192, 16], fp32
    and bf16 inputs, and in its fused form (the model's) at [1, 4096, 8192,
-   16] from a nonzero h0 and at the decode shape [8, 1, 8192, 16], writing
-   the state over h0 as a decode tick does: y and h_final within 1e-5 +
-   1e-4 |plain| (both sides compute in fp32), and the batches whose
-   write_ok is False keep their state bit for bit;
+   16] and [1, 4097, 8192, 16] (the chunked instance, the second with a
+   ragged last chunk) from a nonzero h0 and at the decode shapes [8, 1,
+   8192, 16] and [1, 1, 8192, 16] (the step instance), writing the state
+   over h0 as a decode tick does: y and h_final within 1e-5 + 1e-4 |plain|
+   (both sides compute in fp32), and the batches whose write_ok is False
+   keep their state bit for bit;
 4. the serving path at full width: ``repro_torch.launch.serve`` serves 16
    requests of llama3.2-1b (bf16, random weights from the seed) with
    block-paged decode through the kernel and MRD-agreed retirement across
@@ -98,7 +102,11 @@ Phases, in order (any failure ends the run with a non-zero exit):
    ``selective_scan``; and the least time the card could take (bytes at
    3.35 TB/s, operations at the bf16 or fp32 peak, exponentials at the
    special function units' 16 a clock an SM at the card's largest SM
-   clock);
+   clock); ``paged_attention`` also at 8 sequences x 4,096 positions
+   beside SDPA on gathered views, and ``selective_scan``'s step instance
+   at a decode tick's [8, 1, 8192, 16] beside its bound, and the scan's
+   chunk-parallel form across blocks (2, 4 and 8 pieces of the 32k
+   sequence, built from the chunked instance and held to it) beside it;
 7. the kernels line, then the device line as the last line of stdout.
 """
 
@@ -157,7 +165,8 @@ FALCON_SERVE_ARGV = [
 SCAN_CASES = [(1, 64, 16, 8), (2, 128, 32, 16), (1, 96, 64, 4), (1, 2048, 8192, 16)]
 # fused form (the model's): a 4096-token prompt of falcon-mamba-7b from a
 # nonzero state, and an 8-slot decode tick (one step from the state)
-FUSED_SCAN_CASES = [(1, 4096, 8192, 16), (8, 1, 8192, 16)]
+FUSED_SCAN_CASES = [(1, 4096, 8192, 16), (8, 1, 8192, 16), (1, 4097, 8192, 16),
+                    (1, 1, 8192, 16)]
 MUFU_EXP_PER_CLOCK = 16  # exponentials a clock an SM (sm_90 special function units)
 H100_SMS = 132
 # (B, Sq, Skv, H, KV, hd, causal, window, q_offset): gemma3-12b global and
@@ -191,8 +200,10 @@ FLASH_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 RMSNORM_CASES = [(32768, 3840), (4, 3840), (8, 2048), (64, 2048), (40, 64), (32768, 4096),
                  (8, 4096)]
 # (S, H, KV, hd, nb, bs): the served full-width shape first, then the smoke
-# shape, then rep 1 with 16-token blocks (every template family once)
-KERNEL_CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16)]
+# shape, then rep 1 with 16-token blocks (every template family once), then
+# llama3.2-1b's heads at long context (4,096 positions: 16 splits)
+KERNEL_CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16),
+                (8, 32, 8, 64, 256, 16)]
 
 
 def log(msg: str) -> None:
@@ -377,11 +388,50 @@ def sdpa_ms(q, k, v, mask, iters: int):
     return ms, f"{what}, {how}"
 
 
+def paged_timing(case, seed: int = 3) -> dict:
+    """``paged_attention`` at (S, H, KV, hd, nb, bs) in bf16: the kernel,
+    its plain version and ``scaled_dot_product_attention`` on K/V gathered
+    through the table and repeated to every head (a yardstick: the port
+    never calls it), and the least time the card could take: K and V of
+    the live positions, q, the output, the table and the lengths moved
+    once, at 3.35 TB/s."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    S, H, KV, hd, nb, bs = case
+    q, k, v, tables, lens = paged_inputs(seed, *case, torch.bfloat16)
+    ms = time_ms(lambda: ops.paged_attention(q, k, v, tables, lens))
+    plain_ms = time_ms(lambda: paged_attention_ref(q, k, v, tables, lens))
+    W = nb * bs
+    kg = k[tables.long()].reshape(S, W, KV, hd).transpose(1, 2).repeat_interleave(H // KV, 1)
+    vg = v[tables.long()].reshape(S, W, KV, hd).transpose(1, 2).repeat_interleave(H // KV, 1)
+    mask = (torch.arange(W, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    qg = q[:, :, None, :]
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=mask))
+    tot = int(lens.sum())
+    n_bytes = (2 * q.numel() * q.element_size()  # q in, out written
+               + 2 * tot * KV * hd * k.element_size()  # K and V of live positions
+               + tables.numel() * 4 + lens.numel() * 4)
+    n_ops = 4 * tot * H * hd  # q.k and p.v, a multiply-add each
+    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"timings paged_attention at S,H,KV,hd,nb,bs={case} bf16, sum(lengths)={tot}, "
+        f"splits {ops.split_plan(nb, bs)[1]}: kernel {ms * 1e3:.2f} us | plain "
+        f"{plain_ms * 1e3:.2f} us | sdpa on gathered views {library_ms * 1e3:.2f} us | bound "
+        f"{bound_ms * 1e3:.3f} us ({n_bytes} bytes at 3.35 TB/s; ops bound "
+        f"{ops_ms * 1e3:.4f} us) | kernel / sdpa {ms / library_ms:.3f}, bound / kernel "
+        f"{bound_ms / ms:.3f}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def kernel_classes(per_rep: dict, busy_ms: float) -> dict:
     """Device time per rep by class: the port's kernels, GEMMs, the rest."""
     kernels = {"flash_attention": ("flash_wgmma_kernel", "flash_f32_kernel"),
                "rmsnorm": ("rmsnorm_kernel",), "mrd_combine": ("mrd_combine_kernel",),
-               "selective_scan": ("selective_scan_kernel",),
+               "selective_scan": ("selective_scan_kernel", "selective_scan_step_kernel"),
+               "paged_attention": ("paged_attention_kernel", "paged_attention_combine_kernel"),
                "GEMM": ("nvjet", "gemm", "cutlass", "sm90_")}
     classes = dict.fromkeys([*kernels, "other"], 0.0)
     for name, (ms, _) in per_rep.items():
@@ -446,10 +496,16 @@ def main() -> int:
     sources = {"paged_attention": ops.SOURCE, "mrd_combine": mc_ops.SOURCE,
                "flash_attention": fa_ops.SOURCE, "rmsnorm": rn_ops.SOURCE,
                "selective_scan": ss_ops.SOURCE}
-    # the instances whose -Xptxas=-v lines are printed: flash_attention's bf16
-    # hd 256 (gemma3's), selective_scan's fused N = 16 (falcon-mamba's)
-    shown = {"flash_attention": ("flash_wgmma_kernelILi256E",),
-             "selective_scan": ("ILb1E", "Li16E")}
+    # the instances whose -Xptxas=-v lines are printed (any of the mark
+    # tuples, every mark of it in the mangled name): flash_attention's bf16
+    # hd 256 (gemma3's); selective_scan's fused chunked and step instances at
+    # N = 16 (falcon-mamba's); paged_attention's bf16 hd 64, rep 4, 16-token
+    # blocks (llama3.2-1b's) and its combine kernel; every other kernel's all
+    shown = {"flash_attention": [("flash_wgmma_kernelILi256E",)],
+             "selective_scan": [("selective_scan_kernelILb1E", "Li16E"),
+                                ("selective_scan_step_kernel", "Li16E")],
+             "paged_attention": [("paged_attention_kernelI13__nv_bfloat16Li64ELi4ELi16E",),
+                                 ("paged_attention_combine_kernel",)]}
     with ThreadPoolExecutor(len(sources)) as pool:
         futs = {name: pool.submit(build.build_shared_library, src, name)
                 for name, src in sources.items()}
@@ -461,8 +517,8 @@ def main() -> int:
         entry = ""
         for line in so.with_suffix(".log").read_text().splitlines():
             entry = line if "Compiling entry" in line else entry
-            if ("registers" in line or "spill" in line) and all(
-                    m in entry for m in shown.get(name, ())):
+            if ("registers" in line or "spill" in line) and any(
+                    all(m in entry for m in marks) for marks in shown.get(name, [()])):
                 log(f"  ptxas ({name}): {line.strip()}")
                 # the bf16 flash kernel at hd 256 must not spill (its consumer
                 # warpgroups run at 240 registers a thread after setmaxnreg)
@@ -1070,29 +1126,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     t = phase("correctness", t)
 
-    # 6. timings at the served decode shape (bf16)
-    S, H, KV, hd, nb, bs = KERNEL_CASES[0]
-    q, k, v, tables, lens = paged_inputs(3, *KERNEL_CASES[0], torch.bfloat16)
-    ms = time_ms(lambda: ops.paged_attention(q, k, v, tables, lens))
-    plain_ms = time_ms(lambda: paged_attention_ref(q, k, v, tables, lens))
-    W = nb * bs
-    kg = k[tables.long()].reshape(S, W, KV, hd).transpose(1, 2).repeat_interleave(H // KV, 1)
-    vg = v[tables.long()].reshape(S, W, KV, hd).transpose(1, 2).repeat_interleave(H // KV, 1)
-    mask = (torch.arange(W, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-    qg = q[:, :, None, :]
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qg, kg, vg, attn_mask=mask))
-    tot = int(lens.sum())
-    n_bytes = (2 * q.numel() * q.element_size()  # q in, out written
-               + 2 * tot * KV * hd * k.element_size()  # K and V of live positions
-               + tables.numel() * 4 + lens.numel() * 4)
-    n_ops = 4 * tot * H * hd  # q.k and p.v, a multiply-add each
-    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"timings at S,H,KV,hd,nb,bs={KERNEL_CASES[0]} bf16, sum(lengths)={tot}: "
-        f"kernel {ms * 1e3:.2f} us | plain {plain_ms * 1e3:.2f} us | sdpa on gathered "
-        f"views {library_ms * 1e3:.2f} us | bound {bound_ms * 1e3:.3f} us "
-        f"({n_bytes} bytes at 3.35 TB/s; ops bound {ops_ms * 1e3:.4f} us)")
+    # 6. paged_attention at the served decode shape and at long context
+    # (bf16), each beside SDPA on gathered views in this run
+    pa_t = {case: paged_timing(case) for case in (KERNEL_CASES[0], KERNEL_CASES[3])}
+    torch.cuda.empty_cache()
 
     # mrd_combine at the largest bucket's stacked rows, fp32 (as the
     # compressed reduce-scatter calls it)
@@ -1186,7 +1223,64 @@ def main() -> int:
         f"x {H100_SMS} SMs x {max_sm_mhz:.0f} MHz = {ss_exp_ms:.4f} ms; fp32 flop at 67 TFLOP/s "
         f"{ss_flop_ms:.4f} ms; {ss_bytes} bytes at 3.35 TB/s = {ss_bytes_ms:.4f} ms) | no single "
         f"PyTorch call computes it")
-    del dt, x, A, Bs, Cs
+    # the chunk-parallel form across blocks, for comparison (the port does
+    # not run it): the sequence cut into `parts` pieces run side by side as
+    # a batch from zero for each piece's end state, a carry across the
+    # pieces (h_in[k] = exp(A * the sum of piece k - 1's dt) h_in[k - 1] +
+    # h_end[k - 1]), then the pieces again from their carried states for y
+    # and the final state: two launches of the chunked instance, each
+    # exponential twice
+    def chunk_parallel(parts):
+        def piece(t):
+            return t.reshape(parts, S // parts, *t.shape[2:])
+        pdt, px, pB, pC = piece(dt), piece(x), piece(Bs), piece(Cs)
+        _, h_end = ss_ops.selective_scan_fused(pdt, px, A, pB, pC)
+        decay = torch.exp(pdt.sum(1)[..., None] * A)
+        h_in = torch.zeros_like(h_end)
+        for k in range(1, parts):
+            h_in[k] = decay[k - 1] * h_in[k - 1] + h_end[k - 1]
+        y, h_last = ss_ops.selective_scan_fused(pdt, px, A, pB, pC, h0=h_in)
+        return y.reshape(B, S, D), h_last[-1:]
+
+    ss_y, ss_h = ss_ops.selective_scan_fused(dt, x, A, Bs, Cs)
+    cp_ms = {}
+    for parts in (2, 4, 8):
+        cp_y, cp_h = chunk_parallel(parts)
+        cp_err = max(scan_err(cp_y, ss_y), scan_err(cp_h, ss_h))
+        if cp_err[1]:
+            raise SystemExit(f"the chunk-parallel form in {parts} pieces is not the kernel's "
+                             f"scan: {cp_err[1]} elements off, max {cp_err[0]:.3e}")
+        cp_ms[parts] = time_ms(lambda: chunk_parallel(parts), iters=10, warmup=2)
+        log(f"timings selective_scan chunk-parallel across blocks, {parts} pieces (two launches "
+            f"of the chunked instance and a carry; not used by the port): {cp_ms[parts]:.4f} ms "
+            f"against the kernel's {ss_ms:.4f} ms | max abs err against the kernel "
+            f"{cp_err[0]:.3e}")
+        del cp_y, cp_h
+    del dt, x, A, Bs, Cs, ss_y, ss_h
+
+    # selective_scan's step instance at a decode tick of 8 slots (bf16
+    # x/B/C), writing the state over itself as the tick does
+    B, S = 8, 1
+    dt, x, A, Bs, Cs, h = fused_scan_inputs(B, S, D, N, torch.bfloat16, seed=19)
+    ok = torch.ones(B, dtype=torch.bool, device="cuda")
+    st_ms = time_ms(lambda: ss_ops.selective_scan_fused(dt, x, A, Bs, Cs, h0=h, h_final=h,
+                                                        write_ok=ok))
+    st_plain_ms = time_ms(lambda: selective_scan_fused_ref(dt, x, A, Bs, Cs, h0=h, h_final=h,
+                                                           write_ok=ok), iters=20)
+    # the state read and written, A, dt, x, Bs, Cs, write_ok read, y written
+    st_bytes = (2 * B * D * N * 4 + D * N * 4 + B * D * (4 + 2) + 2 * B * N * 2 + B
+                + B * D * 4)
+    st_bytes_ms = st_bytes / HBM_BYTES_PER_S * 1e3
+    st_exp_ms = B * D * N / (MUFU_EXP_PER_CLOCK * H100_SMS * max_sm_mhz * 1e6) * 1e3
+    st_flop_ms = (6 * B * D * N + B * D) / FP32_FLOPS * 1e3
+    st_ops_ms = max(st_exp_ms, st_flop_ms)
+    st_bound_ms = max(st_bytes_ms, st_ops_ms)
+    log(f"timings selective_scan (fused, step instance) B,S,D,N=({B}, {S}, {D}, {N}) bf16 "
+        f"x/B/C, state in place: kernel {st_ms * 1e3:.2f} us | plain {st_plain_ms * 1e3:.2f} us "
+        f"| bound {st_bound_ms * 1e3:.3f} us ({st_bytes} bytes at 3.35 TB/s = "
+        f"{st_bytes_ms * 1e3:.3f} us; exponentials {st_exp_ms * 1e3:.4f} us) | bound / kernel "
+        f"{st_bound_ms / st_ms:.3f}")
+    del dt, x, A, Bs, Cs, h
     torch.cuda.empty_cache()
     t = phase("timings", t)
 
@@ -1207,11 +1301,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/paged_kernel.py:78",
         "launches": launches,
         "max_abs_err": errs[(KERNEL_CASES[0], torch.bfloat16)],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        **pa_t[KERNEL_CASES[0]],
+        "long_context": {"shape": list(KERNEL_CASES[3]),
+                         "max_abs_err": errs[(KERNEL_CASES[3], torch.bfloat16)],
+                         **pa_t[KERNEL_CASES[3]]},
     }, {
         "name": "mrd_combine",
         "route": "cuda",
@@ -1256,6 +1349,12 @@ def main() -> int:
         "bound_ms": ss_bound_ms,
         "bound_by": "bytes" if ss_bytes_ms >= ss_ops_ms else "operations",
         "library_ms": None,
+        "chunk_parallel_ms": {str(k): v for k, v in cp_ms.items()},
+        "decode_step": {"shape": [8, 1, D, N],
+                        "max_abs_err": errs[("fused", FUSED_SCAN_CASES[1], torch.bfloat16)],
+                        "ms": st_ms, "plain_ms": st_plain_ms, "bound_ms": st_bound_ms,
+                        "bound_by": "bytes" if st_bytes_ms >= st_ops_ms else "operations",
+                        "library_ms": None},
     }]}))
     log(f"gpu: {smi}")
     log(json.dumps({"ok": True, "device": {

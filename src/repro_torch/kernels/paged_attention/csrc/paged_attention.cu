@@ -11,35 +11,59 @@
 //   attend over positions [0, lengths[s]) of the logical cache, whose
 //   block j lives in physical block block_tables[s, j].  Scores, the
 //   running max, the running sum and the accumulator are fp32; positions
-//   >= length get -1e30 before the max, as paged_kernel.py does.
+//   >= length get -1e30 before the max, as paged_kernel.py does (here they
+//   are skipped: their weight exp(-1e30 - m) is an exact 0, and a skipped
+//   position cannot bring a NaN of an unwritten row into the sum).
 //
-// What bounds it: device-memory bytes.  A decode tick reads
+// What bounds it: device-memory bytes.  A decode step reads
 //   sum_s lengths[s] * KV * hd * 2 (K and V) * sizeof(T)
-// per layer and does ~4 flops per byte read, far below the card's
-// operations-per-byte balance.  The design reads every K/V element of a
-// live block exactly once: one CUDA block per (sequence, kv head) walks
-// its table with the dynamic bound cdiv(length, bs), stages the [bs, hd]
-// K and V tiles in shared memory, and serves all rep query rows of the
-// GQA group from that one copy.  It is a simple first kernel: no TMA, no
-// wgmma, no split over the sequence (S * KV blocks do not fill 132 SMs at
-// small batch); those are for later work.
+// and does ~4 flops a byte read, far below the card's operations-per-byte
+// balance; at the served lengths (<= 112 positions) one launch is too short
+// for any rate, and the latency of its few dependent loads sets its time.
+// No tensor cores: with one query a sequence and rep <= 4 query rows a KV
+// head, an mma tile (16 or 64 rows) would be at least 3/4 padding, and
+// the products are not what bounds the kernel.
+//
+// The design (v2):
+//   * The positions are split across blocks: grid (S * KV, splits), a
+//     split = pages_per_split table entries, both sized on the host from the
+//     table's width nb alone (lengths stay on the device: no host sync).
+//     A block whose split starts at or past cdiv(lengths[s], bs) writes an
+//     empty partial (m = -1e30, l = 0) and exits.  With one split the block
+//     writes the output; with more, it writes its (m, l, acc) partial to a
+//     workspace and paged_attention_combine_kernel merges the partials by
+//     the log-sum-exp rule.
+//   * 16-byte loads: a K or V row of one position is hd * sizeof(T) bytes,
+//     read by HD / (16 / sizeof(T)) adjacent lanes (8 at hd 64 bf16, so a
+//     warp-wide load covers 4 positions); each lane keeps the REP query
+//     rows' matching 16-byte slice in registers.
+//   * Warp-level scores and softmax: each of the block's 4 warps takes 16
+//     positions at a time (all its loads issued before any is used), scores
+//     a position with a reduction over its row's lanes (3 shuffles at hd 64
+//     bf16), and keeps its own online softmax (m, l, acc) in registers; the
+//     rows of a warp merge by shuffles and the warps once in shared memory,
+//     at the end.  No barrier a page: one after the block loads its split's
+//     table entries into shared memory, one before the warps merge.
 //
 // C entry point repro_paged_attention(...) launches on the given stream
-// and returns cudaGetLastError() (0 on success), or -1 for a shape or
-// type it does not support; the Python wrapper raises on any non-zero.
+// and returns cudaGetLastError() (0 on success), or -1 for a shape, type
+// or split it does not support; the Python wrapper raises on any non-zero.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kGroup = 16;               // positions a warp takes an iteration
+constexpr int kMaxPagesPerSplit = 32;    // table entries a block stages
+constexpr int kCombineThreads = 256;
 constexpr float kNegInf = -1e30f;
 constexpr int kUnsupported = -1;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -50,113 +74,254 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// 16 bytes of T as floats (bf16: the low half of each word is the earlier
+// element)
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float* f) {
+  if constexpr (std::is_same<T, float>::value) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  } else {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// The length a block attends over: clamped to the table, as v1 did.
+__device__ __forceinline__ int clamped_length(const int32_t* lengths, int s, int nb, int bs) {
+  return min(max(lengths[s], 0), nb * bs);
+}
+
 template <typename T, int HD, int REP, int BS>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q,            // [S, KV*REP, HD]
-                       const T* __restrict__ k_pages,      // [N, BS, KV, HD]
-                       const T* __restrict__ v_pages,      // [N, BS, KV, HD]
+paged_attention_kernel(const T* __restrict__ q,             // [S, KV*REP, HD]
+                       const T* __restrict__ k_pages,       // [N, BS, KV, HD]
+                       const T* __restrict__ v_pages,       // [N, BS, KV, HD]
                        const int32_t* __restrict__ tables,  // [S, nb]
                        const int32_t* __restrict__ lengths, // [S]
                        T* __restrict__ out,                 // [S, KV*REP, HD]
-                       int kv_heads, int nb, float scale) {
-  constexpr int kRows = REP * HD;  // accumulator entries of the GQA group
-  constexpr int kPerThread = (kRows + kThreads - 1) / kThreads;
+                       float* __restrict__ ws,              // partials (splits > 1)
+                       int n_seq, int kv_heads, int nb, int pages_per_split, int splits,
+                       float scale) {
+  constexpr int kVec = 16 / sizeof(T);        // elements a 16-byte load
+  constexpr int kLanesPerRow = HD / kVec;     // lanes that read one position's row
+  constexpr int kRows = 32 / kLanesPerRow;    // positions a warp-wide load covers
+  constexpr int kU = kGroup / kRows;          // loads of K (and of V) a lane issues
+  static_assert(kLanesPerRow >= 1 && kLanesPerRow <= 32 && kU * kRows == kGroup,
+                "unsupported head dim");
 
-  __shared__ float q_s[REP][HD];
-  __shared__ float k_s[BS][HD + 1];  // +1: the score loop reads a column
-  __shared__ float v_s[BS][HD];
-  __shared__ float p_s[REP][BS];
-  __shared__ float m_s[REP];
-  __shared__ float l_s[REP];
-  __shared__ float alpha_s[REP];
+  __shared__ int s_tab[kMaxPagesPerSplit];
+  __shared__ float s_m[kWarps][REP];
+  __shared__ float s_l[kWarps][REP];
+  __shared__ float s_acc[kWarps][REP][HD];
 
   const int s = blockIdx.x / kv_heads;
   const int g = blockIdx.x % kv_heads;
-  const int tid = threadIdx.x;
+  const int split = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = lane / kLanesPerRow;
+  const int col = lane % kLanesPerRow;
   const int n_heads = kv_heads * REP;
+  const int64_t head0 = (int64_t)s * n_heads + (int64_t)g * REP;  // this group's first head
 
-  const T* q_seq = q + ((int64_t)s * n_heads + (int64_t)g * REP) * HD;
-  for (int i = tid; i < kRows; i += kThreads) {
-    q_s[i / HD][i % HD] = to_float(q_seq[i]) * scale;
+  // partials: acc [S, H, splits, HD], then m and l [S, H, splits]
+  float* ws_acc = ws;
+  float* ws_m = ws + (int64_t)n_seq * n_heads * splits * HD;
+  float* ws_l = ws_m + (int64_t)n_seq * n_heads * splits;
+
+  const int length = clamped_length(lengths, s, nb, BS);
+  const int live_pages = (length + BS - 1) / BS;
+  const int page0 = split * pages_per_split;
+  if (splits > 1 && page0 >= live_pages) {  // wholly past the length: an empty partial
+    if (threadIdx.x < REP) {
+      ws_m[(head0 + threadIdx.x) * splits + split] = kNegInf;
+      ws_l[(head0 + threadIdx.x) * splits + split] = 0.f;
+    }
+    return;
   }
-  if (tid < REP) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
+  const int pages = min(pages_per_split, live_pages - page0);
+  for (int i = threadIdx.x; i < pages; i += kThreads) {
+    s_tab[i] = tables[(int64_t)s * nb + page0 + i];
   }
-  float acc[kPerThread];
+
+  float qv[REP][kVec];
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) acc[i] = 0.f;
+  for (int r = 0; r < REP; ++r) {
+    unpack<T>(load16(q + (head0 + r) * HD + col * kVec), qv[r]);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) qv[r][e] *= scale;
+  }
+  float m[REP], l[REP], acc[REP][kVec];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[r][e] = 0.f;
+  }
+  __syncthreads();  // s_tab
 
-  const int length = lengths[s];
-  int nblk = (length + BS - 1) / BS;
-  if (nblk > nb) nblk = nb;  // never read past the table row
-  const int32_t* table = tables + (int64_t)s * nb;
-  const int64_t row_stride = (int64_t)kv_heads * HD;  // one position
+  const int pos0 = page0 * BS;
+  const int pos1 = min(length, pos0 + pages * BS);
+  const int64_t row_stride = (int64_t)kv_heads * HD;  // one position of a page
+  for (int base = pos0 + warp * kGroup; base < pos1; base += kWarps * kGroup) {
+    uint4 kr[kU], vr[kU];
+    bool ok[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int p = base + u * kRows + row;
+      ok[u] = p < pos1;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (ok[u]) {
+        const int64_t phys = s_tab[p / BS - page0];
+        const int64_t off = (phys * BS + p % BS) * row_stride + (int64_t)g * HD + col * kVec;
+        kr[u] = load16(k_pages + off);
+        vr[u] = load16(v_pages + off);
+      }
+    }
+    float sc[kU][REP];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float kf[kVec];
+      unpack<T>(kr[u], kf);
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) d = fmaf(qv[r][e], kf[e], d);
+        sc[u][r] = d;
+      }
+    }
+    // the row's lanes are adjacent: a butterfly over them leaves the full
+    // score in each
+#pragma unroll
+    for (int off = kLanesPerRow / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+#pragma unroll
+        for (int r = 0; r < REP; ++r) sc[u][r] += __shfl_xor_sync(0xffffffffu, sc[u][r], off);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) mx = ok[u] ? fmaxf(mx, sc[u][r]) : mx;
+      const float alpha = expf(m[r] - mx);
+      l[r] *= alpha;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[r][e] *= alpha;
+      m[r] = mx;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float vf[kVec];
+      unpack<T>(vr[u], vf);
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float p = ok[u] ? expf(sc[u][r] - m[r]) : 0.f;
+        l[r] += p;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
+      }
+    }
+  }
+
+  // merge the warp's rows (lanes kLanesPerRow apart hold the same columns)
+#pragma unroll
+  for (int off = kLanesPerRow; off < 32; off <<= 1) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+      const float mx = fmaxf(m[r], mo);
+      const float a = expf(m[r] - mx), b = expf(mo - mx);
+      l[r] = l[r] * a + lo * b;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[r][e], off);
+        acc[r][e] = acc[r][e] * a + ao * b;
+      }
+      m[r] = mx;
+    }
+  }
+  if (row == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) s_acc[warp][r][col * kVec + e] = acc[r][e];
+      if (col == 0) {
+        s_m[warp][r] = m[r];
+        s_l[warp][r] = l[r];
+      }
+    }
+  }
   __syncthreads();
 
-  for (int j = 0; j < nblk; ++j) {
-    const int64_t base = ((int64_t)table[j] * BS) * row_stride + (int64_t)g * HD;
-    for (int i = tid; i < BS * HD; i += kThreads) {
-      const int t = i / HD, d = i % HD;
-      const int64_t off = base + t * row_stride + d;
-      k_s[t][d] = to_float(k_pages[off]);
-      v_s[t][d] = to_float(v_pages[off]);
+  // merge the warps: one thread an accumulator entry of the GQA group
+  for (int i = threadIdx.x; i < REP * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w][r]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(s_m[w][r] - mx);
+      L = fmaf(s_l[w][r], c, L);
+      A = fmaf(s_acc[w][r][d], c, A);
     }
-    __syncthreads();
-
-    // scores [REP, BS], masked by absolute position
-    for (int i = tid; i < REP * BS; i += kThreads) {
-      const int r = i / BS, t = i % BS;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) dot += q_s[r][d] * k_s[t][d];
-      p_s[r][t] = (j * BS + t < length) ? dot : kNegInf;
-    }
-    __syncthreads();
-
-    // online softmax: one thread per query row
-    if (tid < REP) {
-      const float m_old = m_s[tid];
-      float m_new = m_old;
-#pragma unroll
-      for (int t = 0; t < BS; ++t) m_new = fmaxf(m_new, p_s[tid][t]);
-      const float alpha = expf(m_old - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < BS; ++t) {
-        const float p = expf(p_s[tid][t] - m_new);
-        p_s[tid][t] = p;
-        sum += p;
-      }
-      l_s[tid] = l_s[tid] * alpha + sum;
-      m_s[tid] = m_new;
-      alpha_s[tid] = alpha;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ V, each thread owning fixed (row, d) entries
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < kRows) {
-        const int r = e / HD, d = e % HD;
-        float a = acc[i] * alpha_s[r];
-#pragma unroll
-        for (int t = 0; t < BS; ++t) a += p_s[r][t] * v_s[t][d];
-        acc[i] = a;
+    if (splits == 1) {
+      out[(head0 + r) * HD + d] = from_float<T>(A / fmaxf(L, 1e-30f));
+    } else {
+      const int64_t part = (head0 + r) * splits + split;
+      ws_acc[part * HD + d] = A;
+      if (d == 0) {
+        ws_m[part] = mx;
+        ws_l[part] = L;
       }
     }
-    __syncthreads();  // the next block overwrites k_s, v_s and p_s
   }
+}
 
-  T* out_seq = out + ((int64_t)s * n_heads + (int64_t)g * REP) * HD;
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < kRows) {
-      out_seq[e] = from_float<T>(acc[i] / fmaxf(l_s[e / HD], 1e-30f));
-    }
+// Merges the splits' partials of each (sequence, head, column) by the
+// log-sum-exp rule, over the splits that hold a live position.
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+paged_attention_combine_kernel(const float* __restrict__ ws, const int32_t* __restrict__ lengths,
+                               T* __restrict__ out, int n_seq, int n_heads, int hd, int nb,
+                               int bs, int pages_per_split, int splits) {
+  const int64_t total = (int64_t)n_seq * n_heads * hd;
+  const int64_t i = (int64_t)blockIdx.x * kCombineThreads + threadIdx.x;
+  if (i >= total) return;
+  const int64_t sh = i / hd;  // (sequence, head)
+  const int d = (int)(i % hd);
+  const int s = (int)(sh / n_heads);
+  const float* ws_acc = ws;
+  const float* ws_m = ws + (int64_t)n_seq * n_heads * splits * hd;
+  const float* ws_l = ws_m + (int64_t)n_seq * n_heads * splits;
+  const int live_pages = (clamped_length(lengths, s, nb, bs) + bs - 1) / bs;
+  const int live = (live_pages + pages_per_split - 1) / pages_per_split;
+  float mx = kNegInf;
+  for (int j = 0; j < live; ++j) mx = fmaxf(mx, ws_m[sh * splits + j]);
+  float L = 0.f, A = 0.f;
+  for (int j = 0; j < live; ++j) {
+    const float c = expf(ws_m[sh * splits + j] - mx);
+    L = fmaf(ws_l[sh * splits + j], c, L);
+    A = fmaf(ws_acc[(sh * splits + j) * hd + d], c, A);
   }
+  out[i] = from_float<T>(A / fmaxf(L, 1e-30f));
 }
 
 struct Args {
@@ -166,17 +331,28 @@ struct Args {
   const int32_t* tables;
   const int32_t* lengths;
   void* out;
-  int S, KV, nb;
+  float* ws;
+  int S, KV, nb, pages_per_split, splits;
   float scale;
   cudaStream_t stream;
 };
 
 template <typename T, int HD, int REP, int BS>
 int launch(const Args& a) {
-  paged_attention_kernel<T, HD, REP, BS><<<a.S * a.KV, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.tables, a.lengths, static_cast<T*>(a.out),
-      a.KV, a.nb, a.scale);
+  const dim3 grid(a.S * a.KV, a.splits);
+  paged_attention_kernel<T, HD, REP, BS><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.tables, a.lengths, static_cast<T*>(a.out), a.ws, a.S, a.KV, a.nb, a.pages_per_split,
+      a.splits, a.scale);
+  if (a.splits > 1) {
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+    const int64_t total = (int64_t)a.S * a.KV * REP * HD;
+    const int blocks = (int)((total + kCombineThreads - 1) / kCombineThreads);
+    paged_attention_combine_kernel<T><<<blocks, kCombineThreads, 0, a.stream>>>(
+        a.ws, a.lengths, static_cast<T*>(a.out), a.S, a.KV * REP, HD, a.nb, BS,
+        a.pages_per_split, a.splits);
+  }
   return 0;
 }
 
@@ -211,16 +387,26 @@ int dispatch_hd(int hd, int rep, int bs, const Args& a) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Tensors are contiguous, on the
-// stream's device; block_tables and lengths are int32.
+// stream's device, q/k/v 16-byte aligned; block_tables and lengths are
+// int32.  pages_per_split (1..32) table entries a block, splits =
+// cdiv(nb, pages_per_split); with splits > 1, workspace holds S * H *
+// splits * (hd + 2) floats (the partials), else it may be null.
 extern "C" int repro_paged_attention(const void* q, const void* k_pages,
                                      const void* v_pages, const void* block_tables,
-                                     const void* lengths, void* out, int S, int H,
-                                     int KV, int hd, int bs, int nb, int dtype,
-                                     float scale, void* stream) {
+                                     const void* lengths, void* out, void* workspace, int S,
+                                     int H, int KV, int hd, int bs, int nb, int dtype,
+                                     int pages_per_split, int splits, float scale,
+                                     void* stream) {
   if (S <= 0 || KV <= 0 || nb <= 0 || H % KV != 0) return kUnsupported;
+  if (pages_per_split < 1 || pages_per_split > kMaxPagesPerSplit || splits > 65535 ||
+      splits != (nb + pages_per_split - 1) / pages_per_split ||
+      (splits > 1 && workspace == nullptr)) {
+    return kUnsupported;
+  }
   Args a{q, k_pages, v_pages,
          static_cast<const int32_t*>(block_tables),
-         static_cast<const int32_t*>(lengths), out, S, KV, nb, scale,
+         static_cast<const int32_t*>(lengths), out, static_cast<float*>(workspace),
+         S, KV, nb, pages_per_split, splits, scale,
          static_cast<cudaStream_t>(stream)};
   const int rep = H / KV;
   int rc;

@@ -6,9 +6,18 @@ CUDA tensor goes to the hand-written CUDA kernel
 ``ctypes``), or the wrapper raises.  There is no fallback from the kernel
 to the plain version on the card.
 
-``paged_attention.launches`` counts kernel launches (a plain integer the
-caller may reset), so a run can show that its decode path went through
-the kernel.
+The kernel splits each sequence's positions across blocks
+(:func:`split_plan`, a function of the table's width alone: the lengths
+stay on the device); with more than one split a second, small kernel
+merges the splits' partials from a workspace the wrapper allocates.  The
+kernel reads q and the pools with 16-byte loads; a tensor that does not
+start on a 16-byte boundary (no caller of the port passes one) is copied to
+one that does (:func:`aligned`), so no input is refused for where it lies.
+
+``paged_attention.launches`` counts wrapper calls that reached the card
+(a plain integer the caller may reset), one a call whether it launched
+one kernel or two, so a run can show that its decode path went through
+the kernel once per layer per decode step.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_HEAD_DIMS = (16, 64)
 SUPPORTED_REPS = (1, 2, 4)
 SUPPORTED_BLOCK_SIZES = (8, 16)
+SPLIT_POSITIONS = 256  # positions a block takes: 16 pages of 16, 32 of 8
+ALIGN = 16  # q and the pools are read with 16-byte loads
 
 
 @functools.lru_cache(maxsize=1)
@@ -34,11 +45,26 @@ def library() -> ctypes.CDLL:
     """Build (first use) and load the kernel's shared library."""
     lib = load_library(SOURCE, "paged_attention")
     fn = lib.repro_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
+
+
+def split_plan(nb: int, block_size: int) -> tuple[int, int]:
+    """(pages a split, splits) for a table of ``nb`` pages of ``block_size``
+    positions: a block takes SPLIT_POSITIONS positions, so a table of up to
+    that many positions (the served llama3.2-1b ticks) is one split and
+    needs no merge."""
+    pages = SPLIT_POSITIONS // block_size
+    return pages, -(-nb // pages)
+
+
+def workspace_numel(S: int, H: int, hd: int, splits: int) -> int:
+    """Floats of the splits' partials: acc [S, H, splits, hd], then m and l
+    [S, H, splits]; none with one split."""
+    return 0 if splits == 1 else S * H * splits * (hd + 2)
 
 
 def check_inputs(q, k_pages, v_pages, block_tables, lengths) -> None:
@@ -80,6 +106,13 @@ def check_inputs(q, k_pages, v_pages, block_tables, lengths) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where it starts on an ALIGN-byte boundary, else a copy
+    that does (a fresh allocation; a row of hd in SUPPORTED_HEAD_DIMS
+    elements is a whole number of 16-byte pieces, so every row then is)."""
+    return t if t.data_ptr() % ALIGN == 0 else t.clone()
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, lengths):
     """Decode attention over a block-paged KV cache (one query/sequence).
 
@@ -90,6 +123,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
     check_inputs(q, k_pages, v_pages, block_tables, lengths)
+    q, k_pages, v_pages = aligned(q), aligned(k_pages), aligned(v_pages)
     tensors = (q, k_pages, v_pages, block_tables, lengths)
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError(
@@ -98,14 +132,18 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
         )
     S, H, hd = q.shape
     _, bs, KV, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    pages, splits = split_plan(nb, bs)
     out = torch.empty_like(q)
+    ws = (torch.empty(workspace_numel(S, H, hd, splits), dtype=torch.float32, device=q.device)
+          if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = library().repro_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            S, H, KV, hd, bs, block_tables.shape[1], SUPPORTED_DTYPES[q.dtype],
-            hd**-0.5, stream,
+            None if ws is None else ws.data_ptr(), S, H, KV, hd, bs, nb,
+            SUPPORTED_DTYPES[q.dtype], pages, splits, hd**-0.5, stream,
         )
     if rc != 0:
         raise RuntimeError(

@@ -9,15 +9,19 @@ the fused form can also write ``h_final`` into a given tensor, ``h0``
 itself included, and leave the rows of batches where ``write_ok`` is False
 as they were (a decode tick updates its slots' states in place).
 
+The kernel has two instances (:func:`scan_instance`, a function of the
+form and of S alone): a chunked one for a prompt and for the materialized
+form, and a one-step one for a decode tick (the fused form at S = 1).
+
 A CPU tensor goes to the plain versions (``ref``); a CUDA tensor goes to
 the hand-written CUDA kernel (``csrc/selective_scan.cu``, built at first
 use and loaded with ``ctypes``), or the wrapper raises.  There is no
 fallback from the kernel to the plain version on the card.  The kernel has
 no backward: CUDA inputs that autograd would differentiate are refused.
 
-``selective_scan.launches`` counts kernel launches of either form (a plain
-integer the caller may reset), so a run can show that its scans went
-through the kernel.
+``selective_scan.launches`` counts kernel launches of either form and
+instance (a plain integer the caller may reset), so a run can show that
+its scans went through the kernel.
 """
 
 from __future__ import annotations
@@ -43,9 +47,17 @@ def library() -> ctypes.CDLL:
     """Build (first use) and load the kernel's shared library."""
     lib = load_library(SOURCE, "selective_scan")
     fn = lib.repro_selective_scan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 10
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 10
     fn.restype = ctypes.c_int
     return lib
+
+
+def scan_instance(S: int, fused: bool) -> str:
+    """The kernel instance a call launches (the one place it is chosen):
+    "step" (a thread a channel's 4 states, nothing staged) for the fused
+    form at S = 1, a decode tick; "chunked" (a lane 2 states of a channel,
+    walking chunks of steps staged through shared memory) otherwise."""
+    return "step" if fused and S == 1 else "chunked"
 
 
 def _check(typed, fp32, B, D, N, h0) -> None:
@@ -123,11 +135,12 @@ def _launch(fused: int, tensors, h0, B, S, D, N, h_final=None, write_ok=None):
     if h_final is None:
         h_final = torch.empty((B, D, N), dtype=torch.float32, device=dev)
     typed = tensors[1] if fused else tensors[0]
+    step = int(scan_instance(S, bool(fused)) == "step")
     ptrs = [t.data_ptr() for t in tensors] + [None] * (5 - len(tensors))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = library().repro_selective_scan(
-            fused, SUPPORTED_DTYPES[typed.dtype], B, S, D, N, *ptrs,
+            fused, SUPPORTED_DTYPES[typed.dtype], step, B, S, D, N, *ptrs,
             None if h0 is None else h0.data_ptr(), y.data_ptr(), h_final.data_ptr(),
             None if write_ok is None else write_ok.data_ptr(), stream,
         )

@@ -40,3 +40,27 @@ def selective_scan_fused_ref(dt, x, A, Bs, Cs, h0=None, h_final=None, write_ok=N
     if write_ok is not None:
         h = torch.where(write_ok[:, None, None], h, h_final)
     return y, h_final.copy_(h)
+
+
+STATES_PER_LANE = 2  # the kernel's chunked instance: states a lane keeps
+
+
+def selective_scan_lanes_ref(decay, bx, cs, h0=None):
+    """The kernel's chunked instance in plain torch (tests only): the
+    recurrence step by step in fp32, and y summed as the kernel sums it: a
+    lane's STATES_PER_LANE adjacent states ``h * c`` first, then a
+    channel's N / STATES_PER_LANE lane partials into four interleaved sums
+    (lane m into sum m % 4), added as (s0 + s1) + (s2 + s3).  Same
+    arguments and results as :func:`selective_scan_ref`."""
+    B, S, D, N = decay.shape
+    h = (torch.zeros((B, D, N), dtype=torch.float32, device=decay.device) if h0 is None
+         else h0.float())
+    hs = []
+    for t in range(S):
+        h = decay[:, t].float() * h + bx[:, t].float()
+        hs.append(h)
+    prod = torch.stack(hs, 1) * cs.float()[:, :, None, :]  # [B, S, D, N]
+    lanes = prod.reshape(B, S, D, N // STATES_PER_LANE, STATES_PER_LANE).sum(-1)
+    lanes = torch.nn.functional.pad(lanes, (0, -lanes.shape[-1] % 4))
+    sums = lanes.reshape(B, S, D, -1, 4).sum(-2)
+    return (sums[..., 0] + sums[..., 1]) + (sums[..., 2] + sums[..., 3]), h

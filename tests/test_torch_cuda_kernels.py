@@ -67,6 +67,64 @@ def test_unsupported_shape_raises_on_the_card(cuda):
     assert ops.paged_attention.launches == n0
 
 
+# every hd x rep x bs instance, at lengths that probe the v2 kernel's edges:
+# 1, page multiples, the 256-position split's boundaries +-1, a full table
+EDGE_LENGTHS = [1, 8, 16, 32, 255, 256, 257, 511, 512, 513, 1024]
+EDGE_INSTANCES = [(hd, rep, bs) for hd in (16, 64) for rep in (1, 2, 4) for bs in (8, 16)]
+
+
+def _edge_inputs(seed, lengths, H, KV, hd, bs, dtype, device):
+    """A table of max(lengths) positions for each sequence, over permuted
+    physical blocks, with the given lengths."""
+    rng = np.random.default_rng(seed)
+    S, nb = len(lengths), -(-max(lengths) // bs)
+    N = S * nb + 1
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(device, dtype)
+               for sh in ((S, H, hd), (N, bs, KV, hd), (N, bs, KV, hd)))
+    tables = rng.permutation(np.arange(1, N))[: S * nb].reshape(S, nb).astype(np.int32)
+    return [q, k, v, torch.from_numpy(tables).to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device)]
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("hd,rep,bs", EDGE_INSTANCES)
+def test_kernel_at_split_and_page_edges(cuda, hd, rep, bs, dtype, atol):
+    """Lengths 1, page multiples and the split boundaries +-1 in one table
+    of 1,024 positions (4 splits, merged by the combine kernel): one call."""
+    args = _edge_inputs(hd + rep + bs, EDGE_LENGTHS, 2 * rep, 2, hd, bs,
+                        getattr(torch, dtype), cuda)
+    assert ops.split_plan(args[3].shape[1], bs)[1] == 4
+    n0 = ops.paged_attention.launches
+    out = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == n0 + 1  # one call, two kernels
+    ref = paged_attention_ref(*[a.float() if a.is_floating_point() else a for a in args])
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_kernel_at_long_context(cuda, dtype, atol):
+    """8 sequences x 4,096 positions at llama3.2-1b's heads (16 splits)."""
+    args = _inputs(5, 8, 32, 8, 64, 256, 16, getattr(torch, dtype), cuda)
+    out = ops.paged_attention(*args)
+    ref = paged_attention_ref(*[a.float() if a.is_floating_point() else a for a in args])
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_kernel_takes_unaligned_inputs(cuda, dtype, atol):
+    """q and the pools 4 (fp32) or 2 (bf16) bytes past a 16-byte boundary:
+    the wrapper hands the kernel aligned copies, and the result holds."""
+    args = _inputs(6, 8, 32, 8, 64, 7, 16, getattr(torch, dtype), cuda)
+    for i in range(3):
+        flat = torch.empty(args[i].numel() + 1, dtype=args[i].dtype, device=cuda)
+        args[i] = flat[1:].view(args[i].shape).copy_(args[i])
+        assert args[i].data_ptr() % ops.ALIGN
+    out = ops.paged_attention(*args)
+    ref = paged_attention_ref(*[a.float() if a.is_floating_point() else a for a in args])
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
 # --- mrd_combine ------------------------------------------------------------
 
 from repro_torch.kernels.mrd_combine import ops as mc_ops  # noqa: E402
@@ -387,3 +445,69 @@ def test_selective_scan_refuses_what_it_does_not_take_on_the_card(cuda):
         ss_ops.selective_scan_fused(dt, x, A, Bs, Cs, h0=fh0,
                                     write_ok=torch.ones(1, dtype=torch.uint8, device=cuda))
     assert ss_ops.selective_scan.launches == n0
+
+
+# the edges of the chunked instance (chunks of 64 steps, sums over states
+# every 16 steps, 32 channels a block) and of the step instance (S = 1), at
+# batches 1, 3 and 8 and every N; D = 40 is a whole block and a ragged one
+EDGE_S = [1, 2, 31, 32, 33, 255, 256, 257, 4097]
+
+
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("S", EDGE_S)
+def test_selective_scan_fused_edges_in_place(cuda, S, B, N):
+    """bf16 inputs from a nonzero h0, the state written over h0 with
+    write_ok alternating: y and the written rows hold to the plain version,
+    the others keep their state bit for bit."""
+    dt, x, A, Bs, Cs, h0 = _fused_inputs(S * N + B, B, S, 40, N, torch.bfloat16, cuda)
+    write_ok = torch.arange(B, device=cuda) % 2 == 0
+    ry, rh = selective_scan_fused_ref(dt, x, A, Bs, Cs, h0=h0)
+    state = h0.clone()
+    n0 = ss_ops.selective_scan.launches
+    y, h = ss_ops.selective_scan_fused(dt, x, A, Bs, Cs, h0=state, h_final=state,
+                                       write_ok=write_ok)
+    torch.cuda.synchronize()
+    assert ss_ops.selective_scan.launches == n0 + 1 and h is state
+    _close(y, ry)
+    _close(state[write_ok], rh[write_ok])
+    assert torch.equal(state[~write_ok], h0[~write_ok])
+
+
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("S", EDGE_S)
+def test_selective_scan_materialized_edges(cuda, S, N):
+    """The materialized form (the chunked instance at every S, S = 1
+    included), fp32, from h0."""
+    decay, bx, cs, h0 = _scan_inputs(S + N, 3, S, 40, N, torch.float32, cuda)
+    y, h = ss_ops.selective_scan(decay, bx, cs, h0=h0)
+    ry, rh = selective_scan_ref(decay, bx, cs, h0=h0)
+    _close(y, ry)
+    _close(h, rh)
+
+
+@pytest.mark.parametrize("S", [1, 300])
+def test_selective_scan_fused_odd_channels_and_unaligned_state(cuda, S):
+    """D odd (x's bf16 rows off 4-byte boundaries: staged by 2-byte loads)
+    and h0 4 bytes off a 16-byte boundary (the step instance's scalar
+    loads)."""
+    dt, x, A, Bs, Cs, h0 = _fused_inputs(7, 2, S, 37, 8, torch.bfloat16, cuda)
+    flat = torch.zeros(h0.numel() + 1, device=cuda)
+    state = flat[1:].view(h0.shape)
+    state.copy_(h0)
+    ry, rh = selective_scan_fused_ref(dt, x, A, Bs, Cs, h0=h0)
+    y, h = ss_ops.selective_scan_fused(dt, x, A, Bs, Cs, h0=state, h_final=state)
+    _close(y, ry)
+    _close(state, rh)
+
+
+@pytest.mark.parametrize("D,dtype", [(36, "bfloat16"), (37, "float32"), (8192, "bfloat16")])
+def test_selective_scan_fused_staging_paths(cuda, D, dtype):
+    """Rows off 16-byte boundaries, staged element by element (D = 36 in
+    bf16: 2-byte loads; D = 37 in fp32: 4-byte copies), and falcon-mamba-7b's
+    8,192 channels (16-byte copies), over 600 steps from h0."""
+    dt, x, A, Bs, Cs, h0 = _fused_inputs(9, 1, 600, D, 16, getattr(torch, dtype), cuda)
+    y, h = ss_ops.selective_scan_fused(dt, x, A, Bs, Cs, h0=h0)
+    ry, rh = selective_scan_fused_ref(dt, x, A, Bs, Cs, h0=h0)
+    _close(y, ry)
+    _close(h, rh)

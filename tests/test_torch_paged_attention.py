@@ -129,3 +129,88 @@ def test_kernel_input_checks_accept_served_shapes():
         args = [torch.from_numpy(a) for a in _mk(8, S=S, H=H, KV=KV, hd=hd, nb=nb, bs=bs)]
         ops.check_inputs(*args)
         ops.check_inputs(*[a.bfloat16() if a.is_floating_point() else a for a in args])
+
+
+# --- the kernel's split over positions (v2), modelled in plain torch --------
+
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_partials,
+    paged_attention_split_ref,
+)
+
+
+def _splits_of(nb):
+    """Splits of 1 page, 2 pages and more pages than the table has."""
+    return [1, 2, nb + 1]
+
+
+def _split_model(args, pages):
+    t = [torch.from_numpy(a) for a in args]
+    return paged_attention_split_ref(*t, pages).numpy()
+
+
+@pytest.mark.parametrize("S,H,KV,hd,nb,bs", GRID)
+@pytest.mark.parametrize("which", range(3))
+def test_split_model_matches_plain_and_reference_oracle(S, H, KV, hd, nb, bs, which):
+    args = _mk(0, S=S, H=H, KV=KV, hd=hd, nb=nb, bs=bs)
+    got = _split_model(args, _splits_of(nb)[which])
+    np.testing.assert_allclose(got, _port(*args), **TOL)
+    np.testing.assert_allclose(got, np.asarray(ref_oracle(*(jnp.asarray(a) for a in args))),
+                               **TOL)
+
+
+@pytest.mark.parametrize("S,H,KV,hd,nb,bs", GRID[:4])
+@pytest.mark.parametrize("which", range(3))
+def test_split_model_matches_reference_pallas_interpret(S, H, KV, hd, nb, bs, which):
+    args = _mk(1, S=S, H=H, KV=KV, hd=hd, nb=nb, bs=bs)
+    ref = ref_kernel(*(jnp.asarray(a) for a in args), interpret=True)
+    np.testing.assert_allclose(_split_model(args, _splits_of(nb)[which]), np.asarray(ref), **TOL)
+
+
+def test_split_model_empty_splits_and_short_rows():
+    """Lengths 1, a page multiple and one past it: a split wholly past a
+    length is the empty partial (m = -1e30, l = 0, acc = 0) and drops out
+    of the merge."""
+    q, k, v, tables, _ = _mk(9, S=4, H=4, KV=2, hd=16, nb=6, bs=8)
+    lengths = np.array([1, 16, 17, 48], np.int32)
+    t = [torch.from_numpy(a) for a in (q, k, v, tables, lengths)]
+    m, l, acc = paged_attention_partials(*t, 2)  # splits of 16 positions
+    assert m.shape == (4, 4, 3) and acc.shape == (4, 4, 3, 16)
+    live = np.array([[1, 0, 0], [1, 0, 0], [1, 1, 0], [1, 1, 1]], bool)
+    for s in range(4):
+        for j in range(3):
+            if live[s, j]:
+                assert (m[s, :, j] > -1e29).all() and (l[s, :, j] > 0).all()
+            else:
+                assert (m[s, :, j] == -1e30).all() and (l[s, :, j] == 0).all()
+                assert (acc[s, :, j] == 0).all()
+    np.testing.assert_allclose(paged_attention_split_ref(*t, 2).numpy(),
+                               _port(q, k, v, tables, lengths), **TOL)
+
+
+@pytest.mark.parametrize(
+    "nb, bs, pages, splits",
+    [(7, 16, 16, 1),     # the served llama3.2-1b table: one split, no merge
+     (16, 16, 16, 1),    # 256 positions: still one
+     (17, 16, 16, 2),
+     (256, 16, 16, 16),  # 4,096 positions
+     (3, 8, 32, 1), (33, 8, 32, 2), (512, 8, 32, 16)],
+)
+def test_split_plan_is_a_function_of_the_table_width(nb, bs, pages, splits):
+    assert ops.split_plan(nb, bs) == (pages, splits)
+    assert ops.workspace_numel(8, 32, 64, splits) == (0 if splits == 1 else
+                                                      8 * 32 * splits * 66)
+
+
+def test_unaligned_pools_are_realigned_not_refused():
+    """The kernel reads q and the pools with 16-byte loads: a pool 4 bytes
+    past a 16-byte boundary passes the checks and goes to the kernel as an
+    aligned copy of the same values; an aligned one goes as itself."""
+    args = [torch.from_numpy(a) for a in _mk(10, S=2, H=4, KV=2, hd=16, nb=2, bs=8)]
+    flat = torch.zeros(args[1].numel() + 1)
+    shifted = flat[1:].view(args[1].shape)  # 4 bytes past a 16-byte boundary
+    shifted.copy_(args[1])
+    ops.check_inputs(args[0], shifted, args[2], args[3], args[4])
+    moved = ops.aligned(shifted)
+    assert moved.data_ptr() % ops.ALIGN == 0 and torch.equal(moved, args[1])
+    assert ops.aligned(args[1]) is args[1]

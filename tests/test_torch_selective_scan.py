@@ -180,3 +180,61 @@ def test_state_out_rules():
     overlap = flat[:B * D * N].view(B, D, N), flat[D * N:D * N + B * D * N].view(B, D, N)
     with pytest.raises(ValueError):  # h_final partly over h0
         ss_ops.selective_scan_fused(dt, x, A, Bs, Bs, h0=overlap[0], h_final=overlap[1])
+
+
+# --- the kernel's chunked instance (v3), modelled in plain torch ------------
+
+from repro_torch.kernels.selective_scan.ref import selective_scan_lanes_ref  # noqa: E402
+
+
+def _slow_decay_inputs(seed, B, S, D, N):
+    """falcon-mamba's regime at init: dt ~ softplus(-4.6) ~ 0.01, A = -(1..N),
+    so decays lie near 1 and long products of them matter; x, Bs, Cs ~
+    N(0, 1), h0 ~ 0.5 N(0, 1).  Returns fp32 decay, bx, cs, h0 as the
+    fused form forms them."""
+    rng = np.random.default_rng(seed)
+    dt = torch.from_numpy(np.log1p(np.exp(-4.6 + 0.1 * rng.standard_normal((B, S, D))))
+                          .astype(np.float32))
+    x, Bs, Cs = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                 for sh in ((B, S, D), (B, S, N), (B, S, N)))
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(D, N)
+    h0 = torch.from_numpy((0.5 * rng.standard_normal((B, D, N))).astype(np.float32))
+    return (dt[..., None] * A).exp(), (dt * x)[..., None] * Bs[:, :, None, :], Cs, h0
+
+
+def _within_gate(out, ref):
+    """The card's gate: |out - ref| <= 1e-5 + 1e-4 |ref| everywhere."""
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    bad = np.abs(out - ref) > 1e-5 + 1e-4 * np.abs(ref)
+    assert not bad.any(), f"{bad.sum()} elements off, max abs err {np.abs(out - ref).max()}"
+
+
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("S", [1, 31, 257, 4097])
+def test_lane_model_matches_plain_and_reference_oracle(S, N):
+    decay, bx, cs, h0 = _slow_decay_inputs(S + N, 2, S, 4, N)
+    y, h = selective_scan_lanes_ref(decay, bx, cs, h0)
+    assert y.shape == (2, S, 4) and h.shape == (2, 4, N)
+    py, ph = selective_scan_ref(decay, bx, cs, h0)
+    oy, oh = ref_oracle(*(jnp.asarray(t.numpy()) for t in (decay, bx, cs)),
+                        h0=jnp.asarray(h0.numpy()))
+    for want_y, want_h in ((py.numpy(), ph.numpy()), (oy, oh)):
+        _within_gate(y.numpy(), want_y)
+        _within_gate(h.numpy(), want_h)
+
+
+def test_lane_model_without_h0_and_in_bf16():
+    """No h0 starts from zeros; bf16 inputs are widened to fp32 first."""
+    decay, bx, cs, _ = _slow_decay_inputs(11, 1, 300, 8, 8)
+    for args in ((decay, bx, cs), tuple(t.bfloat16() for t in (decay, bx, cs))):
+        y, h = selective_scan_lanes_ref(*args)
+        py, ph = selective_scan_ref(*args)
+        _within_gate(y.numpy(), py.numpy())
+        _within_gate(h.numpy(), ph.numpy())
+
+
+@pytest.mark.parametrize("S, fused, want", [(1, True, "step"), (2, True, "chunked"),
+                                            (32768, True, "chunked"), (1, False, "chunked"),
+                                            (64, False, "chunked")])
+def test_instance_is_chosen_from_the_form_and_S(S, fused, want):
+    assert ss_ops.scan_instance(S, fused) == want
