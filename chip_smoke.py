@@ -17,7 +17,9 @@ Phases, in order (any failure ends the run with a non-zero exit):
    sequences of up to 4,096 positions (16 splits merged by the combine
    kernel), fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain
    version in fp32);
-   ``mrd_combine`` at n = 256, at a [3, 512 k] stacked shape and at the
+   ``mrd_combine`` at n = 256 and 768, at the kernel's block of 2,048
+   elements +- 256, at a last block with one live warp, at the smoke
+   config's reduce-scatter rows, at a [3, 512 k] stacked shape and at the
    largest full-width gradient bucket's [3, len] rows, fp32 and bf16,
    equal bit for bit; ``flash_attention`` at the gemma3-12b shape (4096
    and 1755 tokens, 16 heads, 8 KV heads, hd 256, causal, no window and
@@ -98,9 +100,12 @@ Phases, in order (any failure ends the run with a non-zero exit):
    calls it): ``scaled_dot_product_attention`` on gathered views beside
    ``paged_attention``, causal or under a boolean window mask beside
    ``flash_attention``, ``rms_norm`` with weight ``1 + w`` beside
-   ``rmsnorm``; no single PyTorch call computes ``mrd_combine`` or
-   ``selective_scan``; and the least time the card could take (bytes at
-   3.35 TB/s, operations at the bf16 or fp32 peak, exponentials at the
+   ``rmsnorm``, ``addcmul`` on [n / 256, 256] views with the scales as a
+   column beside ``mrd_combine`` (with ``out.copy_(x)`` of the same fp32
+   n: the card's streaming rate; and alone in bf16 at the same n); no
+   single PyTorch call computes ``selective_scan``; and the least time
+   the card could take (bytes at 3.35 TB/s, operations at the bf16 or
+   fp32 peak, exponentials at the
    special function units' 16 a clock an SM at the card's largest SM
    clock); ``paged_attention`` also at 8 sequences x 4,096 positions
    beside SDPA on gathered views, and ``selective_scan``'s step instance
@@ -146,9 +151,13 @@ TRAIN_ARGV = [
 ]
 # rows of the largest full-width gradient bucket (w1, w2, w3: 16 x 2048 x 8192)
 BIG_BUCKET = 16 * 2048 * 8192
-# mrd_combine element counts: one block, a [3, 512 k] stacked shape, the
-# largest bucket's [3, len] rows flattened
-COMBINE_CASES = [256, 3 * 512 * 7, 3 * BIG_BUCKET]
+# mrd_combine element counts: one and three 256-blocks; the kernel's CUDA
+# block (8 warps, a 256-block each: 2,048 elements) +- 256 and a last block
+# with one live warp; the smoke config's [3, len] reduce-scatter rows
+# (compressed, dp 3); a [3, 512 k] stacked shape; the largest bucket's
+# [3, len] rows flattened
+COMBINE_CASES = [256, 768, 1792, 2048, 2304, 5 * 2048 + 256, 6912, 12288, 13824, 24576, 49152,
+                 3 * 512 * 7, 3 * BIG_BUCKET]
 GEMMA_SERVE_ARGV = [
     "--arch", "gemma3-12b", "--continuous", "--workload", "llm_decode", "--dp", "3",
     "--slots", "4", "--requests", "8", "--min-prompt-len", "1024", "--prompt-len", "8192",
@@ -1132,17 +1141,35 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # mrd_combine at the largest bucket's stacked rows, fp32 (as the
-    # compressed reduce-scatter calls it)
+    # compressed reduce-scatter calls it), beside addcmul on [n / 256, 256]
+    # views (one PyTorch call of the same function, a yardstick the port
+    # never calls) and out.copy_(x) (8 B an element: the card's streaming rate)
     x, q, sc = combine_inputs(COMBINE_CASES[-1], torch.float32, seed=3)
+    copy_out = torch.empty_like(x)
     mc_ms = time_ms(lambda: mc_ops.mrd_combine(x, q, sc), iters=20)
+    mc_lib_ms = time_ms(lambda: torch.addcmul(x.view(-1, 256), q.view(-1, 256), sc.view(-1, 1)),
+                        iters=20)
+    mc_copy_ms = time_ms(lambda: copy_out.copy_(x), iters=20)
     mc_plain_ms = time_ms(lambda: mrd_combine_ref(x, q, sc), iters=10)
     n = x.numel()
     mc_bytes = n * (4 + 1 + 4) + (n // 256) * 4  # x, q in; out; scales
     mc_bytes_ms, mc_ops_ms = mc_bytes / HBM_BYTES_PER_S * 1e3, 2 * n / FP32_FLOPS * 1e3
     mc_bound_ms = max(mc_bytes_ms, mc_ops_ms)
-    log(f"timings mrd_combine n={n} fp32 ([3, {n // 3}] rows): kernel {mc_ms:.4f} ms | plain "
-        f"{mc_plain_ms:.4f} ms | bound {mc_bound_ms:.4f} ms ({mc_bytes} bytes at 3.35 TB/s; "
-        f"ops bound {mc_ops_ms:.4f} ms) | no single PyTorch call computes it")
+    log(f"timings mrd_combine n={n} fp32 ([3, {n // 3}] rows): kernel {mc_ms:.4f} ms "
+        f"({mc_bytes / mc_ms / 1e9:.3f} TB/s, {mc_bound_ms / mc_ms:.3f} of the bound) | plain "
+        f"{mc_plain_ms:.4f} ms | addcmul {mc_lib_ms:.4f} ms | kernel / addcmul "
+        f"{mc_ms / mc_lib_ms:.3f} | bound {mc_bound_ms:.4f} ms ({mc_bytes} bytes at 3.35 TB/s; "
+        f"ops bound {mc_ops_ms:.4f} ms) | copy_ of the fp32 x {mc_copy_ms:.4f} ms "
+        f"({8 * n / mc_copy_ms / 1e9:.3f} TB/s)")
+    del x, q, sc, copy_out
+    # the same n with bf16 x and out (5 B an element)
+    x, q, sc = combine_inputs(COMBINE_CASES[-1], torch.bfloat16, seed=3)
+    mc_bf16_ms = time_ms(lambda: mc_ops.mrd_combine(x, q, sc), iters=20)
+    mc_bf16_bytes = n * (2 + 1 + 2) + (n // 256) * 4
+    mc_bf16_bound_ms = mc_bf16_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"timings mrd_combine n={n} bf16: kernel {mc_bf16_ms:.4f} ms "
+        f"({mc_bf16_bytes / mc_bf16_ms / 1e9:.3f} TB/s, {mc_bf16_bound_ms / mc_bf16_ms:.3f} of the "
+        f"bound) | bound {mc_bf16_bound_ms:.4f} ms ({mc_bf16_bytes} bytes at 3.35 TB/s)")
     del x, q, sc
 
     # flash_attention at 32k tokens, gemma3-12b's heads (bf16): a global
@@ -1316,7 +1343,9 @@ def main() -> int:
         "plain_ms": mc_plain_ms,
         "bound_ms": mc_bound_ms,
         "bound_by": "bytes" if mc_bytes_ms >= mc_ops_ms else "operations",
-        "library_ms": None,
+        "library_ms": mc_lib_ms,
+        "copy_ms": mc_copy_ms,
+        "bf16": {"ms": mc_bf16_ms, "bound_ms": mc_bf16_bound_ms, "bound_by": "bytes"},
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -14,14 +14,24 @@
 //
 // What bounds it: device-memory bytes.  Each element reads x (4 or 2 B)
 // and q (1 B) and writes out (4 or 2 B), plus 4 B of scale per 256
-// elements: 9 B an element in float32, at two flops an element.  The
-// design streams every byte once: a grid-stride loop in which a thread
-// takes 16 consecutive elements, i.e. one 16-byte load of q, 16-byte loads
-// of x (four in float32, two in bfloat16) and stores of the same width,
-// and reads the one scale of the 256-block its 16 elements lie in.  No
-// shared memory, no TMA: a simple first kernel, at about half the bytes
-// bound on an H100 (PERF.md).  Unmeasured candidate for a later kernel: a
-// warp's 16-byte accesses of x and out lie 64 bytes apart, not adjacent.
+// elements: 9 B an element in float32, 5 B in bfloat16, at two flops an
+// element.  The design (v2) streams every byte once at the card's rate:
+//   - a warp takes one 256-block, so its scale is one read-only load (the
+//     same address for every lane) and its index is the warp's, with no
+//     division; n is a whole number of 256-blocks, so no warp has a
+//     partial one;
+//   - a lane's 16-byte accesses of x and out (4 float32 or 8 bfloat16) sit
+//     beside its neighbours', so each warp-wide access is 512 contiguous
+//     bytes (two in float32), and q's loads (4 or 8 bytes a lane) are
+//     contiguous too (lanes 64 bytes apart touch twice the sectors they
+//     use, and ran at half the bound on an H100, PERF.md);
+//   - every load of the block (x, q, the scale) is issued before the first
+//     product, and the grid holds one warp for every 256-block, so the SMs
+//     keep enough loads in flight without a loop (a grid-stride loop over
+//     one wave of blocks was slower there);
+//   - out is written once, so its stores carry the streaming hint
+//     (st.global.cs); x and q go through the read-only path, which was
+//     faster there than their streaming loads.
 //
 // C entry point repro_mrd_combine(...) launches on the given stream and
 // returns cudaGetLastError() (0 on success), or -1 for a length or type
@@ -33,89 +43,105 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kVec = 16;     // elements a thread takes per iteration
+constexpr int kWarps = 8;    // warps (256-blocks) a block
 constexpr int kQBlock = 256; // quantization block (one scale each)
 constexpr int kUnsupported = -1;
 
-// x and out as 16 elements: four float4 in fp32, two uint4 (8 bf16 each)
-// in bf16.  Both are 16-byte vector accesses.
-__device__ __forceinline__ void load16(const float* p, float (&v)[kVec]) {
-  const float4* p4 = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float4 t = p4[j];
-    v[4 * j] = t.x; v[4 * j + 1] = t.y; v[4 * j + 2] = t.z; v[4 * j + 3] = t.w;
-  }
-}
+// One lane's share of a warp-wide access: 16 bytes of x (4 float32 or 8
+// bfloat16) and the q bytes of the same elements (4 or 8).
+template <typename T>
+struct Lane;
 
-__device__ __forceinline__ void store16(float* p, const float (&v)[kVec]) {
-  float4* p4 = reinterpret_cast<float4*>(p);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    p4[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-}
+template <>
+struct Lane<float> {
+  static constexpr int kElems = 4;
+  using X = float4;
+  using Q = int;  // 4 int8
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[kVec]) {
-  const uint4* p4 = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    uint4 t = p4[j];
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&t);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[8 * j + k] = __bfloat162float(h[k]);
+  static __device__ __forceinline__ X load_x(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
   }
-}
+  static __device__ __forceinline__ Q load_q(const int8_t* p) {
+    return __ldg(reinterpret_cast<const int*>(p));
+  }
+  static __device__ __forceinline__ void store(float* p, X v) {
+    __stcs(reinterpret_cast<float4*>(p), v);
+  }
+  static __device__ __forceinline__ X combine(X v, Q q, float s) {
+    v.x = __fadd_rn(v.x, __fmul_rn(static_cast<float>(static_cast<int8_t>(q)), s));
+    v.y = __fadd_rn(v.y, __fmul_rn(static_cast<float>(static_cast<int8_t>(q >> 8)), s));
+    v.z = __fadd_rn(v.z, __fmul_rn(static_cast<float>(static_cast<int8_t>(q >> 16)), s));
+    v.w = __fadd_rn(v.w, __fmul_rn(static_cast<float>(static_cast<int8_t>(q >> 24)), s));
+    return v;
+  }
+};
 
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&v)[kVec]) {
-  uint4* p4 = reinterpret_cast<uint4*>(p);
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    uint4 t;
-    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&t);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) h[k] = __float2bfloat16_rn(v[8 * j + k]);
-    p4[j] = t;
+template <>
+struct Lane<__nv_bfloat16> {
+  static constexpr int kElems = 8;
+  using X = uint4;  // 4 words of 2 bfloat16 each
+  using Q = int2;   // 8 int8
+
+  static __device__ __forceinline__ X load_x(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
   }
-}
+  static __device__ __forceinline__ Q load_q(const int8_t* p) {
+    return __ldg(reinterpret_cast<const int2*>(p));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, X v) {
+    __stcs(reinterpret_cast<uint4*>(p), v);
+  }
+  // two bfloat16 of a word (low element first) and their two q bytes
+  static __device__ __forceinline__ uint32_t pair(uint32_t w, int q, float s) {
+    const float lo = __fadd_rn(__uint_as_float(w << 16),
+                               __fmul_rn(static_cast<float>(static_cast<int8_t>(q)), s));
+    const float hi = __fadd_rn(__uint_as_float(w & 0xffff0000u),
+                               __fmul_rn(static_cast<float>(static_cast<int8_t>(q >> 8)), s));
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ X combine(X v, Q q, float s) {
+    v.x = pair(v.x, q.x, s);
+    v.y = pair(v.y, q.x >> 16, s);
+    v.z = pair(v.z, q.y, s);
+    v.w = pair(v.w, q.y >> 16, s);
+    return v;
+  }
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kWarps)
 mrd_combine_kernel(const T* __restrict__ x,           // [n]
                    const int8_t* __restrict__ q,      // [n]
                    const float* __restrict__ scales,  // [n / 256]
                    T* __restrict__ out,               // [n]
-                   int64_t n_vec) {                   // n / 16
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n_vec;
-       i += stride) {
-    const int4 qv = reinterpret_cast<const int4*>(q)[i];
-    const int8_t* qb = reinterpret_cast<const int8_t*>(&qv);
-    const float s = scales[i / (kQBlock / kVec)];
-    float v[kVec];
-    load16(x + i * kVec, v);
+                   int64_t n_blocks) {                // n / 256
+  using L = Lane<T>;
+  constexpr int kSpan = 32 * L::kElems;        // elements of one warp-wide access
+  constexpr int kSpans = kQBlock / kSpan;      // 2 in float32, 1 in bfloat16
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (b >= n_blocks) return;
+  const int64_t e0 = b * kQBlock + (threadIdx.x & 31) * L::kElems;
+  typename L::X xv[kSpans];
+  typename L::Q qv[kSpans];
 #pragma unroll
-    for (int k = 0; k < kVec; ++k)
-      v[k] = __fadd_rn(v[k], __fmul_rn(static_cast<float>(qb[k]), s));
-    store16(out + i * kVec, v);
+  for (int j = 0; j < kSpans; ++j) {
+    xv[j] = L::load_x(x + e0 + j * kSpan);
+    qv[j] = L::load_q(q + e0 + j * kSpan);
   }
+  const float s = __ldg(scales + b);
+#pragma unroll
+  for (int j = 0; j < kSpans; ++j) L::store(out + e0 + j * kSpan, L::combine(xv[j], qv[j], s));
 }
 
 template <typename T>
-int launch(const void* x, const void* q, const void* scales, void* out, int64_t n,
-           cudaStream_t stream) {
-  const int64_t n_vec = n / kVec;
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  // enough blocks to fill every SM several times over; the loop covers the rest
-  const int64_t want = (n_vec + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 132) * 8;
-  const int blocks = static_cast<int>(want < cap ? want : cap);
-  mrd_combine_kernel<T><<<blocks, kThreads, 0, stream>>>(
+void launch(const void* x, const void* q, const void* scales, void* out, int64_t n,
+            cudaStream_t stream) {
+  const int64_t n_blocks = n / kQBlock;
+  const unsigned grid = static_cast<unsigned>((n_blocks + kWarps - 1) / kWarps);
+  mrd_combine_kernel<T><<<grid, 32 * kWarps, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scales), static_cast<T*>(out), n_vec);
-  return 0;
+      static_cast<const float*>(scales), static_cast<T*>(out), n_blocks);
 }
 
 }  // namespace
@@ -126,12 +152,10 @@ extern "C" int repro_mrd_combine(const void* x, const void* q, const void* scale
                                  void* out, long long n, int dtype, void* stream) {
   if (n <= 0 || n % kQBlock != 0) return kUnsupported;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
   switch (dtype) {
-    case 0: rc = launch<float>(x, q, scales, out, n, s); break;
-    case 1: rc = launch<__nv_bfloat16>(x, q, scales, out, n, s); break;
-    default: rc = kUnsupported;
+    case 0: launch<float>(x, q, scales, out, n, s); break;
+    case 1: launch<__nv_bfloat16>(x, q, scales, out, n, s); break;
+    default: return kUnsupported;
   }
-  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

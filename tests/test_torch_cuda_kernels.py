@@ -142,8 +142,15 @@ def _combine_inputs(seed, n, dtype, device):
     return x, q, torch.from_numpy(s).to(device)
 
 
+# one and three 256-blocks; the kernel's CUDA block (8 warps, a 256-block
+# each: 2,048 elements) +- 256 and a last block with one live warp; the smoke
+# config's [3, len] reduce-scatter rows (compressed, dp 3); stacked shapes
+COMBINE_LENGTHS = [256, 768, 1792, 2048, 2304, 5 * 2048 + 256, 6912, 12288, 13824, 24576, 49152,
+                   3 * 512 * 7, 3 * 512 * 4099]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [256, 3 * 512 * 7, 3 * 512 * 4099])
+@pytest.mark.parametrize("n", COMBINE_LENGTHS)
 def test_mrd_combine_matches_plain_bit_for_bit(cuda, n, dtype):
     """Exact in both types: the kernel rounds the product and the sum
     separately (no FMA), as the plain version does, and casts the fp32
