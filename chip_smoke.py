@@ -112,7 +112,25 @@ Phases, in order (any failure ends the run with a non-zero exit):
    at a decode tick's [8, 1, 8192, 16] beside its bound, and the scan's
    chunk-parallel form across blocks (2, 4 and 8 pieces of the 32k
    sequence, built from the chunked instance and held to it) beside it;
-7. the kernels line, then the device line as the last line of stdout.
+7. the paper's asynchronous-iteration engine (``repro_torch.asynchrony``),
+   which launches none of the kernels above (every launch count stays 0):
+   7a. ``async-card-vs-cpu``: ``sweep`` on poisson1d n = 120, p = 5, 8
+   seeds, the counter-based ``bernoulli`` draws, each of the five
+   protocols, on the card and on the CPU: every integer equal, floats
+   within 1e-5; 7b. ``async-paper-sweep``: ``bench_async``'s grid (every
+   delay model x oracle, sync, inexact, exact, interval, 64 seeds a sweep)
+   at the paper's configuration (``paper_poisson1d``: n = 10,000, rhs in
+   +-10, shift 0.5, eps 1e-5, max_delay 1, activity 0.95) at p = 5 and
+   16: every lane detected, ``exact``'s true residual below eps on every
+   lane, detection delay >= 0 against the oracle (``check_rows``), and
+   ``sync``'s collective messages = ticks x ``paper_message_count(p)``;
+   each sweep's lanes, ticks, ms a tick, lane-ticks/s and wall; 7c. one
+   ``exact`` sweep over activity 0.3 / 0.6 / 0.95 x 64 seeds (192 lanes)
+   at p = 5 and 16, and a profile of its first 32 ticks (device busy and
+   idle share, launches and the costliest kernels a tick); 7d.
+   ``bench_detection``'s paper-size row (n = 10,000, shift 0, ``oracle``,
+   p = 16, 300 ticks);
+8. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
@@ -450,6 +468,135 @@ def kernel_classes(per_rep: dict, busy_ms: float) -> dict:
     log("  device time by class: " + ", ".join(
         f"{k} {v:.3f} ms ({v / busy_ms:.3f})" for k, v in classes.items()))
     return classes
+
+
+ASYNC_PROTOCOLS = ("oracle", "sync", "inexact", "exact", "interval")
+ASYNC_SEEDS = 64  # lanes a sweep of the paper's configuration
+ACTIVITY_GRID = (0.3, 0.6, 0.95)  # the exact sweep's grid over bernoulli's activity
+PROFILE_TICKS = 32  # ticks of that sweep under the profiler
+
+
+def async_phases(all_ops, t: float) -> dict:
+    """7. The paper's asynchronous-iteration engine on the card: the card
+    against the CPU, the paper's n = 10,000 sweeps and a profile of one.
+    The engine launches none of the port's kernels, so every launch count
+    stays 0 through these phases."""
+    from repro_torch import asynchrony
+    from repro_torch.benchmarks import bench_async, bench_detection
+    from repro_torch.collectives import schedules
+    from repro_torch.configs.paper_poisson1d import CONFIG as PAPER
+
+    for op in all_ops:
+        op.launches = 0
+    stats: dict = {"card_vs_cpu": {}, "sweeps": [], "exact_activity_grid": {}}
+
+    # 7a. the same sweeps on the card and on the CPU: the counter-based
+    # draws are the same on both, so the integers must be equal
+    fp = asynchrony.make_solver("poisson1d", n=120, shift=0.5, seed=0)
+    for det in ASYNC_PROTOCOLS:
+        cfg = asynchrony.AsyncConfig(p=5, detection=det, delay_model="bernoulli", eps=1e-5,
+                                     max_ticks=50000, max_delay=2, activity=0.7)
+        card = asynchrony.sweep(fp, cfg, range(8), device="cuda")
+        cpu = asynchrony.sweep(fp, cfg, range(8), device="cpu")
+        for f in ("detected", "ticks", "kiter", "messages_p2p", "messages_coll"):
+            if not np.array_equal(getattr(card, f), getattr(cpu, f)):
+                raise SystemExit(f"async {det}: {f} differs between the card and the CPU")
+        diff = max(float(np.abs(getattr(card, f) - getattr(cpu, f)).max())
+                   for f in ("x", "res_glb", "true_res"))
+        if diff > 1e-5 or not card.detected.all():
+            raise SystemExit(f"async {det}: card against CPU {diff:.3e} (atol 1e-5), "
+                             f"detected {card.detected.tolist()}")
+        log(f"async card vs CPU (poisson1d n 120, p 5, 8 seeds, bernoulli), {det}: integers "
+            f"equal, mean ticks {card.ticks.mean():.1f}, largest float difference {diff:.3e}")
+        stats["card_vs_cpu"][det] = diff
+    t = phase("async-card-vs-cpu", t)
+
+    # 7b. bench_async's grid at the paper's configuration (n 10,000, shift
+    # 0.5, eps 1e-5, max_delay 1, activity 0.95), 64 seeds a sweep
+    def on_sweep(p):
+        def check(row, r):
+            lanes, slowest, wall = row["lanes"], row["slowest_ticks"], row["wall_s"]
+            log(f"  p {p:2d} {row['model']:>13} {row['protocol']:>8}: {lanes} lanes, mean ticks "
+                f"{r.ticks.mean():7.1f}, slowest {slowest:4d}, {wall / slowest * 1e3:.3f} ms a "
+                f"tick, {lanes * slowest / wall:10.0f} lane-ticks/s, wall {wall:.3f} s")
+            if not r.detected.all():
+                raise SystemExit(f"async {row['name']}: a lane was not detected")
+            if row["protocol"] == "exact" and not (r.true_res < PAPER.eps).all():
+                raise SystemExit(f"async {row['name']}: exact certified true_res "
+                                 f"{r.true_res.max():.3e} >= eps")
+            if row["protocol"] == "sync" and not (
+                    r.messages_coll == r.ticks * schedules.paper_message_count(p)).all():
+                raise SystemExit(f"async {row['name']}: messages_coll != ticks x "
+                                 f"paper_message_count({p})")
+            stats["sweeps"].append({k: row[k] for k in (
+                "name", "lanes", "slowest_ticks", "wall_s", "mean_ticks")})
+        return check
+
+    for p in (5, 16):
+        rows = bench_async.run_sweeps(PAPER.n, p, range(ASYNC_SEEDS),
+                                      sorted(asynchrony.DELAY_MODELS), PAPER.eps, device="cuda",
+                                      on_sweep=on_sweep(p))
+        log(f"async p {p}: detection delay >= the oracle's on {bench_async.check_rows(rows)} rows")
+    t = phase("async-paper-sweep", t)
+
+    # 7c. one exact sweep over bernoulli's activity x 64 seeds (192 lanes),
+    # then its first PROFILE_TICKS ticks (every lane running) without and
+    # with the profiler: wall and device time a tick, kernels by name
+    fp = asynchrony.make_solver("poisson1d", n=PAPER.n, shift=PAPER.shift, seed=0)
+    grid = {"activity": torch.tensor(ACTIVITY_GRID)}
+    for p in (5, 16):
+        def one(max_ticks):
+            cfg = asynchrony.AsyncConfig(p=p, detection="exact", eps=PAPER.eps,
+                                         max_ticks=max_ticks, max_delay=PAPER.max_delay,
+                                         activity=PAPER.activity)
+            return asynchrony.sweep(fp, cfg, range(ASYNC_SEEDS), delay_params=grid,
+                                    device="cuda")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        r = one(60000)
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        if not (r.detected.all() and (r.true_res < PAPER.eps).all()):
+            raise SystemExit(f"async exact activity grid p {p}: a lane undetected or unsound")
+        slowest = int(r.ticks.max())
+        log(f"async exact, p {p}, activity {list(ACTIVITY_GRID)} x {ASYNC_SEEDS} seeds "
+            f"({r.ticks.size} lanes): mean ticks by activity "
+            f"{[round(float(v), 1) for v in r.ticks.mean(axis=1)]}, slowest {slowest}, wall "
+            f"{wall_ms:.1f} ms, {wall_ms / slowest:.3f} ms a tick, "
+            f"{r.ticks.size * slowest / wall_ms * 1e3:.0f} lane-ticks/s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one(PROFILE_TICKS + 1)
+        part_ms = (time.perf_counter() - t1) * 1e3
+        busy_ms, per_rep = device_profile(lambda: one(PROFILE_TICKS + 1), 1)
+        launches = sum(n for _, n in per_rep.values()) / PROFILE_TICKS
+        log(f"  its first {PROFILE_TICKS} ticks: wall {part_ms / PROFILE_TICKS:.3f} ms a tick, "
+            f"device busy {busy_ms / PROFILE_TICKS:.3f} ms a tick, idle share "
+            f"{1 - busy_ms / part_ms:.3f}, {launches:.1f} launches a tick")
+        for name, (ms_r, n_r) in top_kernels(per_rep, 8):
+            log(f"  {ms_r / PROFILE_TICKS:9.4f} ms {n_r / PROFILE_TICKS:6.1f} launches a tick  "
+                f"{name[:100]}")
+        stats["exact_activity_grid"][str(p)] = {
+            "lanes": int(r.ticks.size), "slowest_ticks": slowest, "wall_ms": wall_ms,
+            "ms_per_tick": wall_ms / slowest, "profiled_ms_per_tick": part_ms / PROFILE_TICKS,
+            "busy_ms_per_tick": busy_ms / PROFILE_TICKS, "idle_share": 1 - busy_ms / part_ms,
+            "launches_per_tick": launches}
+
+    # 7d. bench_detection's paper-size row: n 10,000, shift 0, oracle, p 16,
+    # 300 ticks
+    res, us = bench_detection.paper_scale_row("cuda")
+    log(f"async paper_n10000_res_after_300_ticks: residual {res.res_glb:.4e} after {res.ticks} "
+        f"ticks, wall {us / 1e3:.1f} ms ({us / 1e3 / res.ticks:.3f} ms a tick, one lane)")
+    if not np.isfinite(res.res_glb) or res.detected:
+        raise SystemExit(f"paper-size row: {res.res_glb} detected {res.detected}")
+    stats["paper_n10000_res_after_300_ticks"] = res.res_glb
+    if any(op.launches for op in all_ops):
+        raise SystemExit("the asynchronous engine launched a kernel: "
+                         f"{[op.launches for op in all_ops]}")
+    t = phase("async-profile", t)
+    return stats
 
 
 def main() -> int:
@@ -1311,7 +1458,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     t = phase("timings", t)
 
-    # 7. results
+    async_stats = async_phases(all_ops, t)
+
+    # 8. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -1320,6 +1469,7 @@ def main() -> int:
     log(json.dumps({"gemma3_prefill_32k": prefill_stats}))
     log(json.dumps({"falcon_serve": falcon_stats}))
     log(json.dumps({"falcon_prefill_32k": falcon_prefill_stats}))
+    log(json.dumps({"async": async_stats}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",

@@ -1,29 +1,106 @@
-"""The paper's convergence detection inside a training loop (port of
-``repro.asynchrony.protocols``: :class:`ConvergenceMonitor` and the
-training-loop policies of the ``inexact``, ``exact`` and ``interval``
-detection protocols).
+"""Detection protocols (port of ``repro.asynchrony.protocols``,
+``DETECTION_PROTOCOLS``): the asynchronous engine's half and the training
+loop's :class:`ConvergenceMonitor`.
 
-Each data-parallel rank is a row of a stacked ``[dp]`` tensor.  Every
-train step each rank contributes one scalar (its policy decides which),
-and the contributions are max-reduced through the non-blocking MRD plan:
-one stage per step, never blocking the step.  When a cycle completes, the
-reduced value is published; the run is certified converged once a
-published value falls below the threshold.  The reference's engine-side
-protocol surfaces (``init``/``tick``/``finalize``, snapshots) are not
-ported yet.
+**The engine's half.**  A protocol is an ``init / tick / finalize`` object
+over the non-blocking MRD max-plan, run for ``B`` independent lanes at
+once (a sweep's seeds and grid points; a single run is one lane):
+
+- ``init(p, m, cfg, lanes, device)``: the protocol's state, every leaf
+  ``[B, ...]``; it always holds ``res_norm`` (the certified value, latched
+  at :data:`RES_INIT`) and ``detected``;
+- ``tick(state, obs)``: advance one engine tick; returns ``(state,
+  coll_msgs [B])``, this tick's collective messages (paper S2);
+- ``finalize(state, x)``: the solution the protocol certifies (``x̄`` for
+  the snapshot-exact protocol, the live iterate otherwise).
+
+Registered: ``inexact`` (paper Alg. 1), ``exact`` (Alg. 2, Chandy-Lamport
+snapshot), ``interval`` (Alg. 1 over a sliding window of update
+magnitudes), ``oracle`` (the true residual, physically unrealizable) and
+``sync`` (synchronous iteration and a blocking allreduce; the engine reads
+``synchronous`` and pins full activity and zero delays).  Where a lane's
+stage or phase decides what happens (the reference's ``lax.switch`` and
+``lax.cond`` under ``vmap``), every branch is computed for every lane and
+each lane keeps its own with :func:`where_lanes`.
+
+**The training loop's half.**  ``inexact``, ``exact`` and ``interval``
+also define ``monitor_init(metric0 [p])`` and
+``monitor_contribution(mstate, metric [p], step_idx, cycle_length)``:
+what each data-parallel rank (a row of a stacked ``[dp]`` tensor)
+contributes a step.  The contributions are max-reduced through the same
+plan, one stage a step; the run is certified converged once a published
+value falls below the threshold.
+
+The reference's elastic ``migrate`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.collectives import plans
+from repro_torch.core import snapshot
 
 # Finite 'infinity' for residual latches.
 RES_INIT = 1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class Obs:
+    """One engine tick as seen by a protocol, for ``B`` lanes."""
+
+    x: Any  # [B, p, m] current blocks
+    update_mag: Any  # [B, p] last local update magnitude per worker
+    tick: Any  # [B] int32
+    draw: Any  # this tick's draws (repro_torch.asynchrony.draws.Draw): marker delays
+    fp: Any  # the FixedPoint being solved
+    eps: float
+    max_delay: int
+    msg_table: Any  # [S] int32: messages sent at MRD stage s
+    coll_cycle_msgs: int  # messages of one full blocking cycle
+
+
+def where_lanes(mask, new, old):
+    """Each lane's leaves from ``new`` where ``mask [B]`` holds, else from
+    ``old``: dicts of ``[B, ...]`` tensors.  A leaf that is the same tensor
+    on both sides is kept as it is."""
+    if isinstance(new, dict):
+        return {k: where_lanes(mask, new[k], old[k]) for k in new}
+    if new is old:
+        return new
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
+
+
+@functools.lru_cache(maxsize=64)
+def _sim_plan(p: int) -> plans.CollectivePlan:
+    return plans.allreduce_plan(schedule="mrd", p=p, op="max")
+
+
+def _stage_msgs(msg_table, stage):
+    return msg_table[stage.clamp(max=msg_table.shape[0] - 1).long()]
+
+
+def _latch(lanes: int, p: int, device) -> torch.Tensor:
+    return torch.full((lanes, p), RES_INIT, dtype=torch.float32, device=device)
+
+
+def _certify(lanes: int, device) -> dict:
+    return {"res_norm": torch.full((lanes,), RES_INIT, dtype=torch.float32, device=device),
+            "detected": torch.zeros(lanes, dtype=torch.bool, device=device)}
+
+
+def _reduce_tick(st):
+    """One stage of the staged max-reduction of ``st["res_loc"]``: the new
+    ``nb``, ``res_norm`` and ``flag`` (True where a cycle completed)."""
+    nb = _sim_plan(st["res_loc"].shape[-1]).step_lanes(st["nb"], st["res_loc"])
+    flag = nb["flag"]
+    res_norm = torch.where(flag, nb["result"].amax(dim=-1), st["res_norm"])
+    return nb, res_norm, flag
+
 
 DETECTION_PROTOCOLS: Dict[str, Any] = {}
 
@@ -45,18 +122,41 @@ def get_protocol(name: str):
         ) from None
 
 
-# Policies: ``monitor_init(metric0 [p])`` is the per-rank policy state, and
-# ``monitor_contribution(mstate, metric [p], step_idx, cycle_length)``
-# returns (new state, what each rank contributes this step).
+class _ProtocolBase:
+    """Default surfaces shared by the registered protocols."""
+
+    synchronous = False
+
+    def finalize(self, state, x):
+        """Solution to report at termination (default: the live iterate)."""
+        return x.flatten(-2)
+
+    def monitor_init(self, metric0):
+        raise ValueError(f"protocol {type(self).__name__} has no training-loop policy")
 
 
 @register_protocol("inexact")
 @dataclasses.dataclass(frozen=True)
-class InexactProtocol:
-    """Paper Algorithm 1: each cycle latches the rank's *current* metric;
-    contributions may mix step indices across ranks."""
+class InexactProtocol(_ProtocolBase):
+    """Paper Algorithm 1: a non-blocking allreduce of the workers' update
+    magnitudes; each cycle re-latches the worker's *current* value, so
+    contributions mix local iterations (and, in training, step indices)."""
 
     name: str = "inexact"
+
+    def init(self, p: int, m: int, cfg, lanes: int, device):
+        return {"nb": _sim_plan(p).init_lanes(_latch(lanes, p, device)),
+                "res_loc": _latch(lanes, p, device), **_certify(lanes, device)}
+
+    def tick(self, st, obs: Obs):
+        msgs = _stage_msgs(obs.msg_table, st["nb"]["stage"])
+        nb, res_norm, flag = _reduce_tick(st)
+        return {
+            "nb": nb,
+            "res_loc": torch.where(flag[:, None], obs.update_mag, st["res_loc"]),
+            "res_norm": res_norm,
+            "detected": st["detected"] | (flag & (res_norm < obs.eps)),
+        }, msgs
 
     def monitor_init(self, metric0):
         return {}
@@ -67,12 +167,66 @@ class InexactProtocol:
 
 @register_protocol("exact")
 @dataclasses.dataclass(frozen=True)
-class ExactProtocol:
-    """Paper Algorithm 2 in a BSP loop: contributions are latched only at
-    steps with ``step_idx % cycle_length == 0``, so every rank reduces the
-    metric of the same step (a consistent cut)."""
+class ExactProtocol(_ProtocolBase):
+    """Paper Algorithm 2: Chandy-Lamport snapshot -> residual on the frozen
+    x̄ -> non-blocking allreduce.  Certification is exact for the returned
+    x̄; a failed certification starts a new snapshot.  In a training loop
+    contributions are latched only at steps with ``step_idx % cycle_length
+    == 0``, so every rank reduces the same step's metric (a consistent
+    cut)."""
 
     name: str = "exact"
+
+    def init(self, p: int, m: int, cfg, lanes: int, device):
+        return {
+            "snap": snapshot.init(p, m, (lanes,), device),
+            "nb": _sim_plan(p).init_lanes(_latch(lanes, p, device)),
+            "res_loc": _latch(lanes, p, device),
+            **_certify(lanes, device),
+            "mode": torch.zeros(lanes, dtype=torch.int32, device=device),  # 0 snapshot, 1 reduce
+            "xbar": torch.zeros((lanes, p * m), dtype=torch.float32, device=device),
+        }
+
+    def _snapshot_phase(self, st, obs: Obs):
+        p, m = obs.x.shape[-2:]
+        snap = st["snap"]
+        d, reply = obs.draw.markers(p, obs.max_delay)
+        snap = where_lanes(~snap["in_progress"], snapshot.start(snap, obs.tick, d, reply), snap)
+        snap = snapshot.tick(snap, obs.x, obs.tick)
+        fin = snapshot.done(snap, obs.tick)
+        xbar = snapshot.assembled(snap)
+        res_blocks = (obs.fp.full_map(xbar) - xbar).abs().reshape(-1, p, m).amax(dim=-1)
+        return {
+            **st,
+            "snap": {**snap, "in_progress": snap["in_progress"] & ~fin},
+            "res_loc": torch.where(fin[:, None], res_blocks, st["res_loc"]),
+            "xbar": torch.where(fin[:, None], xbar, st["xbar"]),
+            "mode": torch.where(fin, 1, st["mode"]),
+        }
+
+    def _reduce_phase(self, st, obs: Obs):
+        nb, res_norm, flag = _reduce_tick(st)
+        det_now = flag & (res_norm < obs.eps)
+        return {
+            **st,
+            "nb": nb,
+            "res_norm": res_norm,
+            "detected": st["detected"] | det_now,
+            "mode": torch.where(flag & ~det_now, 0, st["mode"]),
+        }
+
+    def tick(self, st, obs: Obs):
+        p = obs.x.shape[-2]
+        in_reduce = st["mode"] == 1
+        # snapshot markers + data replies (all-to-all) when a snapshot starts
+        started = ~in_reduce & ~st["snap"]["in_progress"]
+        msgs = (torch.where(in_reduce, _stage_msgs(obs.msg_table, st["nb"]["stage"]), 0)
+                + torch.where(started, 2 * p * (p - 1), 0))
+        new = where_lanes(in_reduce, self._reduce_phase(st, obs), self._snapshot_phase(st, obs))
+        return new, msgs
+
+    def finalize(self, state, x):
+        return state["xbar"]
 
     def monitor_init(self, metric0):
         return {"latched": metric0}
@@ -84,11 +238,39 @@ class ExactProtocol:
 
 @register_protocol("interval")
 @dataclasses.dataclass(frozen=True)
-class IntervalProtocol:
-    """Windowed Algorithm 1: each rank contributes the max of its last
-    ``window`` metrics, so certification covers a whole window."""
+class IntervalProtocol(_ProtocolBase):
+    """Windowed Algorithm 1: each worker contributes the max of its update
+    magnitudes over the last ``window`` ticks (default ``max_delay + 2``,
+    covering the staleness bound), so certification means the updates
+    stayed below eps across a whole window.  Same message cost as
+    ``inexact``.  In a training loop each rank contributes the max of its
+    last 8 metrics."""
 
     name: str = "interval"
+
+    def _window(self, cfg) -> int:
+        w = getattr(cfg, "window", 0)
+        return int(w) if w else int(cfg.max_delay) + 2
+
+    def init(self, p: int, m: int, cfg, lanes: int, device):
+        win = torch.full((lanes, self._window(cfg), p), RES_INIT, dtype=torch.float32,
+                         device=device)
+        return {"nb": _sim_plan(p).init_lanes(_latch(lanes, p, device)), "win": win,
+                "res_loc": _latch(lanes, p, device), **_certify(lanes, device)}
+
+    def tick(self, st, obs: Obs):
+        W = st["win"].shape[1]
+        slot = torch.arange(W, device=obs.tick.device) == (obs.tick % W)[:, None]  # [B, W]
+        win = torch.where(slot[:, :, None], obs.update_mag[:, None, :], st["win"])
+        msgs = _stage_msgs(obs.msg_table, st["nb"]["stage"])
+        nb, res_norm, flag = _reduce_tick(st)
+        return {
+            "nb": nb,
+            "win": win,
+            "res_loc": torch.where(flag[:, None], win.amax(dim=1), st["res_loc"]),
+            "res_norm": res_norm,
+            "detected": st["detected"] | (flag & (res_norm < obs.eps)),
+        }, msgs
 
     def monitor_init(self, metric0, window: int = 8):
         return {"win": metric0[:, None].expand(-1, window).float().clone()}
@@ -97,6 +279,42 @@ class IntervalProtocol:
         win = mstate["win"].clone()
         win[:, step_idx % win.shape[1]] = metric
         return {"win": win}, win.amax(dim=1)
+
+
+@register_protocol("oracle")
+@dataclasses.dataclass(frozen=True)
+class OracleProtocol(_ProtocolBase):
+    """Ground truth (physically unrealizable): the true residual of the
+    *current* global iterate, free of charge.  The baseline every
+    realizable protocol's detection delay is measured against."""
+
+    name: str = "oracle"
+
+    def init(self, p: int, m: int, cfg, lanes: int, device):
+        return _certify(lanes, device)
+
+    def tick(self, st, obs: Obs):
+        res = obs.fp.residual_norm(obs.x.flatten(-2))
+        return {"res_norm": res, "detected": res < obs.eps}, torch.zeros_like(obs.tick)
+
+
+@register_protocol("sync")
+@dataclasses.dataclass(frozen=True)
+class SyncProtocol(_ProtocolBase):
+    """Classic synchronous iteration: full activity, zero delays (the
+    engine honors ``synchronous``), a blocking allreduce of the update
+    magnitudes every iteration: the paper's Fig. 5 comparison arm."""
+
+    name: str = "sync"
+    synchronous = True
+
+    def init(self, p: int, m: int, cfg, lanes: int, device):
+        return _certify(lanes, device)
+
+    def tick(self, st, obs: Obs):
+        res = obs.update_mag.amax(dim=-1)
+        return ({"res_norm": res, "detected": res < obs.eps},
+                torch.full_like(obs.tick, obs.coll_cycle_msgs))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,14 +336,15 @@ class ConvergenceMonitor:
     mode: str = "inexact"
 
     def _plan(self) -> plans.CollectivePlan:
-        return plans.allreduce_plan(schedule="mrd", p=self.p, op="max")
+        return _sim_plan(self.p)
 
     def _protocol(self):
         return get_protocol(self.mode)
 
-    def init(self, device="cpu") -> dict[str, Any]:
-        """Monitor state: the staged plan's state and the per-rank policy
-        state, published value and ``done`` latch, one row per rank."""
+    def init(self, *, device) -> dict[str, Any]:
+        """Monitor state on ``device``: the staged plan's state and the
+        per-rank policy state, published value and ``done`` latch, one row
+        per rank."""
         metric0 = torch.full((self.p,), RES_INIT, dtype=torch.float32, device=device)
         return {
             "nb": self._plan().init(metric0),

@@ -38,14 +38,17 @@ def resolve_op(op: str | Callable) -> Callable:
 
 
 @functools.lru_cache(maxsize=4096)
-def _sim_gather_spec(p: int, pairs) -> tuple[tuple[int, ...], tuple[bool, ...]]:
-    """Per-(p, pairs) source index and receive mask of each rank."""
+def _sim_gather_spec(p: int, pairs, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(p, pairs, device) source index of each rank and the mask of the
+    ranks that receive nothing, made once: building them from Python lists
+    on every call would copy them to the card, and each such copy waits
+    for the card."""
     idx = [0] * p
-    has = [False] * p
+    idle = [True] * p
     for s, d in pairs:
         idx[d] = s
-        has[d] = True
-    return tuple(idx), tuple(has)
+        idle[d] = False
+    return torch.tensor(idx, device=device), torch.tensor(idle, device=device)
 
 
 class SimBackend:
@@ -60,10 +63,8 @@ class SimBackend:
     def permute(self, x, pairs):
         """Rank ``d`` receives rank ``s``'s row for each (s, d); ranks that
         receive nothing get zeros."""
-        idx, has = _sim_gather_spec(self.p, tuple(pairs))
-        recv = x[torch.tensor(idx, device=x.device)]
-        idle = torch.tensor([not h for h in has], device=x.device)
-        return recv.masked_fill_(idle.reshape((self.p,) + (1,) * (x.ndim - 1)), 0)
+        idx, idle = _sim_gather_spec(self.p, tuple(pairs), x.device)
+        return x[idx].masked_fill_(idle.reshape((self.p,) + (1,) * (x.ndim - 1)), 0)
 
     def where(self, mask, a, b, out=None):
         """Rows of ``a`` where ``mask`` [p] holds, else of ``b``.  ``out``

@@ -17,9 +17,13 @@ collective runs through the one stage interpreter below:
   :meth:`CollectivePlan.cycle_length` calls, sets ``flag``, publishes the
   reduced value, and the next call latches the caller's current local
   contribution ("each cycle begins with the backward shift").
+- :meth:`CollectivePlan.init_lanes` / :meth:`CollectivePlan.step_lanes`
+  run that state machine for a batch of independent lanes (the
+  asynchronous engine's sweeps), each lane at its own stage.
 
-The state machine's counters are host integers (the reference carries
-them as device scalars for ``lax.switch``); only the buffers are tensors.
+The single state machine's counters are host integers (the reference
+carries them as device scalars for ``lax.switch``); the lane-batched one
+carries them as ``[B]`` tensors.
 The reference's multi-axis (chained) plans and its late-admission
 ``BucketPipeline`` are not ported yet.
 """
@@ -29,6 +33,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 from typing import Any, Callable, Optional, Sequence
+
+import torch
 
 from repro_torch.collectives import transforms as T
 from repro_torch.collectives.executors import make_backend, resolve_op
@@ -245,6 +251,41 @@ class CollectivePlan:
             "flag": done,
             "cycles": state["cycles"] + int(done),
         }
+
+    # -- the same state machine over a batch of independent lanes ----------
+
+    def init_lanes(self, value) -> dict[str, Any]:
+        """Lane-batched state: ``value [B, p]`` is each lane's first
+        contribution, one row a lane.  ``stage``, ``flag`` and ``cycles``
+        are ``[B]`` tensors, so every lane sits at its own stage."""
+        lanes = value.shape[0]
+        zeros = torch.zeros(lanes, dtype=torch.int32, device=value.device)
+        return {"stage": zeros, "buf": value, "result": torch.zeros_like(value),
+                "flag": torch.zeros(lanes, dtype=torch.bool, device=value.device),
+                "cycles": zeros.clone()}
+
+    def step_lanes(self, state: dict[str, Any], local_value) -> dict[str, Any]:
+        """:meth:`step` for every lane at once, each at its own stage (the
+        reference's ``vmap`` of its ``lax.switch`` step).  Each stage runs
+        on every lane's transposed ``[p, B]`` buffer, ranks leading as the
+        sim backend permutes them, and each lane keeps the stage it is at."""
+        stages = self.bound_stages
+        stage = state["stage"]
+        if not stages:  # p == 1: every call is a complete cycle
+            return {"stage": stage, "buf": local_value, "result": local_value,
+                    "flag": torch.ones_like(state["flag"]), "cycles": state["cycles"] + 1}
+        buf = torch.where((stage == 0)[:, None], local_value, state["buf"]).t()
+        op, tf = resolve_op(self.op), self._transform()
+        new = exec_stage(buf, stages[0], self._backend, self.p, op, tf)
+        for s, st in enumerate(stages[1:], start=1):
+            new = torch.where(stage == s, exec_stage(buf, st, self._backend, self.p, op, tf),
+                              new)
+        new = new.t()
+        nxt = stage + 1
+        done = nxt == len(stages)
+        return {"stage": torch.where(done, 0, nxt), "buf": new,
+                "result": torch.where(done[:, None], new, state["result"]),
+                "flag": done, "cycles": state["cycles"] + done.int()}
 
     def run_blocking(self, value):
         """Drive the state machine through one full cycle."""

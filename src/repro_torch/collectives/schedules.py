@@ -10,7 +10,9 @@ plans (``repro_torch.collectives.plans``) interpret them.
 
 The same shifts frame the recursive-halving reduce-scatter and the
 recursive-doubling all-gather that the ZeRO-1 gradient sync runs.  The
-reference's ``rabenseifner``/``hierarchical`` families are not ported yet.
+paper's message and step counts close the module.  The reference's
+``rabenseifner``/``hierarchical`` families and its alpha-beta cost model
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -164,3 +166,36 @@ def get_schedule(name: str) -> ScheduleFamily:
 
 
 register_schedule("mrd", lambda n: [Phase("allreduce", i) for i in range(n)])
+
+
+# ---------------------------------------------------------------------------
+# Cost accounting (the paper's S2 counts; the engine bills messages by them).
+# ---------------------------------------------------------------------------
+
+
+def schedule_steps(stages) -> int:
+    return len(stages)
+
+
+def schedule_messages(stages) -> int:
+    """Point-to-point messages in one cycle (paper: p0*log2(p0) + 2(p-p0)
+    for the MRD allreduce)."""
+    return sum(len(st.pairs) for st in stages)
+
+
+def paper_message_count(p: int) -> int:
+    """Closed form from the paper, S2: p0*log2(p0) + 2*(p - p0)."""
+    p0, mu0, extra = pivot(p)
+    return p0 * mu0 + 2 * extra
+
+
+def paper_step_count(p: int) -> int:
+    """Closed form from the paper, S2: log2(p0) + 2 (shifts skipped if p=2^k)."""
+    _, mu0, extra = pivot(p)
+    return mu0 + (2 if extra else 0)
+
+
+def stage_message_table(p: int) -> list[int]:
+    """Messages sent at stage s of the MRD allreduce cycle (``[0]`` at
+    p = 1, which has no stage)."""
+    return [len(st.pairs) for st in allreduce_schedule(p)] or [0]

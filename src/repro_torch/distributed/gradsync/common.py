@@ -103,9 +103,9 @@ def build_monitor(tcfg: TrainConfig, dp: int) -> Optional[ConvergenceMonitor]:
     return ConvergenceMonitor(p=dp, threshold=tcfg.monitor_threshold, mode=tcfg.monitor_mode)
 
 
-def monitor_rows_init(monitor: Optional[ConvergenceMonitor], device="cpu"):
+def monitor_rows_init(monitor: Optional[ConvergenceMonitor], *, device):
     """The monitor's state, one row per rank (None without a monitor)."""
-    return None if monitor is None else monitor.init(device)
+    return None if monitor is None else monitor.init(device=device)
 
 
 def local_monitor_tick(monitor, mon_state, metric, step: int):

@@ -129,7 +129,7 @@ class Zero1Step:
                                     device=self.device)
         state = {"params": params, "opt": opt, "step": 0}
         if self.monitor is not None:
-            state["monitor"] = common.monitor_rows_init(self.monitor, self.device)
+            state["monitor"] = common.monitor_rows_init(self.monitor, device=self.device)
         return state
 
     def _grads(self, params, batch, layout):

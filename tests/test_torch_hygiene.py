@@ -2,8 +2,9 @@
 
 - No file of ``src/repro_torch/``, nor ``chip_smoke.py``, imports ``jax``
   or the reference package ``repro`` (``repro_torch`` itself is fine).
-- Entry points default to ``device="cuda"`` and raise when torch sees no
-  card, instead of running on the CPU.
+- Entry points (the serving and training CLIs, the asynchronous engine,
+  its benchmarks and example) default to ``device="cuda"`` and raise when
+  torch sees no card, instead of running on the CPU.
 """
 
 import ast
@@ -79,6 +80,45 @@ def test_entry_points_raise_without_a_card():
         dserve.make_prefill_step(falcon)
 
 
+def test_async_entry_points_raise_without_a_card():
+    """The asynchronous engine, its two benchmarks and its example."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch import asynchrony
+    from repro_torch.benchmarks import bench_async, bench_detection
+    from repro_torch.examples import solve_poisson_async
+
+    fp = asynchrony.make_solver("poisson1d", n=24, shift=0.5)
+    cfg = asynchrony.AsyncConfig(p=3, eps=1e-5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asynchrony.run(fp, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asynchrony.sweep(fp, cfg, [0, 1])
+    for main in (bench_async.main, bench_detection.main, solve_poisson_async.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([])
+
+
+def test_bench_async_runs_on_cpu_when_asked(tmp_path, capsys):
+    """``bench_async --quick --check --device cpu``: the oracle baseline and
+    the four protocols under two delay models, with the soundness check."""
+    from repro_torch.benchmarks import bench_async
+
+    out = tmp_path / "bench_async.json"
+    rows = bench_async.main(["--quick", "--check", "--device", "cpu", "--json", str(out)])
+    assert len(rows) == 10 and out.exists()
+    assert all(not r.get("undetected") for r in rows)
+    assert "sanity OK" in capsys.readouterr().out
+
+
+def test_async_example_runs_on_cpu_when_asked(capsys):
+    from repro_torch.examples import solve_poisson_async
+
+    sw = solve_poisson_async.main(["--device", "cpu"])
+    assert sw.detected.all() and (sw.true_res < 1e-5).all()
+    assert "sweep(): 3 activity levels x 8 seeds" in capsys.readouterr().out
+
+
 def test_cli_runs_on_cpu_when_asked(capsys):
     from repro_torch.launch import serve
 
@@ -115,6 +155,17 @@ def test_falcon_cli_runs_on_cpu_when_asked(capsys):
     assert s["completed"] == 3 and s["tokens_out"] > 0 and s["forced_at_capacity"] == 0
     assert ss_ops.selective_scan.launches == n0
     assert "falcon-mamba-7b smoke, cpu" in capsys.readouterr().out
+
+
+def test_the_import_scan_covers_the_async_engine():
+    """The engine's modules, benchmarks and example are scanned like every
+    other file of the package."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
+    assert names >= {"asynchrony/engine.py", "asynchrony/solvers.py", "asynchrony/draws.py",
+                     "asynchrony/delay_models.py", "asynchrony/protocols.py",
+                     "core/snapshot.py", "benchmarks/bench_async.py",
+                     "benchmarks/bench_detection.py", "examples/solve_poisson_async.py",
+                     "configs/paper_poisson1d.py", "configs/pagerank_diffusion.py"}
 
 
 def test_the_import_scan_covers_every_kernel_package():
