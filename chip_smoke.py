@@ -130,7 +130,24 @@ Phases, in order (any failure ends the run with a non-zero exit):
    idle share, launches and the costliest kernels a tick); 7d.
    ``bench_detection``'s paper-size row (n = 10,000, shift 0, ``oracle``,
    p = 16, 300 ticks);
-8. the kernels line, then the device line as the last line of stdout.
+8. fixed-point serving (``fixedpoint_solve`` through ``make_workload``,
+   ``ServeEngine`` and the CLI's ``serve``), which launches none of the
+   kernels above (every launch count stays 0): 8a. the paper's
+   configuration (poisson1d n = 10,000, shift 0.5, eps 1e-5), 16 slots, 32
+   requests arriving two a tick, each with its own rhs in +-10, at dp = 5
+   and 16 under ``residual_interval`` and ``residual_inexact``: every
+   request converged, every solution's true residual under its own payload
+   below eps, and the same runs on the CPU with equal admission and
+   retirement ticks, iterations and ``converged`` and solutions within
+   1e-5; ticks, ms a tick, solves/s, and (``residual_interval``) the wall
+   and device time, idle share and launches of 32 steady ticks; 8b.
+   ``d_iteration`` at n = 32,760 (a dense fp32 P of 4.29 GB) through the
+   CLI: 64 personalization vectors of the reference CLI's stream queued at
+   tick 0, dp 5, ``residual_interval``, eps 1e-10: every request converged
+   with its true residual below eps, peak device memory, 32 steady ticks
+   profiled, and the tick's [16, n] @ P^T GEMM timed alone against its
+   byte bound;
+9. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
@@ -596,6 +613,204 @@ def async_phases(all_ops, t: float) -> dict:
         raise SystemExit("the asynchronous engine launched a kernel: "
                          f"{[op.launches for op in all_ops]}")
     t = phase("async-profile", t)
+    return stats
+
+
+FP_SLOTS = 16  # pool slots of both fixed-point phases
+FP_PAPER_REQUESTS = 32  # 8a: two arrive a tick, each with its own rhs
+FP_PAPER_RUNS = ((5, "residual_interval"), (5, "residual_inexact"), (16, "residual_interval"),
+                 (16, "residual_inexact"))
+FP_DITER_N = 32760  # 8b: divisible by 3, 5, 7 and 8; the dense fp32 P is 4.29 GB
+FP_DITER_ARGV = ["--continuous", "--workload", "fixedpoint_solve", "--solver", "d_iteration",
+                 "--n", str(FP_DITER_N), "--dp", "5", "--slots", str(FP_SLOTS), "--requests",
+                 "64", "--eps", "1e-10", "--gen", "1000", "--termination",
+                 "residual_interval"]
+FP_BUDGET = 1000  # iteration budget of every fixed-point request
+GEMM_MARKS = ("gemm", "gemv", "nvjet", "cutlass", "sm90_", "splitk")
+
+
+def fixedpoint_true_residuals(wl, res, payloads) -> np.ndarray:
+    """``||f(x) - x||_inf`` of every result's solution under its own
+    payload, on the pool's device (one batched map)."""
+    ids = sorted(res)
+    dev = wl.device
+    x = torch.from_numpy(np.stack([res[i].output for i in ids])).to(dev)
+    v = torch.from_numpy(np.stack([payloads[i] for i in ids])).to(dev)
+    return (wl.pool.param_map(x, v) - x).abs().amax(dim=-1).cpu().numpy()
+
+
+def fixedpoint_steady(wl, dp: int, termination: str, payloads) -> dict:
+    """PROFILE_TICKS engine steps with every slot busy on requests that
+    cannot certify (eps 0) after 4 warm-up steps: wall and device time a
+    tick (the profiler's second pass over the same window length), idle
+    share, launches and kernels by name."""
+    from repro_torch.serving import Request, ServeConfig, ServeEngine
+
+    wl.reset()
+    eng = ServeEngine(wl, ServeConfig(termination=termination, dp=dp, eps=0.0))
+    for i in range(wl.slots):
+        eng.submit(Request(id=i, payload=payloads[i % len(payloads)], max_new=10**6))
+
+    def ticks():
+        for _ in range(PROFILE_TICKS):
+            eng.step()
+
+    for _ in range(4):
+        eng.step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ticks()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3 / PROFILE_TICKS
+    busy_ms, per_rep = device_profile(ticks, 1)
+    if eng.results:
+        raise SystemExit(f"fixed-point steady window: {len(eng.results)} requests retired")
+    busy_ms /= PROFILE_TICKS
+    gemm_ms = sum(ms for name, (ms, _) in per_rep.items()
+                  if any(m in name.lower() for m in GEMM_MARKS)) / PROFILE_TICKS
+    launches = sum(n for _, n in per_rep.values()) / PROFILE_TICKS
+    log(f"  {PROFILE_TICKS} steady ticks, {wl.slots} slots busy: wall {wall_ms:.3f} ms a tick, "
+        f"device busy {busy_ms:.4f} ms a tick, idle share {1 - busy_ms / wall_ms:.3f}, "
+        f"{launches:.1f} launches a tick, GEMM {gemm_ms:.4f} ms a tick")
+    for name, (ms_r, n_r) in top_kernels(per_rep, 6):
+        log(f"  {ms_r / PROFILE_TICKS:9.4f} ms {n_r / PROFILE_TICKS:5.1f} launches a tick  "
+            f"{name[:100]}")
+    return {"wall_ms_per_tick": wall_ms, "busy_ms_per_tick": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "launches_per_tick": launches,
+            "gemm_ms_per_tick": gemm_ms}
+
+
+def fixedpoint_run_stats(eng, res) -> dict:
+    """Ticks, wall, ms a tick, solves/s, slot-iterations/s and request
+    latency (arrival to retirement: ticks, and the wall seconds of TTFT +
+    the iterations)."""
+    s = eng.summary()
+    rs = list(res.values())
+    lat_ticks = np.asarray([r.retire_tick - r.arrival + 1 for r in rs], np.float64)
+    lat_s = np.asarray([r.ttft_s + r.tpot_s * (r.n_tokens - 1) for r in rs], np.float64)
+    return {"requests": len(rs), "ticks": s["ticks"], "wall_s": s["wall_s"],
+            "ms_per_tick": s["wall_s"] / s["decode_ticks"] * 1e3,
+            "solves_per_s": len(rs) / s["wall_s"],
+            "slot_iterations_per_s": s["tokens_out"] / s["wall_s"],
+            "mean_iterations": float(np.mean([r.n_tokens for r in rs])),
+            "latency_p50_ticks": float(np.percentile(lat_ticks, 50)),
+            "latency_p50_s": float(np.percentile(lat_s, 50)),
+            "occupancy": s["occupancy"]}
+
+
+def fixedpoint_phases(all_ops, t: float) -> dict:
+    """8. Fixed-point serving on the card through the normal entry points
+    (``make_workload``, ``ServeEngine``, the CLI's ``serve``): the paper's
+    poisson1d configuration against the CPU, then the device-bound
+    d_iteration at n = 32,760.  No kernel lies on this path, so every
+    launch count stays 0 through these phases."""
+    from repro_torch.configs.paper_poisson1d import CONFIG as PAPER
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request, ServeConfig, ServeEngine, make_workload
+
+    for op in all_ops:
+        op.launches = 0
+    stats: dict = {"paper_poisson1d": {}, "d_iteration": {}}
+
+    # 8a. the paper's configuration (poisson1d n 10,000, shift 0.5, eps
+    # 1e-5): 32 requests, two a tick, each with its own rhs in +-10
+    rng = np.random.default_rng(0)
+    rhs = [rng.uniform(PAPER.rhs_low, PAPER.rhs_high, PAPER.n).astype(np.float32)
+           for _ in range(FP_PAPER_REQUESTS)]
+
+    def paper_run(dp, termination, device):
+        wl = make_workload("fixedpoint_solve", solver="poisson1d", n=PAPER.n, shift=PAPER.shift,
+                           slots=FP_SLOTS, dp=dp, device=device)
+        eng = ServeEngine(wl, ServeConfig(termination=termination, dp=dp, eps=PAPER.eps))
+        res = eng.run([Request(id=i, arrival=i // 2, payload=rhs[i], max_new=FP_BUDGET)
+                       for i in range(FP_PAPER_REQUESTS)])
+        return wl, eng, res
+
+    for dp, term in FP_PAPER_RUNS:
+        name = f"dp{dp}_{term}"
+        wl, eng, res = paper_run(dp, term, "cuda")
+        cpu_wl, _, cpu_res = paper_run(dp, term, "cpu")
+        true_res = fixedpoint_true_residuals(wl, res, rhs)
+        st = fixedpoint_run_stats(eng, res)
+        diff = max(float(np.abs(res[i].output - cpu_res[i].output).max()) for i in res)
+        same = all((res[i].admit_tick, res[i].retire_tick, res[i].n_tokens, res[i].converged)
+                   == (cpu_res[i].admit_tick, cpu_res[i].retire_tick, cpu_res[i].n_tokens,
+                       cpu_res[i].converged) for i in res)
+        log(f"fixed-point poisson1d n {PAPER.n}, {name}: {st['requests']} requests in "
+            f"{st['ticks']} ticks, wall {st['wall_s']:.3f} s, {st['ms_per_tick']:.3f} ms a tick, "
+            f"{st['solves_per_s']:.1f} solves/s, {st['slot_iterations_per_s']:.0f} "
+            f"slot-iterations/s, mean iterations {st['mean_iterations']:.1f}, latency p50 "
+            f"{st['latency_p50_ticks']:.0f} ticks / {st['latency_p50_s'] * 1e3:.1f} ms; converged "
+            f"{sum(r.converged for r in res.values())}/{len(res)}, largest true residual "
+            f"{true_res.max():.3e} (eps {PAPER.eps}); against the CPU: integers "
+            f"{'equal' if same else 'DIFFER'}, largest solution difference {diff:.3e}")
+        if len(res) != FP_PAPER_REQUESTS or not all(r.converged for r in res.values()):
+            raise SystemExit(f"fixed-point {name}: a request did not converge")
+        if not (true_res < PAPER.eps).all():
+            raise SystemExit(f"fixed-point {name}: true residual {true_res.max():.3e} >= eps")
+        if not same or diff > 1e-5:
+            raise SystemExit(f"fixed-point {name}: card against CPU, integers equal {same}, "
+                             f"solutions {diff:.3e} (atol 1e-5)")
+        if term == "residual_interval":
+            st["steady"] = fixedpoint_steady(wl, dp, term, rhs)
+        stats["paper_poisson1d"][name] = {**st, "max_true_residual": float(true_res.max()),
+                                          "cpu_max_solution_diff": diff}
+        del wl, cpu_wl
+    t = phase("fixedpoint-paper-poisson1d", t)
+
+    # 8b. d_iteration at n 32,760 through the CLI's serve(): 64 requests of
+    # the reference CLI's personalization vectors, queued at tick 0, dp 5,
+    # eps 1e-10; a tick is one [16, n] @ P^T fp32 GEMM (TF32 off) and a few
+    # elementwise passes
+    args = serve.build_parser().parse_args(FP_DITER_ARGV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    eng, wl, res = serve.serve(args)
+    total_s = time.perf_counter() - t1
+    eps = args.eps
+    payloads = {r.id: r.payload for r in serve.make_fixedpoint_requests(
+        args.requests, args.n, args.gen, args.seed)}
+    true_res = fixedpoint_true_residuals(wl, res, payloads)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    st = fixedpoint_run_stats(eng, res)
+    certified = np.asarray([res[i].certified for i in sorted(res)])
+    n = args.n
+    p_bytes = n * n * 4
+    gemm_bytes = p_bytes + 2 * FP_SLOTS * n * 4  # P, x read once; the product written once
+    gemm_bytes_ms = gemm_bytes / HBM_BYTES_PER_S * 1e3
+    gemm_ops_ms = 2 * FP_SLOTS * n * n / FP32_FLOPS * 1e3
+    gemm_bound_ms = max(gemm_bytes_ms, gemm_ops_ms)
+    log(f"fixed-point d_iteration n {n} (P {p_bytes} B), dp 5, residual_interval, eps {eps}: "
+        f"{st['requests']} requests in {st['ticks']} ticks, wall {st['wall_s']:.3f} s "
+        f"(serve() {total_s:.3f} s with the operator's build), {st['ms_per_tick']:.3f} ms a tick, "
+        f"{st['solves_per_s']:.2f} solves/s, {st['slot_iterations_per_s']:.0f} "
+        f"slot-iterations/s, mean iterations {st['mean_iterations']:.1f}, latency p50 "
+        f"{st['latency_p50_ticks']:.0f} ticks / {st['latency_p50_s'] * 1e3:.1f} ms; converged "
+        f"{sum(r.converged for r in res.values())}/{len(res)}, certified up to "
+        f"{certified.max():.3e}, true residual up to {true_res.max():.3e}; peak device memory "
+        f"{peak_gib:.3f} GiB")
+    if len(res) != args.requests or not all(r.converged for r in res.values()):
+        raise SystemExit("fixed-point d_iteration: a request did not converge")
+    if not (true_res < eps).all():
+        raise SystemExit(f"fixed-point d_iteration: true residual {true_res.max():.3e} >= eps")
+    steady = fixedpoint_steady(wl, args.dp, args.termination, list(payloads.values()))
+    x = torch.rand((FP_SLOTS, n), device="cuda")
+    P = wl.base.data["P"]
+    gemm_ms = time_ms(lambda: torch.matmul(x, P.t()), iters=20)
+    log(f"  the tick's GEMM [{FP_SLOTS}, {n}] @ P^T alone: {gemm_ms:.4f} ms against its bound "
+        f"{gemm_bound_ms:.4f} ms ({gemm_bytes} bytes at 3.35 TB/s; fp32 flop "
+        f"{gemm_ops_ms:.4f} ms at 67 TFLOP/s): bound / GEMM {gemm_bound_ms / gemm_ms:.3f}")
+    stats["d_iteration"] = {**st, "n": n, "p_bytes": p_bytes, "eps": eps,
+                            "max_true_residual": float(true_res.max()),
+                            "max_certified": float(certified.max()), "peak_gib": peak_gib,
+                            "steady": steady, "gemm_ms": gemm_ms, "gemm_bound_ms": gemm_bound_ms}
+    del x, P, eng, wl
+    torch.cuda.empty_cache()
+    if any(op.launches for op in all_ops):
+        raise SystemExit("fixed-point serving launched a kernel: "
+                         f"{[op.launches for op in all_ops]}")
+    t = phase("fixedpoint-d-iteration", t)
     return stats
 
 
@@ -1459,6 +1674,7 @@ def main() -> int:
     t = phase("timings", t)
 
     async_stats = async_phases(all_ops, t)
+    fixedpoint_stats = fixedpoint_phases(all_ops, time.perf_counter())
 
     # 8. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
@@ -1470,6 +1686,7 @@ def main() -> int:
     log(json.dumps({"falcon_serve": falcon_stats}))
     log(json.dumps({"falcon_prefill_32k": falcon_prefill_stats}))
     log(json.dumps({"async": async_stats}))
+    log(json.dumps({"fixedpoint_serve": fixedpoint_stats}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",

@@ -29,7 +29,9 @@ also define ``monitor_init(metric0 [p])`` and
 what each data-parallel rank (a row of a stacked ``[dp]`` tensor)
 contributes a step.  The contributions are max-reduced through the same
 plan, one stage a step; the run is certified converged once a published
-value falls below the threshold.
+value falls below the threshold.  The policies take any leading
+dimensions (``metric [...]``): serving's residual terminations run them
+over ``[dp, slots]``.
 
 The reference's elastic ``migrate`` is not ported yet.
 """
@@ -273,12 +275,12 @@ class IntervalProtocol(_ProtocolBase):
         }, msgs
 
     def monitor_init(self, metric0, window: int = 8):
-        return {"win": metric0[:, None].expand(-1, window).float().clone()}
+        return {"win": metric0[..., None].expand(*metric0.shape, window).float().clone()}
 
     def monitor_contribution(self, mstate, metric, step_idx, cycle_length):
         win = mstate["win"].clone()
-        win[:, step_idx % win.shape[1]] = metric
-        return {"win": win}, win.amax(dim=1)
+        win[..., step_idx % win.shape[-1]] = metric
+        return {"win": win}, win.amax(dim=-1)
 
 
 @register_protocol("oracle")

@@ -10,21 +10,31 @@ path).
   python -m repro_torch.launch.serve --arch falcon-mamba-7b --continuous \\
       --workload llm_decode --dp 3 --slots 8 --requests 16 \\
       --min-prompt-len 1024 --prompt-len 8192 --gen 64 --max-len 8320
+  # per-request fixed-point solves (D-iteration / personalized PageRank),
+  # each retired when the paper's detection protocol, agreed across --dp
+  # replicas, certifies its residual below --eps; --gen is the iteration
+  # budget
+  python -m repro_torch.launch.serve --continuous --workload fixedpoint_solve \\
+      --solver d_iteration --n 32760 --dp 5 --slots 16 --requests 64 \\
+      --eps 1e-10 --gen 400 --termination residual_interval
 
-serve the full-width config with random bf16 weights made from ``--seed``
-on the card; ``--smoke`` takes the reduced config.  ``llm_decode`` keeps
-a contiguous cache per slot (rolling local windows and the mamba1 state
-included); ``llm_decode_paged`` a block-paged one (attention caches
-without a rolling window).  Every admission prefills its prompt in one
-causal forward (on the card: the flash-attention kernel, or one
-selective-scan kernel launch a mamba1 layer); a mamba1 decode tick runs
-the same kernel one step from the slot's state.  ``--dp`` replicas are
-simulated: they agree on every retirement through the MRD plan, as the
-reference's continuous path does.  ``--device`` defaults to ``cuda`` and
-raises when there is no card; ``--device cpu`` runs on the CPU, where
-every kernel is its plain PyTorch version.  The reference's static batch
-path, its fixed-point workload, tenants, elastic resize and telemetry are
-not ported yet.
+An LLM workload serves the full-width config of ``--arch`` with random
+bf16 weights made from ``--seed`` on the card; ``--smoke`` takes the
+reduced config.  ``llm_decode`` keeps a contiguous cache per slot (rolling
+local windows and the mamba1 state included); ``llm_decode_paged`` a
+block-paged one (attention caches without a rolling window).  Every
+admission prefills its prompt in one causal forward (on the card: the
+flash-attention kernel, or one selective-scan kernel launch a mamba1
+layer); a mamba1 decode tick runs the same kernel one step from the
+slot's state.  ``fixedpoint_solve`` needs no ``--arch``: its requests are
+payloads of ``--n`` elements (rounded up to a multiple of ``--dp``) for the
+``--solver`` operator, queued as the reference CLI queues them at the same
+seed.  ``--dp`` replicas are simulated: they agree on every retirement
+through the MRD plan, as the reference's continuous path does.
+``--device`` defaults to ``cuda`` and raises when there is no card;
+``--device cpu`` runs on the CPU, where every kernel is its plain PyTorch
+version.  The reference's static batch path, ``--arrival``, ``--tenants``,
+elastic resize and telemetry are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,17 +47,20 @@ from repro_torch.configs import registry
 from repro_torch.device import resolve_device
 from repro_torch.serving import (
     SCHEDULERS,
+    TERMINATION,
     WORKLOADS,
     Request,
     ServeConfig,
     ServeEngine,
+    get_scheduler,
     make_workload,
 )
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", required=True, choices=registry.list_archs())
+    ap.add_argument("--arch", choices=registry.list_archs(),
+                    help="model arch (required unless --workload fixedpoint_solve)")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--continuous", action="store_true",
                     help="serve through the continuous-batching ServeEngine "
@@ -56,14 +69,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn", default="kernel", choices=("kernel", "gather"),
                     help="paged decode attention: the CUDA kernel reading K/V "
                          "through the block table, or gathered contiguous views")
-    ap.add_argument("--scheduler", default="fcfs", choices=sorted(SCHEDULERS))
+    ap.add_argument("--scheduler", default="fcfs",
+                    help=f"a SCHEDULERS entry ({' | '.join(sorted(SCHEDULERS))}), "
+                         "optionally parameterized (sla_edf:MAX_WAIT)")
+    ap.add_argument("--termination", default=None, choices=sorted(TERMINATION),
+                    help="default: eos_maxlen (LLM) / residual_interval (fixed point)")
     ap.add_argument("--dp", type=int, default=1,
                     help="termination-agreement replicas (MRD over [dp])")
     ap.add_argument("--slots", type=int, default=4, help="decode pool slots")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16, help="longest prompt")
     ap.add_argument("--min-prompt-len", type=int, default=1, help="shortest prompt")
-    ap.add_argument("--gen", type=int, default=32, help="largest generation budget")
+    ap.add_argument("--gen", type=int, default=None,
+                    help="largest generation budget (LLM, default 32) or iteration "
+                         "budget (fixed point, default 1000)")
     ap.add_argument("--max-len", type=int, default=0,
                     help="pool cache length (0 = prompt+gen+4, rounded up to blocks "
                          "when paged)")
@@ -71,6 +90,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tokens per cache block (llm_decode_paged)")
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="physical blocks (llm_decode_paged; 0 = contiguous-capacity parity)")
+    ap.add_argument("--solver", default="d_iteration",
+                    help="fixedpoint_solve: d_iteration | poisson1d | jacobi_dense")
+    ap.add_argument("--n", type=int, default=64, help="fixedpoint_solve: problem size")
+    ap.add_argument("--eps", type=float, default=1e-6,
+                    help="residual terminations: the requests' threshold")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -81,17 +105,42 @@ def make_requests(cfg, n: int, prompt_len: int, gen: int, seed: int,
     """``n`` requests queued at tick 0: prompt lengths uniform in
     [min_prompt_len, prompt_len], budgets uniform in [gen/2, gen].  With
     ``min_prompt_len`` 1 the draws follow the reference CLI's stream at the
-    same ``seed`` (it also draws a priority and an SLA per request, which
-    fcfs ignores), so both queue the same prompts and budgets."""
+    same ``seed`` (a priority in [0, 3) and an SLA in [4, 64) ticks too), so
+    both queue the same requests."""
     rng = np.random.default_rng(seed)
     reqs = []
     for i in range(n):
         plen = int(rng.integers(min_prompt_len, prompt_len + 1))
         prompt = rng.integers(0, cfg.vocab, size=plen).astype(np.int32)
         max_new = int(rng.integers(max(1, gen // 2), gen + 1))
-        rng.integers(0, 3), rng.integers(4, 64)  # priority, SLA
-        reqs.append(Request(id=i, arrival=0, prompt=prompt, max_new=max_new))
+        reqs.append(Request(id=i, arrival=0, prompt=prompt, max_new=max_new,
+                            priority=int(rng.integers(0, 3)), sla=int(rng.integers(4, 64))))
     return reqs
+
+
+def make_fixedpoint_requests(n_req: int, n: int, gen: int, seed: int) -> list[Request]:
+    """``n_req`` fixed-point requests queued at tick 0, each a payload
+    ``rng.random(n)`` normalized to sum 1 with iteration budget ``gen``,
+    a priority and an SLA in [50, 500): the reference CLI's stream at the
+    same ``seed``, so both queue the same payloads."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n_req):
+        v = rng.random(n).astype(np.float32)
+        reqs.append(Request(id=i, arrival=0, payload=v / v.sum(), max_new=gen,
+                            priority=int(rng.integers(0, 3)), sla=int(rng.integers(50, 500))))
+    return reqs
+
+
+def _serve_fixedpoint(args, device):
+    n = -(-args.n // args.dp) * args.dp  # dp-block divisible
+    if n != args.n:
+        print(f"# rounding --n {args.n} up to {n} (divisible by dp={args.dp})")
+    args.n, args.gen = n, args.gen or 1000
+    wl = make_workload("fixedpoint_solve", solver=args.solver, n=n, slots=args.slots,
+                       dp=args.dp, device=device)
+    reqs = make_fixedpoint_requests(args.requests, n, args.gen, args.seed)
+    return wl, reqs
 
 
 def serve(args: argparse.Namespace):
@@ -99,7 +148,26 @@ def serve(args: argparse.Namespace):
     ``--requests`` requests -> (engine, workload, results)."""
     if not args.continuous:
         raise SystemExit("only the --continuous serving path is ported")
+    try:
+        get_scheduler(args.scheduler)
+    except ValueError as e:
+        raise SystemExit(str(e))
     device = resolve_device(args.device)
+    if args.workload == "fixedpoint_solve":
+        wl, reqs = _serve_fixedpoint(args, device)
+    else:
+        wl, reqs = _serve_llm(args, device)
+    eng = ServeEngine(wl, ServeConfig(
+        scheduler=args.scheduler, termination=args.termination or wl.default_termination,
+        dp=args.dp, eps=args.eps,
+    ))
+    return eng, wl, eng.run(reqs)
+
+
+def _serve_llm(args, device):
+    if not args.arch:
+        raise SystemExit("--arch is required for LLM serving")
+    args.gen = args.gen or 32
     cfg = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
     max_len = args.max_len or (args.prompt_len + args.gen + 4)
     kw = {}
@@ -113,12 +181,9 @@ def serve(args: argparse.Namespace):
         args.workload, cfg=cfg, slots=args.slots, max_len=max_len,
         max_prompt_len=args.prompt_len, seed=args.seed, device=device, **kw,
     )
-    eng = ServeEngine(wl, ServeConfig(
-        scheduler=args.scheduler, termination=wl.default_termination, dp=args.dp,
-    ))
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.gen, args.seed,
                          args.min_prompt_len)
-    return eng, wl, eng.run(reqs)
+    return wl, reqs
 
 
 def main(argv=None) -> ServeEngine:
@@ -127,18 +192,33 @@ def main(argv=None) -> ServeEngine:
     args = build_parser().parse_args(argv)
     eng, wl, res = serve(args)
     s = eng.summary()
+    term = eng.cfg.termination
+    first = res[min(res)]
+    if args.workload == "fixedpoint_solve":
+        print(f"fixedpoint_solve[{args.solver}] x {args.scheduler} x {term} (dp={args.dp}, "
+              f"n={args.n}, {wl.device}): {s['completed']} requests in {s['ticks']} ticks / "
+              f"{s['wall_s']:.2f} s")
+        print(f"  {s['tokens_out'] / s['wall_s']:.1f} slot-iterations/s | "
+              f"{s['completed'] / s['wall_s']:.2f} solves/s | occupancy {s['occupancy']:.2f} | "
+              f"converged {s['converged']}/{s['completed']}")
+        print(f"  TTFT p50/p95 {s['ttft_p50_ms']:.1f}/{s['ttft_p95_ms']:.1f} ms | "
+              f"ms a tick {s['wall_s'] / max(s['decode_ticks'], 1) * 1e3:.3f}")
+        print(f"  request {first.id}: {first.n_tokens} iterations, admit@{first.admit_tick} "
+              f"retire@{first.retire_tick}, certified {first.certified:.3e}, head "
+              f"{np.round(first.output[:4], 6).tolist()}")
+        return eng
     paged = args.workload == "llm_decode_paged"
-    print(f"{args.workload}{f'[{args.attn}]' if paged else ''} x {args.scheduler} x eos_maxlen "
+    print(f"{args.workload}{f'[{args.attn}]' if paged else ''} x {args.scheduler} x {term} "
           f"(dp={args.dp}, {wl.cfg.name}{' smoke' if args.smoke else ''}, "
           f"{wl.device}): {s['completed']} requests in {s['ticks']} ticks "
           f"({s['decode_ticks']} decode) / {s['wall_s']:.2f} s")
     print(f"  throughput {s['throughput_tok_s']:.1f} tok/s | occupancy "
-          f"{s['occupancy']:.2f} | forced-at-capacity {s['forced_at_capacity']}")
+          f"{s['occupancy']:.2f} | converged {s['converged']}/{s['completed']} | "
+          f"forced-at-capacity {s['forced_at_capacity']}")
     print(f"  TTFT p50/p95 {s['ttft_p50_ms']:.1f}/{s['ttft_p95_ms']:.1f} ms | "
           f"TPOT p50/p95 {s['tpot_p50_ms']:.2f}/{s['tpot_p95_ms']:.2f} ms")
     print(f"  cache {wl.cache_bytes / 2**20:.2f} MiB"
           + (f" | prefix blocks saved {wl.prefix_saved_blocks}" if paged else ""))
-    first = res[min(res)]
     print(f"  request {first.id}: {first.n_tokens} tokens, admit@{first.admit_tick} "
           f"retire@{first.retire_tick}, head {first.output[:8].tolist()}")
     return eng

@@ -2,7 +2,7 @@
 
 | layer | module | registry |
 |---|---|---|
-| contiguous pool | ``serving/pool.py`` | (decode pool) |
+| contiguous pool | ``serving/pool.py`` | (decode pool, fixed-point pool) |
 | paged cache | ``serving/paged.py`` | (block allocator + paged pool) |
 | schedulers | ``serving/schedulers.py`` | ``SCHEDULERS`` |
 | termination | ``serving/termination.py`` | ``TERMINATION`` |
@@ -13,7 +13,10 @@ Deciding when each in-flight request is done without a global barrier is
 the paper's convergence-detection problem: per-request termination runs
 the non-blocking MRD reduction of ``repro_torch.collectives.plans``, so at
 ``dp > 1`` every replica retires the same slots on the same tick, at any
-(non-power-of-two) replica count.
+(non-power-of-two) replica count.  Fixed-point requests
+(``fixedpoint_solve``) retire when ``residual_interval`` or
+``residual_inexact`` certifies their agreed update magnitude below their
+eps.
 """
 
 from repro_torch.serving.engine import (  # noqa: F401
@@ -23,11 +26,17 @@ from repro_torch.serving.engine import (  # noqa: F401
     ServeEngine,
 )
 from repro_torch.serving.paged import BlockAllocator, PagedDecodePool  # noqa: F401
-from repro_torch.serving.pool import DecodePool  # noqa: F401
+from repro_torch.serving.pool import DecodePool, FixedPointPool  # noqa: F401
 from repro_torch.serving.schedulers import SCHEDULERS, get_scheduler  # noqa: F401
 from repro_torch.serving.termination import (  # noqa: F401
     TERMINATION,
     TerminationConfig,
     get_termination,
+    make_signals,
 )
-from repro_torch.serving.workloads import WORKLOADS, get_workload, make_workload  # noqa: F401
+from repro_torch.serving.workloads import (  # noqa: F401
+    WORKLOADS,
+    FixedPointWorkload,
+    get_workload,
+    make_workload,
+)

@@ -4,23 +4,30 @@ composition of workload x scheduler x termination.
 Per engine step:
 
 1. **admit** — the scheduler orders the queue and the first eligible
-   requests take the free slots; each admission prefills the prompt and
-   yields the request's first token (TTFT stops here);
-2. **tick** — one decode tick, advancing every active slot one token and
-   the termination protocol's staged MRD reduction one stage;
-3. **retire** — slots certified done by the agreed result (or frozen at
-   cache capacity) retire, free their blocks, and their outputs are
-   collected.
+   requests take the free slots; an LLM admission prefills the prompt and
+   yields the request's first token (TTFT stops here), a fixed-point one
+   sets the slot's payload;
+2. **tick** — one workload tick, advancing every active slot one token
+   (or one iteration) and the termination protocol's staged MRD
+   reduction one stage;
+3. **retire** — slots certified done by the agreed result retire, free
+   their blocks, and their outputs are collected.  A slot frozen at cache
+   capacity, or (under a residual termination) a fixed-point request
+   whose iteration budget ran out before certification, is force-retired
+   with ``converged=False``.
 
 The reference fuses several ticks into one device loop that ends at the
 first retirement or the next arrival.  A free slot or a new arrival is
 the only thing that can change admission, so one tick per step gives the
-same admission and retirement ticks.  The control plane (termination state, per-slot counters) lives on the host:
-each tick brings the slots' new tokens to the host once.
+same admission and retirement ticks.  The control plane (termination
+state, per-slot counters) lives on the host: each tick brings the slots'
+new tokens, or a fixed-point pool's ``[dp, S]`` residual, to the host
+once.
 
 Metrics: TTFT / TPOT (wall seconds, p50/p95/p99 in :meth:`summary`),
-token throughput, slot occupancy, and tick-domain admission/retirement
-ticks.  Resize, tenants, SLAs, retries and telemetry are not ported yet.
+token throughput, slot occupancy, converged requests, and tick-domain
+admission/retirement ticks.  Resize, tenant quotas, the capacity model,
+retries, the SLA goodput summary and telemetry are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,39 +39,43 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.asynchrony.protocols import RES_INIT
 from repro_torch.serving.schedulers import get_scheduler
 from repro_torch.serving.termination import TerminationConfig, get_termination, make_signals
 
-# certified value of a request retired without agreement (frozen at cache
-# capacity); the reference's ``asynchrony.protocols.RES_INIT`` sentinel
-RES_INIT = 1e30
 # engine steps before run() gives up on a loop that does not drain
 MAX_STEPS = 100_000
 
 
 @dataclasses.dataclass
 class Request:
-    """One LLM decode request."""
+    """One serving request: a token prompt or a solver payload."""
 
     id: int
     arrival: int = 0  # tick at which the request enters the queue
-    prompt: Any = None  # 1-D int token array
-    max_new: int = 32  # generation budget
-    eos: int = -1  # EOS token id (-1 = never)
+    prompt: Any = None  # llm_decode: 1-D int token array
+    payload: Any = None  # fixedpoint_solve: affine payload [n] (None = default)
+    max_new: int = 32  # generation budget / iteration budget
+    eos: int = -1  # llm_decode: EOS token id (-1 = never)
+    priority: int = 0  # 'priority' scheduler: higher first
+    sla: Optional[int] = None  # TTFT SLA in ticks: deadline = arrival + sla
+    eps: Optional[float] = None  # residual terminations: per-request threshold
 
 
 @dataclasses.dataclass
 class RequestResult:
     id: int
-    output: np.ndarray  # token ids, trimmed at EOS / budget
+    output: np.ndarray  # token ids (trimmed at EOS / budget) or solution vector
     arrival: int
     admit_tick: int
     retire_tick: int
-    n_tokens: int
-    certified: float  # agreed done bit at retirement (RES_INIT if forced)
-    converged: bool  # False when force-retired at cache capacity
+    n_tokens: int  # tokens, or a fixed-point request's iterations
+    certified: float  # agreed value at retirement (RES_INIT if forced)
+    converged: bool  # False when force-retired (budget or cache capacity)
     ttft_s: float
     tpot_s: float  # NaN for n_tokens <= 1 (no inter-token interval)
+    sla: Optional[int] = None
+    sla_met: Optional[bool] = None  # TTFT tick deadline met (None = no SLA)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,18 +83,31 @@ class ServeConfig:
     scheduler: str = "fcfs"
     termination: str = "eos_maxlen"
     dp: int = 1  # termination-agreement replicas (MRD over [dp])
+    eps: float = 1e-6  # residual threshold of requests that carry none
+    window: int = 0  # residual_interval: 0 -> one agreement cycle + 1
 
 
 class ServeEngine:
     """Continuous-batching serving loop over a workload's pool."""
 
     def __init__(self, workload, cfg: ServeConfig = ServeConfig()):
+        if cfg.termination.startswith("residual") and not workload.residual_capable:
+            raise ValueError(
+                f"termination {cfg.termination!r} needs a residual-reporting "
+                f"workload (got {type(workload).__name__}); use 'eos_maxlen'"
+            )
+        if getattr(workload, "dp", cfg.dp) != cfg.dp:
+            raise ValueError(
+                f"the workload reports residuals over dp={workload.dp} blocks but the "
+                f"engine agrees over dp={cfg.dp}: build both at one dp"
+            )
         self.workload = workload
         self.cfg = cfg
         self.slots = workload.slots
         self.scheduler = get_scheduler(cfg.scheduler)
         self.term = get_termination(cfg.termination)
-        self.tcfg = TerminationConfig(dp=cfg.dp)
+        self.certifying = cfg.termination.startswith("residual")
+        self.tcfg = TerminationConfig(dp=cfg.dp, eps=cfg.eps, window=cfg.window)
         # the control plane is a few bytes per tick: it lives on the host
         self.tstate = self.term.init(self.tcfg, self.slots, device="cpu")
 
@@ -98,6 +122,7 @@ class ServeEngine:
         self._new_tokens = np.zeros((self.slots,), np.int64)
         self._max_new = np.ones((self.slots,), np.int64)
         self._eos = np.full((self.slots,), -1, np.int64)
+        self._eps = np.full((self.slots,), cfg.eps, np.float32)
         self._t_queue = np.zeros((self.slots,), np.float64)
         self._t_first = np.zeros((self.slots,), np.float64)
         self._t_submit: Dict[int, float] = {}
@@ -146,34 +171,46 @@ class ServeEngine:
             self._new_tokens[slot] = self.workload.prefill_tokens
             self._max_new[slot] = self.workload.clamp_max_new(req)
             self._eos[slot] = req.eos
+            self._eps[slot] = self.cfg.eps if req.eps is None else req.eps
             self._t_queue[slot] = self._t_submit.get(req.id, t0)
             self._t_first[slot] = time.perf_counter()
 
     def _tick(self, now: int):
-        """One decode tick + termination tick -> (retire, at_cap) masks."""
+        """One workload tick + termination tick -> (retire, forced, at_cap)
+        masks."""
         act = self._active.copy()
-        tokens = self.workload.step(act)
+        tokens, residual = self.workload.step(act)
         self.decode_ticks += 1
         self._new_tokens[act] += 1
         self.workload.collect_tick(tokens, act)
         self._occupancy_sum += float(act.sum()) / self.slots
         self._occupancy_ticks += 1
+        if residual is None:
+            residual = np.zeros((self.cfg.dp, self.slots), np.float32)
         sig = make_signals(
             tokens=torch.from_numpy(tokens.astype(np.int64)),
             new_tokens=torch.from_numpy(self._new_tokens.copy()),
             eos=torch.from_numpy(self._eos.copy()),
             max_new=torch.from_numpy(self._max_new.copy()),
+            eps=torch.from_numpy(self._eps.copy()),
             active=torch.from_numpy(act),
             admit_tick=torch.from_numpy(self._admit_tick.copy()),
             tick=now,
+            residual=torch.from_numpy(residual),
         )
         self.tstate, retire = self.term.tick(self.tstate, sig, self.tcfg)
         retire = retire.numpy()
+        spent = self._new_tokens >= self._max_new
+        # iteration budget spent before the protocol certified
+        forced = act & spent & ~retire if self.certifying else np.zeros_like(retire)
+        natural = (tokens == self._eos) | spent
         # a slot frozen at cache capacity but not naturally done can produce
         # no further useful token: force-retire it, counted separately
-        natural = (tokens == self._eos) | (self._new_tokens >= self._max_new)
-        at_cap = act & self.workload.capacity_mask() & ~natural & ~retire
-        return retire, at_cap
+        cap_fn = getattr(self.workload, "capacity_mask", None)
+        at_cap = np.zeros_like(retire)
+        if cap_fn is not None:
+            at_cap = act & cap_fn() & ~natural & ~retire & ~forced
+        return retire, forced | at_cap, at_cap
 
     def step(self) -> np.ndarray:
         """Advance one engine step; returns the retired-slot mask ``[S]``."""
@@ -196,35 +233,43 @@ class ServeEngine:
             self._t_last = time.perf_counter()
             return np.zeros((self.slots,), bool)
 
-        retire, at_cap = self._tick(now)
-        out_mask = retire | at_cap
+        retire, forced, at_cap = self._tick(now)
+        out_mask = retire | forced
         if out_mask.any():
             self._active[out_mask] = False
             certified = self.tstate["certified"].numpy()
             t_done = time.perf_counter()
             for slot in np.nonzero(out_mask)[0]:
-                self._collect(int(slot), now, certified, bool(at_cap[slot]), t_done)
+                self._collect(int(slot), now, certified, bool(forced[slot]),
+                              bool(at_cap[slot]), t_done)
         self.tick = now + 1
         self._t_last = time.perf_counter()
         return out_mask
 
-    def _collect(self, slot, now, certified, at_capacity, t_done):
+    def _collect(self, slot, now, certified, was_forced, at_capacity, t_done):
         req = self.slot_req[slot]
         if at_capacity:
             self._forced_at_capacity += 1
+        out = self.workload.output(slot)
         n_tok = int(self._new_tokens[slot])
-        toks = self.workload.output(slot)[: min(n_tok, int(self._max_new[slot]))]
-        hits = np.nonzero(toks == req.eos)[0]
-        if req.eos >= 0 and hits.size:
-            toks = toks[: hits[0] + 1]
-        n_tok = int(toks.shape[0])
+        if req.prompt is not None:  # llm: trim to EOS / budget
+            out = out[: min(n_tok, int(self._max_new[slot]))]
+            hits = np.nonzero(out == req.eos)[0]
+            if req.eos >= 0 and hits.size:
+                out = out[: hits[0] + 1]
+            n_tok = int(out.shape[0])
         tpot = (t_done - self._t_first[slot]) / (n_tok - 1) if n_tok > 1 else float("nan")
+        admit_tick = int(self._admit_tick[slot])
         self.results[req.id] = RequestResult(
-            id=req.id, output=toks, arrival=req.arrival,
-            admit_tick=int(self._admit_tick[slot]), retire_tick=now, n_tokens=n_tok,
-            certified=RES_INIT if at_capacity else float(certified[slot]),
-            converged=not at_capacity,
+            id=req.id, output=out, arrival=req.arrival,
+            admit_tick=admit_tick, retire_tick=now, n_tokens=n_tok,
+            # the certified latch is written only on protocol retirement: a
+            # forced request must not report its slot's previous occupant's
+            certified=RES_INIT if was_forced else float(certified[slot]),
+            converged=not was_forced,
             ttft_s=self._t_first[slot] - self._t_queue[slot], tpot_s=tpot,
+            sla=req.sla,
+            sla_met=None if req.sla is None else admit_tick - req.arrival <= req.sla,
         )
         self.slot_req[slot] = None
         release = getattr(self.workload, "release", None)

@@ -8,6 +8,9 @@ pool, it holds rolling local windows (gemma3) and the mamba1 state
 (falcon-mamba), which are not paged.  ``max_len`` bounds a slot's
 sequence in both (the reference's rule), though an SSM's state does not
 grow with it.
+
+:class:`FixedPointPool` holds per-request fixed-point solves in the same
+kind of slots (the D-iteration serving workload).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.asynchrony.protocols import RES_INIT
 from repro_torch.device import resolve_device
 from repro_torch.distributed import serve as dserve
 from repro_torch.models import transformer
@@ -76,3 +80,66 @@ class DecodePool:
         self.tokens[slot] = tok0
         self.lengths[slot] = prompt.shape[0]
         return int(tok0)
+
+
+class FixedPointPool:
+    """Per-request fixed-point solves in pool slots.
+
+    Every request shares one operator (``base.full_map``, a
+    :class:`~repro_torch.asynchrony.solvers.FixedPoint` on the pool's
+    device); a request is its affine payload ``v`` (a personalization
+    vector or right-hand side): ``f(x, v) = base(x) + gain * (v - v0)``,
+    exact for the linear solvers served (``d_iteration``: ``gain = 1 -
+    damping``; weighted Jacobi: ``gain = omega / diag``).  One batched map
+    over ``x [S, n]`` advances every active slot a tick; the update
+    magnitude is reported per ``dp``-replica block for the agreement.
+
+    Device state: ``x`` and ``payload`` ``[S, n]`` fp32, and the active
+    mask, copied to the device only when it changes (admission and
+    retirement), so a tick's only wait is its residual's copy to the host.
+    """
+
+    def __init__(self, base, *, slots: int, dp: int, gain, payload0=None, device="cuda"):
+        if base.n % dp:
+            raise ValueError(f"n={base.n} must divide into dp={dp} blocks")
+        self.device = resolve_device(device)
+        self.base = base.to(self.device)
+        self.slots, self.dp, self.n = slots, dp, base.n
+        self.gain = torch.as_tensor(np.asarray(gain, np.float32), device=self.device)
+        v0 = np.zeros((self.n,), np.float32) if payload0 is None else payload0
+        self.v0 = torch.as_tensor(np.asarray(v0, np.float32), device=self.device)
+        self.reset()
+
+    def param_map(self, x, v):
+        """``f(x, v)`` for ``x, v [..., n]``."""
+        return self.base.full_map(x) + self.gain * (v - self.v0)
+
+    def reset(self):
+        self.x = torch.zeros((self.slots, self.n), device=self.device)
+        self.payload = torch.zeros((self.slots, self.n), device=self.device)
+        self._active = np.zeros((self.slots,), bool)
+        self._active_d = torch.zeros((self.slots,), dtype=torch.bool, device=self.device)
+
+    def step(self, active: np.ndarray) -> torch.Tensor:
+        """One iteration of every active slot; returns ``residual [dp, S]``
+        on the device: each block's max update magnitude, ``RES_INIT`` for
+        an inactive slot (whose iterate is kept)."""
+        if not np.array_equal(active, self._active):
+            self._active = active.copy()
+            self._active_d = torch.from_numpy(self._active).to(self.device)
+        act = self._active_d[:, None]
+        xnew = self.param_map(self.x, self.payload)
+        upd = (xnew - self.x).abs().reshape(self.slots, self.dp, self.n // self.dp).amax(dim=2)
+        self.x = torch.where(act, xnew, self.x)
+        return torch.where(act, upd, RES_INIT).t()
+
+    def admit(self, payload, slot: int) -> None:
+        v = np.asarray(payload, np.float32)
+        if v.shape != (self.n,):
+            raise ValueError(f"payload shape {v.shape} != ({self.n},)")
+        self.x[slot] = 0.0
+        self.payload[slot] = torch.from_numpy(v).to(self.device)
+
+    def solution(self, slot: int) -> np.ndarray:
+        """The slot's iterate, copied (admission zeroes the slot in place)."""
+        return self.x[slot].to("cpu", copy=True).numpy()

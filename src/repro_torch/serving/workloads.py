@@ -1,10 +1,9 @@
 """Serving workloads (port of ``repro.serving.workloads``).
 
 A workload binds a pool to a request type and gives the engine one
-surface: ``admit(request, slot, now)``, ``step(active) -> tokens``,
-``collect_tick``, ``output(slot)``, plus the paged hooks ``can_admit`` and
-``release``.  Registered (requests carry a token prompt, a generation budget and an EOS
-id, and terminate with ``eos_maxlen``):
+surface: ``admit(request, slot, now)``, ``step(active) -> (tokens,
+residual)``, ``collect_tick``, ``output(slot)``, plus the paged hooks
+``can_admit`` and ``release``.  Registered:
 
 - ``llm_decode`` — greedy LLM decode over the contiguous
   :class:`~repro_torch.serving.pool.DecodePool`; serves every ported
@@ -12,9 +11,18 @@ id, and terminate with ``eos_maxlen``):
   (falcon-mamba) included;
 - ``llm_decode_paged`` — greedy LLM decode over a
   :class:`~repro_torch.serving.paged.PagedDecodePool` (dense configs
-  without a rolling window).
+  without a rolling window);
+- ``fixedpoint_solve`` — per-request fixed-point solves over a
+  :class:`~repro_torch.serving.pool.FixedPointPool`, from the
+  ``repro_torch.asynchrony`` solvers whose parameter enters affinely
+  (``d_iteration``: personalized PageRank-style damped diffusion;
+  ``poisson1d`` and ``jacobi_dense``: weighted Jacobi).
 
-The reference's ``fixedpoint_solve`` workload is not ported yet.
+LLM requests carry a token prompt, a generation budget and an EOS id, and
+terminate with ``eos_maxlen``; fixed-point requests carry an affine
+payload (a personalization vector or right-hand side) and an iteration
+budget, and terminate with ``residual_interval`` or ``residual_inexact``,
+the paper's detection protocols certifying each request's convergence.
 """
 
 from __future__ import annotations
@@ -24,10 +32,11 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from repro_torch.asynchrony.solvers import make_solver, random_dd_system
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.serving.paged import PagedDecodePool
-from repro_torch.serving.pool import DecodePool
+from repro_torch.serving.pool import DecodePool, FixedPointPool
 
 WORKLOADS: Dict[str, Callable[..., Any]] = {}
 
@@ -57,6 +66,7 @@ class LLMDecodeWorkload:
     """Continuous greedy decode over a :class:`DecodePool` (subclasses
     build another pool in :meth:`_make_pool`)."""
 
+    residual_capable = False
     default_termination = "eos_maxlen"
     prefill_tokens = 1  # admission's prefill emits the first token
 
@@ -99,9 +109,10 @@ class LLMDecodeWorkload:
         self._out[slot] = [self._prefill(req, slot)]
         self.prefills += 1
 
-    def step(self, active: np.ndarray) -> np.ndarray:
-        """One decode tick over every active slot -> tokens [S] on the host."""
-        return self.pool.step(self.params, active).cpu().numpy()
+    def step(self, active: np.ndarray):
+        """One decode tick over every active slot -> (tokens [S] on the
+        host, None: no residual)."""
+        return self.pool.step(self.params, active).cpu().numpy(), None
 
     def collect_tick(self, tokens: np.ndarray, active: np.ndarray) -> None:
         for s in np.nonzero(active)[0]:
@@ -142,6 +153,52 @@ class PagedLLMWorkload(LLMDecodeWorkload):
         return self.pool.prefix_saved_blocks
 
 
+class FixedPointWorkload:
+    """Per-request fixed-point solves over a :class:`FixedPointPool`."""
+
+    residual_capable = True
+    default_termination = "residual_interval"
+    prefill_tokens = 0  # admission performs no iteration
+
+    def __init__(self, base, gain, payload0, *, slots: int, dp: int, device="cuda"):
+        self.pool = FixedPointPool(base, slots=slots, dp=dp, gain=gain, payload0=payload0,
+                                   device=device)
+        self.device = self.pool.device
+        self.base = self.pool.base
+        self.payload0 = np.asarray(payload0, np.float32)
+        self.slots, self.dp = slots, dp
+        self._tokens = np.zeros((slots,), np.int64)
+
+    def clamp_max_new(self, req) -> int:
+        return int(req.max_new)
+
+    def admit(self, req, slot: int, now: int) -> None:
+        self.pool.admit(self.payload0 if req.payload is None else req.payload, slot)
+
+    def step(self, active: np.ndarray):
+        """One iteration of every active slot -> (zero tokens [S], residual
+        [dp, S] fp32), both on the host (the residual's copy is the tick's
+        one wait on the device)."""
+        return self._tokens, self.pool.step(active).cpu().numpy()
+
+    def collect_tick(self, tokens: np.ndarray, active: np.ndarray) -> None:
+        pass  # outputs are read from the pool at retirement
+
+    def output(self, slot: int) -> np.ndarray:
+        return self.pool.solution(slot)
+
+    def reset(self) -> None:
+        self.pool.reset()
+
+    def true_residual(self, slot: int, payload) -> float:
+        """``||f(x) - x||_inf`` of the slot's iterate under its own payload
+        (on the pool's device): what a certification must bound."""
+        x = self.pool.x[slot]
+        v = torch.from_numpy(self.payload0 if payload is None
+                             else np.asarray(payload, np.float32)).to(self.device)
+        return float((self.pool.param_map(x, v) - x).abs().amax())
+
+
 @register_workload("llm_decode")
 def llm_decode(**kwargs) -> LLMDecodeWorkload:
     """Contiguous LLM decode over a :class:`DecodePool`."""
@@ -154,3 +211,51 @@ def llm_decode_paged(**kwargs) -> PagedLLMWorkload:
     ``block_size``, ``num_blocks`` (default: contiguous-capacity parity),
     ``attn`` ('kernel' | 'gather')."""
     return PagedLLMWorkload(**kwargs)
+
+
+@register_workload("fixedpoint_solve")
+def fixedpoint_solve(*, solver: str = "d_iteration", slots: int = 8, dp: int = 1, n: int = 64,
+                     device="cuda", **solver_kwargs) -> FixedPointWorkload:
+    """The fixed-point serving workload from a solver whose parameter
+    enters affinely with a known gain:
+
+    - ``d_iteration`` (``damping``, ``out_degree``, ``seed``, ``v``):
+      ``gain = 1 - damping``, default payload ``v0 = 1/n``;
+    - ``poisson1d`` (``omega``, ``shift``, ``rhs``, ``seed``,
+      ``rhs_scale``): ``gain = omega / (2 + shift)``, the payload a
+      right-hand side.  Without ``rhs=`` the default one is drawn from the
+      port's counter-based source (``U[-rhs_scale, rhs_scale]``), not the
+      reference's ``jax.random`` draw: pass ``rhs=`` for the reference's;
+    - ``jacobi_dense`` (``omega``, ``seed``, ``dominance``): the random
+      diagonally dominant system of ``random_dd_system``, ``gain = omega /
+      diag(A)``.
+    """
+    if solver == "d_iteration":
+        damping = float(solver_kwargs.pop("damping", 0.85))
+        v0 = solver_kwargs.pop("v", None)
+        if v0 is None:
+            v0 = np.full((n,), 1.0 / n, np.float32)
+        base = make_solver("d_iteration", n=n, damping=damping, v=v0, **solver_kwargs)
+        gain = 1.0 - damping
+        payload0 = v0
+    elif solver == "poisson1d":
+        omega = float(solver_kwargs.pop("omega", 1.0))
+        shift = float(solver_kwargs.pop("shift", 0.0))
+        base = make_solver("poisson1d", n=n, omega=omega, shift=shift, **solver_kwargs)
+        gain = omega / (2.0 + shift)
+        payload0 = base.data["rhs"].numpy()
+    elif solver == "jacobi_dense":
+        omega = float(solver_kwargs.pop("omega", 1.0))
+        seed = int(solver_kwargs.pop("seed", 0))
+        dominance = float(solver_kwargs.pop("dominance", 2.0))
+        A, b = random_dd_system(n, seed=seed, dominance=dominance)
+        A, b = A.astype(np.float32), b.astype(np.float32)
+        base = make_solver("jacobi_dense", A=A, b=b, omega=omega)
+        gain = omega / np.diag(A)
+        payload0 = b
+    else:
+        raise ValueError(
+            "fixedpoint_solve serves affine-payload solvers "
+            f"(d_iteration | poisson1d | jacobi_dense), got {solver!r}"
+        )
+    return FixedPointWorkload(base, gain, payload0, slots=slots, dp=dp, device=device)

@@ -106,7 +106,8 @@ def test_eos_maxlen_retire_masks_match_reference_tick_by_tick(dp):
     for t in range(ticks):
         sig = _signals(rng, slots, t, state)
         tsig = termination.make_signals(
-            **{k: (torch.from_numpy(np.asarray(v)) if k != "tick" else v) for k, v in sig.items()})
+            **{k: (torch.from_numpy(np.asarray(v)) if k != "tick" else v) for k, v in sig.items()},
+            eps=torch.zeros(slots), residual=torch.zeros((dp, slots)))
         rsig = ref_term.make_signals(
             **{k: jnp.asarray(v) for k, v in sig.items()},
             eps=jnp.zeros(slots, jnp.float32), residual=jnp.zeros((dp, slots), jnp.float32))

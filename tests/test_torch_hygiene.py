@@ -2,9 +2,10 @@
 
 - No file of ``src/repro_torch/``, nor ``chip_smoke.py``, imports ``jax``
   or the reference package ``repro`` (``repro_torch`` itself is fine).
-- Entry points (the serving and training CLIs, the asynchronous engine,
-  its benchmarks and example) default to ``device="cuda"`` and raise when
-  torch sees no card, instead of running on the CPU.
+- Entry points (the serving CLI and workloads, fixed-point serving
+  included, the training CLI, the asynchronous engine, its benchmarks and
+  example) default to ``device="cuda"`` and raise when torch sees no card,
+  instead of running on the CPU.
 """
 
 import ast
@@ -78,6 +79,32 @@ def test_entry_points_raise_without_a_card():
         make_workload("llm_decode", cfg=falcon)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dserve.make_prefill_step(falcon)
+
+
+def test_fixedpoint_entry_points_raise_without_a_card():
+    """The fixed-point CLI (no --arch) and its workload."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch.launch import serve
+    from repro_torch.serving import make_workload
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--continuous", "--workload", "fixedpoint_solve", "--solver",
+                    "d_iteration", "--n", "60", "--dp", "3", "--requests", "4"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_workload("fixedpoint_solve", solver="d_iteration", n=60, dp=3)
+
+
+def test_fixedpoint_cli_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+
+    s = serve.main(["--continuous", "--workload", "fixedpoint_solve", "--solver",
+                    "d_iteration", "--n", "60", "--dp", "3", "--requests", "4",
+                    "--device", "cpu"]).summary()
+    assert s["completed"] == 4 and s["converged"] == 4
+    out = capsys.readouterr().out
+    assert "fixedpoint_solve[d_iteration] x fcfs x residual_interval (dp=3, n=60, cpu)" in out
+    assert "converged 4/4" in out
 
 
 def test_async_entry_points_raise_without_a_card():
