@@ -147,7 +147,28 @@ Phases, in order (any failure ends the run with a non-zero exit):
    with its true residual below eps, peak device memory, 32 steady ticks
    profiled, and the tick's [16, n] @ P^T GEMM timed alone against its
    byte bound;
-9. the kernels line, then the device line as the last line of stdout.
+9. the collectives layer (``repro_torch.collectives``), counted from 0:
+   9a. ``device_fused``'s combine in a one-rank NCCL world on rank-local
+   vectors: 256, 12,288 and the largest full-width bucket's 268,435,456
+   elements reach ``mrd_combine`` (one launch each); 300 elements in
+   60-blocks, 128-blocks and a 2-D payload take the unfused combine (no
+   launch); every result equal to the plain version bit for bit, fp32 and
+   bf16; the route timed at the largest bucket beside ``addcmul`` and its
+   bound; 9b. ``tree_allreduce`` of llama3.2-1b's fp32 gradient tree at
+   full width (the port's ``init_params`` shapes, N(0, 1) from a seed)
+   stacked over p = 3 on the sim executor, 32 MiB buckets, under ``mrd``
+   and ``rabenseifner`` x ``identity`` and ``int8``: every rank's result
+   equal bit for bit, identity within 1e-5 of the float64 sum, int8
+   within its grid's bound, ``mrd_combine`` launched once a reducing stage
+   a bucket under int8 (never under identity), the int8 buckets of at most
+   2^24 elements a rank equal to the same plan on the CPU bit for bit;
+   wall and device time and ``mrd_combine``'s share; 9c. the same at p =
+   5 (p0 = 4) on the tree cut to the embedding and 8 layers; 9d.
+   ``BucketPipeline`` of the int8 rabenseifner plan on 9c's buckets, with
+   admissions interleaved with ``advance()``, equal to ``run_buffers`` bit
+   for bit; 9e. ``bench_mrd --quick`` on the card
+   (``chiprun_out/bench_mrd.json``);
+10. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
@@ -814,6 +835,298 @@ def fixedpoint_phases(all_ops, t: float) -> dict:
     return stats
 
 
+COLL_BUCKET_BYTES = 32 * 2**20  # the gradient sync's bucket cap
+COLL_CPU_ELEMS = 2**24  # 9b: buckets of at most this many elements a rank rerun on the CPU
+COLL_CUT_LAYERS = 8  # 9c: llama3.2-1b cut to the embedding + 8 layers at p = 5
+# 9a: (case, rank-local shape, int8 block, routed to the kernel)
+ROUTE_CASES = [("256 elements", (256,), 256, True), ("12,288 elements", (12288,), 256, True),
+               ("the largest bucket", (BIG_BUCKET,), 256, True),
+               ("300 elements, block 60", (300,), 60, False),
+               ("12,288 elements, block 128", (12288,), 128, False),
+               ("2-D [48, 256]", (48, 256), 256, False)]
+
+
+def grad_tree(cfg, p: int, seed: int, device):
+    """An fp32 gradient-shaped tree of ``cfg`` (the shapes of the port's
+    ``init_params``) stacked over ``p`` ranks, N(0, 1) drawn on ``device``
+    from ``seed``."""
+    from repro_torch.collectives import buckets
+    from repro_torch.models import transformer
+
+    params = transformer.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    leaves, treedef = buckets.tree_flatten(params)
+    shapes = [tuple(leaf.shape) for leaf in leaves]
+    del params, leaves
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return buckets.tree_unflatten(treedef, [torch.randn((p,) + s, generator=gen, device=device)
+                                            for s in shapes])
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fused_route(device) -> dict:
+    """9a. ``FusedDeviceBackend.combine_quantized`` on rank-local vectors, in
+    a one-rank world (NCCL on the card): 256-blocks of a 1-D vector go to
+    the kernel (one launch each), any other payload to the plain combine
+    (none); every result equals the plain version bit for bit, fp32 and
+    bf16.  Then the route's time at the largest bucket (those launches
+    are not counted)."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.collectives.executors import FusedDeviceBackend
+    from repro_torch.collectives.transforms import quantize
+    from repro_torch.kernels.mrd_combine import mrd_combine
+    from repro_torch.kernels.mrd_combine.ref import mrd_combine_ref
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cuda = device.type == "cuda"
+    kw = {}
+    if cuda:  # the rank's card, set before the group and the mesh
+        device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
+        kw["device_id"] = device
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0, **kw)
+    try:
+        mesh = init_device_mesh(device.type, (1,), mesh_dim_names=("data",))
+        be = FusedDeviceBackend("data", mesh)
+        rows = []
+        for case, shape, block, kernel in ROUTE_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                gen = torch.Generator(device=device).manual_seed(len(rows))
+                x = torch.randn(shape, generator=gen, device=device).to(dtype)
+                q, s = quantize(torch.randn(shape, generator=gen, device=device) * 3, block)
+                n0 = mrd_combine.launches
+                out = be.combine_quantized(x, q, s, block)
+                launched = mrd_combine.launches - n0
+                want = mrd_combine_ref(x.reshape(-1), q.reshape(-1), s.reshape(-1),
+                                       block).reshape(shape)
+                _sync(device)
+                same = out.dtype == dtype and torch.equal(out, want)
+                err = (out.float() - want.float()).abs().max().item()
+                log(f"  device_fused combine, {case} {str(dtype)[6:]}: "
+                    f"{'kernel' if launched else 'unfused'} ({launched} mrd_combine launch), "
+                    f"equal to the plain version bit for bit: {same}")
+                if not same or launched != int(kernel):
+                    raise SystemExit(f"device_fused routing of {case} {dtype}: {launched} "
+                                     f"launches, bit for bit {same}")
+                rows.append({"case": case, "dtype": str(dtype)[6:], "launches": launched,
+                             "max_abs_err": err})
+                del x, q, s, out, want
+        timing = None
+        if cuda:  # the route at the largest bucket, fp32, beside its bound
+            x, q, sc = combine_inputs(BIG_BUCKET, torch.float32, seed=23)
+            n0 = mrd_combine.launches
+            ms = time_ms(lambda: be.combine_quantized(x, q, sc, 256), iters=20)
+            plain_ms = time_ms(lambda: mrd_combine_ref(x, q, sc), iters=10)
+            lib_ms = time_ms(lambda: torch.addcmul(x.view(-1, 256), q.view(-1, 256),
+                                                   sc.view(-1, 1)), iters=20)
+            mrd_combine.launches = n0  # timing launches are not the path's
+            n = BIG_BUCKET
+            b_ms = (n * (4 + 1 + 4) + (n // 256) * 4) / HBM_BYTES_PER_S * 1e3
+            o_ms = 2 * n / FP32_FLOPS * 1e3
+            timing = {"n": n, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms
+                      else "operations"}
+            log(f"timings device_fused combine n={n} fp32 (a rank's largest bucket): kernel "
+                f"{ms:.4f} ms ({max(b_ms, o_ms) / ms:.3f} of the bound) | plain "
+                f"{plain_ms:.4f} ms | addcmul {lib_ms:.4f} ms | bound {max(b_ms, o_ms):.4f} ms")
+            del x, q, sc
+    finally:
+        dist.destroy_process_group()
+    return {"cases": rows, "timing": timing}
+
+
+def _reducing(plan) -> int:
+    return sum(st.kind in ("bshift", "butterfly", "rs") for st, *_ in plan.bound_stage_table())
+
+
+def allreduce_run(tree, p: int, schedule: str, transform: str, device, busy, *,
+                  cpu_elems: int = 0) -> dict:
+    """One ``tree_allreduce`` of ``tree`` on the sim executor, timed and
+    gated: every rank's result equal bit for bit, identity within 1e-5 of
+    the float64 sum (N(0, 1) values: sums of p below ~4 p in magnitude,
+    two roundings), int8 within its grid's bound (each reducing stage
+    rounds both operands to a block's amax / 254, amax at most p times the
+    largest input), ``mrd_combine`` launched once a reducing stage a bucket
+    under int8 and never under identity; then the run again under the
+    profiler (device busy time, ``mrd_combine``'s share), and with
+    ``cpu_elems`` the buckets of at most that many elements a rank run on
+    the CPU, equal to the card's bit for bit."""
+    from repro_torch.collectives import buckets, plans
+    from repro_torch.kernels.mrd_combine import mrd_combine
+
+    plan = plans.allreduce_plan(schedule=schedule, transform=transform, p=p)
+    layout = buckets.build_layout(tree, bucket_bytes=COLL_BUCKET_BYTES,
+                                  quantum=plan.pad_quantum(), stacked=p)
+    reducing, n_buckets = _reducing(plan), len(layout.buckets)
+    expect = reducing * n_buckets if transform == "int8" else 0
+
+    def once():
+        return plans.tree_allreduce(tree, schedule=schedule, transform=transform, p=p,
+                                    bucket_bytes=COLL_BUCKET_BYTES)
+
+    _sync(device)
+    n0 = mrd_combine.launches
+    t1 = time.perf_counter()
+    out = once()
+    _sync(device)
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    launched = mrd_combine.launches - n0
+    ins, _ = buckets.tree_flatten(tree)
+    outs, _ = buckets.tree_flatten(out)
+    equal = all(torch.equal(o[r], o[0]) for o in outs for r in range(1, p))
+    err = max((o[0].double() - x.sum(0, dtype=torch.float64)).abs().max().item()
+              for o, x in zip(outs, ins))
+    amax = max(x.abs().amax().item() for x in ins)
+    bound = 1e-5 if transform == "identity" else 2 * reducing * p * amax / 254
+    cpu_buckets = []
+    if cpu_elems:
+        picked = [i for i, b in enumerate(layout.buckets) if b.length <= cpu_elems]
+        dense = [None] * len(ins)
+        for i in picked:
+            for s in layout.buckets[i].slots:
+                dense[s.index] = ins[s.index].cpu()
+        red = plan.run_buffers([buckets.pack_bucket(dense, layout, i) for i in picked])
+        for i, r in zip(picked, red):
+            for s in layout.buckets[i].slots:
+                want = r[:, s.offset: s.offset + s.size].reshape((p,) + s.shape)
+                if not torch.equal(outs[s.index].cpu(), want):
+                    raise SystemExit(f"{schedule} {transform} p={p}: bucket {i} on the card "
+                                     "differs from the CPU's")
+            cpu_buckets.append(layout.buckets[i].length)
+        del dense, red
+    del out, outs, ins
+    n1 = mrd_combine.launches
+    busy_ms, per_rep = busy(once)
+    if mrd_combine.launches - n1 != launched:
+        raise SystemExit("the profiled run launched mrd_combine another number of times")
+    mrd_ms = sum(ms for name, (ms, _) in per_rep.items() if "mrd_combine_kernel" in name)
+    row = {"p": p, "schedule": schedule, "transform": transform, "buckets": n_buckets,
+           "reducing_stages": reducing, "launches": launched, "wall_ms": wall_ms,
+           "busy_ms": busy_ms, "mrd_combine_ms": mrd_ms,
+           "mrd_combine_share": mrd_ms / busy_ms if busy_ms else 0.0,
+           "max_abs_err": err, "err_bound": bound, "cpu_equal_buckets": cpu_buckets}
+    log(f"  tree_allreduce {schedule} x {transform} p={p}: {n_buckets} buckets, wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, mrd_combine {launched} launches "
+        f"(= {reducing} reducing stages x {n_buckets} buckets: {expect}) {mrd_ms:.2f} ms "
+        f"({row['mrd_combine_share']:.3f} of busy); ranks equal {equal}; max abs err against "
+        f"float64 {err:.3e} (bound {bound:.3e})"
+        + (f"; buckets of {cpu_buckets} elements a rank equal to the CPU's bit for bit"
+           if cpu_elems else ""))
+    if not equal or not err <= bound or launched != expect:
+        raise SystemExit(f"tree_allreduce {schedule} {transform} p={p} failed its gates: {row}")
+    return row
+
+
+def pipeline_run(plan, bufs: list, device, busy) -> dict:
+    """9d. ``BucketPipeline`` of ``plan``: the buckets ``bufs`` admitted one
+    by one with an ``advance()`` after every other admission, then
+    drained, equal bit for bit to ``run_buffers`` on the same buckets; wall
+    and device time of the pipelined run."""
+    from repro_torch.kernels.mrd_combine import mrd_combine
+
+    p = plan.p
+    expect = _reducing(plan) * len(bufs)
+
+    def piped():
+        pipe = plan.pipeline()
+        for k, b in enumerate(bufs):
+            pipe.admit(k, b)
+            if k % 2:
+                pipe.advance()
+        return pipe.drain()
+
+    n0 = mrd_combine.launches
+    want = plan.run_buffers(list(bufs))
+    _sync(device)
+    n1 = mrd_combine.launches
+    t1 = time.perf_counter()
+    done = piped()
+    _sync(device)
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    n2 = mrd_combine.launches
+    equal = sorted(done) == list(range(len(bufs))) and all(
+        torch.equal(done[k], w) for k, w in enumerate(want))
+    del done, want
+    busy_ms, per_rep = busy(piped)
+    mrd_ms = sum(ms for name, (ms, _) in per_rep.items() if "mrd_combine_kernel" in name)
+    launched = (n1 - n0, n2 - n1, mrd_combine.launches - n2)
+    row = {"p": p, "buckets": len(bufs), "launches": launched, "wall_ms": wall_ms,
+           "busy_ms": busy_ms, "mrd_combine_ms": mrd_ms,
+           "mrd_combine_share": mrd_ms / busy_ms if busy_ms else 0.0}
+    log(f"  BucketPipeline {plan.schedule} x {plan.transform} p={p}: {len(bufs)} buckets "
+        f"admitted with an advance() after every other one, equal to run_buffers bit for bit: {equal}; wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, mrd_combine launches {launched} "
+        f"(run_buffers, pipeline, profiled pipeline; {expect} each) {mrd_ms:.2f} ms "
+        f"({row['mrd_combine_share']:.3f} of busy)")
+    if not equal or launched != (expect,) * 3:
+        raise SystemExit(f"BucketPipeline failed its gates: {row}")
+    return row
+
+
+def collectives_phases(all_ops, t: float, *, cfg, cut_cfg, device, busy) -> dict:
+    """9a-9d. The collectives layer on ``device``: ``device_fused``'s
+    routing, ``tree_allreduce`` of ``cfg``'s full-width gradient tree at p
+    = 3 under mrd and rabenseifner x identity and int8, of ``cut_cfg``'s
+    tree at p = 5, and ``BucketPipeline``.  Only ``mrd_combine`` may
+    launch, exactly where each gate says."""
+    from repro_torch.collectives import buckets, plans
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for op in all_ops:
+        op.launches = 0
+    stats: dict = {"route": fused_route(device)}
+    t = phase("collectives-device-fused-route", t)
+    tree = grad_tree(cfg, 3, seed=29, device=device)
+    gib = sum(x.numel() for x in buckets.tree_flatten(tree)[0]) * 4 / 2**30
+    log(f"9b: the {cfg.name} gradient tree, fp32, stacked over p = 3: {gib:.2f} GiB")
+    # warm-up: the caching allocator grows its segments for trees of this size
+    # (identity: no kernel launch)
+    plans.tree_allreduce(tree, p=3, bucket_bytes=COLL_BUCKET_BYTES)
+    stats["full_width_p3"] = [allreduce_run(tree, 3, sched, tf, device, busy,
+                                            cpu_elems=COLL_CPU_ELEMS if tf == "int8" else 0)
+                              for sched in ("mrd", "rabenseifner")
+                              for tf in ("identity", "int8")]
+    del tree
+    t = phase("collectives-full-width-p3", t)
+    tree = grad_tree(cut_cfg, 5, seed=31, device=device)
+    stats["cut_p5"] = [allreduce_run(tree, 5, sched, tf, device, busy)
+                       for sched in ("mrd", "rabenseifner") for tf in ("identity", "int8")]
+    t = phase("collectives-cut-p5", t)
+    plan = plans.allreduce_plan(schedule="rabenseifner", transform="int8", p=5)
+    bufs = buckets.pack(tree, buckets.build_layout(tree, bucket_bytes=COLL_BUCKET_BYTES,
+                                                   quantum=plan.pad_quantum(), stacked=5))
+    del tree  # the buckets, their results and the pipeline's in-flight set fit beside
+    stats["pipeline_p5"] = pipeline_run(plan, bufs, device, busy)
+    del bufs
+    t = phase("collectives-bucket-pipeline", t)
+    if cuda:
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"collectives phases: peak device memory {stats['peak_gib']:.3f} GiB")
+    counts = {op.__name__: op.launches for op in all_ops}
+    # every tree_allreduce ran twice (timed, then profiled)
+    expect = (sum(r["launches"] for r in stats["route"]["cases"])
+              + 2 * sum(r["launches"] for r in stats["full_width_p3"] + stats["cut_p5"])
+              + sum(stats["pipeline_p5"]["launches"]))
+    stats["launches"] = counts["mrd_combine"]
+    log(f"collectives phases: mrd_combine launches {counts['mrd_combine']} (= {expect} counted "
+        f"by the gates above), every other kernel's {sum(counts.values()) - counts['mrd_combine']}")
+    if counts["mrd_combine"] != expect or sum(counts.values()) != expect:
+        raise SystemExit(f"the collectives phases launched kernels elsewhere: {counts}")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1077,7 +1390,7 @@ def main() -> int:
         raise SystemExit("the training path launched a serving kernel")
     targs = train.build_parser().parse_args(TRAIN_ARGV)
     layout, _ = step_lib.zero1_layout(rec["state"]["params"], targs.dp)
-    stages = [st for st, _ in plans.reduce_scatter_plan(p=targs.dp).stage_table
+    stages = [st for st, *_ in plans.reduce_scatter_plan(p=targs.dp).bound_stage_table()
               if st.kind in ("bshift", "rs")]
     expect = len(rec["losses"]) * len(stages) * len(layout.buckets)
     log(f"trained {len(rec['losses'])} steps, losses {rec['losses']}, grad norms "
@@ -1676,7 +1989,27 @@ def main() -> int:
     async_stats = async_phases(all_ops, t)
     fixedpoint_stats = fixedpoint_phases(all_ops, time.perf_counter())
 
-    # 8. results
+    # 9. the collectives layer (device_fused's routing, tree_allreduce at full
+    # width, BucketPipeline), counted from 0 through 9a-9d
+    torch.cuda.empty_cache()
+    llama = registry.get_config("llama3.2-1b")
+    coll_stats = collectives_phases(
+        all_ops, time.perf_counter(), cfg=llama,
+        cut_cfg=registry.override(llama, n_layers=COLL_CUT_LAYERS), device=torch.device("cuda"),
+        busy=lambda fn: device_profile(fn, 1))
+    coll_launches = coll_stats["launches"]
+    t = time.perf_counter()
+    # 9e. bench_mrd --quick on the card (its rows in chiprun_out/bench_mrd.json)
+    from repro_torch.benchmarks import bench_mrd
+
+    bench = bench_mrd.main(["--quick", "--device", "cuda", "--json",
+                            str(ROOT / "chiprun_out" / "bench_mrd.json")])
+    coll_stats["bench_mrd"] = {r["name"]: r["us_per_call"] for r in bench["measured"]}
+    if bench["device"] != torch.cuda.get_device_name(0) or not bench["measured"]:
+        raise SystemExit(f"bench_mrd did not run on the card: {bench['device']}")
+    t = phase("collectives-bench-mrd", t)
+
+    # 10. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -1687,6 +2020,7 @@ def main() -> int:
     log(json.dumps({"falcon_prefill_32k": falcon_prefill_stats}))
     log(json.dumps({"async": async_stats}))
     log(json.dumps({"fixedpoint_serve": fixedpoint_stats}))
+    log(json.dumps({"collectives": coll_stats}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
@@ -1704,7 +2038,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/mrd_combine/csrc/mrd_combine.cu",
         "replaces": "src/repro/kernels/mrd_combine/kernel.py:31",
-        "launches": train_launches,
+        "launches": train_launches + coll_launches,
+        "launches_by_path": {"train": train_launches, "collectives": coll_launches},
         "max_abs_err": errs[(COMBINE_CASES[-1], torch.float32)],
         "ms": mc_ms,
         "plain_ms": mc_plain_ms,
@@ -1713,6 +2048,8 @@ def main() -> int:
         "library_ms": mc_lib_ms,
         "copy_ms": mc_copy_ms,
         "bf16": {"ms": mc_bf16_ms, "bound_ms": mc_bf16_bound_ms, "bound_by": "bytes"},
+        "device_fused": {**coll_stats["route"]["timing"], "max_abs_err": max(
+            r["max_abs_err"] for r in coll_stats["route"]["cases"] if r["launches"])},
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -319,9 +319,24 @@ class SyncProtocol(_ProtocolBase):
                 torch.full_like(obs.tick, obs.coll_cycle_msgs))
 
 
-@dataclasses.dataclass(frozen=True)
+@functools.lru_cache(maxsize=64)
+def _mesh_plan(axes: tuple, mesh) -> plans.CollectivePlan:
+    return plans.allreduce_plan(schedule="mrd", axes=axes, mesh=mesh, op="max")
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
 class ConvergenceMonitor:
-    """The paper's detection over ``p`` data-parallel ranks (rows).
+    """The paper's detection over data-parallel ranks, in one of two forms:
+
+    - ``p``: the ranks are the rows of stacked tensors on one device;
+      ``metric``, ``done`` and ``value`` are [p];
+    - ``axis_name`` over ``mesh``: one process a rank (the device executor
+      over ``torch.distributed``); ``axis_name`` is one named dimension of
+      the :class:`~torch.distributed.device_mesh.DeviceMesh` or a tuple of
+      them (e.g. a multi-pod ``("pod", "data")`` domain), whose plan chains
+      the per-axis MRD schedules into one stage list, so detection over a
+      product of axes costs one scalar permute a step like one axis does;
+      ``metric``, ``done`` and ``value`` are the rank's scalars.
 
     ``mode`` names a :data:`DETECTION_PROTOCOLS` policy: ``inexact``
     (each cycle latches the current metric; the certified value lags by
@@ -329,30 +344,46 @@ class ConvergenceMonitor:
     all ranks reduce the same step's metric) or ``interval`` (the max over
     each rank's last 8 metrics).
 
-    ``state, done, value = monitor.step(state, metric, step_idx)`` with
-    ``metric`` [p]; ``done`` and ``value`` are [p] (equal on every rank
-    once a cycle has completed)."""
+    ``state, done, value = monitor.step(state, metric, step_idx)``; ``done``
+    and ``value`` are equal on every rank once a cycle has completed."""
 
-    p: int
+    p: Optional[int] = None
+    axis_name: Any = None  # str or tuple of mesh dimension names
+    mesh: Any = None
     threshold: float
     mode: str = "inexact"
 
+    def __post_init__(self):
+        if (self.p is None) == (self.axis_name is None):
+            raise ValueError("bind exactly one of p= (stacked rows) or axis_name= (a mesh)")
+        if self.axis_name is not None and self.mesh is None:
+            raise ValueError("axis_name= needs mesh= (the DeviceMesh that names it)")
+
+    def _axes(self) -> tuple[str, ...]:
+        if isinstance(self.axis_name, str):
+            return (self.axis_name,)
+        return tuple(self.axis_name)
+
     def _plan(self) -> plans.CollectivePlan:
-        return _sim_plan(self.p)
+        if self.p is not None:
+            return _sim_plan(self.p)
+        return _mesh_plan(self._axes(), self.mesh)
 
     def _protocol(self):
         return get_protocol(self.mode)
 
     def init(self, *, device) -> dict[str, Any]:
         """Monitor state on ``device``: the staged plan's state and the
-        per-rank policy state, published value and ``done`` latch, one row
-        per rank."""
-        metric0 = torch.full((self.p,), RES_INIT, dtype=torch.float32, device=device)
+        policy state, published value and ``done`` latch of each rank (one
+        row a rank in the ``p`` form, the rank's own scalars over a
+        mesh)."""
+        shape = (self.p,) if self.p is not None else ()
+        metric0 = torch.full(shape, RES_INIT, dtype=torch.float32, device=device)
         return {
             "nb": self._plan().init(metric0),
             "m": self._protocol().monitor_init(metric0),
             "value": metric0.clone(),
-            "done": torch.zeros((self.p,), dtype=torch.bool, device=device),
+            "done": torch.zeros(shape, dtype=torch.bool, device=device),
         }
 
     def step(self, state, local_metric, step_idx: int):

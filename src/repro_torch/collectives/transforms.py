@@ -5,11 +5,12 @@ A transform decides what each reducing stage (``bshift``/``butterfly``/
 stages (``fshift``/``ag``) always travel raw.
 
 - ``identity``: the payload is the buffer itself; combine is the plan's op.
-- ``int8``: blockwise int8 quantization (one fp32 scale per 256 values:
-  wire bytes / 4 against fp32, plus 1.6% of scales) with dequant-accumulate
-  on receive, which the executor hands to the ``mrd_combine`` kernel on a
-  CUDA tensor.  Sum only.  The grad-sync layer compensates the first hop
-  with the EF-SGD residual carry (:func:`ef_roundtrip`).
+- ``int8``: blockwise int8 quantization (one fp32 scale per ``block``
+  values, 256 by default: wire bytes / 4 against fp32, plus 1.6% of
+  scales) with dequant-accumulate on receive, which the executor hands to
+  the ``mrd_combine`` kernel for 256-blocks on a CUDA tensor.  Sum only.
+  The grad-sync layer compensates the first hop with the EF-SGD residual
+  carry (:func:`ef_roundtrip`).
 
 The functions here take the rank axis as leading batch dimensions: a
 stacked ``[p, n]`` buffer quantizes row by row, as the reference's
@@ -46,6 +47,11 @@ def dequantize(q, scales, block: int = BLOCK):
     n = q.shape[-1]
     xb = q.float().reshape(*q.shape[:-1], n // block, block).mul_(scales[..., None])
     return xb.reshape(q.shape)
+
+
+def quantization_error(x, block: int = BLOCK):
+    q, s = quantize(x, block)
+    return x.float() - dequantize(q, s, block)
 
 
 def wire_bytes_factor(dtype_bytes: int = 4, block: int = BLOCK) -> float:
@@ -101,11 +107,15 @@ class IdentityTransform:
 @dataclasses.dataclass(frozen=True)
 class Int8BlockwiseTransform:
     """Blockwise int8 wire format; combine = dequant-accumulate (sum only),
-    delegated to the backend's ``combine_quantized`` (the kernel on the
-    card)."""
+    delegated to the backend's ``combine_quantized`` (the kernel for
+    256-blocks on the card)."""
 
+    block: int = BLOCK
     name: str = "int8"
-    quantum: int = BLOCK
+
+    @property
+    def quantum(self) -> int:
+        return self.block
 
     def validate_op(self, op: str | Callable):
         if op != "sum" and op is not torch.add:
@@ -114,14 +124,14 @@ class Int8BlockwiseTransform:
             )
 
     def encode(self, x, be):
-        return be.vmap_ranks(quantize)(x)
+        return be.vmap_ranks(lambda v: quantize(v, self.block))(x)
 
     def canonicalize(self, x, be):
-        return be.vmap_ranks(lambda v: dequantize(*quantize(v)))(x)
+        return be.vmap_ranks(lambda v: dequantize(*quantize(v, self.block), self.block))(x)
 
     def combine(self, keep, payload, op: Callable, be):
         q, scales = payload
-        return be.combine_quantized(keep, q, scales, BLOCK)
+        return be.combine_quantized(keep, q, scales, self.block)
 
 
 TRANSFORMS: dict[str, Callable[..., Any]] = {}
@@ -136,7 +146,7 @@ def register_transform(name: str):
 
 
 register_transform("identity")(lambda **kw: IdentityTransform())
-register_transform("int8")(lambda **kw: Int8BlockwiseTransform())
+register_transform("int8")(lambda block=BLOCK, **kw: Int8BlockwiseTransform(block))
 
 
 def resolve_transform(transform, **kw):

@@ -47,10 +47,12 @@ class TrainConfig:
 
 
 def resolve_executor(tcfg: TrainConfig, *, compressed: bool = False) -> str:
-    """The executor of the gradient plans.  The port has one, ``sim``
-    (ranks as rows); its int8 combine on a CUDA tensor is the
-    ``mrd_combine`` kernel, which the reference reaches through
-    ``device_fused`` on a TPU."""
+    """The executor of the gradient plans: ``sim``, the ranks as rows of
+    one device's tensors, whose int8 combine on a CUDA tensor is the
+    ``mrd_combine`` kernel (the reference reaches it through
+    ``device_fused`` on a TPU).  The training loop runs its ranks in one
+    process; the ``device``/``device_fused`` executors over
+    ``torch.distributed`` need one process a rank."""
     return "sim"
 
 

@@ -44,7 +44,6 @@ import torch
 
 from repro_torch.asynchrony.protocols import RES_INIT, get_protocol
 from repro_torch.collectives import plans
-from repro_torch.collectives.schedules import SCHEDULES
 
 TERMINATION: Dict[str, Any] = {}
 
@@ -73,14 +72,10 @@ class TerminationConfig:
     dp: int = 1  # replica count the done decision is agreed across
     eps: float = 1e-6  # default residual threshold (requests may override)
     window: int = 0  # residual_interval: 0 -> one full agreement cycle + 1
-    schedule: str = "mrd"  # a repro_torch.collectives SCHEDULES entry
-
-    def __post_init__(self):
-        if self.schedule not in SCHEDULES:
-            raise ValueError(
-                f"schedule {self.schedule!r} is not ported; registered: {sorted(SCHEDULES)} "
-                "(the rest of the collectives layer is ROADMAP.md queue 1, item 3)"
-            )
+    # any repro_torch.collectives SCHEDULES entry; one that cannot step a
+    # stage at a time (rabenseifner's reduce-scatter phases, hierarchical's
+    # second axis) raises where the plan is first stepped or measured
+    schedule: str = "mrd"
 
 
 def make_signals(*, tokens, new_tokens, eos, max_new, eps, active, admit_tick, tick,

@@ -196,7 +196,7 @@ def test_rs_ag_allreduce_plans_match_reference(p, transform):
     rs = plans.reduce_scatter_plan(p=p, transform=transform)
     rrs = ref_plans.reduce_scatter_plan(p=p, executor="sim", transform=transform)
     assert rs.pad_quantum() == rrs.pad_quantum()
-    assert [(st.kind, st.pairs, st.distance, st.payload_fraction) for st, _ in rs.stage_table] \
+    assert [(st.kind, st.pairs, st.distance, st.payload_fraction) for st, *_ in rs.bound_stage_table()] \
         == [(st.kind, st.pairs, st.distance, st.payload_fraction)
             for st, *_ in rrs.bound_stage_table()]
     red = rs.run(torch.from_numpy(x))

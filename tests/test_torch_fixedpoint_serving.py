@@ -57,9 +57,28 @@ def test_registries_hold_the_fixedpoint_entries():
 
 
 def test_only_the_ported_schedule_is_accepted():
+    """Every registered schedule is ported, so the config takes each name,
+    as the reference's does; one that cannot step a stage at a time raises
+    the reference's error where the plan is first measured."""
+    from repro.collectives.schedules import SCHEDULES as REF_SCHEDULES
+    from repro.serving import termination as ref_term
+    from repro_torch.collectives.schedules import SCHEDULES
+
     assert TerminationConfig(dp=3).schedule == "mrd"
-    with pytest.raises(ValueError, match="queue 1, item 3"):
-        TerminationConfig(dp=3, schedule="rabenseifner")
+    assert set(SCHEDULES) == set(REF_SCHEDULES) == {"mrd", "rabenseifner", "hierarchical"}
+    term, ref = get_termination("residual_interval"), ref_term.get_termination("residual_interval")
+    for name in sorted(SCHEDULES):
+        cfg = TerminationConfig(dp=3, schedule=name, window=2)
+        rcfg = ref_term.TerminationConfig(dp=3, schedule=name, window=2)
+        assert cfg.schedule == rcfg.schedule == name
+        if name == "mrd":
+            assert term.cycle_length(cfg) == ref.cycle_length(rcfg) == 3
+            continue
+        with pytest.raises(ValueError) as ours:
+            term.cycle_length(cfg)
+        with pytest.raises(ValueError) as theirs:
+            ref.cycle_length(rcfg)
+        assert str(ours.value) == str(theirs.value)
 
 
 # ---------------------------------------------------------------------------

@@ -218,3 +218,53 @@ def test_train_entry_point_raises_without_a_card():
         step_lib.make_train_step(cfg, step_lib.TrainConfig(), dp=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SyntheticPipeline(cfg, DataConfig(batch=2, seq_len=8))
+
+
+def test_the_import_scan_covers_the_collectives_layer():
+    """The schedules, executors (``torch.distributed``), plans, transforms
+    and bench_mrd are scanned like every other file of the package."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
+    assert names >= {"collectives/__init__.py", "collectives/schedules.py",
+                     "collectives/executors.py", "collectives/plans.py",
+                     "collectives/transforms.py", "collectives/buckets.py",
+                     "benchmarks/bench_mrd.py"}
+
+
+def test_bench_mrd_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch.benchmarks import bench_mrd
+
+    for argv in ([], ["--quick"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench_mrd.main(argv)
+
+
+def test_bench_mrd_runs_on_cpu_when_asked(tmp_path):
+    """``python -m repro_torch.benchmarks.bench_mrd --quick --device cpu``:
+    its message and step rows are the paper's closed forms (p0 log2 p0 +
+    2 (p - p0) messages, log2 p0 + 2 steps, the shifts skipped when p is a
+    power of two), and every measured row names the CPU."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    out = tmp_path / "bench_mrd.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.bench_mrd", "--quick",
+                           "--device", "cpu", "--json", str(out)], capture_output=True,
+                          text=True, env=env, timeout=300, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    payload = json.loads(out.read_text())
+    model = {r["name"]: r["derived"] for r in payload["model"]}
+    for p in (2, 3, 4, 5, 7, 8, 12, 16, 24, 32, 64, 100, 256):
+        mu0 = p.bit_length() - 1
+        p0, extra = 1 << mu0, p - (1 << mu0)
+        assert model[f"mrd_messages_p{p}"] == p0 * mu0 + 2 * extra
+        assert model[f"mrd_steps_p{p}"] == mu0 + (2 if extra else 0)
+    assert payload["device"] == "cpu" and payload["measured"]
+    assert all(r["device"] == "cpu" and r["us_per_call"] > 0 for r in payload["measured"])
+    names = {r["name"] for r in payload["measured"]}
+    assert {"sim_rabenseifner_int8_p8_n4096", "sim_grad64_bucketed_eager_p8"} <= names
+    assert "mrd_messages_p5,0.0,10" in proc.stdout

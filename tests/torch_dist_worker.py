@@ -1,0 +1,342 @@
+"""Multi-process worlds for the port's device executors (gloo on the CPU).
+
+:func:`run_world` spawns one process a rank, joins a ``gloo`` process
+group through a file store under a directory the caller owns, builds a
+:class:`~torch.distributed.device_mesh.DeviceMesh` and runs one scenario
+of :data:`SCENARIOS` in every rank.  Each rank saves what it computed
+(a dict of tensors) with ``torch.save``; :func:`run_world` returns the
+ranks' dicts in rank order.
+
+A world never hangs the suite: the process group has a short timeout, the
+parent joins every rank under a deadline of its own, kills whatever is
+still alive then, and raises :class:`WorldFailed` with each failed rank's
+traceback.
+
+The inputs are drawn from a seed with numpy in every rank, the whole
+stacked ``[p, ...]`` array each time, and each rank keeps its own row, so
+the parent can run the sim executor on exactly the stacked inputs.  This
+module imports neither ``jax`` nor the reference package: the workers are
+the port alone.
+"""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# one-axis worlds: n = 2 * 256 * p0 elements a rank (reduce-scatter halves
+# it mu0 times; int8 needs whole 256-blocks)
+OPS = ("sum", "max", "min")
+EXECUTORS = ("device", "device_fused")
+TRANSFORMS = ("identity", "int8")
+TREE_SHAPES = {"a": (37,), "b": {"c": (5, 64), "d": (300,)}, "e": (2, 3, 17), "f": (1000,)}
+TREE_BUCKET_BYTES = 2048  # several buckets of the tree above
+
+
+class WorldFailed(RuntimeError):
+    pass
+
+
+def one_axis_length(p: int) -> int:
+    p0 = 1 << (p.bit_length() - 1)
+    return 2 * 256 * p0
+
+
+def stacked_inputs(p: int, n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal((p, n)).astype(np.float32)
+
+
+def stacked_tree(p: int, seed: int, shapes=TREE_SHAPES) -> dict:
+    rng = np.random.default_rng(seed)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return torch.from_numpy(rng.standard_normal((p,) + node).astype(np.float32))
+
+    return build(shapes)
+
+
+def row(tree, r: int):
+    if isinstance(tree, dict):
+        return {k: row(v, r) for k, v in tree.items()}
+    return tree[r].clone()
+
+
+def to(tree, device):
+    if isinstance(tree, dict):
+        return {k: to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return tree
+    return tree.to(device)
+
+
+def flat(tree, prefix: str) -> dict:
+    """A tree's leaves under ``prefix/path`` keys."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+# ---------------------------------------------------------------------------
+# Scenarios: (mesh, rank, **args) -> {name: tensor}
+# ---------------------------------------------------------------------------
+
+
+def one_axis(mesh, rank: int, device, *, p: int, seed: int) -> dict:
+    """Every one-axis plan of the port over the mesh dimension ``r``, on
+    the device and device_fused executors."""
+    from repro_torch.collectives import plans
+
+    n = one_axis_length(p)
+    x = torch.from_numpy(stacked_inputs(p, n, seed)[rank]).to(device)
+    tree = to(row(stacked_tree(p, seed + 1), rank), device)
+    out = {}
+    kw = dict(axes=("r",), mesh=mesh)
+    for ex in EXECUTORS:
+        for op in OPS:
+            out[f"mrd_{op}_{ex}"] = plans.allreduce_plan(op=op, executor=ex, **kw).run(x)
+        out[f"mrd_blocking_{ex}"] = plans.allreduce_plan(executor=ex, **kw).run_blocking(x)
+        for tf in TRANSFORMS:
+            out[f"mrd_{tf}_{ex}"] = plans.allreduce_plan(transform=tf, executor=ex, **kw).run(x)
+            out[f"rabenseifner_{tf}_{ex}"] = plans.allreduce_plan(
+                schedule="rabenseifner", transform=tf, executor=ex, **kw).run(x)
+            red = plans.reduce_scatter_plan(transform=tf, executor=ex, **kw).run(x)
+            out[f"rs_{tf}_{ex}"] = red
+            out[f"rsag_{tf}_{ex}"] = plans.allgather_plan(executor=ex, **kw).run(red)
+            for sched in ("mrd", "rabenseifner"):
+                out.update(flat(plans.tree_allreduce(
+                    tree, schedule=sched, transform=tf, executor=ex,
+                    bucket_bytes=TREE_BUCKET_BYTES, **kw), f"tree_{sched}_{tf}_{ex}"))
+        # late admission: bucket 1 enters two stages after bucket 0, bucket 2
+        # after one more; drained stage-major
+        plan = plans.allreduce_plan(schedule="rabenseifner", transform="int8", executor=ex, **kw)
+        bufs = [x[: n // 2], x, x[n // 2:]]
+        pipe = plan.pipeline()
+        pipe.admit(0, bufs[0])
+        pipe.advance()
+        pipe.advance()
+        pipe.admit(1, bufs[1])
+        pipe.advance()
+        pipe.admit(2, bufs[2])
+        done = pipe.drain()
+        for k, b in enumerate(plan.run_buffers(list(bufs))):
+            out[f"pipeline_{k}_{ex}"] = done[k]
+            out[f"run_buffers_{k}_{ex}"] = b
+    out["int8_block128"] = plans.allreduce_plan(
+        schedule="rabenseifner", transform="int8", block=128, executor="device_fused",
+        **kw).run(x)
+    return out
+
+
+def two_axis(mesh, rank: int, device, *, seed: int, n: int) -> dict:
+    """Chained plans over the ``(pod, data)`` mesh."""
+    from repro_torch.collectives import plans
+
+    world = mesh.size()
+    x = torch.from_numpy(stacked_inputs(world, n, seed)[rank]).to(device)
+    out = {}
+    for ex in EXECUTORS:
+        for tf in TRANSFORMS:
+            for name, sched, axes in (("mrd", "mrd", ("pod", "data")),
+                                      ("rabenseifner", "rabenseifner", ("pod", "data")),
+                                      ("hierarchical", "hierarchical", ("data", "pod"))):
+                plan = plans.allreduce_plan(schedule=sched, transform=tf, executor=ex,
+                                            axes=axes, mesh=mesh)
+                out[f"{name}_{tf}_{ex}"] = plan.run(x)
+                if tf == "identity" and ex == "device":
+                    out[f"table_{name}"] = [
+                        (st.kind, st.pairs, st.distance, st.payload_fraction, coll, ai, p)
+                        for st, coll, ai, p in plan.bound_stage_table()]
+                    # a frozen plan holding a DeviceMesh stays hashable
+                    twin = plans.allreduce_plan(schedule=sched, transform=tf, executor=ex,
+                                                axes=axes, mesh=mesh)
+                    out[f"hashable_{name}"] = torch.tensor(
+                        twin == plan and hash(twin) == hash(plan) and len({twin, plan}) == 1)
+    return out
+
+
+def monitor(mesh, rank: int, device, *, steps: int) -> dict:
+    """The exact-mode ConvergenceMonitor over ``(pod, data)``: rank r
+    contributes (r + 1) * base[i] at step i; every permute is counted."""
+    from repro_torch.asynchrony.protocols import ConvergenceMonitor
+    from repro_torch.collectives import executors
+
+    permutes = []
+    orig = executors.DeviceBackend.permute
+
+    def counted(self, x, pairs):
+        permutes.append(x.numel())
+        return orig(self, x, pairs)
+
+    executors.DeviceBackend.permute = counted
+    mon = ConvergenceMonitor(axis_name=("pod", "data"), mesh=mesh, threshold=1e-3, mode="exact")
+    base = np.geomspace(1.0, 1e-6, steps).astype(np.float32)
+    state = mon.init(device=device)
+    dones, vals, per_step = [], [], []
+    for i in range(steps):
+        before = len(permutes)
+        state, done, val = mon.step(state, torch.tensor((rank + 1) * base[i], device=device), i)
+        dones.append(bool(done))
+        vals.append(float(val))
+        per_step.append(len(permutes) - before)
+    return {"dones": torch.tensor(dones), "vals": torch.tensor(vals),
+            "permutes": torch.tensor(per_step), "numel": torch.tensor(permutes),
+            "cycle_length": torch.tensor(mon._plan().cycle_length())}
+
+
+def mismatched(mesh, rank: int, device) -> dict:
+    """A stage the two ranks disagree on: each waits for a message that
+    the other never sends."""
+    from repro_torch.collectives import executors
+
+    be = executors.DeviceBackend("r", mesh)
+    pairs = ((1 - rank, rank),)
+    return {"x": be.permute(torch.ones(4, device=device), pairs)}
+
+
+SCENARIOS = {"one_axis": one_axis, "two_axis": two_axis, "monitor": monitor,
+             "mismatched": mismatched}
+
+
+# ---------------------------------------------------------------------------
+# What the sim executor gives on the same stacked inputs
+# ---------------------------------------------------------------------------
+
+
+def sim_one_axis(p: int, seed: int) -> dict:
+    """The sim executor on the stacked inputs of every :func:`one_axis`
+    entry (keyed without the executor)."""
+    from repro_torch.collectives import plans
+
+    n = one_axis_length(p)
+    X = torch.from_numpy(stacked_inputs(p, n, seed))
+    tree = stacked_tree(p, seed + 1)
+    out = {}
+    for op in OPS:
+        out[f"mrd_{op}"] = plans.allreduce_plan(op=op, p=p).run(X)
+    out["mrd_blocking"] = plans.allreduce_plan(p=p).run_blocking(X)
+    for tf in TRANSFORMS:
+        out[f"mrd_{tf}"] = plans.allreduce_plan(transform=tf, p=p).run(X)
+        out[f"rabenseifner_{tf}"] = plans.allreduce_plan(
+            schedule="rabenseifner", transform=tf, p=p).run(X)
+        out[f"rs_{tf}"] = plans.reduce_scatter_plan(transform=tf, p=p).run(X)
+        out[f"rsag_{tf}"] = plans.allgather_plan(p=p).run(out[f"rs_{tf}"])
+        for sched in ("mrd", "rabenseifner"):
+            out.update(flat(plans.tree_allreduce(
+                tree, schedule=sched, transform=tf, p=p, bucket_bytes=TREE_BUCKET_BYTES),
+                f"tree_{sched}_{tf}"))
+    plan = plans.allreduce_plan(schedule="rabenseifner", transform="int8", p=p)
+    for k, b in enumerate(plan.run_buffers([X[:, : n // 2], X, X[:, n // 2:]])):
+        out[f"pipeline_{k}"] = b
+    out["int8_block128"] = plans.allreduce_plan(
+        schedule="rabenseifner", transform="int8", block=128, p=p).run(X)
+    return out
+
+
+def entries(d: dict, base: str, ex: str = "") -> dict:
+    """The entries of ``d`` that scenario ``base`` produced (every leaf of a
+    tree, every bucket of the pipeline), keyed without the executor."""
+    out = {}
+    for k, v in d.items():
+        head, sep, tail = k.partition("/")
+        if ex:
+            if not head.endswith(f"_{ex}"):
+                continue
+            head = head[: -len(ex) - 1]
+        if head == base or (base == "pipeline" and head.startswith("pipeline_")):
+            out[head + sep + tail] = v
+    return out
+
+
+def sim_chained(X, schedule: str, axes, transform: str, mesh_names):
+    """The chained plan emulated with one-axis sim plans: each phase runs
+    on every line of the mesh along its axis.  ``X`` is [*mesh, n], its
+    dimensions named ``mesh_names``."""
+    from repro_torch.collectives import plans, schedules
+    from repro_torch.collectives.schedules import Phase
+
+    for ph in schedules.get_schedule(schedule).phases(len(axes)):
+        d = mesh_names.index(axes[ph.axis_index])
+        Xd = X.movedim(d, 0)
+        plan = plans.CollectivePlan(schedule=schedule, transform=transform, p=Xd.shape[0],
+                                    phases=(Phase(ph.collective, 0),))
+        X = torch.stack([plan.run(Xd[:, j].contiguous()) for j in range(Xd.shape[1])],
+                        dim=1).movedim(0, d)
+    return X
+
+
+# ---------------------------------------------------------------------------
+# The world
+# ---------------------------------------------------------------------------
+
+
+def _worker(rank, world, store, mesh_shape, mesh_names, scenario, args, out_dir, pg_timeout,
+            device):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.set_num_threads(1)
+    out_dir = Path(out_dir)
+    try:
+        kw = {}
+        if device == "cuda":  # one card a rank, set before the group and the mesh
+            torch.cuda.set_device(rank)
+            kw["device_id"] = torch.device("cuda", rank)
+        dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                                init_method=f"file://{store}", rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=pg_timeout), **kw)
+        try:
+            mesh = init_device_mesh(device, mesh_shape, mesh_dim_names=mesh_names)
+            result = SCENARIOS[scenario](mesh, rank, device, **args)
+            torch.save(to(result, "cpu"), out_dir / f"rank{rank}.pt")
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        (out_dir / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def run_world(tmp_dir, scenario: str, mesh_shape, mesh_names, *, args=None,
+              deadline_s: float = 90.0, pg_timeout_s: float = 45.0, device: str = "cpu") -> list:
+    """Run ``scenario`` in a world of ``prod(mesh_shape)`` spawned ranks
+    (gloo on the CPU; NCCL with ``device="cuda"``, one card a rank);
+    returns each rank's dict, on the CPU.  Raises :class:`WorldFailed`
+    when a rank fails or the world outlives ``deadline_s``."""
+    tmp_dir = Path(tmp_dir)
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    world = int(np.prod(mesh_shape))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_worker, daemon=True, args=(
+        r, world, str(tmp_dir / "store"), tuple(mesh_shape), tuple(mesh_names), scenario,
+        args or {}, str(tmp_dir), pg_timeout_s, device)) for r in range(world)]
+    for proc in procs:
+        proc.start()
+    end = time.monotonic() + deadline_s
+    try:
+        for proc in procs:
+            proc.join(max(0.0, end - time.monotonic()))
+    finally:
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    errs = {r: (tmp_dir / f"rank{r}.err").read_text() for r in range(world)
+            if (tmp_dir / f"rank{r}.err").exists()}
+    if hung:
+        raise WorldFailed(f"{scenario}: ranks {hung} still running after {deadline_s} s; "
+                          f"errors: {errs}")
+    bad = {r: proc.exitcode for r, proc in enumerate(procs) if proc.exitcode != 0}
+    if bad or errs:
+        raise WorldFailed(f"{scenario}: exit codes {bad}; errors: {errs}")
+    return [torch.load(tmp_dir / f"rank{r}.pt", weights_only=True) for r in range(world)]
