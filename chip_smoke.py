@@ -13,9 +13,9 @@ Phases, in order (any failure ends the run with a non-zero exit):
    ``src/`` (one ``nvcc`` per source, all started together); the bf16
    flash kernel's hd 256 instance must not spill;
 3. each kernel against its plain PyTorch version on the card:
-   ``paged_attention`` at the served shapes, the smoke shapes and 8
+   ``paged_attention`` at the served shapes, the smoke shapes, 8
    sequences of up to 4,096 positions (16 splits merged by the combine
-   kernel), fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain
+   kernel) and phase 10's tables (133 and 71 pages: 9 and 5 splits), fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain
    version in fp32);
    ``mrd_combine`` at n = 256 and 768, at the kernel's block of 2,048
    elements +- 256, at a last block with one live warp, at the smoke
@@ -23,7 +23,8 @@ Phases, in order (any failure ends the run with a non-zero exit):
    largest full-width gradient bucket's [3, len] rows, fp32 and bf16,
    equal bit for bit; ``flash_attention`` at the gemma3-12b shape (4096
    and 1755 tokens, 16 heads, 8 KV heads, hd 256, causal, no window and
-   window 1024), the llama3.2-1b shape (2048 and 37 tokens), the smoke
+   window 1024), the llama3.2-1b shape (2048 and 37 tokens; phase 10's
+   8 x 512, 1088 and 4 x 64), the smoke
    shapes and the edges of the bf16 kernel's tiling at every hd x rep
    instance (partial q and key tiles, windows that cut a key tile,
    q_offset, bidirectional, queries that see no key and must write 0),
@@ -31,7 +32,8 @@ Phases, in order (any failure ends the run with a non-zero exit):
    fp32), and every (token, head) row within a relative error of 1e-4
    (fp32) or 1e-2 (bf16) of the plain row; ``rmsnorm`` at the rows and
    widths of the served models and the smoke configs ([32768, 3840],
-   [4, 3840], [8, 2048], [64, 2048], [40, 64], [32768, 4096], [8, 4096]),
+   [4, 3840], [8, 2048], [64, 2048], [40, 64], [32768, 4096], [8, 4096],
+   and phase 10's [4096, 2048] and [1088, 2048]),
    fp32 (1e-5) and bf16 (2e-2); ``selective_scan`` in its materialized
    form at the reference kernel test's shapes and [1, 2048, 8192, 16], fp32
    and bf16 inputs, and in its fused form (the model's) at [1, 4096, 8192,
@@ -168,11 +170,35 @@ Phases, in order (any failure ends the run with a non-zero exit):
    admissions interleaved with ``advance()``, equal to ``run_buffers`` bit
    for bit; 9e. ``bench_mrd --quick`` on the card
    (``chiprun_out/bench_mrd.json``);
-10. the kernels line, then the device line as the last line of stdout.
+10. the rest of serving at llama3.2-1b's full width (random bf16 weights
+   from the seed), each run counted from 0: 10a. the static path
+   (``static_serve``: one ``make_cached_prefill_step`` of 8 x 512 tokens,
+   then 64 greedy ``make_serve_step`` calls) with a bf16 and an int8 cache:
+   16 ``flash_attention`` and 33 ``rmsnorm`` launches a forward, the int8
+   cache exactly (hd + 4) / (2 hd) of the bf16 one's bytes, and the int8
+   logits, teacher-forced with the bf16 run's tokens, within 0.06 of the
+   largest bf16 logit at every step (the reference's bar); prefill tok/s,
+   ms a decode step and its device time; 10b. 32 requests of two tenants
+   (``chat`` with an 8-tick SLA, ``batch`` at a quota of 4 slots) arriving
+   ``bursty:0.2,2.0`` through the CLI on ``llm_decode_paged --attn
+   kernel``, ``sla_edf``, after a warm-up on the same stream, at
+   ``--steps-per-dispatch`` 16 and 1: every
+   request done, the quota held at every tick, equal tokens and ticks in
+   both runs, ``paged_attention`` 16 a decode tick, ``flash_attention`` 16
+   an admission; 10c. 16 requests sharing a 1024-token system prompt on the
+   paged kernel path with ``share_prefixes`` on and off (equal tokens;
+   blocks saved and the peak in use), then on int8 pages through the gather
+   path (every request done, no ``paged_attention`` launch); 10d.
+   ``bench_serve``'s rows on a cut grid (static baseline, a burst and a
+   Poisson row, the sysprefix pair, the fixed-point row at ``d_iteration``
+   n = 32,760, dp 5) under its ``--check`` gates
+   (``chiprun_out/bench_serve_full_width.json``);
+11. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -253,22 +279,30 @@ FLASH_CASES = [(1, 4096, 4096, 16, 8, 256, True, None, 0),
                (1, 200, 100, 4, 2, 64, True, 64, 90), (2, 77, 130, 4, 4, 128, False, None, 0),
                (1, 333, 333, 8, 4, 128, True, 200, 0), (1, 100, 257, 8, 2, 128, True, 150, 157),
                (1, 517, 517, 4, 4, 256, True, 300, 0), (1, 90, 200, 16, 4, 256, False, None, 0),
-               (1, 40, 70, 4, 1, 256, True, 16, 300)]
+               (1, 40, 70, 4, 1, 256, True, 16, 300),
+               # phase 10's llama3.2-1b shapes: 10a's static prefill, 10c's
+               # 1088-token system-prompt admissions, 10d's static waves
+               (8, 512, 512, 32, 8, 64, True, None, 0), (1, 1088, 1088, 32, 8, 64, True, None, 0),
+               (4, 64, 64, 32, 8, 64, True, None, 0)]
 # flash_attention per-row tolerance: the largest |out - ref| / |ref| over
 # the hd-vectors of one (token, head); an atol alone passes late causal rows
 # (outputs ~0.03 at 4096 keys) with any error below the atol
 FLASH_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # [T, d]: gemma3-12b (a 32k prefill's rows, a 4-slot decode tick), llama3.2-1b
 # (an 8-slot decode tick, a 64-token prompt), the smoke configs, falcon-mamba-7b
-# (a 32k prefill's rows, an 8-slot decode tick); fp32 and
-# bf16 rows of these widths cover every template instance the paths launch
+# (a 32k prefill's rows, an 8-slot decode tick), then phase 10's llama3.2-1b
+# rows (10a's 8 x 512-token static prefill, 10c's 1088-token admissions);
+# fp32 and bf16 rows of these widths cover every template instance the paths
+# launch
 RMSNORM_CASES = [(32768, 3840), (4, 3840), (8, 2048), (64, 2048), (40, 64), (32768, 4096),
-                 (8, 4096)]
+                 (8, 4096), (4096, 2048), (1088, 2048)]
 # (S, H, KV, hd, nb, bs): the served full-width shape first, then the smoke
 # shape, then rep 1 with 16-token blocks (every template family once), then
-# llama3.2-1b's heads at long context (4,096 positions: 16 splits)
+# llama3.2-1b's heads at long context (4,096 positions: 16 splits), then the
+# tables phase 10 serves: 10b's 133 pages (2,128 positions: 9 splits, the
+# last one ragged) and 10c's 71 (1,136 positions: 5 splits)
 KERNEL_CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16),
-                (8, 32, 8, 64, 256, 16)]
+                (8, 32, 8, 64, 256, 16), (8, 32, 8, 64, 133, 16), (8, 32, 8, 64, 71, 16)]
 
 
 def log(msg: str) -> None:
@@ -1124,6 +1158,273 @@ def collectives_phases(all_ops, t: float, *, cfg, cut_cfg, device, busy) -> dict
         f"by the gates above), every other kernel's {sum(counts.values()) - counts['mrd_combine']}")
     if counts["mrd_combine"] != expect or sum(counts.values()) != expect:
         raise SystemExit(f"the collectives phases launched kernels elsewhere: {counts}")
+    return stats
+
+
+# 10. the rest of serving at llama3.2-1b's full width
+STATIC_BATCH, STATIC_PROMPT, STATIC_GEN = 8, 512, 64  # 10a: the static path
+INT8_REL_BAR = 0.06  # the reference's int8 bar: max |l8 - l16| / max |l16| a step
+TENANT_SPEC = "chat:3:sla=8:prio=2:prompt=512:gen=32,batch:1:quota=4:prompt=2048:gen=64"
+TENANT_ARGV = ["--arch", "llama3.2-1b", "--continuous", "--workload", "llm_decode_paged",
+               "--attn", "kernel", "--slots", "8", "--block-size", "16", "--requests", "32",
+               "--prompt-len", "2048", "--gen", "64", "--scheduler", "sla_edf",
+               "--arrival", "bursty:0.2,2.0", "--tenants", TENANT_SPEC, "--device", "cuda"]
+TENANT_QUOTA = 4  # the batch tenant's
+SYS_PREFIX, SYS_SUFFIX, SYS_REQUESTS = 1024, 64, 16  # 10c: a shared system prompt
+SYS_MAX_LEN = 1136  # prefix + suffix + the largest budget (32) + 4, in whole 16-token blocks
+# 10d: bench_serve's rows at full width, on a grid cut to fit the run: one
+# burst and one Poisson row, the static baseline, the sysprefix pair, and
+# the fixed-point row at phase 8's d_iteration n and dp.  Fewer than 12
+# requests shrink the continuous-vs-static margin (8 gave 0.86-0.89x
+# against the 0.7x gate; 12 gave 1.14-1.17x)
+BENCH_GRID = {"slots": 4, "n_req": 12, "prompt_len": 64, "gen_max": 32,
+              "schedulers": ("fcfs",), "arrivals": ("burst", "1.0"),
+              "sysprefix": {"sys_len": 256, "user_len": 16, "gen_lo": 8, "gen_hi": 16,
+                            "block_size": 16},
+              "fixedpoint": {"n": FP_DITER_N, "dp": 5, "eps": 1e-10},
+              "fp_slots": FP_SLOTS, "fp_requests": 32}
+
+
+def counts(all_ops) -> dict:
+    return {op.__name__: op.launches for op in all_ops}
+
+
+def zero(all_ops) -> None:
+    for op in all_ops:
+        op.launches = 0
+
+
+def expect_launches(got: dict, want: dict, what: str, device) -> None:
+    """Every kernel's launches in ``got`` equal ``want``'s (0 if absent; all
+    0 on the CPU, where the wrappers take the plain versions)."""
+    cuda = device.type == "cuda"
+    bad = {k: (v, want.get(k, 0) * cuda) for k, v in got.items() if v != want.get(k, 0) * cuda}
+    log(f"  launches ({what}): {got}")
+    if bad:
+        raise SystemExit(f"{what}: kernel launches (got, expected) {bad}")
+
+
+def static_phase(all_ops, cfg, params, p10: dict, device) -> dict:
+    """10a. The static path at batch 8, prompt 512, 64 greedy steps, with a
+    bf16 and an int8 cache; the int8 cache's bytes; the int8 logits
+    teacher-forced with the bf16 run's tokens against the bf16 cache's."""
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import dtype_of
+
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    L, fwd = cfg.n_layers, 1 + STATIC_GEN
+    stats: dict = {}
+    runs = {}
+    for name, c in (("bf16", cfg), ("int8", cfg8)):
+        zero(all_ops)
+        r = serve.static_serve(c, batch=STATIC_BATCH, prompt_len=STATIC_PROMPT, gen=STATIC_GEN,
+                               device=device, params=params)
+        got = counts(all_ops)
+        expect_launches(got, {"flash_attention": L, "rmsnorm": (2 * L + 1) * fwd},
+                        f"static {name}", device)
+        for k, v in got.items():
+            p10[k] += v
+        pre_tok = STATIC_BATCH * STATIC_PROMPT
+        st = {"cache_bytes": r["cache_bytes"], "prefill_ms": r["prefill_s"] * 1e3,
+              "prefill_tok_s": pre_tok / r["prefill_s"],
+              "decode_ms_per_step": r["decode_s"] / STATIC_GEN * 1e3,
+              "decode_tok_s": STATIC_BATCH * STATIC_GEN / r["decode_s"]}
+        if not ((r["tokens"] >= 0) & (r["tokens"] < cfg.vocab)).all():
+            raise SystemExit(f"static {name}: tokens out of the vocabulary")
+        # one decode step's device time, from a cache the prefill filled
+        cache = transformer.init_cache(c, STATIC_BATCH, STATIC_PROMPT + STATIC_GEN, device)
+        logits, cache = step_lib.make_cached_prefill_step(c)(params, r["prompt"], cache)
+        step = step_lib.make_serve_step(c)
+        toks, pos = torch.argmax(logits, -1), torch.tensor(STATIC_PROMPT, device=device)
+        step(params, toks, cache, pos)
+        st["decode_busy_ms"], per = (device_profile(lambda: step(params, toks, cache, pos), 4)
+                                     if device.type == "cuda" else (float("nan"), {}))
+        log(f"10a static {name}: cache {r['cache_bytes']} B | prefill {pre_tok} tokens in "
+            f"{st['prefill_ms']:.2f} ms ({st['prefill_tok_s']:.0f} tok/s) | decode "
+            f"{st['decode_ms_per_step']:.3f} ms a step ({st['decode_tok_s']:.0f} tok/s), device "
+            f"busy {st['decode_busy_ms']:.3f} ms a step")
+        for kname, (ms, n) in top_kernels(per, 4):
+            log(f"  {ms * 1e3:9.2f} us/step {n:5.1f} launches/step  {kname[:100]}")
+        stats[name], runs[name] = st, r
+        del cache, logits
+    # int8 rows and an fp32 scale a head vector against rows of the compute
+    # type (2 bytes in bf16): (hd + 4) / (2 hd)
+    ratio = runs["int8"]["cache_bytes"] / runs["bf16"]["cache_bytes"]
+    hd, esize = cfg.head_dim, torch.empty((), dtype=dtype_of(cfg.compute_dtype)).element_size()
+    log(f"10a int8 / bf16 cache bytes {ratio:.6f} (= (hd + 4) / ({esize} hd) = "
+        f"{(hd + 4) / (esize * hd)})")
+    if runs["int8"]["cache_bytes"] * esize * hd != runs["bf16"]["cache_bytes"] * (hd + 4):
+        raise SystemExit(f"int8 cache bytes {runs['int8']['cache_bytes']} are not "
+                         f"(hd + 4) / ({esize} hd) of {runs['bf16']['cache_bytes']}")
+    # teacher forcing: both caches fed the bf16 run's prompt and tokens
+    prompt = runs["bf16"]["prompt"]
+    forced = torch.from_numpy(runs["bf16"]["tokens"]).to(device)
+    caches = [transformer.init_cache(c, STATIC_BATCH, STATIC_PROMPT + STATIC_GEN, device)
+              for c in (cfg, cfg8)]
+    l16, _ = step_lib.make_cached_prefill_step(cfg)(params, prompt, caches[0])
+    l8, _ = step_lib.make_cached_prefill_step(cfg8)(params, prompt, caches[1])
+    steps = (step_lib.make_serve_step(cfg), step_lib.make_serve_step(cfg8))
+    positions = torch.arange(STATIC_PROMPT, STATIC_PROMPT + STATIC_GEN, device=device)
+    rel = [float((l8 - l16).abs().max() / l16.abs().max())]
+    for i in range(STATIC_GEN - 1):
+        l16, _ = steps[0](params, forced[:, i], caches[0], positions[i])
+        l8, _ = steps[1](params, forced[:, i], caches[1], positions[i])
+        rel.append(float((l8 - l16).abs().max() / l16.abs().max()))
+    agree = float((runs["int8"]["tokens"] == runs["bf16"]["tokens"]).mean())
+    diverge = [int(np.argmax(row)) if row.any() else None
+               for row in runs["int8"]["tokens"] != runs["bf16"]["tokens"]]
+    log(f"10a int8 teacher-forced logits error, max |l8 - l16| / max |l16| over "
+        f"{len(rel)} steps: max {max(rel):.4f}, mean {np.mean(rel):.4f} (bar {INT8_REL_BAR}); "
+        f"free-running greedy agreement {agree:.3f}, first divergence a sequence {diverge}")
+    if not max(rel) < INT8_REL_BAR:
+        raise SystemExit(f"int8 teacher-forced logits error {max(rel)} >= {INT8_REL_BAR}")
+    stats.update(int8_over_bf16_bytes=ratio, int8_rel_err_max=max(rel),
+                 int8_rel_err_mean=float(np.mean(rel)), greedy_agreement=agree,
+                 first_divergence=diverge)
+    del caches
+    return stats
+
+
+def tenant_phase(all_ops, cfg, p10: dict, argv=TENANT_ARGV) -> dict:
+    """10b. Tenant traffic through the CLI on the paged kernel path at
+    steps_per_dispatch 16 and 1: every request done, the batch tenant's
+    quota held, equal results in both runs, launches as counted."""
+    from repro_torch.kernels.paged_attention.ops import split_plan
+    from repro_torch.launch import serve
+
+    # warm-up on the whole stream: the split kernels' first calls and the
+    # batch tenant's 2,048-token prefills, so neither timed run pays for them
+    serve.main(argv)
+    L, runs, stats = cfg.n_layers, {}, {}
+    for spd in (16, 1):
+        zero(all_ops)
+        eng = serve.main(argv + ["--steps-per-dispatch", str(spd)])
+        got, s, wl = counts(all_ops), eng.summary(), eng.workload
+        _, splits = split_plan(wl.pool.blocks_per_slot, wl.pool.block_size)
+        expect_launches(got, {"paged_attention": L * s["decode_ticks"],
+                              "flash_attention": L * wl.prefills,
+                              "rmsnorm": (2 * L + 1) * (wl.prefills + s["decode_ticks"])},
+                        f"tenants, steps_per_dispatch {spd}", wl.device)
+        for k, v in got.items():
+            p10[k] += v
+        res = eng.results
+        batch = [r for r in res.values() if r.tenant == "batch"]
+        peak = max(sum(r.admit_tick <= t <= r.retire_tick for r in batch)
+                   for t in range(s["ticks"]))
+        log(f"10b steps_per_dispatch {spd}: {s['completed']}/32 done in {s['ticks']} ticks "
+            f"({s['decode_ticks']} decode), wall {s['wall_s']:.3f} s, {s['throughput_tok_s']:.1f} "
+            f"tok/s, TTFT p50 {s['ttft_p50_ms']:.1f} ms, TPOT p50 {s['tpot_p50_ms']:.2f} ms; "
+            f"batch tenant's most slots in flight {peak} (quota {TENANT_QUOTA}); "
+            f"paged_attention kernels a call {1 + (splits > 1)} ({splits} splits)")
+        if s["completed"] != 32 or s["forced_at_capacity"] or peak > TENANT_QUOTA:
+            raise SystemExit(f"tenant run at steps_per_dispatch {spd}: {s}, batch peak {peak}")
+        runs[spd] = res
+        stats[f"spd{spd}"] = {k: s[k] for k in (
+            "ticks", "decode_ticks", "wall_s", "throughput_tok_s", "ttft_p50_ms", "tpot_p50_ms",
+            "sla_total", "sla_met", "goodput_ok", "goodput_per_ktick", "replica_ticks")}
+        stats[f"spd{spd}"].update(batch_peak_slots=peak, splits=splits,
+                                  tenants={n: {k: t[k] for k in ("completed", "sla_met",
+                                                                 "sla_total", "ttft_p99_ticks")}
+                                           for n, t in s["tenants"].items()})
+        del eng, wl
+    for i, r in runs[16].items():
+        o = runs[1][i]
+        if not (np.array_equal(r.output, o.output)
+                and (r.admit_tick, r.retire_tick) == (o.admit_tick, o.retire_tick)):
+            raise SystemExit(f"request {i} differs between steps_per_dispatch 16 and 1")
+    log("10b steps_per_dispatch 16 and 1: equal tokens, admission and retirement ticks")
+    return stats
+
+
+def prefix_phase(all_ops, cfg, params, p10: dict, device) -> dict:
+    """10c. 16 requests sharing a 1024-token system prompt on the paged
+    kernel path with share_prefixes on and off (equal tokens), then on
+    int8 pages through the gather path (no paged_attention launch)."""
+    from repro_torch.serving import Request, ServeConfig, ServeEngine, make_workload
+
+    rng = np.random.default_rng(23)
+    sys_prompt = rng.integers(0, cfg.vocab, size=SYS_PREFIX)
+    reqs = [(np.concatenate([sys_prompt, rng.integers(0, cfg.vocab, size=SYS_SUFFIX)]),
+             int(rng.integers(16, 33))) for _ in range(SYS_REQUESTS)]
+    L, stats, outs = cfg.n_layers, {}, {}
+    for name, c, kw in (("shared", cfg, {"share_prefixes": True}),
+                        ("private", cfg, {"share_prefixes": False}),
+                        ("int8_gather", dataclasses.replace(cfg, kv_cache_dtype="int8"),
+                         {"attn": "gather"})):
+        wl = make_workload("llm_decode_paged", cfg=c, slots=8, max_len=SYS_MAX_LEN,
+                           max_prompt_len=SYS_PREFIX + SYS_SUFFIX, block_size=16,
+                           params=params, device=device, **kw)
+        eng = ServeEngine(wl, ServeConfig(dp=3))
+        for i, (p, b) in enumerate(reqs):
+            eng.submit(Request(id=i, prompt=p, max_new=b))
+        zero(all_ops)
+        peak = 0
+        while eng.queue or eng.pending or any(r is not None for r in eng.slot_req):
+            eng.step()
+            peak = max(peak, wl.pool.allocator.used_blocks)
+        got, s = counts(all_ops), eng.summary()
+        paged_calls = 0 if name == "int8_gather" else L * s["decode_ticks"]
+        expect_launches(got, {"paged_attention": paged_calls, "flash_attention": L * wl.prefills,
+                              "rmsnorm": (2 * L + 1) * (wl.prefills + s["decode_ticks"])},
+                        f"system prompt, {name}", device)
+        for k, v in got.items():
+            p10[k] += v
+        stats[name] = {"prefix_saved_blocks": wl.prefix_saved_blocks, "peak_blocks": peak,
+                       "num_blocks": wl.pool.num_blocks, "cache_bytes": wl.cache_bytes,
+                       "tok_s": s["throughput_tok_s"], "ticks": s["ticks"],
+                       "wall_s": s["wall_s"], "completed": s["completed"]}
+        log(f"10c {name}: {s['completed']}/{SYS_REQUESTS} done in {s['ticks']} ticks, "
+            f"{s['throughput_tok_s']:.1f} tok/s | prefix blocks saved "
+            f"{wl.prefix_saved_blocks} | peak blocks in use {peak} of {wl.pool.num_blocks - 1} "
+            f"| cache {wl.cache_bytes} B")
+        if s["completed"] != SYS_REQUESTS or s["forced_at_capacity"]:
+            raise SystemExit(f"system-prompt run {name}: {s}")
+        outs[name] = eng.results
+        del eng, wl
+    for i, r in outs["shared"].items():
+        if not np.array_equal(r.output, outs["private"][i].output):
+            raise SystemExit(f"request {i}: share_prefixes on and off give different tokens")
+    agree = float(np.mean([np.mean(r.output == outs["shared"][i].output)
+                           for i, r in outs["int8_gather"].items()]))
+    stats["int8_token_agreement"] = agree
+    log(f"10c share_prefixes on and off: equal tokens; int8 pages agree with the bf16 run on "
+        f"{agree:.3f} of their tokens (not gated)")
+    return stats
+
+
+def serving_rest_phases(all_ops, t: float, *, cfg, device, tenant_argv=TENANT_ARGV,
+                        grid=BENCH_GRID) -> dict:
+    """10. The rest of serving at ``cfg`` (llama3.2-1b's full width on the
+    card): 10a the static path with bf16 and int8 caches, 10b tenant
+    traffic, 10c prefix sharing and int8 pages, 10d bench_serve's rows.
+    Returns the stats and ``launches``, each kernel's launches on 10a-10c's
+    counted runs."""
+    from repro_torch.benchmarks import bench_serve
+    from repro_torch.models import transformer
+
+    params = transformer.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    p10 = {op.__name__: 0 for op in all_ops}
+    stats = {"static": static_phase(all_ops, cfg, params, p10, device)}
+    t = phase("serving-static", t)
+    stats["tenants"] = tenant_phase(all_ops, cfg, p10, tenant_argv)
+    t = phase("serving-tenants", t)
+    stats["prefix"] = prefix_phase(all_ops, cfg, params, p10, device)
+    t = phase("serving-prefix", t)
+    rows = bench_serve.run_grid(cfg, grid, device, params=params)
+    out = ROOT / "chiprun_out" / "bench_serve_full_width.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps({"meta": {"arch": cfg.name, "device": str(device),
+                                        **{k: v for k, v in grid.items()}},
+                               "sweep": rows}, indent=2, default=list))
+    for r in rows:
+        log(f"10d {json.dumps(r)}")
+    bench_serve.check_rows(rows)  # the reference's gates; a failure ends the run
+    stats["bench_serve"] = rows
+    t = phase("serving-bench-serve", t)
+    stats["launches"] = p10
+    log(f"serving phases 10a-10c: launches {p10}")
     return stats
 
 
@@ -2009,7 +2310,14 @@ def main() -> int:
         raise SystemExit(f"bench_mrd did not run on the card: {bench['device']}")
     t = phase("collectives-bench-mrd", t)
 
-    # 10. results
+    # 10. the rest of serving at full width (the static path, tenants,
+    # prefix sharing, int8 pages, bench_serve's rows)
+    torch.cuda.empty_cache()
+    rest_stats = serving_rest_phases(all_ops, t, cfg=registry.get_config("llama3.2-1b"),
+                                     device=torch.device("cuda"))
+    p10 = rest_stats["launches"]
+
+    # 11. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -2021,13 +2329,16 @@ def main() -> int:
     log(json.dumps({"async": async_stats}))
     log(json.dumps({"fixedpoint_serve": fixedpoint_stats}))
     log(json.dumps({"collectives": coll_stats}))
+    log(json.dumps({"serving_rest": {k: v for k, v in rest_stats.items()
+                                     if k != "bench_serve"}}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/paged_kernel.py:78",
-        "launches": launches,
+        "launches": launches + p10["paged_attention"],
+        "launches_by_path": {"llama_serve": launches, "serving_rest": p10["paged_attention"]},
         "max_abs_err": errs[(KERNEL_CASES[0], torch.bfloat16)],
         **pa_t[KERNEL_CASES[0]],
         "long_context": {"shape": list(KERNEL_CASES[3]),
@@ -2055,7 +2366,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
-        "launches": fa_launches,
+        "launches": fa_launches + p10["flash_attention"],
+        "launches_by_path": {"gemma3_serve": fa_launches, "serving_rest": p10["flash_attention"]},
         "max_abs_err": errs[(FLASH_CASES[0], torch.bfloat16)],
         **fa_t[(PREFILL_LEN, None)],
     }, {
@@ -2063,7 +2375,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
-        "launches": rn_launches,
+        "launches": rn_launches + p10["rmsnorm"],
+        "launches_by_path": {"gemma3_serve": rn_launches, "serving_rest": p10["rmsnorm"]},
         "max_abs_err": errs[(RMSNORM_CASES[0], torch.bfloat16)],
         "ms": rn_ms,
         "plain_ms": rn_plain_ms,

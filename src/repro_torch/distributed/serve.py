@@ -5,6 +5,9 @@ plain functions over tensors.
 
 - :func:`make_prefill_step`: the whole-prompt forward that returns the
   last position's logits (the reference's ``prefill_32k`` shape cell).
+- The static batch path: :func:`make_serve_step` decodes one token of
+  every sequence at one cache length, and :func:`make_cached_prefill_step`
+  fills a batch's cache from its prompts in one causal forward.
 - The contiguous decode pool (``serving.pool.DecodePool``):
   :func:`make_pool_decode_step` advances every slot one token at its own
   length, and :func:`make_slot_prefill_step` admits a prompt into one slot
@@ -15,12 +18,15 @@ plain functions over tensors.
   ``"pallas"``) reads K/V through the block table inside the
   paged-attention CUDA kernel; ``attn="gather"`` gathers each slot's
   blocks into the contiguous layout, runs the contiguous decode step and
-  scatters back the one row each slot wrote.
+  scatters back the one row each slot wrote.  An int8 cache's scale
+  planes are paged beside its rows and served by the gather path only.
 
 Admission prefill runs one causal forward over the prompt (the flash
 kernel, or one selective scan a mamba1 layer, on the card) where the
 reference scans its decode step over the padded prompt; the cache rows,
-the state and the tokens are the same.
+the state and the tokens are the same.  Over an int8 cache the forward
+attends over K/V quantized and dequantized, as each of the reference's
+prompt positions attends over its dequantized cache, its own row included.
 """
 
 from __future__ import annotations
@@ -31,13 +37,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
-# Cache leaves paged into fixed-size blocks of a shared physical pool.  The
-# reference also pages int8 scale planes and hybrid attention caches; the
-# dense family's cache is just K and V.
-PAGED_LEAVES = ("k", "v")
+# Cache leaves paged into fixed-size blocks of a shared physical pool (the
+# reference also pages hybrid attention caches, a family not ported).
+PAGED_LEAVES = ("k", "v", "k_scale", "v_scale")
 # cache leaf -> its batch (slot) axis in the transformer.init_cache layout
-CACHE_BATCH_AXIS = {"k": 1, "v": 1, "global_k": 1, "global_v": 1, "local_k": 2, "local_v": 2,
-                    "h": 1, "conv": 1}
+CACHE_BATCH_AXIS = {"k": 1, "v": 1, "k_scale": 1, "v_scale": 1, "global_k": 1, "global_v": 1,
+                    "local_k": 2, "local_v": 2, "h": 1, "conv": 1}
 
 
 def make_prefill_step(cfg: ModelConfig, device="cuda"):
@@ -50,6 +55,56 @@ def make_prefill_step(cfg: ModelConfig, device="cuda"):
 
     def prefill_step(params, batch):
         return transformer.forward_last_logits(params, batch["tokens"].to(device), cfg)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """``serve_step(params, tokens [B], cache, cache_len) -> (logits [B, V],
+    cache)``: one decode step of every sequence at position ``cache_len``
+    (an int, or a tensor of one length a sequence); the cache is written in
+    place."""
+
+    def serve_step(params, tokens, cache, cache_len):
+        # a Python int is copied to the device here: a loop on the card passes
+        # a device tensor instead (a copy from the host waits for the card)
+        lengths = torch.as_tensor(cache_len, device=tokens.device).expand(tokens.shape[0])
+        return transformer.forward_decode(params, tokens, cache, lengths, cfg)
+
+    return serve_step
+
+
+def _fill_cache(cache, rows, slot=None) -> None:
+    """Copy a prompt's cache ``rows`` (``transformer.forward_prefill``'s)
+    into ``cache``: the positions' rows at the front of each leaf (a
+    rolling window's already at p % W) and zeros past them, or the whole
+    mamba1 state; into every sequence, or with ``slot`` into that slot from
+    ``rows``' one sequence."""
+    for n, leaf in cache.items():
+        ax = CACHE_BATCH_AXIS[n]
+        if slot is None:
+            dst, src, seq = leaf, rows[n], ax + 1
+        else:  # after select, the sequence axis sits at ax
+            dst, src, seq = leaf.select(ax, slot), rows[n].select(ax, 0), ax
+        if n in transformer.STATE_LEAVES:  # a state, not rows of positions
+            dst.copy_(src)
+            continue
+        w = src.shape[seq]
+        dst.narrow(seq, 0, w).copy_(src)
+        dst.narrow(seq, w, dst.shape[seq] - w).zero_()
+
+
+def make_cached_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, prompt [B, S], cache) -> (last_logits [B, V],
+    cache)``: one causal forward over the prompts (on the card the flash
+    kernel, every layer) fills positions ``[0, S)`` of the cache, whose
+    length may exceed S; the reference scans its decode step over the
+    prompt instead, which gives the same cache and logits."""
+
+    def prefill_step(params, prompt, cache):
+        last_logits, rows = transformer.forward_prefill(params, prompt, cfg)
+        _fill_cache(cache, rows)
+        return last_logits, cache
 
     return prefill_step
 
@@ -86,15 +141,7 @@ def make_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int):
         if not 0 < plen <= max_prompt_len:
             raise ValueError(f"prompt length {plen} not in (0, {max_prompt_len}]")
         last_logits, rows = transformer.forward_prefill(params, prompt[None], cfg)
-        for n, leaf in cache.items():
-            ax = CACHE_BATCH_AXIS[n]
-            dst, src = leaf.select(ax, slot), rows[n].select(ax, 0)
-            if n in transformer.STATE_LEAVES:  # a state, not rows of positions
-                dst.copy_(src)
-                continue
-            w = src.shape[ax]  # after select, the sequence axis sits at ax
-            dst.narrow(ax, 0, w).copy_(src)
-            dst.narrow(ax, w, dst.shape[ax] - w).zero_()
+        _fill_cache(cache, rows, slot)
         return last_logits[0]
 
     return slot_prefill
@@ -132,7 +179,9 @@ def validate_pageable(cfg: ModelConfig, max_len: int) -> None:
 
 def init_paged_pool(cfg: ModelConfig, max_len: int, num_blocks: int, block_size: int,
                     device="cuda"):
-    """Physical block pools ``{"k","v": [L, num_blocks, block_size, KV, hd]}``.
+    """Physical block pools ``{"k","v": [L, num_blocks, block_size, KV, hd]}``
+    (an int8 cache adds ``k_scale``/``v_scale`` [L, num_blocks, block_size,
+    KV]).
 
     Per-slot block tables map logical block ``j`` (positions ``[j*bs,
     (j+1)*bs)``) to a physical block.  Block 0 is reserved as the trash
@@ -158,8 +207,14 @@ def gather_block_views(pool_leaf, tables):
 
 def make_paged_pool_decode_step(cfg: ModelConfig, block_size: int, attn: str = "kernel"):
     """``pool_step(params, tokens [S], pages, tables [S,nb], lengths [S],
-    write_ok [S]) -> logits [S, V]``; ``pages`` are updated in place."""
+    write_ok [S]) -> logits [S, V]``; ``pages`` are updated in place.  An
+    int8 cache takes the gather path: the paged-attention kernel reads no
+    int8 pages, so ``attn="kernel"`` raises for it."""
     if attn == "kernel":
+        if cfg.kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                "int8 paged decode is served by the gather path (attn='gather')"
+            )
 
         def pool_step_kernel(params, tokens, pages, tables, lengths, write_ok):
             logits, _ = transformer.forward_decode_paged(
@@ -203,8 +258,8 @@ def make_paged_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int, max_len:
             raise ValueError(f"prompt length {plen} not in (0, {max_prompt_len}]")
         last_logits, rows = transformer.forward_prefill(params, prompt[None], cfg)
         dst = torch.where(write_mask, table_row, 0).long()
-        for n in PAGED_LEAVES:
-            leaf = rows[n][:, 0]  # [L, plen, KV, hd]
+        for n in pages:
+            leaf = rows[n][:, 0]  # [L, plen, KV, hd] (scales [L, plen, KV])
             full = leaf.new_zeros((leaf.shape[0], nb * block_size) + leaf.shape[2:])
             full[:, :plen] = leaf
             pages[n][:, dst] = full.reshape(leaf.shape[0], nb, block_size, *leaf.shape[2:])

@@ -28,9 +28,11 @@ from repro_torch.distributed.gradsync.mrd_zero1 import (  # noqa: F401
     zero1_owner_segments,
 )
 from repro_torch.distributed.serve import (  # noqa: F401
+    make_cached_prefill_step,
     make_paged_pool_decode_step,
     make_paged_slot_prefill_step,
     make_pool_decode_step,
     make_prefill_step,
+    make_serve_step,
     make_slot_prefill_step,
 )

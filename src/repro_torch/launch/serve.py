@@ -1,6 +1,10 @@
-"""Serving command line (port of ``repro.launch.serve``, the continuous
-path).
+"""Serving command line (port of ``repro.launch.serve``): the static batch
+path, or continuous batching with ``--continuous``.
 
+  # static: one timed cached prefill of --batch random prompts, then --gen
+  # greedy decode steps
+  python -m repro_torch.launch.serve --arch llama3.2-1b --batch 8 \\
+      --prompt-len 512 --gen 64
   python -m repro_torch.launch.serve --arch llama3.2-1b --continuous \\
       --workload llm_decode_paged --attn kernel --dp 3 --slots 8 \\
       --requests 16 --prompt-len 64 --gen 32 --block-size 16
@@ -17,6 +21,12 @@ path).
   python -m repro_torch.launch.serve --continuous --workload fixedpoint_solve \\
       --solver d_iteration --n 32760 --dp 5 --slots 16 --requests 64 \\
       --eps 1e-10 --gen 400 --termination residual_interval
+  # named tenants with TTFT SLAs, priorities and admission quotas, bursty
+  # arrivals
+  python -m repro_torch.launch.serve --arch llama3.2-1b --continuous \\
+      --workload llm_decode_paged --slots 8 --requests 32 --scheduler sla_edf \\
+      --tenants "chat:3:sla=8:prio=2,batch:1:quota=4:gen=24" \\
+      --arrival bursty:0.2,2.0
 
 An LLM workload serves the full-width config of ``--arch`` with random
 bf16 weights made from ``--seed`` on the card; ``--smoke`` takes the
@@ -30,21 +40,30 @@ slot's state.  ``fixedpoint_solve`` needs no ``--arch``: its requests are
 payloads of ``--n`` elements (rounded up to a multiple of ``--dp``) for the
 ``--solver`` operator, queued as the reference CLI queues them at the same
 seed.  ``--dp`` replicas are simulated: they agree on every retirement
-through the MRD plan, as the reference's continuous path does.
-``--device`` defaults to ``cuda`` and raises when there is no card;
-``--device cpu`` runs on the CPU, where every kernel is its plain PyTorch
-version.  The reference's static batch path, ``--arrival``, ``--tenants``,
-elastic resize and telemetry are not ported yet.
+through the MRD plan, as the reference's continuous path does.  Requests
+arrive at the ticks ``--arrival`` draws from ``--seed + 7``; with
+``--tenants`` they are the traffic model's (``serving/tenants.py``) at
+that seed, and tenant quotas bound admission.  ``--device`` defaults to
+``cuda`` and raises when there is no card; ``--device cpu`` runs on the
+CPU, where every kernel is its plain PyTorch version.  The reference's
+``--tp``, elastic resize (``--elastic-policy``, ``--autoscale``,
+``--kill``/``--join``/``--stall``, ``--slots-per-replica``) and
+``--telemetry`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import registry
 from repro_torch.device import resolve_device
+from repro_torch.distributed import step as step_lib
+from repro_torch.models import transformer
 from repro_torch.serving import (
     SCHEDULERS,
     TERMINATION,
@@ -52,8 +71,12 @@ from repro_torch.serving import (
     Request,
     ServeConfig,
     ServeEngine,
+    build_requests,
     get_scheduler,
+    make_arrival_ticks,
     make_workload,
+    parse_tenant_specs,
+    quotas_of,
 )
 
 
@@ -62,9 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", choices=registry.list_archs(),
                     help="model arch (required unless --workload fixedpoint_solve)")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--batch", type=int, default=4, help="static batch size")
     ap.add_argument("--continuous", action="store_true",
-                    help="serve through the continuous-batching ServeEngine "
-                         "(the only ported path; required)")
+                    help="serve through the continuous-batching ServeEngine")
     ap.add_argument("--workload", default="llm_decode_paged", choices=sorted(WORKLOADS))
     ap.add_argument("--attn", default="kernel", choices=("kernel", "gather"),
                     help="paged decode attention: the CUDA kernel reading K/V "
@@ -78,6 +101,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="termination-agreement replicas (MRD over [dp])")
     ap.add_argument("--slots", type=int, default=4, help="decode pool slots")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--arrival", default="none",
+                    help="none | poisson:RATE (req/tick) | bursty:BASE,PEAK[,RATE,LEN] | "
+                         "diurnal:PEAK,PERIOD[,FLOOR] | trace:FILE (JSON ticks)")
+    ap.add_argument("--tenants", default=None,
+                    metavar="NAME:WEIGHT[:sla=..][:prio=..][:quota=..][:gen=..],...",
+                    help="multi-tenant traffic model (serving/tenants.py): requests are "
+                         "drawn per tenant, quotas bound admission")
     ap.add_argument("--prompt-len", type=int, default=16, help="longest prompt")
     ap.add_argument("--min-prompt-len", type=int, default=1, help="shortest prompt")
     ap.add_argument("--gen", type=int, default=None,
@@ -95,39 +125,56 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n", type=int, default=64, help="fixedpoint_solve: problem size")
     ap.add_argument("--eps", type=float, default=1e-6,
                     help="residual terminations: the requests' threshold")
+    ap.add_argument("--steps-per-dispatch", type=int, default=16,
+                    help="ticks an engine step runs at most (it ends at the first "
+                         "retirement and never passes the next arrival)")
+    ap.add_argument("--max-retries", type=int, default=0,
+                    help="requeues granted to a request forced at cache capacity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
 
 
+def arrival_ticks(spec: str, n: int, seed: int) -> list[int]:
+    """``make_arrival_ticks`` with a spec error as a CLI exit."""
+    try:
+        return make_arrival_ticks(spec, n, seed)
+    except (ValueError, OSError) as e:
+        raise SystemExit(f"--arrival {spec!r}: {e}")
+
+
 def make_requests(cfg, n: int, prompt_len: int, gen: int, seed: int,
-                  min_prompt_len: int = 1) -> list[Request]:
-    """``n`` requests queued at tick 0: prompt lengths uniform in
-    [min_prompt_len, prompt_len], budgets uniform in [gen/2, gen].  With
-    ``min_prompt_len`` 1 the draws follow the reference CLI's stream at the
-    same ``seed`` (a priority in [0, 3) and an SLA in [4, 64) ticks too), so
-    both queue the same requests."""
+                  min_prompt_len: int = 1, arrivals=None) -> list[Request]:
+    """``n`` requests arriving at ``arrivals`` (default: all at tick 0):
+    prompt lengths uniform in [min_prompt_len, prompt_len], budgets uniform
+    in [gen/2, gen].  With ``min_prompt_len`` 1 the draws follow the
+    reference CLI's stream at the same ``seed`` (a priority in [0, 3) and
+    an SLA in [4, 64) ticks too), so both queue the same requests."""
     rng = np.random.default_rng(seed)
+    arrivals = [0] * n if arrivals is None else arrivals
     reqs = []
     for i in range(n):
         plen = int(rng.integers(min_prompt_len, prompt_len + 1))
         prompt = rng.integers(0, cfg.vocab, size=plen).astype(np.int32)
         max_new = int(rng.integers(max(1, gen // 2), gen + 1))
-        reqs.append(Request(id=i, arrival=0, prompt=prompt, max_new=max_new,
+        reqs.append(Request(id=i, arrival=arrivals[i], prompt=prompt, max_new=max_new,
                             priority=int(rng.integers(0, 3)), sla=int(rng.integers(4, 64))))
     return reqs
 
 
-def make_fixedpoint_requests(n_req: int, n: int, gen: int, seed: int) -> list[Request]:
-    """``n_req`` fixed-point requests queued at tick 0, each a payload
-    ``rng.random(n)`` normalized to sum 1 with iteration budget ``gen``,
-    a priority and an SLA in [50, 500): the reference CLI's stream at the
-    same ``seed``, so both queue the same payloads."""
+def make_fixedpoint_requests(n_req: int, n: int, gen: int, seed: int,
+                             arrivals=None) -> list[Request]:
+    """``n_req`` fixed-point requests arriving at ``arrivals`` (default:
+    all at tick 0), each a payload ``rng.random(n)`` normalized to sum 1
+    with iteration budget ``gen``, a priority and an SLA in [50, 500): the
+    reference CLI's stream at the same ``seed``, so both queue the same
+    payloads."""
     rng = np.random.default_rng(seed)
+    arrivals = [0] * n_req if arrivals is None else arrivals
     reqs = []
     for i in range(n_req):
         v = rng.random(n).astype(np.float32)
-        reqs.append(Request(id=i, arrival=0, payload=v / v.sum(), max_new=gen,
+        reqs.append(Request(id=i, arrival=arrivals[i], payload=v / v.sum(), max_new=gen,
                             priority=int(rng.integers(0, 3)), sla=int(rng.integers(50, 500))))
     return reqs
 
@@ -139,15 +186,16 @@ def _serve_fixedpoint(args, device):
     args.n, args.gen = n, args.gen or 1000
     wl = make_workload("fixedpoint_solve", solver=args.solver, n=n, slots=args.slots,
                        dp=args.dp, device=device)
-    reqs = make_fixedpoint_requests(args.requests, n, args.gen, args.seed)
+    reqs = None
+    if not args.tenants:
+        reqs = make_fixedpoint_requests(args.requests, n, args.gen, args.seed,
+                                        arrival_ticks(args.arrival, args.requests, args.seed + 7))
     return wl, reqs
 
 
 def serve(args: argparse.Namespace):
-    """Build the workload and engine from parsed ``args`` and serve
-    ``--requests`` requests -> (engine, workload, results)."""
-    if not args.continuous:
-        raise SystemExit("only the --continuous serving path is ported")
+    """Build the workload and engine from parsed ``args`` (``--continuous``)
+    and serve ``--requests`` requests -> (engine, workload, results)."""
     try:
         get_scheduler(args.scheduler)
     except ValueError as e:
@@ -157,9 +205,21 @@ def serve(args: argparse.Namespace):
         wl, reqs = _serve_fixedpoint(args, device)
     else:
         wl, reqs = _serve_llm(args, device)
+    quotas = None
+    if args.tenants:
+        try:
+            tenants = parse_tenant_specs(args.tenants)
+        except ValueError as e:
+            raise SystemExit(f"--tenants: {e}")
+        # one engine: every tenant targets the deployed --workload
+        tenants = tuple(dataclasses.replace(t, workload=args.workload) for t in tenants)
+        reqs = build_requests(tenants, {args.workload: wl}, args.requests, args.arrival,
+                              args.seed + 7)[args.workload]
+        quotas = quotas_of(tenants)
     eng = ServeEngine(wl, ServeConfig(
         scheduler=args.scheduler, termination=args.termination or wl.default_termination,
-        dp=args.dp, eps=args.eps,
+        dp=args.dp, eps=args.eps, max_retries=args.max_retries,
+        steps_per_dispatch=args.steps_per_dispatch, quotas=quotas,
     ))
     return eng, wl, eng.run(reqs)
 
@@ -181,15 +241,99 @@ def _serve_llm(args, device):
         args.workload, cfg=cfg, slots=args.slots, max_len=max_len,
         max_prompt_len=args.prompt_len, seed=args.seed, device=device, **kw,
     )
-    reqs = make_requests(cfg, args.requests, args.prompt_len, args.gen, args.seed,
-                         args.min_prompt_len)
+    reqs = None
+    if not args.tenants:
+        reqs = make_requests(cfg, args.requests, args.prompt_len, args.gen, args.seed,
+                             args.min_prompt_len,
+                             arrival_ticks(args.arrival, args.requests, args.seed + 7))
     return wl, reqs
 
 
-def main(argv=None) -> ServeEngine:
-    """Parse ``argv``, serve, print the summary; returns the engine (its
-    ``summary()`` and ``results``)."""
+def static_serve(cfg, *, gen: int, batch: int = 0, prompt_len: int = 0, prompt=None,
+                 seed: int = 0, device="cuda", params=None) -> dict:
+    """The static batch path: ``prompt`` [batch, prompt_len] (by default
+    ``batch`` random prompts of ``prompt_len`` tokens, drawn on the device
+    from ``seed + 1``; weights from ``seed`` unless ``params`` are given)
+    prefilled in one timed ``make_cached_prefill_step``, then ``gen`` timed
+    greedy ``make_serve_step`` calls; each timed region is fenced by a
+    device synchronize.  Returns the prompts (on the device), the greedy
+    tokens [batch, gen] (host), the two times in seconds and the cache's
+    bytes."""
+    device = resolve_device(device)
+    if params is None:
+        params = transformer.init_params(
+            cfg, torch.Generator(device=device).manual_seed(seed), device)
+    if prompt is None:
+        prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), device=device,
+                               generator=torch.Generator(device=device).manual_seed(seed + 1))
+    prompt = torch.as_tensor(prompt, device=device)
+    batch, prompt_len = prompt.shape
+    serve_step = step_lib.make_serve_step(cfg)
+    prefill_step = step_lib.make_cached_prefill_step(cfg)
+    cache = transformer.init_cache(cfg, batch, prompt_len + gen, device)
+    positions = torch.arange(prompt_len, prompt_len + gen, device=device)
+
+    fence(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, prompt, cache)
+    fence(device)
+    dt_prefill = time.perf_counter() - t0
+    toks = torch.argmax(logits, -1)
+    out = []
+    t0 = time.perf_counter()
+    for i in range(gen):
+        out.append(toks)
+        logits, cache = serve_step(params, toks, cache, positions[i])
+        toks = torch.argmax(logits, -1)
+    fence(device)
+    dt_decode = time.perf_counter() - t0
+    return {"prompt": prompt, "tokens": torch.stack(out, 1).cpu().numpy(),
+            "prefill_s": dt_prefill,
+            "decode_s": dt_decode,
+            "cache_bytes": sum(t.numel() * t.element_size() for t in cache.values())}
+
+
+def fence(device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _static_main(args) -> dict:
+    if not args.arch:
+        raise SystemExit("--arch is required for LLM serving")
+    args.gen = args.gen or 32
+    cfg = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
+    r = static_serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+                     seed=args.seed, device=args.device)
+    pre_tok, dec_tok = args.batch * args.prompt_len, args.batch * args.gen
+    print(f"prefill: {pre_tok} tokens in {r['prefill_s'] * 1e3:.1f} ms "
+          f"({pre_tok / r['prefill_s']:.1f} tok/s)")
+    print(f"decode:  {dec_tok} tokens in {r['decode_s'] * 1e3:.1f} ms "
+          f"({dec_tok / r['decode_s']:.1f} tok/s, {r['decode_s'] / args.gen * 1e3:.2f} ms/step)")
+    print("sample token ids:", r["tokens"][0][:16].tolist())
+    return r
+
+
+def _print_sla(eng, s) -> None:
+    """The SLA, per-tenant and capacity-retry lines (the reference CLI's)."""
+    if s["sla_total"]:
+        print(f"  SLA {s['sla_met']}/{s['sla_total']} met | goodput {s['goodput_ok']} "
+              f"({s['goodput_per_ktick']:.1f}/ktick) | replica-ticks {s['replica_ticks']}")
+    for name, t in sorted(s["tenants"].items()):
+        print(f"  tenant {name}: {t['completed']} done, {t['tokens_out']} tok | sla "
+              f"{t['sla_met']}/{t['sla_total']} | ttft p99 {t['ttft_p99_ticks']:.0f} ticks")
+    if s["retried"]:
+        print(f"  capacity retries {s['retried']} | dp {eng.cfg.dp}")
+
+
+def main(argv=None):
+    """Parse ``argv`` and serve.  ``--continuous``: print the summary and
+    return the engine (its ``summary()`` and ``results``); else run the
+    static path, print its lines and return :func:`static_serve`'s dict."""
     args = build_parser().parse_args(argv)
+    if not args.continuous:
+        return _static_main(args)
     eng, wl, res = serve(args)
     s = eng.summary()
     term = eng.cfg.termination
@@ -203,6 +347,7 @@ def main(argv=None) -> ServeEngine:
               f"converged {s['converged']}/{s['completed']}")
         print(f"  TTFT p50/p95 {s['ttft_p50_ms']:.1f}/{s['ttft_p95_ms']:.1f} ms | "
               f"ms a tick {s['wall_s'] / max(s['decode_ticks'], 1) * 1e3:.3f}")
+        _print_sla(eng, s)
         print(f"  request {first.id}: {first.n_tokens} iterations, admit@{first.admit_tick} "
               f"retire@{first.retire_tick}, certified {first.certified:.3e}, head "
               f"{np.round(first.output[:4], 6).tolist()}")
@@ -217,6 +362,7 @@ def main(argv=None) -> ServeEngine:
           f"forced-at-capacity {s['forced_at_capacity']}")
     print(f"  TTFT p50/p95 {s['ttft_p50_ms']:.1f}/{s['ttft_p95_ms']:.1f} ms | "
           f"TPOT p50/p95 {s['tpot_p50_ms']:.2f}/{s['tpot_p95_ms']:.2f} ms")
+    _print_sla(eng, s)
     print(f"  cache {wl.cache_bytes / 2**20:.2f} MiB"
           + (f" | prefix blocks saved {wl.prefix_saved_blocks}" if paged else ""))
     print(f"  request {first.id}: {first.n_tokens} tokens, admit@{first.admit_tick} "

@@ -16,6 +16,7 @@ from typing import Optional
 
 
 ATTN_IMPLS = ("auto", "full", "flash_scan", "kernel")
+KV_CACHE_DTYPES = ("bf16", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,10 +47,20 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     attn_impl: str = "auto"  # auto | full | flash_scan | kernel (the reference's pallas)
     attn_chunk: int = 1024  # flash_scan tile length
+    # 'bf16': the cache in the compute type; 'int8': int8 rows with an fp32
+    # scale per (token, head), the plain stack only
+    kv_cache_dtype: str = "bf16"
 
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"{self.name}: kv_cache_dtype {self.kv_cache_dtype!r} not in "
+                             f"{KV_CACHE_DTYPES}")
+        if self.kv_cache_dtype == "int8" and (self.family != "dense" or self.pattern_local):
+            # the reference has scale planes only for the plain stack's k/v
+            raise ValueError(f"{self.name}: an int8 KV cache needs the plain dense stack "
+                             "(the grouped stack and the ssm family have no scale planes)")
         if self.family not in ("dense", "ssm"):
             raise ValueError(
                 f"{self.name}: family {self.family!r} is not ported yet (dense and ssm only)"

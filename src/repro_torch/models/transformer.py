@@ -26,6 +26,10 @@ Interfaces:
   forward_decode_paged(params, tokens, pages, tables, lengths, cfg, ...)
                                                               -> (logits, pages)
 
+With ``cfg.kv_cache_dtype == "int8"`` (the plain stack) the cache keeps
+int8 K/V rows and an fp32 scale per (token, head), ``k_scale``/``v_scale``
+[L, B, W, KV]; attention reads the rows dequantized.
+
 A Python loop over :func:`layer_specs` replaces the reference's nested
 ``lax.scan``, and an explicit batch dimension with per-sequence lengths
 replaces its ``vmap`` over slots.  Cache writes update the given tensors
@@ -165,13 +169,23 @@ def _mlp_block(lp, x, cfg):
     return x + mlp_apply(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps))
 
 
-def _decoder_layer(lp, x, cfg, positions, spec: LayerSpec):
+def _decoder_layer(lp, x, cfg, positions, spec: LayerSpec, kv_int8: bool = False):
     """One full-sequence causal layer: x [B, S, d] -> (x, k, v), with k/v
-    [B, S, KV, hd] after RoPE (what the layer's cache keeps)."""
+    [B, S, KV, hd] after RoPE (what the layer's cache keeps).
+
+    ``kv_int8``: K and V are quantized to the int8 cache's rows before the
+    attention, which reads them dequantized, as the reference's decode
+    step reads each prompt position's own row from its int8 cache; k/v are
+    then ``(rows, scales)`` pairs."""
     B, S = x.shape[:2]
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = qkv_project(lp, h, cfg, positions, spec.theta)
-    o = attention(q, k, v, causal=True, window=spec.window, impl=cfg.attn_impl,
+    if kv_int8:
+        k, v = quant_heads(k), quant_heads(v)
+        k_at, v_at = (dequant(*kv, q.dtype) for kv in (k, v))
+    else:
+        k_at, v_at = k, v
+    o = attention(q, k_at, v_at, causal=True, window=spec.window, impl=cfg.attn_impl,
                   chunk=min(cfg.attn_chunk, S))
     x = x + o.reshape(B, S, -1) @ lp["wo"]
     return _mlp_block(lp, x, cfg), k, v
@@ -182,9 +196,10 @@ def _layer_output(lp, x, cfg, positions, spec: LayerSpec):
 
 
 def _prefill_rows(leaf, rows):
-    """Write a prompt's K or V rows ``[B, S, KV, hd]`` into a cache leaf
-    ``[B, W, KV, hd]`` (W <= S): a rolling window keeps the last W
-    positions, position p at row p % W, as the decode step writes them."""
+    """Write a prompt's K or V rows ``[B, S, KV, hd]`` (or int8 scales
+    ``[B, S, KV]``) into a cache leaf ``[B, W, ...]`` (W <= S): a rolling
+    window keeps the last W positions, position p at row p % W, as the
+    decode step writes them."""
     S, W = rows.shape[1], leaf.shape[1]
     leaf.copy_(torch.roll(rows[:, S - W:], shifts=(S - W) % W, dims=1))
 
@@ -213,15 +228,20 @@ def _run_stack(params, x, cfg, *, remat: str = "none", cache=None):
             raise ValueError(f"{cfg.name}: remat {remat!r} is not ported for the ssm family")
         return _run_mamba_stack(params, x, cfg, cache=cache)
     positions = torch.arange(x.shape[1], device=x.device)
+    kv_int8 = cache is not None and "k_scale" in cache
     for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
         if remat == "full":  # recompute in the backward pass; no cache
             fn = functools.partial(_layer_output, cfg=cfg, positions=positions, spec=spec)
             x = checkpoint(fn, lp, x, use_reentrant=False)
             continue
-        x, k, v = _decoder_layer(lp, x, cfg, positions, spec)
-        if cache is not None:
-            _prefill_rows(cache[spec.cache + "k"][spec.index], k)
-            _prefill_rows(cache[spec.cache + "v"][spec.index], v)
+        x, k, v = _decoder_layer(lp, x, cfg, positions, spec, kv_int8)
+        if cache is None:
+            continue
+        for n, kv in (("k", k), ("v", v)):
+            rows, scale = kv if kv_int8 else (kv, None)
+            _prefill_rows(cache[spec.cache + n][spec.index], rows)
+            if kv_int8:
+                _prefill_rows(cache[n + "_scale"][spec.index], scale)
     return x
 
 
@@ -270,7 +290,8 @@ def forward_train(params, batch, cfg: ModelConfig, remat: str = "none"):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Contiguous KV cache.  Plain stack: ``k``/``v`` [L, batch, W, KV, hd]
-    with W = min(max_len, sliding_window).  Grouped stack: ``local_k``/
+    with W = min(max_len, sliding_window); an int8 cache adds the fp32
+    ``k_scale``/``v_scale`` [L, batch, W, KV].  Grouped stack: ``local_k``/
     ``local_v`` [G, P, batch, min(max_len, local_window), KV, hd] and
     ``global_k``/``global_v`` [G, batch, max_len, KV, hd].  A windowed
     leaf is a rolling buffer: position p lives at row p % W.  mamba1: the
@@ -288,9 +309,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
                   "global_": (G, batch, max_len) + tail}
     else:
         shapes = {"": (cfg.n_layers, batch, min(max_len, cfg.sliding_window or max_len)) + tail}
-    dtype = dtype_of(cfg.compute_dtype)
-    return {prefix + n: torch.zeros(shape, dtype=dtype, device=device)
-            for prefix, shape in shapes.items() for n in ("k", "v")}
+    int8 = cfg.kv_cache_dtype == "int8"
+    dtype = torch.int8 if int8 else dtype_of(cfg.compute_dtype)
+    cache = {prefix + n: torch.zeros(shape, dtype=dtype, device=device)
+             for prefix, shape in shapes.items() for n in ("k", "v")}
+    if int8:  # the plain stack only (ModelConfig refuses the others)
+        for n in ("k_scale", "v_scale"):
+            cache[n] = torch.zeros(shapes[""][:-1], dtype=torch.float32, device=device)
+    return cache
+
+
+def quant_heads(x):
+    """x [..., KV, hd] -> (int8 rows [..., KV, hd], fp32 scales [..., KV]):
+    a scale per head vector, amax / 127 (1 where the vector is 0); the
+    quotient rounded half to even and clipped to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    # a tensor divisor: CUDA's division by a Python number multiplies by its
+    # reciprocal, which can differ from true division in the last bit
+    scale = torch.where(amax > 0, amax / amax.new_full((), 127.0), torch.ones_like(amax))
+    q = torch.div(xf, scale[..., None]).round_().clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequant(rows, scale, dtype):
+    """int8 rows [..., KV, hd] and scales [..., KV] -> rows in ``dtype``."""
+    return (rows.float() * scale[..., None]).to(dtype)
 
 
 def forward_prefill(params, tokens, cfg: ModelConfig):
@@ -315,8 +359,19 @@ def _write_rows(leaf, rows, idx, new, write_ok):
     """leaf[b, idx[b]] = new[b] for every sequence b, or keep the old row
     where ``write_ok[b]`` is False."""
     if write_ok is not None:
-        new = torch.where(write_ok[:, None, None], new, leaf[rows, idx])
+        ok = write_ok.reshape((-1,) + (1,) * (new.ndim - 1))
+        new = torch.where(ok, new, leaf[rows, idx])
     leaf[rows, idx] = new
+
+
+def _write_int8_rows(leaf, scales, rows, idx, new, write_ok, dtype):
+    """Quantize ``new`` [B, KV, hd] into the int8 ``leaf`` and its
+    ``scales`` at row ``idx[b]`` of each sequence (as :func:`_write_rows`);
+    returns the whole leaf dequantized to ``dtype``."""
+    q, s = quant_heads(new)
+    _write_rows(leaf, rows, idx, q, write_ok)
+    _write_rows(scales, rows, idx, s, write_ok)
+    return dequant(leaf, scales, dtype)
 
 
 def _decode_mamba_stack(params, x, cache, cfg, write_ok):
@@ -344,6 +399,7 @@ def forward_decode(params, tokens, cache, lengths, cfg: ModelConfig, write_ok=No
     B = tokens.shape[0]
     rows = torch.arange(B, device=tokens.device)
     lengths = lengths.long()
+    int8 = "k_scale" in cache
     x = _embed(params, tokens, cfg)
     for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
         kc = cache[spec.cache + "k"][spec.index]
@@ -352,9 +408,15 @@ def forward_decode(params, tokens, cache, lengths, cfg: ModelConfig, write_ok=No
         idx = lengths % W if spec.window is not None else lengths
         h = rmsnorm(x[:, None], lp["ln1"], cfg.norm_eps)
         q, k, v = qkv_project(lp, h, cfg, lengths[:, None], spec.theta)
-        _write_rows(kc, rows, idx, k[:, 0], write_ok)
-        _write_rows(vc, rows, idx, v[:, 0], write_ok)
-        o = decode_attention(q, kc, vc, (lengths + 1).clamp(max=W))
+        if int8:  # quantized rows and scales in, the whole cache dequantized out
+            k_at, v_at = (_write_int8_rows(c, cache[n + "_scale"][spec.index], rows, idx,
+                                           new[:, 0], write_ok, q.dtype)
+                          for n, c, new in (("k", kc, k), ("v", vc, v)))
+        else:
+            _write_rows(kc, rows, idx, k[:, 0], write_ok)
+            _write_rows(vc, rows, idx, v[:, 0], write_ok)
+            k_at, v_at = kc, vc
+        o = decode_attention(q, k_at, v_at, (lengths + 1).clamp(max=W))
         x = _mlp_block(lp, x + o.reshape(B, -1) @ lp["wo"], cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), cache
@@ -413,6 +475,10 @@ def forward_decode_paged(params, tokens, pages, tables, lengths, cfg: ModelConfi
     other math matches :func:`forward_decode`.  Returns (logits [S, V]
     fp32, pages).
     """
+    if "k_scale" in pages:
+        raise NotImplementedError(
+            "int8 paged decode is served by the gather path (attn='gather')"
+        )
     pb, off = paged_write_slots(tables, lengths, block_size, write_ok)
     tables = tables.to(torch.int32).contiguous()
     positions = lengths.long()[:, None]

@@ -8,6 +8,7 @@
 | termination | ``serving/termination.py`` | ``TERMINATION`` |
 | workloads | ``serving/workloads.py`` | ``WORKLOADS`` |
 | engine | ``serving/engine.py`` | composes the four |
+| tenants | ``serving/tenants.py`` | ``ARRIVALS`` (the traffic model) |
 
 Deciding when each in-flight request is done without a global barrier is
 the paper's convergence-detection problem: per-request termination runs
@@ -27,16 +28,32 @@ from repro_torch.serving.engine import (  # noqa: F401
 )
 from repro_torch.serving.paged import BlockAllocator, PagedDecodePool  # noqa: F401
 from repro_torch.serving.pool import DecodePool, FixedPointPool  # noqa: F401
-from repro_torch.serving.schedulers import SCHEDULERS, get_scheduler  # noqa: F401
+from repro_torch.serving.schedulers import (  # noqa: F401
+    SCHEDULERS,
+    get_scheduler,
+    register_scheduler,
+)
+from repro_torch.serving.tenants import (  # noqa: F401
+    ARRIVALS,
+    TenantScenario,
+    TenantSpec,
+    build_requests,
+    make_arrival_ticks,
+    parse_tenant_specs,
+    quotas_of,
+    register_arrival,
+)
 from repro_torch.serving.termination import (  # noqa: F401
     TERMINATION,
     TerminationConfig,
     get_termination,
     make_signals,
+    register_termination,
 )
 from repro_torch.serving.workloads import (  # noqa: F401
     WORKLOADS,
     FixedPointWorkload,
     get_workload,
     make_workload,
+    register_workload,
 )

@@ -1,33 +1,36 @@
 """The serving engine (port of ``repro.serving.engine``): a thin
 composition of workload x scheduler x termination.
 
-Per engine step:
+Per engine step (one dispatch):
 
 1. **admit** — the scheduler orders the queue and the first eligible
-   requests take the free slots; an LLM admission prefills the prompt and
-   yields the request's first token (TTFT stops here), a fixed-point one
-   sets the slot's payload;
-2. **tick** — one workload tick, advancing every active slot one token
-   (or one iteration) and the termination protocol's staged MRD
-   reduction one stage;
+   requests take the free slots (at most ``max_admit_per_tick``); a
+   request whose tenant is at its quota, or that the pool has no blocks
+   for, stays queued and the slot goes to the next one.  An LLM admission
+   prefills the prompt and yields the request's first token (TTFT stops
+   here), a fixed-point one sets the slot's payload;
+2. **ticks** — up to ``steps_per_dispatch`` workload ticks, each advancing
+   every active slot one token (or one iteration) and the termination
+   protocol's staged MRD reduction one stage.  The dispatch ends after the
+   first tick that retires or forces a slot, and never runs past the next
+   pending arrival, so its length changes no scheduling decision;
 3. **retire** — slots certified done by the agreed result retire, free
    their blocks, and their outputs are collected.  A slot frozen at cache
    capacity, or (under a residual termination) a fixed-point request
    whose iteration budget ran out before certification, is force-retired
-   with ``converged=False``.
+   with ``converged=False``; one frozen at capacity is requeued instead,
+   up to ``max_retries`` times.
 
-The reference fuses several ticks into one device loop that ends at the
-first retirement or the next arrival.  A free slot or a new arrival is
-the only thing that can change admission, so one tick per step gives the
-same admission and retirement ticks.  The control plane (termination
-state, per-slot counters) lives on the host: each tick brings the slots'
-new tokens, or a fixed-point pool's ``[dp, S]`` residual, to the host
-once.
+The reference runs a dispatch's ticks as one device loop; here they are a
+host loop, and the control plane (termination state, per-slot counters)
+lives on the host: each tick brings the slots' new tokens, or a
+fixed-point pool's ``[dp, S]`` residual, to the host once.
 
 Metrics: TTFT / TPOT (wall seconds, p50/p95/p99 in :meth:`summary`),
-token throughput, slot occupancy, converged requests, and tick-domain
-admission/retirement ticks.  Resize, tenant quotas, the capacity model,
-retries, the SLA goodput summary and telemetry are not ported yet.
+token throughput, slot occupancy, converged requests, tick-domain
+admission/retirement ticks, SLA goodput, replica-ticks, capacity retries
+and a per-tenant breakdown.  Resize, the ``slots_per_replica`` capacity
+model and telemetry are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,9 +46,6 @@ from repro_torch.asynchrony.protocols import RES_INIT
 from repro_torch.serving.schedulers import get_scheduler
 from repro_torch.serving.termination import TerminationConfig, get_termination, make_signals
 
-# engine steps before run() gives up on a loop that does not drain
-MAX_STEPS = 100_000
-
 
 @dataclasses.dataclass
 class Request:
@@ -60,6 +60,7 @@ class Request:
     priority: int = 0  # 'priority' scheduler: higher first
     sla: Optional[int] = None  # TTFT SLA in ticks: deadline = arrival + sla
     eps: Optional[float] = None  # residual terminations: per-request threshold
+    tenant: str = ""  # the multi-tenant traffic model (serving/tenants.py)
 
 
 @dataclasses.dataclass
@@ -74,6 +75,8 @@ class RequestResult:
     converged: bool  # False when force-retired (budget or cache capacity)
     ttft_s: float
     tpot_s: float  # NaN for n_tokens <= 1 (no inter-token interval)
+    retries: int = 0  # capacity-forced requeues this request went through
+    tenant: str = ""
     sla: Optional[int] = None
     sla_met: Optional[bool] = None  # TTFT tick deadline met (None = no SLA)
 
@@ -85,6 +88,18 @@ class ServeConfig:
     dp: int = 1  # termination-agreement replicas (MRD over [dp])
     eps: float = 1e-6  # residual threshold of requests that carry none
     window: int = 0  # residual_interval: 0 -> one agreement cycle + 1
+    max_admit_per_tick: int = 0  # 0 = fill every free slot
+    max_ticks: int = 100_000  # engine steps before run() gives up
+    # requeues of a request forced at cache capacity before it retires
+    # converged=False (0: it retires at once)
+    max_retries: int = 0
+    # ticks a dispatch runs at most: it ends after the first tick that
+    # retires a slot and never runs past the next arrival, so a larger value
+    # changes no scheduling decision
+    steps_per_dispatch: int = 16
+    # {tenant: most slots in flight} (0 or absent: unlimited); a tenant at
+    # its quota is passed over and the slot goes to the next request
+    quotas: Any = None
 
 
 class ServeEngine:
@@ -111,6 +126,8 @@ class ServeEngine:
         # the control plane is a few bytes per tick: it lives on the host
         self.tstate = self.term.init(self.tcfg, self.slots, device="cpu")
 
+        if cfg.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got {cfg.steps_per_dispatch}")
         self.tick = 0
         self.decode_ticks = 0  # ticks that ran a decode step
         self.queue: List[Request] = []
@@ -126,9 +143,13 @@ class ServeEngine:
         self._t_queue = np.zeros((self.slots,), np.float64)
         self._t_first = np.zeros((self.slots,), np.float64)
         self._t_submit: Dict[int, float] = {}
+        self._quotas = dict(cfg.quotas or {})
+        self._retries: Dict[int, int] = {}  # request id -> capacity requeues
         self._occupancy_ticks = 0
         self._occupancy_sum = 0.0
         self._forced_at_capacity = 0
+        self._retried = 0
+        self._replica_ticks = 0  # dp for every tick the clock passed
         self._t_start: Optional[float] = None
         self._t_last = 0.0
 
@@ -149,20 +170,32 @@ class ServeEngine:
     # -- one step -----------------------------------------------------------
 
     def _admit(self, now: int) -> None:
-        """Fill free slots in scheduler order; a request the pool cannot
-        take yet (out of cache blocks) stays queued and the next one gets
+        """Fill free slots in scheduler order with the first eligible
+        requests: one whose tenant is at its quota, or that the pool cannot
+        take yet (out of cache blocks), stays queued and the next one gets
         the slot."""
         free = self._free_slots()
+        if self.cfg.max_admit_per_tick:
+            free = free[: self.cfg.max_admit_per_tick]
         if not (self.queue and free):
             return
         gate = getattr(self.workload, "can_admit", None)
+        inflight: Dict[str, int] = {}
+        if self._quotas:
+            for r in self.slot_req:
+                if r is not None:
+                    inflight[r.tenant] = inflight.get(r.tenant, 0) + 1
         for req in self.scheduler.order(list(self.queue), now):
             if not free:
                 break
+            quota = self._quotas.get(req.tenant, 0)
+            if quota and inflight.get(req.tenant, 0) >= quota:
+                continue
             if gate is not None and not gate(req):
                 continue
             slot = free.pop(0)
             self.queue.remove(req)
+            inflight[req.tenant] = inflight.get(req.tenant, 0) + 1
             t0 = time.perf_counter()
             self.workload.admit(req, slot, now)
             self.slot_req[slot] = req
@@ -212,8 +245,20 @@ class ServeEngine:
             at_cap = act & cap_fn() & ~natural & ~retire & ~forced
         return retire, forced | at_cap, at_cap
 
+    def _dispatch_len(self, now: int) -> int:
+        """Ticks this dispatch may run: ``steps_per_dispatch``, cut at the
+        next pending arrival, and 1 while ``max_admit_per_tick`` holds a
+        queued request back from a free slot."""
+        klim = self.cfg.steps_per_dispatch
+        if self.pending:
+            nxt = min(r.arrival for r in self.pending)
+            klim = max(1, min(klim, nxt - now))
+        if self.cfg.max_admit_per_tick and self.queue and self._free_slots():
+            klim = 1
+        return klim
+
     def step(self) -> np.ndarray:
-        """Advance one engine step; returns the retired-slot mask ``[S]``."""
+        """Advance one dispatch; returns the retired-slot mask ``[S]``."""
         if self._t_start is None:
             self._t_start = time.perf_counter()
         now = self.tick
@@ -230,26 +275,46 @@ class ServeEngine:
         if not self._active.any():
             # nothing in flight: fast-forward the clock to the next arrival
             self.tick = min(r.arrival for r in self.pending) if self.pending else now + 1
+            self._replica_ticks += (self.tick - now) * self.cfg.dp
             self._t_last = time.perf_counter()
             return np.zeros((self.slots,), bool)
 
-        retire, forced, at_cap = self._tick(now)
-        out_mask = retire | forced
+        # the dispatch's ticks share one active set: it ends at the first
+        # tick that retires or forces a slot
+        for k in range(self._dispatch_len(now)):
+            retire, forced, at_cap = self._tick(now + k)
+            out_mask = retire | forced
+            if out_mask.any():
+                break
         if out_mask.any():
             self._active[out_mask] = False
             certified = self.tstate["certified"].numpy()
             t_done = time.perf_counter()
             for slot in np.nonzero(out_mask)[0]:
-                self._collect(int(slot), now, certified, bool(forced[slot]),
+                self._collect(int(slot), now + k, certified, bool(forced[slot]),
                               bool(at_cap[slot]), t_done)
-        self.tick = now + 1
+        self.tick = now + k + 1
+        self._replica_ticks += (k + 1) * self.cfg.dp
         self._t_last = time.perf_counter()
         return out_mask
 
     def _collect(self, slot, now, certified, was_forced, at_capacity, t_done):
         req = self.slot_req[slot]
+        release = getattr(self.workload, "release", None)
         if at_capacity:
             self._forced_at_capacity += 1
+            if self._retries.get(req.id, 0) < self.cfg.max_retries:
+                # requeued for a fresh admission (and block reservation);
+                # its new arrival is the dispatch's first tick, as the
+                # reference's (self.tick has not advanced yet)
+                self._retries[req.id] = self._retries.get(req.id, 0) + 1
+                self._retried += 1
+                self.slot_req[slot] = None
+                if release is not None:
+                    release(slot)
+                req.arrival = self.tick
+                self.queue.append(req)
+                return
         out = self.workload.output(slot)
         n_tok = int(self._new_tokens[slot])
         if req.prompt is not None:  # llm: trim to EOS / budget
@@ -268,26 +333,27 @@ class ServeEngine:
             certified=RES_INIT if was_forced else float(certified[slot]),
             converged=not was_forced,
             ttft_s=self._t_first[slot] - self._t_queue[slot], tpot_s=tpot,
-            sla=req.sla,
+            retries=self._retries.get(req.id, 0), tenant=req.tenant, sla=req.sla,
             sla_met=None if req.sla is None else admit_tick - req.arrival <= req.sla,
         )
         self.slot_req[slot] = None
-        release = getattr(self.workload, "release", None)
         if release is not None:
             release(slot)  # paged pools return the slot's blocks
 
     # -- drive to completion ------------------------------------------------
 
-    def run(self, requests=None):
+    def run(self, requests=None, *, max_ticks: Optional[int] = None):
         """Submit ``requests`` and step until everything submitted has
-        retired.  Returns ``results`` (request id -> RequestResult)."""
+        retired (at most ``max_ticks`` engine steps, default the config's).
+        Returns ``results`` (request id -> RequestResult)."""
         for r in requests or []:
             self.submit(r)
+        budget = max_ticks or self.cfg.max_ticks
         steps = 0
         while self.queue or self.pending or any(r is not None for r in self.slot_req):
-            if steps >= MAX_STEPS:
+            if steps >= budget:
                 raise RuntimeError(
-                    f"serve loop did not drain within {MAX_STEPS} engine steps "
+                    f"serve loop did not drain within {budget} engine steps "
                     f"({len(self.queue) + len(self.pending)} queued, "
                     f"{sum(r is not None for r in self.slot_req)} in flight)"
                 )
@@ -311,8 +377,12 @@ class ServeEngine:
             **_latency_percentiles(res),
             "occupancy": (self._occupancy_sum / self._occupancy_ticks
                           if self._occupancy_ticks else 0.0),
+            **_sla_fields(res, self.tick, wall),
+            "replica_ticks": self._replica_ticks,
+            "tenants": _tenant_summaries(res),
             "converged": int(sum(r.converged for r in res)),
             "forced_at_capacity": self._forced_at_capacity,
+            "retried": self._retried,
         }
 
 
@@ -329,4 +399,45 @@ def _latency_percentiles(res) -> Dict[str, float]:
     for q in (50, 95, 99):
         out[f"ttft_p{q}_ms"] = _pct_ms(ttft, q)
         out[f"tpot_p{q}_ms"] = _pct_ms(tpot, q)
+    return out
+
+
+def _sla_fields(res, ticks: int, wall: float) -> Dict[str, Any]:
+    """Goodput under SLA: ``sla_met`` of the ``sla_total`` requests that
+    carry a (tick-domain) TTFT deadline; ``goodput_ok`` adds the completed
+    requests without one; rates a thousand ticks and a wall second."""
+    sla_total = sum(1 for r in res if r.sla is not None)
+    sla_met = sum(1 for r in res if r.sla_met)
+    goodput_ok = sla_met + (len(res) - sla_total)
+    return {
+        "sla_total": sla_total,
+        "sla_met": sla_met,
+        "goodput_ok": goodput_ok,
+        "goodput_per_ktick": goodput_ok / ticks * 1000.0 if ticks > 0 else 0.0,
+        "goodput_req_s": goodput_ok / wall if wall > 0 else 0.0,
+    }
+
+
+def _tenant_summaries(res) -> Dict[str, Dict[str, Any]]:
+    """Per-tenant breakdown (empty when the traffic has no tenants)."""
+    by: Dict[str, list] = {}
+    for r in res:
+        by.setdefault(r.tenant, []).append(r)
+    if set(by) <= {""}:
+        return {}
+    out = {}
+    for name in sorted(by):
+        rs = by[name]
+        ttft_ticks = np.asarray([r.admit_tick - r.arrival for r in rs], np.float64)
+        sla_total = sum(1 for r in rs if r.sla is not None)
+        sla_met = sum(1 for r in rs if r.sla_met)
+        out[name] = {
+            "completed": len(rs),
+            "tokens_out": int(sum(r.n_tokens for r in rs)),
+            "sla_total": sla_total,
+            "sla_met": sla_met,
+            "goodput_ok": sla_met + (len(rs) - sla_total),
+            "ttft_p99_ticks": float(np.percentile(ttft_ticks, 99)),
+            **_latency_percentiles(rs),
+        }
     return out

@@ -14,6 +14,10 @@ The cache is a shared physical pool of fixed-size blocks
   a slot's length at the reservation edge.
 
 Block 0 is the trash block: device writes of inactive slots land there.
+With ``share_prefixes=False`` every block is private: no registry lookup
+or registration, and :meth:`PagedDecodePool.can_admit` counts no hits.
+An int8 cache's scale planes are pages beside its rows (``attn="gather"``
+only).
 
 Unlike the reference, a block may carry several registry keys (a set per
 block): the reference keeps one key per block, so registering a second
@@ -153,7 +157,7 @@ class PagedDecodePool:
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int, max_prompt_len: int,
                  block_size: int = 8, num_blocks: Optional[int] = None,
-                 attn: str = "kernel", device="cuda"):
+                 share_prefixes: bool = True, attn: str = "kernel", device="cuda"):
         if max_prompt_len >= max_len:
             raise ValueError("max_prompt_len must leave room to decode")
         if max_len % block_size:
@@ -167,6 +171,7 @@ class PagedDecodePool:
         if num_blocks is None:
             num_blocks = slots * self.blocks_per_slot + 1  # capacity parity + trash
         self.num_blocks = num_blocks
+        self.share_prefixes = share_prefixes
         self.attn = attn
         self._pool_step = dserve.make_paged_pool_decode_step(cfg, block_size, attn=attn)
         self._slot_prefill = dserve.make_paged_slot_prefill_step(
@@ -229,7 +234,7 @@ class PagedDecodePool:
         shared = 0
         try:
             for j in range(n_need):
-                if j < first_write:
+                if self.share_prefixes and j < first_write:
                     key = prompt[: (j + 1) * bs].tobytes()
                     bid = self.allocator.lookup(key)
                     if bid is not None:
@@ -263,7 +268,7 @@ class PagedDecodePool:
             )
         bs = self.block_size
         hits = sum(self.allocator.peek(prompt[: (j + 1) * bs].tobytes()) is not None
-                   for j in range(plen // bs))
+                   for j in range(plen // bs)) if self.share_prefixes else 0
         return self.allocator.free_blocks >= n_need - hits
 
     # -- admission / retirement ---------------------------------------------

@@ -3,7 +3,9 @@
 A workload binds a pool to a request type and gives the engine one
 surface: ``admit(request, slot, now)``, ``step(active) -> (tokens,
 residual)``, ``collect_tick``, ``output(slot)``, plus the paged hooks
-``can_admit`` and ``release``.  Registered:
+``can_admit`` and ``release``; ``sample_request(tenant, rng, id=,
+arrival=)`` draws one request of a tenant of the traffic model
+(``serving/tenants.py``).  Registered:
 
 - ``llm_decode`` — greedy LLM decode over the contiguous
   :class:`~repro_torch.serving.pool.DecodePool`; serves every ported
@@ -35,6 +37,7 @@ import torch
 from repro_torch.asynchrony.solvers import make_solver, random_dd_system
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.serving.engine import Request
 from repro_torch.serving.paged import PagedDecodePool
 from repro_torch.serving.pool import DecodePool, FixedPointPool
 
@@ -105,6 +108,18 @@ class LLMDecodeWorkload:
         plen = int(np.asarray(req.prompt).shape[0])
         return max(1, min(int(req.max_new), self.pool.max_len - plen - 1))
 
+    def sample_request(self, tenant, rng, *, id: int, arrival: int) -> Request:
+        """One seeded request of ``tenant``: a prompt length in [1,
+        tenant.prompt_len] within the pool's prompt length, a budget in
+        [hi // 2, hi] for hi the tenant's within the cache's room."""
+        plen = int(rng.integers(1, max(1, min(tenant.prompt_len, self.pool.max_prompt_len)) + 1))
+        hi = max(1, min(tenant.max_new, self.pool.max_len - plen - 1))
+        lo = max(1, hi // 2)
+        return Request(id=id, arrival=arrival,
+                       prompt=rng.integers(0, self.cfg.vocab, size=plen).astype(np.int32),
+                       max_new=int(rng.integers(lo, hi + 1)), eos=-1, priority=tenant.priority,
+                       sla=tenant.sla, tenant=tenant.name)
+
     def admit(self, req, slot: int, now: int) -> None:
         self._out[slot] = [self._prefill(req, slot)]
         self.prefills += 1
@@ -172,6 +187,15 @@ class FixedPointWorkload:
     def clamp_max_new(self, req) -> int:
         return int(req.max_new)
 
+    def sample_request(self, tenant, rng, *, id: int, arrival: int) -> Request:
+        """One seeded request of ``tenant``: a random payload scaled to
+        ``payload0``'s mass, so eps thresholds carry over."""
+        v = rng.random(self.payload0.shape[0]).astype(np.float32)
+        scale = float(np.abs(self.payload0).sum()) or 1.0
+        return Request(id=id, arrival=arrival, payload=v * (scale / max(float(v.sum()), 1e-9)),
+                       max_new=tenant.max_new, priority=tenant.priority, sla=tenant.sla,
+                       eps=tenant.eps, tenant=tenant.name)
+
     def admit(self, req, slot: int, now: int) -> None:
         self.pool.admit(self.payload0 if req.payload is None else req.payload, slot)
 
@@ -209,7 +233,8 @@ def llm_decode(**kwargs) -> LLMDecodeWorkload:
 def llm_decode_paged(**kwargs) -> PagedLLMWorkload:
     """Block-paged LLM decode.  Extra kwargs go to :class:`PagedDecodePool`:
     ``block_size``, ``num_blocks`` (default: contiguous-capacity parity),
-    ``attn`` ('kernel' | 'gather')."""
+    ``share_prefixes``, ``attn`` ('kernel' | 'gather'; an int8 cache takes
+    'gather')."""
     return PagedLLMWorkload(**kwargs)
 
 
