@@ -10,13 +10,16 @@ Phases, in order (any failure ends the run with a non-zero exit):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build every CUDA kernel of the serving and training paths from
-   ``src/`` (one ``nvcc`` per source, all started together); the bf16
-   flash kernel's hd 256 instance must not spill;
+   ``src/`` (one ``nvcc`` per source, all started together); no bf16 flash
+   instance and no paged-attention instance may spill (ptxas ``-v``),
+   and the registers of the instances the new families serve are printed;
 3. each kernel against its plain PyTorch version on the card:
    ``paged_attention`` at the served shapes, the smoke shapes, 8
    sequences of up to 4,096 positions (16 splits merged by the combine
-   kernel) and phase 10's tables (133 and 71 pages: 9 and 5 splits), fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain
-   version in fp32);
+   kernel), phase 10's tables (133 and 71 pages: 9 and 5 splits) and
+   phase 11's heads (40/8 at hd 128 over 66 pages: 5 splits; 14/2 at hd
+   64), fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain version in
+   fp32);
    ``mrd_combine`` at n = 256 and 768, at the kernel's block of 2,048
    elements +- 256, at a last block with one live warp, at the smoke
    config's reduce-scatter rows, at a [3, 512 k] stacked shape and at the
@@ -24,16 +27,20 @@ Phases, in order (any failure ends the run with a non-zero exit):
    equal bit for bit; ``flash_attention`` at the gemma3-12b shape (4096
    and 1755 tokens, 16 heads, 8 KV heads, hd 256, causal, no window and
    window 1024), the llama3.2-1b shape (2048 and 37 tokens; phase 10's
-   8 x 512, 1088 and 4 x 64), the smoke
+   8 x 512, 1088 and 4 x 64), phase 11's (qwen2.5-32b's 1024 tokens at
+   40/8 heads, hd 128; internvl2-1b's 512 at 14/2, hd 64; mixtral-8x7b's
+   5000 at 32/8, hd 128, window 4096), the smoke
    shapes and the edges of the bf16 kernel's tiling at every hd x rep
-   instance (partial q and key tiles, windows that cut a key tile,
-   q_offset, bidirectional, queries that see no key and must write 0),
+   instance, rep 5 and 7 included (partial q and key tiles, windows that
+   cut a key tile, q_offset, bidirectional, queries that see no key and
+   must write 0),
    fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain version in
    fp32), and every (token, head) row within a relative error of 1e-4
    (fp32) or 1e-2 (bf16) of the plain row; ``rmsnorm`` at the rows and
    widths of the served models and the smoke configs ([32768, 3840],
    [4, 3840], [8, 2048], [64, 2048], [40, 64], [32768, 4096], [8, 4096],
-   and phase 10's [4096, 2048] and [1088, 2048]),
+   phase 10's [4096, 2048] and [1088, 2048], and phase 11's widths
+   [1024, 5120], [1024, 896] and [1024, 2304]),
    fp32 (1e-5) and bf16 (2e-2); ``selective_scan`` in its materialized
    form at the reference kernel test's shapes and [1, 2048, 8192, 16], fp32
    and bf16 inputs, and in its fused form (the model's) at [1, 4096, 8192,
@@ -114,6 +121,11 @@ Phases, in order (any failure ends the run with a non-zero exit):
    at a decode tick's [8, 1, 8192, 16] beside its bound, and the scan's
    chunk-parallel form across blocks (2, 4 and 8 pieces of the 32k
    sequence, built from the chunked instance and held to it) beside it;
+   the widened instances: ``flash_attention`` at [1, 4096] with 40/8
+   heads, hd 128 (rep 5) and with 14/2 heads, hd 64 (rep 7), causal,
+   beside SDPA with ``enable_gqa``, and ``paged_attention`` at qwen2.5-32b's
+   decode shape (8 sequences, 40/8 heads, hd 128, 66 pages of 16) beside
+   SDPA on gathered views;
 7. the paper's asynchronous-iteration engine (``repro_torch.asynchrony``),
    which launches none of the kernels above (every launch count stays 0):
    7a. ``async-card-vs-cpu``: ``sweep`` on poisson1d n = 120, p = 5, 8
@@ -193,19 +205,50 @@ Phases, in order (any failure ends the run with a non-zero exit):
    Poisson row, the sysprefix pair, the fixed-point row at ``d_iteration``
    n = 32,760, dp 5) under its ``--check`` gates
    (``chiprun_out/bench_serve_full_width.json``);
-11. the kernels line, then the device line as the last line of stdout.
+11. the remaining decoder families through the CLI's ``serve()``, random
+   bf16 weights drawn on the card from seed 0, every run counted from 0:
+   every request retires, ``paged_attention`` launches once a layer a
+   decode tick on the paged pool, ``flash_attention`` once a layer an
+   admission and ``rmsnorm`` 2 x layers + 1 a forward, no other kernel.
+   11a. qwen2.5-32b at full width (64 layers, 65.5 GB): 16 requests,
+   prompts 128-1024, budgets 16-32, 8 slots, blocks of 16, 66 pages a
+   slot, dp 5, ``llm_decode_paged``; a profile of steady decode ticks;
+   then the config cut to 4 layers (random qkv biases), its prefill logits
+   for two prompts and 16 teacher-forced paged decode steps through the
+   kernels against the same model on the plain path (``attn_impl="full"``,
+   ``paged_attention_ref``, ``rmsnorm_ref``): every row's max |logit
+   difference| under the bar, twice the spread between the two plain
+   versions (``full`` and ``flash_scan``) relative to the row's largest
+   plain logit (at least 0.01), and every top-1 token equal up to ties
+   within the bar; 11b. internvl2-1b at full width, the same serving run,
+   then a no-grad ``make_prefill_step`` of 256 stub patches + 512 tokens
+   (two sequences), kernel path against plain path (the same bar); 11c.
+   minicpm-2b at full width, 8 requests on the paged pool; 11d. mixtral-8x7b cut to
+   16 of its 32 layers (the rest at published widths, 46.96 GB): 8
+   requests of 4096-6144-token prompts (every one crosses the 4096-token
+   window) on the contiguous pool, 4 slots, budgets 16-32, dp 3; the
+   drops of a ``make_prefill_step`` over one 4096-token prompt are logged
+   and an admission's forward over the longest served prompt drops
+   nothing; 11e. llama4-scout cut to 8 of its 48 layers (37.4 GB, top-1 of
+   16 experts, the 202,048-wide untied head): 8 requests on the paged
+   pool;
+12. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -283,7 +326,18 @@ FLASH_CASES = [(1, 4096, 4096, 16, 8, 256, True, None, 0),
                # phase 10's llama3.2-1b shapes: 10a's static prefill, 10c's
                # 1088-token system-prompt admissions, 10d's static waves
                (8, 512, 512, 32, 8, 64, True, None, 0), (1, 1088, 1088, 32, 8, 64, True, None, 0),
-               (4, 64, 64, 32, 8, 64, True, None, 0)]
+               (4, 64, 64, 32, 8, 64, True, None, 0),
+               # phase 11's: qwen2.5-32b (rep 5, hd 128), internvl2-1b (rep 7),
+               # mixtral-8x7b past its 4096-token window; then the rep 5 and 7
+               # tiles' edges (24 / 18 positions a bf16 block, 6 / 4 in fp32)
+               (1, 1024, 1024, 40, 8, 128, True, None, 0),
+               (1, 512, 512, 14, 2, 64, True, None, 0),
+               (1, 5000, 5000, 32, 8, 128, True, 4096, 0),
+               (1, 100, 100, 5, 1, 16, True, None, 0), (2, 37, 60, 10, 2, 64, False, None, 0),
+               (1, 50, 150, 5, 1, 128, True, 40, 100), (1, 61, 61, 10, 2, 256, True, 20, 0),
+               (1, 77, 77, 7, 1, 16, True, 30, 0), (2, 19, 19, 14, 2, 64, True, None, 0),
+               (1, 130, 90, 7, 1, 128, False, 33, 0), (1, 40, 70, 7, 1, 256, True, 16, 300),
+               (1, 30, 200, 14, 2, 64, True, 8, 150), (1, 25, 50, 5, 1, 64, True, 4, 100)]
 # flash_attention per-row tolerance: the largest |out - ref| / |ref| over
 # the hd-vectors of one (token, head); an atol alone passes late causal rows
 # (outputs ~0.03 at 4096 keys) with any error below the atol
@@ -295,14 +349,38 @@ FLASH_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # fp32 and bf16 rows of these widths cover every template instance the paths
 # launch
 RMSNORM_CASES = [(32768, 3840), (4, 3840), (8, 2048), (64, 2048), (40, 64), (32768, 4096),
-                 (8, 4096), (4096, 2048), (1088, 2048)]
+                 (8, 4096), (4096, 2048), (1088, 2048), (1024, 5120), (1024, 896), (1024, 2304)]
 # (S, H, KV, hd, nb, bs): the served full-width shape first, then the smoke
 # shape, then rep 1 with 16-token blocks (every template family once), then
 # llama3.2-1b's heads at long context (4,096 positions: 16 splits), then the
 # tables phase 10 serves: 10b's 133 pages (2,128 positions: 9 splits, the
-# last one ragged) and 10c's 71 (1,136 positions: 5 splits)
+# last one ragged) and 10c's 71 (1,136 positions: 5 splits); then phase 11's
+# heads over its 66-page tables (5 splits): qwen2.5-32b's and llama4-scout's
+# (40/8, hd 128), internvl2-1b's (14/2, hd 64)
 KERNEL_CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16),
-                (8, 32, 8, 64, 256, 16), (8, 32, 8, 64, 133, 16), (8, 32, 8, 64, 71, 16)]
+                (8, 32, 8, 64, 256, 16), (8, 32, 8, 64, 133, 16), (8, 32, 8, 64, 71, 16),
+                (8, 40, 8, 128, 66, 16), (8, 14, 2, 64, 66, 16)]
+QWEN_PAGED = KERNEL_CASES[6]
+# (H, KV, hd) of the widened flash instances phase 6 times at 4096 tokens
+FLASH_NEW_TIMED = [(40, 8, 128), (14, 2, 64)]
+
+
+def ptxas_report(text: str) -> dict:
+    """``nvcc -Xptxas=-v`` output -> {mangled entry: {"regs", "spill_stores",
+    "spill_loads"}} (bytes of spill)."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            out[entry] = {"regs": 0, "spill_stores": 0, "spill_loads": 0}
+        elif entry and "bytes spill stores" in line:
+            words = line.replace(",", "").split()
+            out[entry]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[entry]["spill_loads"] = int(words[-4])
+        elif entry and "Used" in line and "registers" in line:
+            words = line.split()
+            out[entry]["regs"] = int(words[words.index("Used") + 1])
+    return out
 
 
 def log(msg: str) -> None:
@@ -1428,6 +1506,518 @@ def serving_rest_phases(all_ops, t: float, *, cfg, device, tenant_argv=TENANT_AR
     return stats
 
 
+def build_kernels(t: float) -> dict:
+    """2. Build every kernel (one ``nvcc`` per source, all started together),
+    print the ptxas figures of the instances the paths serve, and gate the
+    spills.  Returns {source name: ptxas_report}."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mrd_combine import ops as mc_ops
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+
+    sources = {"paged_attention": ops.SOURCE, "mrd_combine": mc_ops.SOURCE,
+               "flash_attention": fa_ops.SOURCE, "rmsnorm": rn_ops.SOURCE,
+               "selective_scan": ss_ops.SOURCE}
+    # the instances whose -Xptxas=-v figures are printed (any of the mark
+    # tuples, every mark of it in the mangled name): flash_attention's bf16
+    # hd 256 (gemma3's), hd 128 at rep 5 (qwen2.5-32b's, llama4-scout's) and
+    # 4 (mixtral's) and hd 64 at rep 7 (internvl2-1b's); selective_scan's
+    # fused chunked and step instances at N = 16 (falcon-mamba's);
+    # paged_attention's bf16 16-token-block instances at hd 64 rep 4
+    # (llama3.2-1b's), hd 128 rep 5 and 4, hd 64 rep 7 and 1 (minicpm-2b's),
+    # hd 128 rep 7, and its combine kernel; every other kernel's all
+    shown = {"flash_attention": [(f"flash_wgmma_kernelILi{m}E",) for m in (
+                 "256", "128ELi5", "128ELi4", "64ELi7")],
+             "selective_scan": [("selective_scan_kernelILb1E", "Li16E"),
+                                ("selective_scan_step_kernel", "Li16E")],
+             "paged_attention": [(f"paged_attention_kernelI13__nv_bfloat16Li{hd}ELi{r}ELi16E",)
+                                 for hd, r in ((64, 4), (128, 5), (128, 4), (64, 7), (64, 1),
+                                               (128, 7))]
+             + [("paged_attention_combine_kernel",)]}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futs = {name: pool.submit(build.build_shared_library, src, name)
+                for name, src in sources.items()}
+        built = {name: f.result() for name, f in futs.items()}
+    for lib_ops in (ops, mc_ops, fa_ops, rn_ops, ss_ops):
+        lib_ops.library()
+    ptxas = {}
+    for name, so in built.items():
+        log(f"built {so.relative_to(ROOT)}")
+        ptxas[name] = ptxas_report(so.with_suffix(".log").read_text())
+        for entry, r in ptxas[name].items():
+            if name not in shown or any(all(m in entry for m in marks)
+                                        for marks in shown[name]):
+                kernel = re.sub(r"^.*?_cu_[0-9a-f]{8}\d+", "", entry)  # past the namespace
+                log(f"  ptxas ({name}) {kernel[:72]}: {r['regs']} registers, spill stores "
+                    f"{r['spill_stores']} B, loads {r['spill_loads']} B")
+    # no paged-attention instance and no bf16 flash instance may spill (the
+    # flash consumer warpgroups run at 240 registers a thread after setmaxnreg)
+    spills = {e: r for name, marks in (("paged_attention", "paged_attention"),
+                                       ("flash_attention", "flash_wgmma_kernel"))
+              for e, r in ptxas[name].items()
+              if marks in e and (r["spill_stores"] or r["spill_loads"])}
+    n_paged = sum("paged_attention_kernel" in e for e in ptxas["paged_attention"])
+    n_wgmma = sum("flash_wgmma_kernel" in e for e in ptxas["flash_attention"])
+    log(f"ptxas: {n_paged} paged_attention and {n_wgmma} bf16 flash instances, spilling: "
+        f"{len(spills)}")
+    if spills or not n_paged or not n_wgmma:
+        raise SystemExit(f"kernel instances spill: {spills}")
+    log(f"build of {len(built)} kernels: {time.perf_counter() - t:.1f} s")
+    return ptxas
+
+
+def check_paged(cases, errs: dict) -> None:
+    """``paged_attention`` against its plain version at each (S, H, KV, hd,
+    nb, bs), fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain version
+    in fp32); the errors go into ``errs``."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    for case in cases:
+        for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = paged_inputs(0, *case, dtype)
+            out = ops.paged_attention(*args)
+            ref = paged_attention_ref(*[a.float() if a.is_floating_point() else a for a in args])
+            torch.cuda.synchronize()
+            if out.dtype != dtype or out.shape != ref.shape:
+                raise SystemExit(f"kernel output {out.dtype} {tuple(out.shape)} is wrong")
+            err = (out.float() - ref).abs().max().item()
+            errs[(case, dtype)] = err
+            log(f"  kernel vs plain S,H,KV,hd,nb,bs={case} {str(dtype)[6:]}: "
+                f"max abs err {err:.3e} (atol {atol:g})")
+            if not err <= atol:
+                raise SystemExit(f"paged_attention kernel disagrees with its plain version: {err}")
+
+
+def check_flash(cases, errs: dict) -> None:
+    """``flash_attention`` against its plain version at each (B, Sq, Skv, H,
+    KV, hd, causal, window, q_offset): fp32 atol 1e-4 and bf16 2e-2, every
+    (token, head) row within FLASH_ROW_RTOL of the plain row, and queries
+    that see no key written as 0."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref, visible_mask
+
+    for case in cases:
+        B, Sq, Skv, H, KV, hd, causal, window, q_offset = case
+        masks = dict(causal=causal, window=window, q_offset=q_offset)
+        # a query that sees no key writes 0 (the plain softmax would average v)
+        seen = visible_mask(Sq, Skv, causal, window, q_offset, device="cuda").any(-1)
+        for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            q, k, v = flash_inputs(B, Sq, Skv, H, KV, hd, dtype, seed=Sq + hd)
+            out = fa_ops.flash_attention(q, k, v, **masks)
+            ref = flash_attention_ref(q.float(), k.float(), v.float(), **masks)
+            torch.cuda.synchronize()
+            if out.dtype != dtype or out.shape != ref.shape:
+                raise SystemExit(f"flash_attention output {out.dtype} {tuple(out.shape)} is wrong")
+            unseen_zero = bool((out[:, ~seen] == 0).all())
+            delta = out[:, seen].float() - ref[:, seen]
+            err = delta.abs().max().item() if seen.any() else 0.0
+            row_err = ((delta.norm(dim=-1) / ref[:, seen].norm(dim=-1)).max().item()
+                       if seen.any() else 0.0)
+            rtol = FLASH_ROW_RTOL[str(dtype)[6:]]
+            errs[(case, dtype)] = err
+            log(f"  flash_attention vs plain B,Sq,Skv,H,KV,hd,causal,window,q_offset={case} "
+                f"{str(dtype)[6:]}: max abs err {err:.3e} (atol {atol:g}), largest row error "
+                f"relative to the row {row_err:.3e} (at most {rtol:g}); "
+                f"{int((~seen).sum())} queries see no key, all 0: {unseen_zero}")
+            if not (err <= atol and row_err <= rtol and unseen_zero):
+                raise SystemExit(f"flash_attention kernel disagrees with its plain version: "
+                                 f"{err}, rows {row_err}, unseen rows 0: {unseen_zero}")
+            del q, k, v, out, ref, delta
+
+
+def check_rmsnorm(cases, errs: dict) -> None:
+    """``rmsnorm`` against its plain version on [T, d] rows, fp32 (1e-5) and
+    bf16 (2e-2)."""
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    for T, d in cases:
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            gen = torch.Generator(device="cuda").manual_seed(T)
+            x = (torch.randn(T, d, generator=gen, device="cuda") * 3).to(dtype)
+            w = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
+            out = rn_ops.rmsnorm(x, w, 1e-6)
+            ref = rmsnorm_ref(x.float(), w.float(), 1e-6)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            errs[((T, d), dtype)] = err
+            ok = out.dtype == dtype and torch.allclose(out.float(), ref, atol=tol, rtol=tol)
+            log(f"  rmsnorm vs plain [{T}, {d}] {str(dtype)[6:]}: max abs err {err:.3e} "
+                f"(atol = rtol = {tol:g}): {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"rmsnorm kernel disagrees with its plain version: {err}")
+            del x, w, out, ref
+
+
+def flash_widened_timings() -> dict:
+    """6. The widened flash instances timed (see FLASH_NEW_TIMED)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    # the widened instances at [1, 4096], causal, bf16: qwen2.5-32b's and
+    # llama4-scout's heads (40/8, hd 128: rep 5) and internvl2-1b's (14/2, hd
+    # 64: rep 7); the plain version is flash_attention_ref (fp32 scores,
+    # materialized: [1, KV, rep, 4096, 4096])
+    fa_new = {}
+    for H, KV, hd in FLASH_NEW_TIMED:
+        S = 4096
+        q, k, v = flash_inputs(1, S, S, H, KV, hd, torch.bfloat16, seed=21)
+        ms_k = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), iters=20, warmup=2)
+        ms_p = time_ms(lambda: flash_attention_ref(q, k, v, causal=True), iters=3, warmup=1)
+        ms_l, how = sdpa_ms(q, k, v, None, iters=20)
+        pairs = fa_ops.visible_pairs(S, S, True)
+        n_ops = 4 * H * hd * pairs
+        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in; out
+        b_ms, o_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_FLOPS * 1e3
+        fa_new[(H, KV, hd)] = dict(shape=[1, S, H, KV, hd], ms=ms_k, plain_ms=ms_p,
+                                   library_ms=ms_l, bound_ms=max(b_ms, o_ms),
+                                   bound_by="bytes" if b_ms >= o_ms else "operations")
+        log(f"timings flash_attention S={S} H={H} KV={KV} (rep {H // KV}) hd={hd} causal bf16: "
+            f"kernel {ms_k:.4f} ms | plain {ms_p:.4f} ms | sdpa ({how}) {ms_l:.4f} ms | bound "
+            f"{max(b_ms, o_ms):.4f} ms ({pairs} visible pairs, {n_ops:.4e} flop at 989 TFLOP/s = "
+            f"{o_ms:.4f} ms; {n_bytes} bytes at 3.35 TB/s = {b_ms:.4f} ms) | "
+            f"{n_ops / (ms_k * 1e-3) / 1e12:.1f} TFLOP/s | kernel / sdpa {ms_k / ms_l:.3f}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return fa_new
+
+
+# 11. the remaining decoder families, through the CLI's serve(): prompts
+# 128-1024 and budgets 16-32 on 66 pages of 16 a slot (the longest prompt
+# plus the largest budget), 8 slots, dp 5 (the paper's non-power-of-two
+# case); mixtral's prompts of 4096-6144 tokens cross its 4096-token window
+# on the contiguous pool
+PAGED_FAMILY_ARGV = ["--continuous", "--workload", "llm_decode_paged", "--attn", "kernel",
+                     "--dp", "5", "--slots", "8", "--requests", "16", "--min-prompt-len", "128",
+                     "--prompt-len", "1024", "--gen", "32", "--max-len", "1056",
+                     "--block-size", "16", "--device", "cuda"]
+QWEN_ARGV = ["--arch", "qwen2.5-32b"] + PAGED_FAMILY_ARGV
+INTERNVL_ARGV = ["--arch", "internvl2-1b"] + PAGED_FAMILY_ARGV
+MINICPM_ARGV = ["--arch", "minicpm-2b"] + PAGED_FAMILY_ARGV + [
+    "--requests", "8", "--prompt-len", "512", "--max-len", "544"]
+LLAMA4_ARGV = ["--arch", "llama4-scout-17b-a16e"] + PAGED_FAMILY_ARGV + ["--requests", "8"]
+MIXTRAL_PROMPTS = (4096, 6144)
+MIXTRAL_ARGV = ["--arch", "mixtral-8x7b", "--continuous", "--workload", "llm_decode", "--dp", "3",
+                "--slots", "4", "--requests", "8", "--min-prompt-len", str(MIXTRAL_PROMPTS[0]),
+                "--prompt-len", str(MIXTRAL_PROMPTS[1]), "--gen", "32", "--device", "cuda"]
+# depth cuts (one card): mixtral-8x7b's 32 layers to 16 (46.96 GB), llama4-scout's
+# 48 to 8 (37.4 GB); qwen2.5-32b's kernel-vs-plain check at 4 of its 64
+DEPTH_CUTS = {"mixtral-8x7b": 16, "llama4-scout-17b-a16e": 8}
+CHECK_LAYERS, CHECK_PROMPTS, CHECK_STEPS = 4, (1000, 333), 16
+VLM_PATCHES, VLM_TOKENS = 256, 512
+# kernel path against plain path in bf16: each row's max |l_kernel - l_plain|
+# relative to its largest plain logit under the bar, the larger of
+# LOGIT_REL_FLOOR and twice the largest such spread between the two plain
+# versions (attention materialized, "full", and chunked, "flash_scan": each
+# rounds to bf16 at other places, as the kernel does); and the kernel's top-1
+# token the plain path's top-1 or within the bar of it (a tie the bar cannot
+# tell apart).  The strict top-1 agreement is reported.
+LOGIT_REL_FLOOR = 0.01
+PHASE11_HEADROOM_GIB = 4.0  # allocated before phase 11 at most (qwen2.5-32b peaks at ~64 GiB)
+
+
+def live_cuda_tensors(top: int = 5) -> list:
+    """(shape, dtype, GB) of the largest CUDA storages Python still holds."""
+    seen = {}
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                st = obj.untyped_storage()
+                seen[st.data_ptr()] = (tuple(obj.shape), str(obj.dtype)[6:],
+                                       round(st.nbytes() / 1e9, 3))
+        except Exception:  # objects that fail isinstance/attribute probes are not ours
+            continue
+    return sorted(seen.values(), key=lambda v: -v[2])[:top]
+
+
+def free_device() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_path():
+    """The serving path with every kernel's plain version: the paged decode
+    reads K/V through ``paged_attention_ref`` and norms take ``rmsnorm_ref``
+    (the flash kernel is left by ``attn_impl="full"`` in the config)."""
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.models import layers, transformer
+
+    with mock.patch.object(transformer, "paged_attention", paged_attention_ref), \
+            mock.patch.object(layers, "rmsnorm_kernel", rmsnorm_ref):
+        yield
+
+
+def gate_rows(what: str, kernel, plain, other) -> dict:
+    """Logit rows [R, V] of the kernel path against the plain path's
+    (``other``: the second plain version, which sets the bar): the largest
+    |difference| relative to each row's largest plain logit, and top-1
+    agreement, strict and up to ties within the bar; a failure ends the
+    run."""
+    kernel, plain, other = kernel.float(), plain.float(), other.float()
+    scale = plain.abs().amax(-1)
+    rel = (kernel - plain).abs().amax(-1) / scale
+    spread = float(((other - plain).abs().amax(-1) / scale).max())
+    bar = max(LOGIT_REL_FLOOR, 2 * spread)
+    top_k, top_p = kernel.argmax(-1), plain.argmax(-1)
+    gap = (plain.gather(-1, top_p[:, None]) - plain.gather(-1, top_k[:, None]))[:, 0] / scale
+    r = {"rows": int(rel.numel()), "max_rel_err": float(rel.max()), "plain_spread": spread,
+         "bar": bar, "top1": float((top_k == top_p).float().mean()),
+         "top1_up_to_ties": float((gap <= bar).float().mean()),
+         "max_abs_logit": float(scale.max())}
+    log(f"{what}: {r['rows']} rows, max |kernel - plain| / max |plain| {r['max_rel_err']:.4f} "
+        f"(bar {bar:.4f}: the two plain versions differ by {spread:.4f}), top-1 agreement "
+        f"{r['top1']:.3f}, up to ties within the bar {r['top1_up_to_ties']:.3f}; largest "
+        f"|logit| {r['max_abs_logit']:.3f}")
+    if not (r["max_rel_err"] < bar and r["top1_up_to_ties"] == 1.0):
+        raise SystemExit(f"{what}: the kernel path disagrees with the plain path: {r}")
+    return r
+
+
+def family_serve(all_ops, argv, what: str):
+    """Serve ``argv`` through the CLI (an arch in DEPTH_CUTS at its cut
+    depth) counted from 0: every request retired naturally, outputs in the
+    vocabulary, each kernel's launches as the path makes them.  Returns
+    (engine, stats, launches)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+
+    arch = argv[argv.index("--arch") + 1]
+    cut = ({arch: registry.override(registry.get_config(arch), n_layers=DEPTH_CUTS[arch])}
+           if arch in DEPTH_CUTS else {})
+    n_req = int(argv[len(argv) - 1 - argv[::-1].index("--requests") + 1])
+    zero(all_ops)
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.dict(registry._FULL, cut):
+        eng = serve.main(argv)
+    got, s, wl = counts(all_ops), eng.summary(), eng.workload
+    L, fwd = wl.cfg.n_layers, wl.prefills + s["decode_ticks"]
+    want = {"flash_attention": L * wl.prefills, "rmsnorm": (2 * L + 1) * fwd}
+    if "llm_decode_paged" in argv:
+        want["paged_attention"] = L * s["decode_ticks"]
+    expect_launches(got, want, what, wl.device)
+    params_gb = sum(t.numel() * t.element_size() for t in _leaves(wl.params)) / 1e9
+    stats = {k: s[k] for k in ("completed", "decode_ticks", "tokens_out", "throughput_tok_s",
+                               "ttft_p50_ms", "tpot_p50_ms", "wall_s")}
+    stats.update(layers=L, params=wl.cfg.n_params(), weights_gb=params_gb,
+                 admissions=wl.prefills, cache_gb=wl.cache_bytes / 1e9,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=got)
+    log(f"{what}: {s['completed']}/{n_req} requests, {wl.prefills} admissions, "
+        f"{s['decode_ticks']} decode ticks, {L} layers, {params_gb:.2f} GB of weights, cache "
+        f"{wl.cache_bytes / 1e9:.3f} GB | {s['throughput_tok_s']:.1f} tok/s | TTFT p50 "
+        f"{s['ttft_p50_ms']:.1f} ms | TPOT p50 {s['tpot_p50_ms']:.2f} ms | wall "
+        f"{s['wall_s']:.2f} s | peak {stats['peak_gib']:.2f} GiB")
+    if s["completed"] != n_req or s["forced_at_capacity"]:
+        raise SystemExit(f"{what}: not every request retired naturally: {s}")
+    for r in eng.results.values():
+        if not (1 <= r.n_tokens and ((r.output >= 0) & (r.output < wl.cfg.vocab)).all()):
+            raise SystemExit(f"{what}: request {r.id}: bad output {r.output}")
+    return eng, stats, got
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def pages_from_prefill(caches, nb: int, bs: int):
+    """One-sequence prefill caches (``k``/``v`` [L, 1, plen, KV, hd]) laid
+    into a pool of ``nb`` blocks of ``bs`` a sequence: (pages, tables
+    [S, nb] int32, lengths [S] int32); block 0 is the trash block."""
+    S, device = len(caches), caches[0]["k"].device
+    tables = torch.arange(1, S * nb + 1, dtype=torch.int32, device=device).reshape(S, nb)
+    pages = {}
+    for n in ("k", "v"):
+        L, _, _, KV, hd = caches[0][n].shape
+        pool = caches[0][n].new_zeros((L, S * nb + 1, bs, KV, hd))
+        for b, c in enumerate(caches):
+            rows = c[n][:, 0]
+            full = rows.new_zeros((L, nb * bs, KV, hd))
+            full[:, :rows.shape[1]] = rows
+            pool[:, tables[b].long()] = full.reshape(L, nb, bs, KV, hd)
+        pages[n] = pool
+    lengths = torch.tensor([c["k"].shape[2] for c in caches], dtype=torch.int32, device=device)
+    return pages, tables, lengths
+
+
+def qwen_kernel_check(all_ops, cfg) -> dict:
+    """11a': qwen2.5-32b at full width cut to CHECK_LAYERS layers (random
+    weights and qkv biases from seed 0): the prefill logits of two prompts,
+    then CHECK_STEPS paged decode steps fed the kernel path's greedy
+    tokens, through the kernels and through the two plain paths."""
+    from repro_torch.models import transformer
+
+    bs, device = 16, torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = transformer.init_params(cfg, gen, device)
+    for n in ("bq", "bk", "bv"):
+        params["layers"][n].normal_(0.0, 0.5, generator=gen)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen, device=device)
+               for n in CHECK_PROMPTS]
+    nb = -(-(max(CHECK_PROMPTS) + CHECK_STEPS) // bs)
+
+    paths = {"kernel": cfg, "full": dataclasses.replace(cfg, attn_impl="full"),
+             "flash_scan": dataclasses.replace(cfg, attn_impl="flash_scan")}
+    zero(all_ops)
+    rows, state = {}, {}
+    with torch.no_grad():
+        for name, c in paths.items():
+            with plain_path() if name != "kernel" else contextlib.nullcontext():
+                out = [transformer.forward_prefill(params, p[None], c) for p in prompts]
+            rows[name] = [torch.cat([o[0] for o in out])]
+            state[name] = pages_from_prefill([o[1] for o in out], nb, bs)
+            del out
+        tok = rows["kernel"][0].argmax(-1)
+        for i in range(CHECK_STEPS):  # every path fed the kernel path's greedy tokens
+            for name, c in paths.items():
+                pages, tables, lengths = state[name]
+                with plain_path() if name != "kernel" else contextlib.nullcontext():
+                    logits, _ = transformer.forward_decode_paged(
+                        params, tok, pages, tables, lengths + i, c, block_size=bs)
+                rows[name].append(logits)
+            tok = rows["kernel"][-1].argmax(-1)
+    L = cfg.n_layers
+    # the kernel path's launches only: the plain paths launched none
+    expect_launches(counts(all_ops), {"flash_attention": L * len(prompts),
+                                      "rmsnorm": (2 * L + 1) * (len(prompts) + CHECK_STEPS),
+                                      "paged_attention": L * CHECK_STEPS},
+                    "11a qwen kernel check", device)
+    return gate_rows(f"11a qwen2.5-32b ({L} layers) prefill of {CHECK_PROMPTS} tokens + "
+                     f"{CHECK_STEPS} teacher-forced paged decode steps, kernel vs plain",
+                     *(torch.cat(rows[n]) for n in paths))
+
+
+def vlm_kernel_check(all_ops, cfg, params) -> dict:
+    """11b': internvl2-1b's full-sequence forward (make_prefill_step) of
+    VLM_PATCHES stub patches + VLM_TOKENS tokens, two sequences, through the
+    kernels and through the plain path."""
+    from repro_torch.distributed import serve as dserve
+    from repro_torch.models import frontends
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(3)
+    batch = {"patches": frontends.vision_patches(gen, 2, VLM_PATCHES),
+             "tokens": torch.randint(0, cfg.vocab, (2, VLM_TOKENS), generator=gen,
+                                     device=device)}
+    zero(all_ops)
+    out = {}
+    with torch.no_grad():
+        out["kernel"] = dserve.make_prefill_step(cfg, device)(params, batch)
+        with plain_path():
+            for impl in ("full", "flash_scan"):
+                out[impl] = dserve.make_prefill_step(dataclasses.replace(cfg, attn_impl=impl),
+                                                     device)(params, batch)
+    # the kernel path's launches only: the plain paths launched none
+    expect_launches(counts(all_ops), {"flash_attention": cfg.n_layers,
+                                      "rmsnorm": 2 * cfg.n_layers + 1},
+                    "11b internvl2 patch forward", device)
+    return gate_rows(f"11b internvl2-1b forward of {VLM_PATCHES} patches + {VLM_TOKENS} tokens "
+                     "(x2), kernel vs plain", out["kernel"], out["full"], out["flash_scan"])
+
+
+def families_phases(all_ops, t: float) -> dict:
+    """11. qwen2.5-32b, internvl2-1b and minicpm-2b at full width, mixtral-8x7b
+    and llama4-scout at cut depth, each model freed before the next loads."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import serve as dserve
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    device = torch.device("cuda")
+    stats: dict = {}
+    launches = {op.__name__: 0 for op in all_ops}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    # qwen2.5-32b peaks at ~64 GiB of the card's 79: earlier phases may leave
+    # a few GiB behind, and the largest tensors still alive are named
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"device memory allocated before phase 11: {left:.3f} GiB; the largest live tensors: "
+        f"{live_cuda_tensors()}")
+    if left > PHASE11_HEADROOM_GIB:
+        raise SystemExit(f"{left:.3f} GiB still allocated before phase 11")
+    # 11a. qwen2.5-32b at full width, then a profile of steady decode ticks
+    eng, stats["qwen"], got = family_serve(all_ops, QWEN_ARGV, "11a qwen2.5-32b serving")
+    add(got)
+    t = phase("qwen-serve-full-width", t)
+    wl = eng.workload
+    wall_ms, busy_ms, per_tick = profile_decode(
+        wl, serve.make_requests(wl.cfg, 8, 1024, 32, seed=1, min_prompt_len=128), ticks=4)
+    log(f"11a qwen2.5-32b steady decode tick, 8 slots: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
+    for name, (ms_tick, n_tick) in top_kernels(per_tick):
+        log(f"  {ms_tick * 1e3:9.2f} us/tick {n_tick:6.1f} launches/tick  {name[:110]}")
+    classes = kernel_classes(per_tick, busy_ms)
+    stats["qwen"].update(tick_wall_ms=wall_ms, tick_busy_ms=busy_ms, tick_classes_ms=classes)
+    del eng, wl
+    free_device()
+    t = phase("qwen-profile-decode", t)
+    stats["qwen_check"] = qwen_kernel_check(
+        all_ops, registry.override(registry.get_config("qwen2.5-32b"), n_layers=CHECK_LAYERS))
+    free_device()
+    t = phase("qwen-kernel-check", t)
+    # 11b. internvl2-1b at full width (rep 7), then its patch forward
+    eng, stats["internvl2"], got = family_serve(all_ops, INTERNVL_ARGV, "11b internvl2-1b serving")
+    add(got)
+    stats["internvl2_check"] = vlm_kernel_check(all_ops, eng.workload.cfg, eng.workload.params)
+    del eng
+    free_device()
+    t = phase("internvl2-full-width", t)
+    # 11c. minicpm-2b at full width
+    eng, stats["minicpm"], got = family_serve(all_ops, MINICPM_ARGV, "11c minicpm-2b serving")
+    add(got)
+    del eng
+    free_device()
+    t = phase("minicpm-full-width", t)
+    # 11d. mixtral-8x7b cut to 16 layers through the contiguous pool
+    eng, stats["mixtral"], got = family_serve(all_ops, MIXTRAL_ARGV,
+                                              "11d mixtral-8x7b (16 layers) serving")
+    add(got)
+    wl = eng.workload
+    lo, hi = MIXTRAL_PROMPTS
+    longest = max((r.prompt for r in serve.make_requests(wl.cfg, 8, hi, 32, 0, lo)), key=len)
+    routed, full_seq = {}, {}
+    with torch.no_grad():
+        transformer.forward_prefill(wl.params, torch.as_tensor(longest, device=device)[None],
+                                    wl.cfg, stats=routed)
+        tokens = torch.randint(0, wl.cfg.vocab, (1, lo), device=device,
+                               generator=torch.Generator(device=device).manual_seed(5))
+        dserve.make_prefill_step(wl.cfg, device)(wl.params, {"tokens": tokens}, stats=full_seq)
+    dropped, served_dropped = int(full_seq["dropped"]), int(routed["dropped"])
+    log(f"11d mixtral-8x7b: make_prefill_step over a {lo}-token prompt (one group, capacity "
+        f"{int(wl.cfg.capacity_factor * lo * wl.cfg.top_k / wl.cfg.n_experts)} an expert) "
+        f"dropped {dropped} of {full_seq['routed']} (token, expert) assignments "
+        f"({dropped / full_seq['routed']:.4f}); the admission forward over the longest served "
+        f"prompt ({len(longest)} tokens, a token a group) dropped {served_dropped} of "
+        f"{routed['routed']}")
+    if served_dropped or routed["routed"] != len(longest) * wl.cfg.top_k * wl.cfg.n_layers:
+        raise SystemExit(f"mixtral serving routed {routed}: it must drop nothing")
+    stats["mixtral"].update(full_seq_dropped=dropped, full_seq_routed=full_seq["routed"],
+                            served_dropped=served_dropped)
+    del eng, wl
+    free_device()
+    t = phase("mixtral-16-layers", t)
+    # 11e. llama4-scout cut to 8 layers on the paged pool
+    eng, stats["llama4"], got = family_serve(all_ops, LLAMA4_ARGV,
+                                             "11e llama4-scout (8 layers) serving")
+    add(got)
+    del eng
+    free_device()
+    t = phase("llama4-8-layers", t)
+    stats["launches"] = launches
+    log(f"phase 11 launches {launches}")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1478,57 +2068,12 @@ def main() -> int:
     t = phase("device", t0)
 
     # 2. build: one nvcc per source, all started together
-    sources = {"paged_attention": ops.SOURCE, "mrd_combine": mc_ops.SOURCE,
-               "flash_attention": fa_ops.SOURCE, "rmsnorm": rn_ops.SOURCE,
-               "selective_scan": ss_ops.SOURCE}
-    # the instances whose -Xptxas=-v lines are printed (any of the mark
-    # tuples, every mark of it in the mangled name): flash_attention's bf16
-    # hd 256 (gemma3's); selective_scan's fused chunked and step instances at
-    # N = 16 (falcon-mamba's); paged_attention's bf16 hd 64, rep 4, 16-token
-    # blocks (llama3.2-1b's) and its combine kernel; every other kernel's all
-    shown = {"flash_attention": [("flash_wgmma_kernelILi256E",)],
-             "selective_scan": [("selective_scan_kernelILb1E", "Li16E"),
-                                ("selective_scan_step_kernel", "Li16E")],
-             "paged_attention": [("paged_attention_kernelI13__nv_bfloat16Li64ELi4ELi16E",),
-                                 ("paged_attention_combine_kernel",)]}
-    with ThreadPoolExecutor(len(sources)) as pool:
-        futs = {name: pool.submit(build.build_shared_library, src, name)
-                for name, src in sources.items()}
-        built = {name: f.result() for name, f in futs.items()}
-    for lib_ops in (ops, mc_ops, fa_ops, rn_ops, ss_ops):
-        lib_ops.library()
-    for name, so in built.items():
-        log(f"built {so.relative_to(ROOT)}")
-        entry = ""
-        for line in so.with_suffix(".log").read_text().splitlines():
-            entry = line if "Compiling entry" in line else entry
-            if ("registers" in line or "spill" in line) and any(
-                    all(m in entry for m in marks) for marks in shown.get(name, [()])):
-                log(f"  ptxas ({name}): {line.strip()}")
-                # the bf16 flash kernel at hd 256 must not spill (its consumer
-                # warpgroups run at 240 registers a thread after setmaxnreg)
-                if name == "flash_attention" and "spill" in line and (
-                        "0 bytes spill stores, 0 bytes spill loads" not in line):
-                    raise SystemExit(f"flash_attention's hd 256 instance spills: {line.strip()}")
-    log(f"build of {len(built)} kernels: {time.perf_counter() - t:.1f} s")
+    build_kernels(t)
     t = phase("build", t)
 
     # 3. kernel vs plain on the card
     errs = {}
-    for case in KERNEL_CASES:
-        for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            args = paged_inputs(0, *case, dtype)
-            out = ops.paged_attention(*args)
-            ref = paged_attention_ref(*[a.float() if a.is_floating_point() else a for a in args])
-            torch.cuda.synchronize()
-            if out.dtype != dtype or out.shape != ref.shape:
-                raise SystemExit(f"kernel output {out.dtype} {tuple(out.shape)} is wrong")
-            err = (out.float() - ref).abs().max().item()
-            errs[(case, dtype)] = err
-            log(f"  kernel vs plain S,H,KV,hd,nb,bs={case} {str(dtype)[6:]}: "
-                f"max abs err {err:.3e} (atol {atol:g})")
-            if not err <= atol:
-                raise SystemExit(f"paged_attention kernel disagrees with its plain version: {err}")
+    check_paged(KERNEL_CASES, errs)
     for n in COMBINE_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x, q, sc = combine_inputs(n, dtype, seed=n % 1000)
@@ -1544,49 +2089,8 @@ def main() -> int:
             if not torch.equal(out, ref):
                 raise SystemExit(f"mrd_combine kernel differs from its plain version: {err}")
             del x, q, sc, out, ref
-    for case in FLASH_CASES:
-        B, Sq, Skv, H, KV, hd, causal, window, q_offset = case
-        masks = dict(causal=causal, window=window, q_offset=q_offset)
-        # a query that sees no key writes 0 (the plain softmax would average v)
-        seen = visible_mask(Sq, Skv, causal, window, q_offset, device="cuda").any(-1)
-        for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            q, k, v = flash_inputs(B, Sq, Skv, H, KV, hd, dtype, seed=Sq + hd)
-            out = fa_ops.flash_attention(q, k, v, **masks)
-            ref = flash_attention_ref(q.float(), k.float(), v.float(), **masks)
-            torch.cuda.synchronize()
-            if out.dtype != dtype or out.shape != ref.shape:
-                raise SystemExit(f"flash_attention output {out.dtype} {tuple(out.shape)} is wrong")
-            unseen_zero = bool((out[:, ~seen] == 0).all())
-            delta = out[:, seen].float() - ref[:, seen]
-            err = delta.abs().max().item() if seen.any() else 0.0
-            row_err = ((delta.norm(dim=-1) / ref[:, seen].norm(dim=-1)).max().item()
-                       if seen.any() else 0.0)
-            rtol = FLASH_ROW_RTOL[str(dtype)[6:]]
-            errs[(case, dtype)] = err
-            log(f"  flash_attention vs plain B,Sq,Skv,H,KV,hd,causal,window,q_offset={case} "
-                f"{str(dtype)[6:]}: max abs err {err:.3e} (atol {atol:g}), largest row error "
-                f"relative to the row {row_err:.3e} (at most {rtol:g}); "
-                f"{int((~seen).sum())} queries see no key, all 0: {unseen_zero}")
-            if not (err <= atol and row_err <= rtol and unseen_zero):
-                raise SystemExit(f"flash_attention kernel disagrees with its plain version: "
-                                 f"{err}, rows {row_err}, unseen rows 0: {unseen_zero}")
-            del q, k, v, out, ref, delta
-    for T, d in RMSNORM_CASES:
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            gen = torch.Generator(device="cuda").manual_seed(T)
-            x = (torch.randn(T, d, generator=gen, device="cuda") * 3).to(dtype)
-            w = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
-            out = rn_ops.rmsnorm(x, w, 1e-6)
-            ref = rmsnorm_ref(x.float(), w.float(), 1e-6)
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs().max().item()
-            errs[((T, d), dtype)] = err
-            ok = out.dtype == dtype and torch.allclose(out.float(), ref, atol=tol, rtol=tol)
-            log(f"  rmsnorm vs plain [{T}, {d}] {str(dtype)[6:]}: max abs err {err:.3e} "
-                f"(atol = rtol = {tol:g}): {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"rmsnorm kernel disagrees with its plain version: {err}")
-            del x, w, out, ref
+    check_flash(FLASH_CASES, errs)
+    check_rmsnorm(RMSNORM_CASES, errs)
     for form, cases in (("materialized", SCAN_CASES), ("fused", FUSED_SCAN_CASES)):
         for case in cases:
             for dtype in (torch.float32, torch.bfloat16):
@@ -2113,7 +2617,7 @@ def main() -> int:
 
     # 6. paged_attention at the served decode shape and at long context
     # (bf16), each beside SDPA on gathered views in this run
-    pa_t = {case: paged_timing(case) for case in (KERNEL_CASES[0], KERNEL_CASES[3])}
+    pa_t = {case: paged_timing(case) for case in (KERNEL_CASES[0], KERNEL_CASES[3], QWEN_PAGED)}
     torch.cuda.empty_cache()
 
     # mrd_combine at the largest bucket's stacked rows, fp32 (as the
@@ -2183,6 +2687,8 @@ def main() -> int:
             f"{n_ops / (ms_k * 1e-3) / 1e12:.1f} TFLOP/s")
         del q, k, v, mask
         torch.cuda.empty_cache()
+
+    fa_new = flash_widened_timings()
 
     # rmsnorm at the 32k prefill's rows, gemma3's width (bf16)
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -2317,7 +2823,13 @@ def main() -> int:
                                      device=torch.device("cuda"))
     p10 = rest_stats["launches"]
 
-    # 11. results
+    # 11. the remaining decoder families (qwen2.5-32b, internvl2-1b and
+    # minicpm-2b at full width; mixtral-8x7b and llama4-scout at cut depth)
+    free_device()
+    fam_stats = families_phases(all_ops, time.perf_counter())
+    p11 = fam_stats["launches"]
+
+    # 12. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -2331,19 +2843,25 @@ def main() -> int:
     log(json.dumps({"collectives": coll_stats}))
     log(json.dumps({"serving_rest": {k: v for k, v in rest_stats.items()
                                      if k != "bench_serve"}}))
+    log(json.dumps({"families": fam_stats}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/paged_kernel.py:78",
-        "launches": launches + p10["paged_attention"],
-        "launches_by_path": {"llama_serve": launches, "serving_rest": p10["paged_attention"]},
+        "launches": launches + p10["paged_attention"] + p11["paged_attention"],
+        "launches_by_path": {"llama_serve": launches, "serving_rest": p10["paged_attention"],
+                             "families": p11["paged_attention"]},
         "max_abs_err": errs[(KERNEL_CASES[0], torch.bfloat16)],
         **pa_t[KERNEL_CASES[0]],
         "long_context": {"shape": list(KERNEL_CASES[3]),
                          "max_abs_err": errs[(KERNEL_CASES[3], torch.bfloat16)],
                          **pa_t[KERNEL_CASES[3]]},
+        "qwen2.5_decode": {"shape": list(QWEN_PAGED),
+                           "max_abs_err": errs[(QWEN_PAGED, torch.bfloat16)],
+                           "launches": fam_stats["qwen"]["launches"]["paged_attention"],
+                           **pa_t[QWEN_PAGED]},
     }, {
         "name": "mrd_combine",
         "route": "cuda",
@@ -2366,17 +2884,22 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
-        "launches": fa_launches + p10["flash_attention"],
-        "launches_by_path": {"gemma3_serve": fa_launches, "serving_rest": p10["flash_attention"]},
+        "launches": fa_launches + p10["flash_attention"] + p11["flash_attention"],
+        "launches_by_path": {"gemma3_serve": fa_launches, "serving_rest": p10["flash_attention"],
+                             "families": p11["flash_attention"]},
         "max_abs_err": errs[(FLASH_CASES[0], torch.bfloat16)],
         **fa_t[(PREFILL_LEN, None)],
+        "widened": [{**v, "max_abs_err": max(  # over phase 3's bf16 cases of these heads
+            e for k, e in errs.items() if len(k) == 2 and k[1] == torch.bfloat16
+            and k[0] in FLASH_CASES and k[0][3:6] == h)} for h, v in fa_new.items()],
     }, {
         "name": "rmsnorm",
         "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
-        "launches": rn_launches + p10["rmsnorm"],
-        "launches_by_path": {"gemma3_serve": rn_launches, "serving_rest": p10["rmsnorm"]},
+        "launches": rn_launches + p10["rmsnorm"] + p11["rmsnorm"],
+        "launches_by_path": {"gemma3_serve": rn_launches, "serving_rest": p10["rmsnorm"],
+                             "families": p11["rmsnorm"]},
         "max_abs_err": errs[(RMSNORM_CASES[0], torch.bfloat16)],
         "ms": rn_ms,
         "plain_ms": rn_plain_ms,

@@ -54,6 +54,10 @@ def make_train_step(cfg, tcfg, *, dp: int, device="cuda"):
         raise NotImplementedError(
             f"{cfg.name}: training the mamba1 family is not ported yet (serving is; the "
             "selective-scan kernel has no backward)")
+    if cfg.family in ("moe", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family is not ported yet (serving is; "
+            "ROADMAP queue 1, item 6)")
     return get(tcfg.grad_sync)(cfg, tcfg, dp=dp, device=device)
 
 

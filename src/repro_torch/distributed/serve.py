@@ -13,8 +13,9 @@ plain functions over tensors.
   length, and :func:`make_slot_prefill_step` admits a prompt into one slot
   of the cache.  Rolling local windows (gemma3) and the mamba1 state
   (falcon-mamba) live here.
-- The block-paged pool (``serving.paged.PagedDecodePool``), dense caches
-  without a rolling window only: ``attn="kernel"`` (the reference's
+- The block-paged pool (``serving.paged.PagedDecodePool``), dense, moe
+  and vlm caches without a rolling window only (mixtral's 4,096-token
+  window pages only when ``max_len <= 4096``): ``attn="kernel"`` (the reference's
   ``"pallas"``) reads K/V through the block table inside the
   paged-attention CUDA kernel; ``attn="gather"`` gathers each slot's
   blocks into the contiguous layout, runs the contiguous decode step and
@@ -27,6 +28,9 @@ reference scans its decode step over the padded prompt; the cache rows,
 the state and the tokens are the same.  Over an int8 cache the forward
 attends over K/V quantized and dequantized, as each of the reference's
 prompt positions attends over its dequantized cache, its own row included.
+The moe family routes an admission's prompt a token a group, as the
+reference's scan does (``transformer.forward_prefill``); the whole-prompt
+``make_prefill_step`` routes a sequence a group, as the reference's.
 """
 
 from __future__ import annotations
@@ -46,15 +50,21 @@ CACHE_BATCH_AXIS = {"k": 1, "v": 1, "k_scale": 1, "v_scale": 1, "global_k": 1, "
 
 
 def make_prefill_step(cfg: ModelConfig, device="cuda"):
-    """``prefill_step(params, batch) -> last-position logits [B, V]``: the
-    whole-prompt forward over ``batch["tokens"]`` [B, S] (moved to
-    ``device``, where the params live), keeping no cache: on the card every
-    attention runs the flash kernel, every mamba1 scan the selective-scan
-    kernel and every norm the rmsnorm kernel."""
+    """``prefill_step(params, batch, stats=None) -> last-position logits [B,
+    V]``: the whole-prompt forward over ``batch["tokens"]`` [B, S] (after
+    ``batch["patches"]`` [B, P, 1024] where given, with the vision
+    frontend; moved to ``device``, where the params live), keeping no
+    cache: on the card every attention runs the flash kernel, every mamba1
+    scan the selective-scan kernel and every norm the rmsnorm kernel.  moe
+    tokens are routed a sequence a group with capacity drops; ``stats``
+    (a dict) collects the assignments routed and dropped."""
     device = resolve_device(device)
 
-    def prefill_step(params, batch):
-        return transformer.forward_last_logits(params, batch["tokens"].to(device), cfg)
+    def prefill_step(params, batch, stats=None):
+        patches = batch.get("patches")
+        return transformer.forward_last_logits(
+            params, batch["tokens"].to(device), cfg,
+            patches=None if patches is None else patches.to(device), stats=stats)
 
     return prefill_step
 
@@ -155,9 +165,9 @@ def split_paged_cache(cache):
 
 
 def validate_pageable(cfg: ModelConfig, max_len: int) -> None:
-    """Raise unless this config's decode cache can be block-paged: a dense
-    cache with no rolling window (a modular write index breaks the
-    position -> block mapping).  The reference's rules and messages."""
+    """Raise unless this config's decode cache can be block-paged: a dense,
+    moe or vlm cache with no rolling window (a modular write index breaks
+    the position -> block mapping).  The reference's rules and messages."""
     if cfg.family == "ssm":
         raise ValueError(
             f"family {cfg.family!r} has no pageable KV cache (recurrent state "

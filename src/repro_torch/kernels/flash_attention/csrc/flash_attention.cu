@@ -50,10 +50,15 @@
 //   P V before it has drained (wgmma.wait_group), and not at all when every
 //   row of the warp kept its max (alpha == 1).  P is packed to bf16 only
 //   once no product is in flight, so ptxas does not serialize the wgmmas.
+// - GQA groups of any rep up to 7: a consumer warpgroup takes floor(64 /
+//   rep) query positions, rep rows each (64 rows at rep 1, 2 and 4; 60 at
+//   rep 5, 63 at rep 7), and a block twice that.  The rows past them are
+//   dead: zero-filled in shared memory before Q arrives, masked out of the
+//   softmax (no key is visible to them) and never stored.
 // - TMA: q and out are read and written as [B, Sq, H, hd] in boxes of
-//   (64 / rep positions, the rep heads of one kv head, 64 columns), so a
-//   box holds a warpgroup's rows in (position, head) order and stops at
-//   the end of its own sequence; k and v as [B, Skv, KV, hd] in boxes of
+//   (floor(64 / rep) positions, the rep heads of one kv head, 64 columns),
+//   so a box holds a warpgroup's live rows in (position, head) order and
+//   stops at the end of its own sequence; k and v as [B, Skv, KV, hd] in boxes of
 //   (a key tile, one kv head, 64 columns).  TMA zero-fills rows past Sq or
 //   Skv.  The output goes through the warpgroup's own Q tile in shared
 //   memory (swizzled) and out by a TMA store, which clips rows past Sq.
@@ -63,7 +68,8 @@
 //   stages x (K + V) of 64 keys, 192 KB; hd 128 and below: 128-key tiles.
 // - libcuda's cuTensorMapEncodeTiled is reached through
 //   cudaGetDriverEntryPoint(ByVersion), so the build links no -lcuda.
-// - fp32: CUDA cores only (no TF32), a 32-row tile and 32-key tiles, the
+// - fp32: CUDA cores only (no TF32), a 32-row tile (floor(32 / rep)
+//   positions; the rows past them dead, as above) and 32-key tiles, the
 //   accumulator in registers (hd * 32 / 256 floats a thread).  It serves
 //   the parity checks on the card.
 //
@@ -398,14 +404,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a, uin
 template <int HD, int REP>
 struct WgTile {
   static constexpr int kM = 128;             // rows: 2 consumer warpgroups x 64
-  static constexpr int kBQ = kM / REP;       // query positions a block
-  static constexpr int kWgPos = 64 / REP;    // ... a consumer warpgroup
+  static constexpr int kWgPos = 64 / REP;    // query positions a consumer warpgroup
+  static constexpr int kLive = kWgPos * REP; // its live rows: the rest are dead
+  static constexpr int kBQ = 2 * kWgPos;     // query positions a block
   static constexpr int kBK = HD == 256 ? 64 : 128;  // keys a tile
   static constexpr int kStages = 2;
   static constexpr int kSW = HD >= 64 ? 128 : 2 * HD;  // swizzle span = bytes of a box row
   static constexpr int kCols = kSW / 2;      // hd columns a box
   static constexpr int kChunks = HD / kCols;  // boxes a row of hd
   static constexpr uint32_t kQChunk = 64 * kSW;         // 64 rows of one box
+  static constexpr uint32_t kQBox = kLive * kSW;        // bytes TMA moves a box of q or out
   static constexpr uint32_t kQWg = kChunks * kQChunk;   // a warpgroup's Q (then out) tile
   static constexpr uint32_t kKChunk = kBK * kSW;
   static constexpr uint32_t kKV = kChunks * kKChunk;    // one K or V tile
@@ -424,11 +432,12 @@ struct WgTile {
 // returns the factors alpha that rescale the rows of O, and leaves P =
 // exp(S * scale - m) in s.  Edge tiles test each key: a masked score takes
 // the finite sentinel and its probability is set to exactly 0.
+// A dead row (live[r] false) sees no key; its thread takes the edge path.
 template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], bool edge, int k0,
-                                             const int (&qp)[2], int tq, float scale_log2,
-                                             const Args& a) {
+                                             const int (&qp)[2], const bool (&live)[2], int tq,
+                                             float scale_log2, const Args& a) {
   uint32_t vis[2] = {0u, 0u};  // edge tiles: a bit a key of each row
   if (edge) {
 #pragma unroll
@@ -438,7 +447,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], 
         const int kp = k0 + 8 * j + 2 * tq + e;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          if (visible(qp[r], kp, a)) {
+          if (live[r] && visible(qp[r], kp, a)) {
             vis[r] |= 1u << (2 * j + e);
           } else {
             s[4 * j + 2 * r + e] = kNegInf;
@@ -514,13 +523,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (C::kLive < 64) {
+    // the dead rows of each Q box (TMA fills only the live ones), zeroed
+    // for the wgmma reads (async proxy) of Q K^T
+    constexpr int kDead = (64 - C::kLive) * kSW / 16;  // 16-byte pieces a box
+    for (int i = threadIdx.x; i < 2 * C::kChunks * kDead; i += kWgThreads) {
+      *reinterpret_cast<uint4*>(smem + (i / kDead) * C::kQChunk + C::kQBox + 16 * (i % kDead)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   __syncthreads();
 
   if (wg == 0) {
     // producer: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (warp == 0 && lane == 0) {
-      mbar_expect_tx(q_full, 2 * C::kQWg);
+      mbar_expect_tx(q_full, 2 * C::kChunks * C::kQBox);
       for (int w = 0; w < 2; ++w) {
         for (int c = 0; c < C::kChunks; ++c) {
           tma_load(base + w * C::kQWg + c * C::kQChunk, &q_map, q_full, c * C::kCols, g * REP,
@@ -551,16 +570,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const int cw = wg - 1, tq = lane % 4;
   const int row0 = 16 * (warp % 4) + lane / 4;  // this thread's rows: row0 and row0 + 8
-  const int qp[2] = {q_lo + (64 * cw + row0) / REP, q_lo + (64 * cw + row0 + 8) / REP};
+  // the warpgroup's first position; row r is position r / REP of it
+  const int wq_lo = q_lo + cw * C::kWgPos;
+  const int qp[2] = {wq_lo + row0 / REP, wq_lo + (row0 + 8) / REP};
+  const bool live[2] = {row0 < C::kLive, row0 + 8 < C::kLive};
+  const bool dead = !(live[0] && live[1]);  // a thread with a dead row masks every tile
   // the warpgroup's real query positions decide which key tiles need a mask
-  const int wq_lo = q_lo + 64 * cw / REP;
-  const int wq_hi = min(q_lo + (64 * cw + 63) / REP, a.q_offset + a.Sq - 1);
+  const int wq_hi = min(wq_lo + C::kWgPos - 1, a.q_offset + a.Sq - 1);
   const float scale_log2 = a.scale * 1.4426950408889634f;
   const uint32_t q_tile = base + cw * C::kQWg;
   auto edge = [&](int t) {
     const int k0 = t * kBK;
-    return !(k0 + kBK <= a.Skv && (!a.causal || k0 + kBK - 1 <= wq_lo) &&
-             (a.window <= 0 || wq_hi - k0 < a.window));
+    return dead || !(k0 + kBK <= a.Skv && (!a.causal || k0 + kBK - 1 <= wq_lo) &&
+                     (a.window <= 0 || wq_hi - k0 < a.window));
   };
 
   float o[HD / 2];
@@ -619,7 +641,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait<0>();
     pin(s_acc);
     if (lane == 0) mbar_arrive(k_empty(0));
-    softmax_tile<kBK>(s_acc, m, l, alpha, edge(t0), t0 * kBK, qp, tq, scale_log2, a);
+    softmax_tile<kBK>(s_acc, m, l, alpha, edge(t0), t0 * kBK, qp, live, tq, scale_log2, a);
     pack_p();
   }
   // then a tile at a time: Q K^T of tile t and P V of tile t - 1 go to the
@@ -636,7 +658,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait<1>();  // S of tile t is in
     pin(s_acc);
     if (lane == 0) mbar_arrive(k_empty(st));
-    softmax_tile<kBK>(s_acc, m, l, alpha, edge(t), t * kBK, qp, tq, scale_log2, a);
+    softmax_tile<kBK>(s_acc, m, l, alpha, edge(t), t * kBK, qp, live, tq, scale_log2, a);
     wgmma_wait<0>();  // P V of tile t - 1 has drained
     pin(o);
     pin(p_frag);
@@ -684,7 +706,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 template <int HD, int REP>
 struct F32Tile {
   static constexpr int kM = 32;
-  static constexpr int kBQ = kM / REP;
+  static constexpr int kBQ = kM / REP;       // query positions a block
+  static constexpr int kLive = kBQ * REP;    // live rows: the rest are dead
   static constexpr int kBK = 32;
   static constexpr int kLdk = HD + 1;  // a score thread reads a column of K
   static constexpr int kLds = kBK + 1;
@@ -701,6 +724,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(Args a) {
   using C = F32Tile<HD, REP>;
   constexpr int kM = C::kM, kBQ = C::kBQ, kBK = C::kBK, kLdk = C::kLdk, kLds = C::kLds;
+  constexpr int kLive = C::kLive;
   constexpr int kAcc = kM * HD / kThreads;  // accumulator entries a thread
   constexpr int kRowStep = kThreads / HD;   // rows between a thread's entries
   static_assert(kThreads % HD == 0 && kAcc >= 1, "a thread owns one column of the tile");
@@ -725,7 +749,8 @@ flash_f32_kernel(Args a) {
   const float* v = static_cast<const float*>(a.v) + (int64_t)b * a.Skv * kv_pos_stride +
                    (int64_t)g * HD;
 
-  load_tile<float, HD, HD, kM, REP>(q_s, q, q_pos_stride, a.Sq - q0);
+  // dead rows (position kBQ) are zero-filled
+  load_tile<float, HD, HD, kM, REP>(q_s, q, q_pos_stride, min(a.Sq - q0, kBQ));
   if (tid < kM) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -774,7 +799,7 @@ flash_f32_kernel(Args a) {
     // online softmax, one warp per row, one key a lane; P overwrites S
     for (int rr = 0; rr < kM / kWarps; ++rr) {
       const int r = warp * (kM / kWarps) + rr;
-      const bool vis = visible(q_lo + r / REP, k0 + lane, a);
+      const bool vis = r < kLive && visible(q_lo + r / REP, k0 + lane, a);
       const float s = s_s[r * kLds + lane] * a.scale;
       const float mx = warp_max(vis ? s : kNegInf);
       const float m_old = m_s[r];
@@ -808,7 +833,9 @@ flash_f32_kernel(Args a) {
   for (int i = 0; i < kAcc; ++i) {
     const int r = row0 + kRowStep * i;
     const int pos = r / REP, h = r % REP;
-    if (q0 + pos < a.Sq) out[pos * q_pos_stride + h * HD + col] = acc[i] / fmaxf(l_s[r], 1e-30f);
+    if (r < kLive && q0 + pos < a.Sq) {
+      out[pos * q_pos_stride + h * HD + col] = acc[i] / fmaxf(l_s[r], 1e-30f);
+    }
   }
 }
 
@@ -870,8 +897,8 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int d0, int d1, int d2, int d
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// q and out [B, Sq, H, hd] in boxes of (64 / rep positions, the rep heads of
-// one kv head, one box of hd columns); k and v [B, Skv, KV, hd] in boxes of
+// q and out [B, Sq, H, hd] in boxes of (floor(64 / rep) positions, the rep
+// heads of one kv head, one box of hd columns); k and v [B, Skv, KV, hd] in boxes of
 // (BK keys, one kv head, one box of hd columns).
 template <int HD, int REP>
 int launch_bf16(int B, const Args& a, cudaStream_t stream) {
@@ -910,6 +937,8 @@ int dispatch_rep(int rep, int dtype, int B, const Args& a, cudaStream_t stream) 
     case 1: return launch<HD, 1>(dtype, B, a, stream);
     case 2: return launch<HD, 2>(dtype, B, a, stream);
     case 4: return launch<HD, 4>(dtype, B, a, stream);
+    case 5: return launch<HD, 5>(dtype, B, a, stream);
+    case 7: return launch<HD, 7>(dtype, B, a, stream);
     default: return kUnsupported;
   }
 }

@@ -28,7 +28,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_HEAD_DIMS = (16, 64, 128, 256)
-SUPPORTED_REPS = (1, 2, 4)
+SUPPORTED_REPS = (1, 2, 4, 5, 7)
 
 
 @functools.lru_cache(maxsize=1)

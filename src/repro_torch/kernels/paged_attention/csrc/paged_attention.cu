@@ -20,9 +20,9 @@
 // and does ~4 flops a byte read, far below the card's operations-per-byte
 // balance; at the served lengths (<= 112 positions) one launch is too short
 // for any rate, and the latency of its few dependent loads sets its time.
-// No tensor cores: with one query a sequence and rep <= 4 query rows a KV
-// head, an mma tile (16 or 64 rows) would be at least 3/4 padding, and
-// the products are not what bounds the kernel.
+// No tensor cores: with one query a sequence and rep <= 7 query rows a KV
+// head, an mma tile (16 or 64 rows) would be mostly padding, and the
+// products are not what bounds the kernel.
 //
 // The design (v2):
 //   * The positions are split across blocks: grid (S * KV, splits), a
@@ -38,7 +38,10 @@
 //     warp-wide load covers 4 positions); each lane keeps the REP query
 //     rows' matching 16-byte slice in registers.
 //   * Warp-level scores and softmax: each of the block's 4 warps takes 16
-//     positions at a time (all its loads issued before any is used), scores
+//     positions at a time, 8 or 4 where a row takes 16 or 32 lanes (at most
+//     4 loads of K and of V a lane, all issued before any is used, so that
+//     a lane's rep x (16 / sizeof(T)) query slice, accumulator and scores
+//     stay in registers up to rep 7, hd 128), scores
 //     a position with a reduction over its row's lanes (3 shuffles at hd 64
 //     bf16), and keeps its own online softmax (m, l, acc) in registers; the
 //     rows of a warp merge by shuffles and the warps once in shared memory,
@@ -59,7 +62,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kGroup = 16;               // positions a warp takes an iteration
+constexpr int kGroup = 16;               // positions a warp takes an iteration (at most)
 constexpr int kMaxPagesPerSplit = 32;    // table entries a block stages
 constexpr int kCombineThreads = 256;
 constexpr float kNegInf = -1e30f;
@@ -116,8 +119,12 @@ paged_attention_kernel(const T* __restrict__ q,             // [S, KV*REP, HD]
   constexpr int kVec = 16 / sizeof(T);        // elements a 16-byte load
   constexpr int kLanesPerRow = HD / kVec;     // lanes that read one position's row
   constexpr int kRows = 32 / kLanesPerRow;    // positions a warp-wide load covers
-  constexpr int kU = kGroup / kRows;          // loads of K (and of V) a lane issues
-  static_assert(kLanesPerRow >= 1 && kLanesPerRow <= 32 && kU * kRows == kGroup,
+  // loads of K (and of V) a lane issues an iteration: at most 4, so that a
+  // lane's query slice, accumulator and scores stay in registers up to rep
+  // 7 at hd 128; kStep positions a warp an iteration (16 at most)
+  constexpr int kU = kGroup / kRows < 4 ? kGroup / kRows : 4;
+  constexpr int kStep = kU * kRows;
+  static_assert(kLanesPerRow >= 1 && kLanesPerRow <= 32 && kU * kRows == kStep,
                 "unsupported head dim");
 
   __shared__ int s_tab[kMaxPagesPerSplit];
@@ -175,7 +182,7 @@ paged_attention_kernel(const T* __restrict__ q,             // [S, KV*REP, HD]
   const int pos0 = page0 * BS;
   const int pos1 = min(length, pos0 + pages * BS);
   const int64_t row_stride = (int64_t)kv_heads * HD;  // one position of a page
-  for (int base = pos0 + warp * kGroup; base < pos1; base += kWarps * kGroup) {
+  for (int base = pos0 + warp * kStep; base < pos1; base += kWarps * kStep) {
     uint4 kr[kU], vr[kU];
     bool ok[kU];
 #pragma unroll
@@ -371,6 +378,8 @@ int dispatch_rep(int rep, int bs, const Args& a) {
     case 1: return dispatch_bs<T, HD, 1>(bs, a);
     case 2: return dispatch_bs<T, HD, 2>(bs, a);
     case 4: return dispatch_bs<T, HD, 4>(bs, a);
+    case 5: return dispatch_bs<T, HD, 5>(bs, a);
+    case 7: return dispatch_bs<T, HD, 7>(bs, a);
     default: return kUnsupported;
   }
 }
@@ -380,6 +389,7 @@ int dispatch_hd(int hd, int rep, int bs, const Args& a) {
   switch (hd) {
     case 16: return dispatch_rep<T, 16>(rep, bs, a);
     case 64: return dispatch_rep<T, 64>(rep, bs, a);
+    case 128: return dispatch_rep<T, 128>(rep, bs, a);
     default: return kUnsupported;
   }
 }

@@ -33,8 +33,8 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SUPPORTED_HEAD_DIMS = (16, 64)
-SUPPORTED_REPS = (1, 2, 4)
+SUPPORTED_HEAD_DIMS = (16, 64, 128)
+SUPPORTED_REPS = (1, 2, 4, 5, 7)
 SUPPORTED_BLOCK_SIZES = (8, 16)
 SPLIT_POSITIONS = 256  # positions a block takes: 16 pages of 16, 32 of 8
 ALIGN = 16  # q and the pools are read with 16-byte loads

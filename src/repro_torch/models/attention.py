@@ -139,12 +139,17 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 
 
 def qkv_project(ap, x, cfg, positions, theta: float):
-    """x: [B,S,d] -> q [B,S,H,hd], k/v [B,S,KV,hd] with RoPE at ``positions``."""
+    """x: [B,S,d] -> q [B,S,H,hd], k/v [B,S,KV,hd] with RoPE at ``positions``;
+    with ``cfg.qkv_bias`` the biases ``bq``/``bk``/``bv`` are added to the
+    projections before RoPE, as the reference does."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ ap["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ ap["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ ap["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q, k, v = x @ ap["wq"], x @ ap["wk"], x @ ap["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
     if theta > 0:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)

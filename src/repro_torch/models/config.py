@@ -1,12 +1,13 @@
-"""Model configuration (port of ``repro.models.config``: the dense and
-mamba1 ``ssm`` families).
+"""Model configuration (port of ``repro.models.config``: the dense, moe,
+vlm and mamba1 ``ssm`` families).
 
-The reference dataclass covers every family (moe, ssm, hybrid, vlm,
-audio); the port so far serves and trains dense decoders, including the
-grouped local/global stack of gemma3, and serves the attention-free
-mamba1 stack of falcon-mamba, so it keeps the fields those families read
-and refuses the others (mamba2 and hybrid included) rather than ignoring
-them.
+The reference dataclass covers every family (dense, moe, ssm, hybrid,
+vlm, audio); the port serves and trains dense decoders, including the
+grouped local/global stack of gemma3, and serves the moe stack (mixtral,
+llama4-scout), the vlm backbone (internvl2, its vision frontend a stub)
+and the attention-free mamba1 stack of falcon-mamba.  It keeps the fields
+those families read and refuses the others (audio, and mamba2 and
+hybrid) rather than ignoring them.
 """
 
 from __future__ import annotations
@@ -17,12 +18,14 @@ from typing import Optional
 
 ATTN_IMPLS = ("auto", "full", "flash_scan", "kernel")
 KV_CACHE_DTYPES = ("bf16", "int8")
+FAMILIES = ("dense", "moe", "vlm", "ssm")
+ATTN_FAMILIES = ("dense", "moe", "vlm")  # the plain attention stack (and gemma3's grouped one)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm (mamba1); the other families are not ported yet
+    family: str  # dense | moe | vlm | ssm (mamba1); audio and hybrid are not ported yet
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,14 +35,21 @@ class ModelConfig:
     head_dim: Optional[int] = None  # defaults to d_model // n_heads
     rope_theta: float = 10000.0
     rope_theta_global: Optional[float] = None  # gemma3 global layers (1M)
+    qkv_bias: bool = False  # qwen2.5: biases on the q/k/v projections
     sliding_window: Optional[int] = None  # window on every attention layer
     local_window: Optional[int] = None  # gemma3 local layers
     pattern_local: int = 0  # gemma3: local layers per group
     pattern_global: int = 0  # gemma3: global layers per group
+    n_experts: int = 0  # moe
+    top_k: int = 0
+    capacity_factor: float = 1.25
     ssm_state: int = 0  # ssm (mamba1)
     ssm_conv: int = 4
     ssm_expand: int = 2
     ssm_version: int = 1  # 1 = mamba1 (the only version ported)
+    # modality frontend (a stub: precomputed patch embeddings are inputs)
+    frontend: Optional[str] = None  # 'vision' (the only one ported)
+    n_frontend_tokens: int = 0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "silu"  # SwiGLU
@@ -47,6 +57,7 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     attn_impl: str = "auto"  # auto | full | flash_scan | kernel (the reference's pallas)
     attn_chunk: int = 1024  # flash_scan tile length
+    moe_seq_chunk: int = 8192  # a full-sequence forward routes chunks of this length
     # 'bf16': the cache in the compute type; 'int8': int8 rows with an fp32
     # scale per (token, head), the plain stack only
     kv_cache_dtype: str = "bf16"
@@ -57,14 +68,21 @@ class ModelConfig:
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"{self.name}: kv_cache_dtype {self.kv_cache_dtype!r} not in "
                              f"{KV_CACHE_DTYPES}")
-        if self.kv_cache_dtype == "int8" and (self.family != "dense" or self.pattern_local):
-            # the reference has scale planes only for the plain stack's k/v
-            raise ValueError(f"{self.name}: an int8 KV cache needs the plain dense stack "
-                             "(the grouped stack and the ssm family have no scale planes)")
-        if self.family not in ("dense", "ssm"):
+        if self.family not in FAMILIES:
             raise ValueError(
-                f"{self.name}: family {self.family!r} is not ported yet (dense and ssm only)"
+                f"{self.name}: family {self.family!r} is not ported yet ({', '.join(FAMILIES)} "
+                "only; the audio and hybrid families are ROADMAP queue 1, item 5)"
             )
+        if self.kv_cache_dtype == "int8" and (self.family not in ATTN_FAMILIES
+                                              or self.pattern_local):
+            # the reference has scale planes only for the plain stack's k/v
+            raise ValueError(f"{self.name}: an int8 KV cache needs the plain dense/moe/vlm "
+                             "stack (the grouped stack and the ssm family have no scale planes)")
+        if self.family == "moe" and (self.n_experts <= 0 or self.top_k <= 0):
+            raise ValueError(f"{self.name}: moe family needs experts/top_k")
+        if self.frontend not in (None, "vision"):
+            raise ValueError(f"{self.name}: frontend {self.frontend!r} is not ported "
+                             "(vision only)")
         if self.family == "ssm":
             if self.ssm_state <= 0:
                 raise ValueError(f"{self.name}: ssm family needs ssm_state > 0")
@@ -111,7 +129,8 @@ class ModelConfig:
         return max(1, -(-self.d_model // 16))  # ceil(d/16), mamba1 default
 
     def n_params(self) -> int:
-        """Analytic total parameter count."""
+        """Analytic total parameter count (the reference's: it leaves out
+        the qkv biases and the vision frontend's ``patch_proj``)."""
         d, f, V, hd = self.d_model, self.d_ff, self.vocab, self.head_dim
         emb = V * d * (1 if self.tie_embeddings else 2)
         if self.family == "ssm":  # the reference's count, which leaves out dt_bias [di]
@@ -123,4 +142,15 @@ class ModelConfig:
             )
             return emb + self.n_layers * per + d
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.qk_dim * d
-        return emb + self.n_layers * (attn + 3 * d * f + 2 * d) + d
+        if self.family == "moe":
+            mlp = self.n_experts * 3 * d * f + d * self.n_experts
+        else:
+            mlp = 3 * d * f
+        return emb + self.n_layers * (attn + mlp + 2 * d) + d
+
+    def n_active_params(self) -> int:
+        """Parameters a token reads (moe: only its top_k experts count)."""
+        if self.family != "moe":
+            return self.n_params()
+        inactive = self.n_layers * (self.n_experts - self.top_k) * 3 * self.d_model * self.d_ff
+        return self.n_params() - inactive

@@ -1,16 +1,18 @@
 """Carry the reference's weights and train state across to the port.
 
-The reference's ``transformer.init_params`` tree (dense family, plain or
-gemma3's grouped stack, or the mamba1 stack), already turned into numpy
-arrays by the caller, maps onto the port's parameter dict so that both
-packages compute the same function.  Both keep each stack's layers on
-leading axes (``layers`` [L, ...]; ``local_layers`` [G, P, ...] and
-``global_layers`` [G, ...]), the ``x @ W`` layout of the attention,
-SwiGLU and mamba1 matrices, norm weights ``w`` under the ``(1 + w)``
-convention, and a tied head read as ``embed.T``; only the nesting differs
-(the reference groups ``attn``/``mlp``/``mamba`` sub-dicts per layer).
-mamba1's ``A_log`` and ``D`` stay fp32 whatever the param dtype, as in
-the reference.
+The reference's ``transformer.init_params`` tree (the dense, moe and vlm
+families, plain or gemma3's grouped stack, or the mamba1 stack), already
+turned into numpy arrays by the caller, maps onto the port's parameter
+dict so that both packages compute the same function.  Both keep each
+stack's layers on leading axes (``layers`` [L, ...]; ``local_layers`` [G,
+P, ...] and ``global_layers`` [G, ...]), the ``x @ W`` layout of the
+attention (and its ``bq``/``bk``/``bv`` biases), SwiGLU, expert and
+mamba1 matrices, norm weights ``w`` under the ``(1 + w)`` convention, a
+tied head read as ``embed.T`` (an untied one as ``lm_head``) and the
+vision frontend's ``patch_proj``; only the nesting differs (the reference
+groups ``attn``/``mlp``/``moe``/``mamba`` sub-dicts per layer).  mamba1's
+``A_log`` and ``D`` and the moe ``router`` stay fp32 whatever the param
+dtype, as in the reference.
 
 :func:`reference_tree` gives the port's params (or gradients) the
 reference's nesting, whose flatten order (sorted keys) decides the
@@ -26,7 +28,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import STACKS
 
@@ -37,20 +39,24 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 
 
 # the port's layer key -> its path under the reference's per-layer dict
-LAYER_PATHS = {
-    "wq": ("attn", "wq"), "wk": ("attn", "wk"), "wv": ("attn", "wv"), "wo": ("attn", "wo"),
+ATTN_PATHS = {
+    **{k: ("attn", k) for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")},
     "ln1": ("ln1",), "ln2": ("ln2",),
-    "w1": ("mlp", "w1"), "w3": ("mlp", "w3"), "w2": ("mlp", "w2"),
 }
-
-
+LAYER_PATHS = {**ATTN_PATHS, **{k: ("mlp", k) for k in ("w1", "w3", "w2")}}
+MOE_LAYER_PATHS = {**ATTN_PATHS, **{k: ("moe", k) for k in moe.LEAVES}}
 SSM_LAYER_PATHS = {"ln": ("ln",), **{k: ("mamba", k) for k in (
     "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D", "out_proj")}}
+FP32_LEAVES = ssm.FP32_LEAVES + moe.FP32_LEAVES
 
 
 def _nest(flat: Mapping[str, Any]) -> dict[str, Any]:
+    paths = (SSM_LAYER_PATHS if "in_proj" in flat
+             else MOE_LAYER_PATHS if "router" in flat else LAYER_PATHS)
     nested: dict[str, Any] = {}
-    for k, path in (SSM_LAYER_PATHS if "in_proj" in flat else LAYER_PATHS).items():
+    for k, path in paths.items():
+        if k not in flat:  # the qkv biases exist only with qkv_bias
+            continue
         node = nested
         for part in path[:-1]:
             node = node.setdefault(part, {})
@@ -62,11 +68,15 @@ def _unnest(nested: Mapping[str, Any]) -> dict[str, Any]:
     def get(path):
         node = nested
         for part in path:
+            if part not in node:
+                return None
             node = node[part]
         return node
 
-    paths = SSM_LAYER_PATHS if "mamba" in nested else LAYER_PATHS
-    return {k: get(path) for k, path in paths.items()}
+    paths = (SSM_LAYER_PATHS if "mamba" in nested
+             else MOE_LAYER_PATHS if "moe" in nested else LAYER_PATHS)
+    out = {k: get(path) for k, path in paths.items()}
+    return {k: v for k, v in out.items() if v is not None}
 
 
 def reference_tree(params: Mapping[str, Any]) -> dict[str, Any]:
@@ -100,10 +110,12 @@ def params_from_reference(np_params: Mapping[str, Any], cfg: ModelConfig,
             if tuple(np.shape(leaf)[:len(lead)]) != lead:
                 raise ValueError(f"{stack} leaf {name}: leading axes {np.shape(leaf)} "
                                  f"do not start with {lead}")
-        out[stack] = {k: _tensor(v, torch.float32 if k in ssm.FP32_LEAVES else dtype, device)
+        out[stack] = {k: _tensor(v, torch.float32 if k in FP32_LEAVES else dtype, device)
                       for k, v in src[stack].items()}
     if not cfg.tie_embeddings:
         out["lm_head"] = _tensor(np_params["lm_head"], dtype, device)
+    if cfg.frontend == "vision":
+        out["patch_proj"] = _tensor(np_params["patch_proj"], dtype, device)
     return out
 
 

@@ -1,20 +1,33 @@
 """Decoder stacks for training and serving (port of
-``repro.models.transformer``, dense and mamba1 families): the plain dense
-stack (llama), gemma3's grouped stack of G groups of (``pattern_local``
-local layers with a ``local_window``-token window and RoPE theta
-``rope_theta``, then one global layer with no window and theta
-``rope_theta_global``), and the attention-free mamba1 stack of
-falcon-mamba (``family="ssm"``, serving only).
+``repro.models.transformer``, the dense, moe, vlm and mamba1 families):
+the plain attention stack (llama, qwen2.5 with its qkv biases, minicpm,
+mixtral's window on every layer, the vlm backbone of internvl2), gemma3's
+grouped stack of G groups of (``pattern_local`` local layers with a
+``local_window``-token window and RoPE theta ``rope_theta``, then one
+global layer with no window and theta ``rope_theta_global``), and the
+attention-free mamba1 stack of falcon-mamba (``family="ssm"``, serving
+only).  The moe family (mixtral, llama4-scout) replaces each layer's MLP
+with ``models.moe``'s experts.
 
 Parameters are a plain dict of tensors in the reference's ``x @ W``
 layout, each layer's tensors stacked on leading layer axes::
 
     embed [V, d], final_norm [d], (lm_head [d, V] unless tied),
-    layers [L, ...]                       (plain stack, dense or ssm)
+    (patch_proj [1024, d] with the vision frontend),
+    layers [L, ...]                       (plain stack: dense, moe, vlm or ssm)
     local_layers [G, P, ...], global_layers [G, ...]   (grouped stack)
-    dense: wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d], ln1/ln2 [d],
-           w1/w3 [d, f], w2 [f, d]
+    attention: wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d], ln1/ln2 [d],
+           (bq [H*hd], bk/bv [KV*hd] with qkv_bias)
+    dense MLP: w1/w3 [d, f], w2 [f, d]
+    moe:   router [d, E] fp32, w1/w3 [E, d, f], w2 [E, f, d]
     ssm:   ln [d] and the mamba1 leaves of ``models.ssm``
+
+MoE tokens are routed as the reference routes them on each path: the
+full-sequence forward (``forward_last_logits``, ``forward_train``) in
+groups of a sequence with capacity drops (``moe.moe_apply``); serving
+(``forward_prefill``, both decode steps) a token a group, as the
+reference's decode step, which its admission prefill scans over the
+prompt, routes them (``moe.moe_tokens``: nothing is dropped).
 
 Interfaces:
   init_params(cfg, generator, device)                         -> params
@@ -48,9 +61,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import paged_attention
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.attention import attention, decode_attention, qkv_project
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontends import VISION_EMBED_DIM
 from repro_torch.models.layers import (
     dense_init,
     dtype_of,
@@ -111,17 +125,24 @@ def layer_params(params, cfg: ModelConfig) -> list[dict[str, torch.Tensor]]:
 def _layer_stack(gen, lead: tuple, cfg: ModelConfig, dtype, device) -> dict[str, torch.Tensor]:
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     zeros = torch.zeros(lead + (d,), dtype=dtype, device=device)
-    return {
+    p = {
         "wq": dense_init(gen, lead + (d, cfg.n_heads * hd), dtype),
         "wk": dense_init(gen, lead + (d, cfg.n_kv_heads * hd), dtype),
         "wv": dense_init(gen, lead + (d, cfg.n_kv_heads * hd), dtype),
         "wo": dense_init(gen, lead + (cfg.n_heads * hd, d), dtype, fan_in=cfg.n_heads * hd),
         "ln1": zeros.clone(),
         "ln2": zeros.clone(),
-        "w1": dense_init(gen, lead + (d, f), dtype),
-        "w3": dense_init(gen, lead + (d, f), dtype),
-        "w2": dense_init(gen, lead + (f, d), dtype, fan_in=f),
     }
+    if cfg.qkv_bias:  # zeros, as the reference initialises them
+        for n, width in (("bq", cfg.qk_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
+            p[n] = torch.zeros(lead + (width,), dtype=dtype, device=device)
+    if cfg.family == "moe":
+        p.update(moe.moe_init(gen, lead, cfg, dtype))
+        return p
+    p["w1"] = dense_init(gen, lead + (d, f), dtype)
+    p["w3"] = dense_init(gen, lead + (d, f), dtype)
+    p["w2"] = dense_init(gen, lead + (f, d), dtype, fan_in=f)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict[str, Any]:
@@ -148,6 +169,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
         params["global_layers"] = _layer_stack(generator, (G,), cfg, dtype, device)
     else:
         params["layers"] = _layer_stack(generator, (cfg.n_layers,), cfg, dtype, device)
+    if cfg.frontend == "vision":
+        params["patch_proj"] = dense_init(generator, (VISION_EMBED_DIM, cfg.d_model), dtype)
     return params
 
 
@@ -160,23 +183,53 @@ def _embed(params, tokens, cfg):
     return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
 
 
+def _embed_inputs(params, tokens, cfg, patches=None):
+    """Token embeddings, after the projected vision patches [B, P, 1024]
+    when given (the vision frontend's stub output).  Returns (x [B, S, d]
+    in the compute type, the label offset P).  Serving passes no patches,
+    as the reference's serving never does."""
+    if patches is None:
+        return _embed(params, tokens, cfg), 0
+    if cfg.frontend != "vision":
+        raise ValueError(f"{cfg.name}: patches need the vision frontend")
+    proj = params["patch_proj"]
+    x = torch.cat([patches.to(proj.dtype) @ proj, params["embed"][tokens]], dim=1)
+    return x.to(dtype_of(cfg.compute_dtype)), patches.shape[1]
+
+
 def _logits(params, x, cfg):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (x @ head).float()
 
 
-def _mlp_block(lp, x, cfg):
-    return x + mlp_apply(lp, rmsnorm(x, lp["ln2"], cfg.norm_eps))
+MOE_GROUPS = ("token", "sequence")
 
 
-def _decoder_layer(lp, x, cfg, positions, spec: LayerSpec, kv_int8: bool = False):
+def _mlp_block(lp, x, cfg, *, moe_groups: str = "token", stats=None):
+    """x + the layer's MLP of norm(x): SwiGLU, or the moe family's experts
+    with a token a group (serving) or a sequence a group (``moe_apply``,
+    whose aux loss is added to ``stats["aux"]``)."""
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.family != "moe":
+        return x + mlp_apply(lp, h)
+    if moe_groups == "token":
+        return x + moe.moe_tokens(lp, h, cfg, stats)
+    y, aux = moe.moe_apply(lp, h, cfg, stats=stats)
+    if stats is not None:
+        stats["aux"] = stats.get("aux", 0) + aux
+    return x + y
+
+
+def _decoder_layer(lp, x, cfg, positions, spec: LayerSpec, kv_int8: bool = False, *,
+                   moe_groups: str = "sequence", stats=None):
     """One full-sequence causal layer: x [B, S, d] -> (x, k, v), with k/v
     [B, S, KV, hd] after RoPE (what the layer's cache keeps).
 
     ``kv_int8``: K and V are quantized to the int8 cache's rows before the
     attention, which reads them dequantized, as the reference's decode
     step reads each prompt position's own row from its int8 cache; k/v are
-    then ``(rows, scales)`` pairs."""
+    then ``(rows, scales)`` pairs.  ``moe_groups``/``stats``: see
+    :func:`_mlp_block`."""
     B, S = x.shape[:2]
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = qkv_project(lp, h, cfg, positions, spec.theta)
@@ -188,7 +241,7 @@ def _decoder_layer(lp, x, cfg, positions, spec: LayerSpec, kv_int8: bool = False
     o = attention(q, k_at, v_at, causal=True, window=spec.window, impl=cfg.attn_impl,
                   chunk=min(cfg.attn_chunk, S))
     x = x + o.reshape(B, S, -1) @ lp["wo"]
-    return _mlp_block(lp, x, cfg), k, v
+    return _mlp_block(lp, x, cfg, moe_groups=moe_groups, stats=stats), k, v
 
 
 def _layer_output(lp, x, cfg, positions, spec: LayerSpec):
@@ -219,14 +272,20 @@ def _run_mamba_stack(params, x, cfg, *, cache):
     return x
 
 
-def _run_stack(params, x, cfg, *, remat: str = "none", cache=None):
+def _run_stack(params, x, cfg, *, remat: str = "none", cache=None, moe_groups="sequence",
+               stats=None):
     """Every layer over the full sequence x [B, S, d]; with ``cache`` (the
     :func:`init_cache` layout for max_len S) each layer's K/V rows (mamba1:
-    its final state) are kept there."""
+    its final state) are kept there.  ``moe_groups``/``stats``: see
+    :func:`_mlp_block`."""
+    if moe_groups not in MOE_GROUPS:
+        raise ValueError(f"moe_groups {moe_groups!r} not in {MOE_GROUPS}")
     if cfg.family == "ssm":
         if remat != "none":  # the scan kernel has no backward: ssm training is not ported
             raise ValueError(f"{cfg.name}: remat {remat!r} is not ported for the ssm family")
         return _run_mamba_stack(params, x, cfg, cache=cache)
+    if cfg.family == "moe" and remat != "none":
+        raise ValueError(f"{cfg.name}: remat {remat!r} is not ported for the moe family")
     positions = torch.arange(x.shape[1], device=x.device)
     kv_int8 = cache is not None and "k_scale" in cache
     for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
@@ -234,7 +293,8 @@ def _run_stack(params, x, cfg, *, remat: str = "none", cache=None):
             fn = functools.partial(_layer_output, cfg=cfg, positions=positions, spec=spec)
             x = checkpoint(fn, lp, x, use_reentrant=False)
             continue
-        x, k, v = _decoder_layer(lp, x, cfg, positions, spec, kv_int8)
+        x, k, v = _decoder_layer(lp, x, cfg, positions, spec, kv_int8, moe_groups=moe_groups,
+                                 stats=stats)
         if cache is None:
             continue
         for n, kv in (("k", k), ("v", v)):
@@ -252,11 +312,14 @@ def _run_stack(params, x, cfg, *, remat: str = "none", cache=None):
 REMAT = ("none", "full")
 
 
-def _train_head(params, x, batch, cfg: ModelConfig):
+def _train_head(params, x, batch, cfg: ModelConfig, label_offset: int = 0):
     """Final norm + tied/untied logits + token cross-entropy on the stack
-    output ``x``; labels < 0 are masked.  Returns (loss, metrics) with the
+    output ``x`` (past its first ``label_offset`` positions: the vision
+    patches); labels < 0 are masked.  Returns (loss, metrics) with the
     per-sequence mean loss ``per_example`` [B]."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if label_offset:
+        x = x[:, label_offset:]
     logits = _logits(params, x, cfg)
     labels = batch["labels"]
     mask = (labels >= 0).float()
@@ -271,16 +334,26 @@ def _train_head(params, x, batch, cfg: ModelConfig):
 
 
 def forward_train(params, batch, cfg: ModelConfig, remat: str = "none"):
-    """Causal LM loss of ``batch`` (``tokens``/``labels`` [B, S]).
+    """Causal LM loss of ``batch`` (``tokens``/``labels`` [B, S], and
+    ``patches`` [B, P, 1024] with the vision frontend: the labels are those
+    of the tokens after the patches).
 
     ``remat="full"`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint`` per layer, the reference's
     ``nothing_saveable`` policy on its scan body); ``"none"`` keeps every
-    activation.  Returns (loss, metrics)."""
+    activation.  Returns (loss, metrics); for the moe family the loss is
+    the token loss + 0.01 x the layers' summed aux loss (``metrics["loss"]``
+    the token loss, ``metrics["aux_loss"]`` the aux), as the reference's."""
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r} is not ported; choose one of {REMAT}")
-    x = _run_stack(params, _embed(params, batch["tokens"], cfg), cfg, remat=remat)
-    return _train_head(params, x, batch, cfg)
+    x, off = _embed_inputs(params, batch["tokens"], cfg, batch.get("patches"))
+    stats = {} if cfg.family == "moe" else None
+    x = _run_stack(params, x, cfg, remat=remat, stats=stats)
+    loss, metrics = _train_head(params, x, batch, cfg, off)
+    if stats is None:
+        return loss, metrics
+    metrics["aux_loss"] = stats["aux"]
+    return loss + 0.01 * stats["aux"], metrics
 
 
 # ---------------------------------------------------------------------------
@@ -337,20 +410,26 @@ def dequant(rows, scale, dtype):
     return (rows.float() * scale[..., None]).to(dtype)
 
 
-def forward_prefill(params, tokens, cfg: ModelConfig):
-    """One causal forward over a prompt.  tokens: [B, S] ->
-    (last-position logits [B, V] fp32, the :func:`init_cache` cache of
-    max_len S holding the prompt's K/V rows, or its mamba1 state)."""
+def forward_prefill(params, tokens, cfg: ModelConfig, stats=None):
+    """One causal forward over a prompt (serving's admission: moe tokens
+    routed a token a group, as the reference's scanned decode step routes
+    them).  tokens: [B, S] -> (last-position logits [B, V] fp32, the
+    :func:`init_cache` cache of max_len S holding the prompt's K/V rows, or
+    its mamba1 state)."""
     cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], tokens.device)
-    x = _run_stack(params, _embed(params, tokens, cfg), cfg, cache=cache)
+    x = _run_stack(params, _embed(params, tokens, cfg), cfg, cache=cache, moe_groups="token",
+                   stats=stats)
     x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), cache
 
 
-def forward_last_logits(params, tokens, cfg: ModelConfig):
-    """Whole-prompt forward that keeps no cache: tokens [B, S] ->
-    last-position logits [B, V] fp32."""
-    x = _run_stack(params, _embed(params, tokens, cfg), cfg)
+def forward_last_logits(params, tokens, cfg: ModelConfig, *, patches=None, stats=None):
+    """Whole-prompt forward that keeps no cache (moe tokens routed a
+    sequence a group, with capacity drops): tokens [B, S] (after
+    ``patches`` [B, P, 1024] with the vision frontend) -> last-position
+    logits [B, V] fp32.  ``stats``: see :func:`_mlp_block`."""
+    x, _ = _embed_inputs(params, tokens, cfg, patches)
+    x = _run_stack(params, x, cfg, stats=stats)
     x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg)
 

@@ -20,7 +20,10 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa:
 pytestmark = pytest.mark.cuda
 
 # (S, H, KV, hd, nb, bs): served full width, smoke, rep 1, rep 4 with hd 16
-CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16), (3, 8, 2, 16, 5, 8)]
+CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16), (3, 8, 2, 16, 5, 8),
+         # qwen2.5-32b's and llama4-scout's heads (rep 5, hd 128) over 66 pages
+         # (5 splits), internvl2-1b's (rep 7, hd 64), minicpm-2b's (rep 1, hd 64)
+         (8, 40, 8, 128, 66, 16), (8, 14, 2, 64, 5, 16), (4, 36, 36, 64, 3, 16)]
 
 
 @pytest.fixture
@@ -70,7 +73,8 @@ def test_unsupported_shape_raises_on_the_card(cuda):
 # every hd x rep x bs instance, at lengths that probe the v2 kernel's edges:
 # 1, page multiples, the 256-position split's boundaries +-1, a full table
 EDGE_LENGTHS = [1, 8, 16, 32, 255, 256, 257, 511, 512, 513, 1024]
-EDGE_INSTANCES = [(hd, rep, bs) for hd in (16, 64) for rep in (1, 2, 4) for bs in (8, 16)]
+EDGE_INSTANCES = [(hd, rep, bs) for hd in (16, 64, 128) for rep in (1, 2, 4, 5, 7)
+                  for bs in (8, 16)]
 
 
 def _edge_inputs(seed, lengths, H, KV, hd, bs, dtype, device):
@@ -226,6 +230,16 @@ FLASH_CASES = [
     (1, 517, 517, 4, 4, 256, True, 300, 0),
     (1, 90, 200, 16, 4, 256, False, None, 0),
     (1, 40, 70, 4, 1, 256, True, 16, 300),
+    # rep 5 and 7 (dead rows past floor(64 / rep) positions a warpgroup) at
+    # every hd: partial q tiles (24 and 18 positions a block in bf16, 6 and
+    # 4 in fp32) and key tiles, q_offset with a window, bidirectional, rows
+    # that see no key; then qwen2.5-32b's and internvl2-1b's served heads
+    (1, 100, 100, 5, 1, 16, True, None, 0), (2, 37, 60, 10, 2, 64, False, None, 0),
+    (1, 50, 150, 5, 1, 128, True, 40, 100), (1, 61, 61, 10, 2, 256, True, 20, 0),
+    (1, 77, 77, 7, 1, 16, True, 30, 0), (2, 19, 19, 14, 2, 64, True, None, 0),
+    (1, 130, 90, 7, 1, 128, False, 33, 0), (1, 40, 70, 7, 1, 256, True, 16, 300),
+    (1, 30, 200, 14, 2, 64, True, 8, 150), (1, 25, 50, 5, 1, 64, True, 4, 100),
+    (1, 300, 300, 40, 8, 128, True, None, 0), (1, 256, 256, 14, 2, 64, True, None, 0),
 ]
 
 

@@ -6,8 +6,8 @@ Same inputs, made with numpy from a seed, go through the port's
 through the reference's ``flash_attention_ref``, its Pallas kernel in
 interpret mode (as ``tests/test_kernel_flash_attention.py`` runs it) and
 its own ``flash_scan``.  Cases cover causal and bidirectional masks,
-windows of 16 and 48, a query offset, GQA rep 1/2/4, head dims 16/64/256,
-and lengths that are not multiples of the chunk.
+windows of 16 and 48, a query offset, GQA rep 1/2/4/5/7, head dims
+16/64/128/256, and lengths that are not multiples of the chunk.
 
 Tolerances: fp32 atol = rtol = 2e-5 (summation order); bf16 2e-2 (the
 two sides round p and the output to bf16 at other places).
@@ -42,6 +42,10 @@ CASES = {
     "hd256-window16": (1, 70, 70, 2, 1, 256, True, 16, 0),
     "offset-window48": (1, 9, 75, 4, 2, 64, True, 48, 66),
     "rep4-bidirectional-window48": (1, 50, 130, 4, 1, 16, False, 48, 0),
+    "rep5-hd128": (1, 50, 50, 10, 2, 128, True, None, 0),
+    "rep5-hd16-bidirectional": (2, 30, 45, 5, 1, 16, False, None, 0),
+    "rep7-hd64-offset-window24": (1, 40, 70, 14, 2, 64, True, 24, 30),
+    "rep7-hd256": (1, 20, 20, 7, 1, 256, True, None, 0),
 }
 
 

@@ -30,7 +30,11 @@ GRID = [
     (1, 2, 1, 32, 2, 4),  # single sequence, tiny blocks
     (8, 32, 8, 64, 7, 16),  # llama3.2-1b full width, the served shape
     (8, 4, 2, 16, 3, 8),  # llama3.2-1b smoke
+    (8, 40, 8, 128, 5, 16),  # qwen2.5-32b / llama4-scout heads: rep 5, hd 128
+    (4, 14, 2, 64, 3, 16),  # internvl2-1b: rep 7
+    (3, 7, 1, 128, 4, 8),  # rep 7, hd 128
 ]
+NEW = GRID[6:]  # the widths added with the qwen2.5 / internvl2 / moe configs
 
 
 def _mk(seed, *, S, H, KV, hd, nb, bs):
@@ -61,7 +65,7 @@ def test_plain_matches_reference_oracle(S, H, KV, hd, nb, bs):
     np.testing.assert_allclose(_port(*args), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("S,H,KV,hd,nb,bs", GRID[:4])
+@pytest.mark.parametrize("S,H,KV,hd,nb,bs", GRID[:4] + NEW)
 def test_plain_matches_reference_pallas_interpret(S, H, KV, hd, nb, bs):
     args = _mk(1, S=S, H=H, KV=KV, hd=hd, nb=nb, bs=bs)
     ref = ref_kernel(*(jnp.asarray(a) for a in args), interpret=True)
@@ -125,7 +129,7 @@ def test_kernel_input_checks_raise(change, err):
 
 
 def test_kernel_input_checks_accept_served_shapes():
-    for S, H, KV, hd, nb, bs in (GRID[4], GRID[5]):
+    for S, H, KV, hd, nb, bs in (GRID[4], GRID[5], *NEW):
         args = [torch.from_numpy(a) for a in _mk(8, S=S, H=H, KV=KV, hd=hd, nb=nb, bs=bs)]
         ops.check_inputs(*args)
         ops.check_inputs(*[a.bfloat16() if a.is_floating_point() else a for a in args])
