@@ -16,10 +16,11 @@ Phases, in order (any failure ends the run with a non-zero exit):
 3. each kernel against its plain PyTorch version on the card:
    ``paged_attention`` at the served shapes, the smoke shapes, 8
    sequences of up to 4,096 positions (16 splits merged by the combine
-   kernel), phase 10's tables (133 and 71 pages: 9 and 5 splits) and
+   kernel), phase 10's tables (133 and 71 pages: 9 and 5 splits),
    phase 11's heads (40/8 at hd 128 over 66 pages: 5 splits; 14/2 at hd
-   64), fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain version in
-   fp32);
+   64), phase 12's zamba2 decode tick (32/32 at hd 80 over 260 pages: 17
+   splits) and the smoke configs' hd 8 (7/1) and hd 12 (6/6), fp32 (atol
+   1e-4) and bf16 (atol 2e-2 against the plain version in fp32);
    ``mrd_combine`` at n = 256 and 768, at the kernel's block of 2,048
    elements +- 256, at a last block with one live warp, at the smoke
    config's reduce-scatter rows, at a [3, 512 k] stacked shape and at the
@@ -29,18 +30,20 @@ Phases, in order (any failure ends the run with a non-zero exit):
    window 1024), the llama3.2-1b shape (2048 and 37 tokens; phase 10's
    8 x 512, 1088 and 4 x 64), phase 11's (qwen2.5-32b's 1024 tokens at
    40/8 heads, hd 128; internvl2-1b's 512 at 14/2, hd 64; mixtral-8x7b's
-   5000 at 32/8, hd 128, window 4096), the smoke
-   shapes and the edges of the bf16 kernel's tiling at every hd x rep
-   instance, rep 5 and 7 included (partial q and key tiles, windows that
-   cut a key tile, q_offset, bidirectional, queries that see no key and
-   must write 0),
+   5000 at 32/8, hd 128, window 4096), phase 12's (zamba2-2.7b's shared
+   block: 4096 and 1755 tokens at 32/32, hd 80), the smoke
+   shapes (hd 8 and 12 among them) and the edges of the bf16 kernel's
+   tiling at every hd x rep instance, rep 5 and 7 and hd 80 included
+   (partial q and key tiles, windows that cut a key tile, q_offset,
+   bidirectional, queries that see no key and must write 0),
    fp32 (atol 1e-4) and bf16 (atol 2e-2 against the plain version in
    fp32), and every (token, head) row within a relative error of 1e-4
    (fp32) or 1e-2 (bf16) of the plain row; ``rmsnorm`` at the rows and
    widths of the served models and the smoke configs ([32768, 3840],
    [4, 3840], [8, 2048], [64, 2048], [40, 64], [32768, 4096], [8, 4096],
-   phase 10's [4096, 2048] and [1088, 2048], and phase 11's widths
-   [1024, 5120], [1024, 896] and [1024, 2304]),
+   phase 10's [4096, 2048] and [1088, 2048], phase 11's widths
+   [1024, 5120], [1024, 896] and [1024, 2304], and phase 12's [T, 2560]
+   and [T, 5120] at T = 4096 and 8),
    fp32 (1e-5) and bf16 (2e-2); ``selective_scan`` in its materialized
    form at the reference kernel test's shapes and [1, 2048, 8192, 16], fp32
    and bf16 inputs, and in its fused form (the model's) at [1, 4096, 8192,
@@ -125,7 +128,10 @@ Phases, in order (any failure ends the run with a non-zero exit):
    heads, hd 128 (rep 5) and with 14/2 heads, hd 64 (rep 7), causal,
    beside SDPA with ``enable_gqa``, and ``paged_attention`` at qwen2.5-32b's
    decode shape (8 sequences, 40/8 heads, hd 128, 66 pages of 16) beside
-   SDPA on gathered views;
+   SDPA on gathered views; zamba2-2.7b's hd 80: ``flash_attention`` at
+   [1, 32768], 32/32 heads, causal, beside SDPA and ``flash_scan``, and
+   ``paged_attention`` at its decode tick (8 sequences, 32/32 heads, 260
+   pages of 16) beside SDPA on gathered views;
 7. the paper's asynchronous-iteration engine (``repro_torch.asynchrony``),
    which launches none of the kernels above (every launch count stays 0):
    7a. ``async-card-vs-cpu``: ``sweep`` on poisson1d n = 120, p = 5, 8
@@ -232,7 +238,30 @@ Phases, in order (any failure ends the run with a non-zero exit):
    nothing; 11e. llama4-scout cut to 8 of its 48 layers (37.4 GB, top-1 of
    16 experts, the 202,048-wide untied head): 8 requests on the paged
    pool;
-12. the kernels line, then the device line as the last line of stdout.
+12. zamba2-2.7b (the hybrid family) at full width through the CLI's
+   ``serve()``: 54 mamba2 layers in 9 groups of 6, one weight-shared
+   attention + MLP block (32/32 heads at hd 80) after each group with a KV
+   cache of its own, random bf16 weights drawn on the card from seed 0,
+   every run counted from 0, each model freed before the next loads:
+   every request retires, ``paged_attention`` 9 calls a decode tick,
+   ``flash_attention`` 9 launches an admission, ``rmsnorm`` 127 a forward
+   (ln and the gated norm of each mamba2 layer, ln1/ln2 of each shared
+   application, the final norm), ``selective_scan`` and ``mrd_combine``
+   none.  12a. ``llm_decode_paged``: 16 requests, prompts 1024-4096,
+   budgets 32-64, 8 slots, blocks of 16, 260 pages a slot, dp 3; the page
+   pools' and the per-slot mamba2 state's bytes; a profile of steady
+   decode ticks (wall and busy time a tick, idle share, launches, the
+   costliest kernels); 12d. its whole-prompt ``make_prefill_step`` at
+   32,768 tokens, batch 1 (the reference's prefill_32k cut to batch 1):
+   wall time, tokens/s, peak memory and a profile by class and by the
+   launching function (the SSD scans, the mamba2 layers); 12b.
+   ``llm_decode``: 8 requests, prompts 1024-2048, 4 slots, dp 3; 12c. the
+   config cut to 12 layers (2 groups), its prefill logits for two prompts
+   and 16 teacher-forced paged decode steps through the kernels against
+   the plain path, under 11a's bar; 12e. the smoke configs of minicpm-2b
+   (hd 12) and internvl2-1b (hd 8) served on the paged pool through the
+   kernels (6 requests, dp 3);
+13. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
@@ -337,7 +366,21 @@ FLASH_CASES = [(1, 4096, 4096, 16, 8, 256, True, None, 0),
                (1, 50, 150, 5, 1, 128, True, 40, 100), (1, 61, 61, 10, 2, 256, True, 20, 0),
                (1, 77, 77, 7, 1, 16, True, 30, 0), (2, 19, 19, 14, 2, 64, True, None, 0),
                (1, 130, 90, 7, 1, 128, False, 33, 0), (1, 40, 70, 7, 1, 256, True, 16, 300),
-               (1, 30, 200, 14, 2, 64, True, 8, 150), (1, 25, 50, 5, 1, 64, True, 4, 100)]
+               (1, 30, 200, 14, 2, 64, True, 8, 150), (1, 25, 50, 5, 1, 64, True, 4, 100),
+               # phase 12's zamba2-2.7b shared block (32/32 heads, hd 80: bf16 in
+               # five 16-column boxes) at 4096 tokens and a served prompt's
+               # length; hd 80's tiling edges at every rep (partial q and key
+               # tiles, q_offset, a window cutting a key tile, bidirectional,
+               # queries that see no key); the smoke configs' hd 8 (internvl2-1b,
+               # rep 7) and hd 12 (minicpm-2b, rep 1; and rep 2)
+               (1, 4096, 4096, 32, 32, 80, True, None, 0),
+               (1, 1755, 1755, 32, 32, 80, True, None, 0),
+               (2, 129, 200, 4, 4, 80, True, 100, 71), (1, 77, 130, 4, 2, 80, False, None, 0),
+               (1, 100, 257, 8, 2, 80, True, 150, 157), (1, 50, 150, 5, 1, 80, True, 40, 100),
+               (1, 40, 70, 7, 1, 80, True, 16, 300), (1, 333, 333, 8, 8, 80, True, 200, 0),
+               (2, 40, 40, 7, 1, 8, True, None, 0), (1, 60, 60, 14, 2, 8, True, 16, 0),
+               (2, 40, 40, 6, 6, 12, True, None, 0), (1, 45, 90, 12, 6, 12, False, 20, 0)]
+ZAMBA_FLASH = FLASH_CASES[-12]
 # flash_attention per-row tolerance: the largest |out - ref| / |ref| over
 # the hd-vectors of one (token, head); an atol alone passes late causal rows
 # (outputs ~0.03 at 4096 keys) with any error below the atol
@@ -349,7 +392,10 @@ FLASH_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # fp32 and bf16 rows of these widths cover every template instance the paths
 # launch
 RMSNORM_CASES = [(32768, 3840), (4, 3840), (8, 2048), (64, 2048), (40, 64), (32768, 4096),
-                 (8, 4096), (4096, 2048), (1088, 2048), (1024, 5120), (1024, 896), (1024, 2304)]
+                 (8, 4096), (4096, 2048), (1088, 2048), (1024, 5120), (1024, 896), (1024, 2304),
+                 # phase 12's zamba2-2.7b: the layer norms [T, 2560] and mamba2's
+                 # gated norm over d_inner [T, 5120], an admission's and a tick's rows
+                 (4096, 2560), (8, 2560), (4096, 5120), (8, 5120)]
 # (S, H, KV, hd, nb, bs): the served full-width shape first, then the smoke
 # shape, then rep 1 with 16-token blocks (every template family once), then
 # llama3.2-1b's heads at long context (4,096 positions: 16 splits), then the
@@ -359,8 +405,14 @@ RMSNORM_CASES = [(32768, 3840), (4, 3840), (8, 2048), (64, 2048), (40, 64), (327
 # (40/8, hd 128), internvl2-1b's (14/2, hd 64)
 KERNEL_CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16),
                 (8, 32, 8, 64, 256, 16), (8, 32, 8, 64, 133, 16), (8, 32, 8, 64, 71, 16),
-                (8, 40, 8, 128, 66, 16), (8, 14, 2, 64, 66, 16)]
+                (8, 40, 8, 128, 66, 16), (8, 14, 2, 64, 66, 16),
+                # phase 12's zamba2-2.7b decode tick: 8 sequences of up to 4,160
+                # positions (260 pages: 17 splits), 32/32 heads at hd 80; then
+                # the smoke configs' heads: internvl2-1b's (7/1, hd 8) and
+                # minicpm-2b's (6/6, hd 12)
+                (8, 32, 32, 80, 260, 16), (3, 7, 1, 8, 5, 16), (3, 6, 6, 12, 5, 16)]
 QWEN_PAGED = KERNEL_CASES[6]
+ZAMBA_PAGED = KERNEL_CASES[8]
 # (H, KV, hd) of the widened flash instances phase 6 times at 4096 tokens
 FLASH_NEW_TIMED = [(40, 8, 128), (14, 2, 64)]
 
@@ -453,6 +505,34 @@ def device_profile(fn, reps: int):
         raise SystemExit("the profiler recorded no device time")
     busy_ms = sum(ms for ms, _ in by_name.values()) / reps
     return busy_ms, {k: (ms / reps, n / reps) for k, (ms, n) in by_name.items()}
+
+
+def annotated_device_ms(fn, reps: int, targets: dict) -> dict:
+    """Run ``fn`` ``reps`` times under ``torch.profiler`` with each target
+    function (``{label: (module, attribute)}``) wrapped in a
+    ``record_function`` range of its label: {label: device ms of the
+    kernels launched inside it, per rep}.  Kernels of the generic
+    elementwise and copy families carry no model name; this attributes
+    them to the function that launched them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def wrap(label, f):
+        def annotated(*a, **kw):
+            with record_function(label):
+                return f(*a, **kw)
+        return annotated
+
+    with contextlib.ExitStack() as stack:
+        for label, (mod, attr) in targets.items():
+            stack.enter_context(mock.patch.object(mod, attr, wrap(label, getattr(mod, attr))))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    return {label: sum(e.device_time_total for e in prof.events()
+                       if e.name == label and e.device_type == DeviceType.CPU) / 1e3 / reps
+            for label in targets}
 
 
 def top_kernels(per_rep: dict, top: int = 8):
@@ -1523,18 +1603,24 @@ def build_kernels(t: float) -> dict:
     # the instances whose -Xptxas=-v figures are printed (any of the mark
     # tuples, every mark of it in the mangled name): flash_attention's bf16
     # hd 256 (gemma3's), hd 128 at rep 5 (qwen2.5-32b's, llama4-scout's) and
-    # 4 (mixtral's) and hd 64 at rep 7 (internvl2-1b's); selective_scan's
+    # 4 (mixtral's), hd 64 at rep 7 (internvl2-1b's) and hd 80 at rep 1
+    # (zamba2-2.7b's); selective_scan's
     # fused chunked and step instances at N = 16 (falcon-mamba's);
     # paged_attention's bf16 16-token-block instances at hd 64 rep 4
     # (llama3.2-1b's), hd 128 rep 5 and 4, hd 64 rep 7 and 1 (minicpm-2b's),
-    # hd 128 rep 7, and its combine kernel; every other kernel's all
+    # hd 128 rep 7, hd 80 rep 1 (zamba2-2.7b's), and its combine kernel; the
+    # hd 80, 12 and 8 fp32 instances of both attention kernels (zamba2's and
+    # the smoke configs' on the card); every other kernel's all
     shown = {"flash_attention": [(f"flash_wgmma_kernelILi{m}E",) for m in (
-                 "256", "128ELi5", "128ELi4", "64ELi7")],
+                 "256", "128ELi5", "128ELi4", "64ELi7", "80ELi1")]
+             + [(f"flash_f32_kernelILi{m}E",) for m in ("80ELi1", "12ELi1", "8ELi7")],
              "selective_scan": [("selective_scan_kernelILb1E", "Li16E"),
                                 ("selective_scan_step_kernel", "Li16E")],
              "paged_attention": [(f"paged_attention_kernelI13__nv_bfloat16Li{hd}ELi{r}ELi16E",)
                                  for hd, r in ((64, 4), (128, 5), (128, 4), (64, 7), (64, 1),
-                                               (128, 7))]
+                                               (128, 7), (80, 1))]
+             + [(f"paged_attention_kernelIfLi{hd}ELi{r}ELi16E",)
+                for hd, r in ((80, 1), (8, 7), (12, 1))]
              + [("paged_attention_combine_kernel",)]}
     with ThreadPoolExecutor(len(sources)) as pool:
         futs = {name: pool.submit(build.build_shared_library, src, name)
@@ -1685,6 +1771,35 @@ def flash_widened_timings() -> dict:
     return fa_new
 
 
+def zamba_flash_timing() -> dict:
+    """6. flash_attention at zamba2-2.7b's shared block over a 32k prompt
+    ([1, 32768], 32/32 heads, hd 80, causal, bf16) beside
+    scaled_dot_product_attention in the same run; the plain version is
+    flash_scan (the materialized scores do not fit)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.attention import attention
+
+    S, H, KV, hd = PREFILL_LEN, 32, 32, 80
+    q, k, v = flash_inputs(1, S, S, H, KV, hd, torch.bfloat16, seed=23)
+    ms_k = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), iters=5, warmup=2)
+    ms_p = time_ms(lambda: attention(q, k, v, causal=True, impl="flash_scan", chunk=1024),
+                   iters=2, warmup=1)
+    ms_l, how = sdpa_ms(q, k, v, None, iters=5)
+    pairs = fa_ops.visible_pairs(S, S, True)
+    n_ops = 4 * H * hd * pairs
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in; out
+    b_ms, o_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_FLOPS * 1e3
+    log(f"timings flash_attention S={S} H={H} KV={KV} hd={hd} (zamba2-2.7b's shared block) "
+        f"causal bf16: kernel {ms_k:.4f} ms | plain (flash_scan) {ms_p:.4f} ms | sdpa ({how}) "
+        f"{ms_l:.4f} ms | bound {max(b_ms, o_ms):.4f} ms ({pairs} visible pairs, {n_ops:.4e} "
+        f"flop at 989 TFLOP/s = {o_ms:.4f} ms; {n_bytes} bytes at 3.35 TB/s = {b_ms:.4f} ms) | "
+        f"{n_ops / (ms_k * 1e-3) / 1e12:.1f} TFLOP/s | kernel / sdpa {ms_k / ms_l:.3f}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(shape=[1, S, H, KV, hd], ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
+                bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations")
+
+
 # 11. the remaining decoder families, through the CLI's serve(): prompts
 # 128-1024 and budgets 16-32 on 66 pages of 16 a slot (the longest prompt
 # plus the largest budget), 8 slots, dp 5 (the paper's non-power-of-two
@@ -1796,9 +1911,10 @@ def family_serve(all_ops, argv, what: str):
         eng = serve.main(argv)
     got, s, wl = counts(all_ops), eng.summary(), eng.workload
     L, fwd = wl.cfg.n_layers, wl.prefills + s["decode_ticks"]
-    want = {"flash_attention": L * wl.prefills, "rmsnorm": (2 * L + 1) * fwd}
+    attn, norms = per_forward(wl.cfg)
+    want = {"flash_attention": attn * wl.prefills, "rmsnorm": norms * fwd}
     if "llm_decode_paged" in argv:
-        want["paged_attention"] = L * s["decode_ticks"]
+        want["paged_attention"] = attn * s["decode_ticks"]
     expect_launches(got, want, what, wl.device)
     params_gb = sum(t.numel() * t.element_size() for t in _leaves(wl.params)) / 1e9
     stats = {k: s[k] for k in ("completed", "decode_ticks", "tokens_out", "throughput_tok_s",
@@ -1819,6 +1935,16 @@ def family_serve(all_ops, argv, what: str):
     return eng, stats, got
 
 
+def per_forward(cfg) -> tuple:
+    """(attention layers, rmsnorm launches) of one forward: the hybrid stack
+    attends once a group (its shared block) and norms twice a mamba2 layer
+    (ln and the gated norm over d_inner) and twice a group; the others
+    attend every layer and norm twice a layer; and the final norm."""
+    if cfg.family == "hybrid":
+        return cfg.n_groups, 2 * cfg.n_layers + 2 * cfg.n_groups + 1
+    return cfg.n_layers, 2 * cfg.n_layers + 1
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1827,14 +1953,14 @@ def _leaves(tree):
         yield tree
 
 
-def pages_from_prefill(caches, nb: int, bs: int):
-    """One-sequence prefill caches (``k``/``v`` [L, 1, plen, KV, hd]) laid
+def pages_from_prefill(caches, nb: int, bs: int, names=("k", "v")):
+    """One-sequence prefill caches (``names`` [L, 1, plen, KV, hd]) laid
     into a pool of ``nb`` blocks of ``bs`` a sequence: (pages, tables
     [S, nb] int32, lengths [S] int32); block 0 is the trash block."""
-    S, device = len(caches), caches[0]["k"].device
+    S, device = len(caches), caches[0][names[0]].device
     tables = torch.arange(1, S * nb + 1, dtype=torch.int32, device=device).reshape(S, nb)
     pages = {}
-    for n in ("k", "v"):
+    for n in names:
         L, _, _, KV, hd = caches[0][n].shape
         pool = caches[0][n].new_zeros((L, S * nb + 1, bs, KV, hd))
         for b, c in enumerate(caches):
@@ -1843,7 +1969,8 @@ def pages_from_prefill(caches, nb: int, bs: int):
             full[:, :rows.shape[1]] = rows
             pool[:, tables[b].long()] = full.reshape(L, nb, bs, KV, hd)
         pages[n] = pool
-    lengths = torch.tensor([c["k"].shape[2] for c in caches], dtype=torch.int32, device=device)
+    lengths = torch.tensor([c[names[0]].shape[2] for c in caches], dtype=torch.int32,
+                           device=device)
     return pages, tables, lengths
 
 
@@ -1879,7 +2006,7 @@ def qwen_kernel_check(all_ops, cfg) -> dict:
             for name, c in paths.items():
                 pages, tables, lengths = state[name]
                 with plain_path() if name != "kernel" else contextlib.nullcontext():
-                    logits, _ = transformer.forward_decode_paged(
+                    logits, _, _ = transformer.forward_decode_paged(
                         params, tok, pages, tables, lengths + i, c, block_size=bs)
                 rows[name].append(logits)
             tok = rows["kernel"][-1].argmax(-1)
@@ -2015,6 +2142,202 @@ def families_phases(all_ops, t: float) -> dict:
     t = phase("llama4-8-layers", t)
     stats["launches"] = launches
     log(f"phase 11 launches {launches}")
+    return stats
+
+
+# 12. zamba2-2.7b at full width (54 mamba2 layers in 9 groups of 6, one
+# weight-shared attention + MLP block after each group with a KV cache of
+# its own, 32/32 heads at hd 80; random bf16 weights from seed 0) through
+# the CLI's serve(): 12a the paged pool (prompts 1024-4096, budgets 32-64,
+# 8 slots on 260 pages of 16 each, dp 3, the paper's non-power-of-two
+# case), 12b the contiguous pool (prompts 1024-2048, 4 slots, dp 3)
+ZAMBA_PAGED_ARGV = ["--arch", "zamba2-2.7b", "--continuous", "--workload", "llm_decode_paged",
+                    "--attn", "kernel", "--dp", "3", "--slots", "8", "--requests", "16",
+                    "--min-prompt-len", "1024", "--prompt-len", "4096", "--gen", "64",
+                    "--max-len", "4160", "--block-size", "16", "--device", "cuda"]
+ZAMBA_POOL_ARGV = ["--arch", "zamba2-2.7b", "--continuous", "--workload", "llm_decode",
+                   "--dp", "3", "--slots", "4", "--requests", "8", "--min-prompt-len", "1024",
+                   "--prompt-len", "2048", "--gen", "64", "--device", "cuda"]
+ZAMBA_CHECK_LAYERS = 12  # 12c: 2 groups of 6 at published widths
+# 12e: the smoke configs whose heads (minicpm-2b hd 12, internvl2-1b hd 8)
+# the kernels took on the CPU only before
+SMOKE_ON_CARD_ARGV = ["--smoke", "--continuous", "--workload", "llm_decode_paged", "--attn",
+                      "kernel", "--dp", "3", "--slots", "3", "--requests", "6",
+                      "--block-size", "16", "--device", "cuda"]
+
+
+def zamba_kernel_check(all_ops, cfg) -> dict:
+    """12c: zamba2-2.7b at published widths cut to ZAMBA_CHECK_LAYERS layers
+    (random weights from seed 0): the prefill logits of two prompts, then
+    CHECK_STEPS paged decode steps fed the kernel path's greedy tokens,
+    through the kernels and through the two plain paths (each path carries
+    its own mamba2 state and pages)."""
+    from repro_torch.models import transformer
+
+    bs, device = 16, torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = transformer.init_params(cfg, gen, device)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen, device=device)
+               for n in CHECK_PROMPTS]
+    nb = -(-(max(CHECK_PROMPTS) + CHECK_STEPS) // bs)
+    paths = {"kernel": cfg, "full": dataclasses.replace(cfg, attn_impl="full"),
+             "flash_scan": dataclasses.replace(cfg, attn_impl="flash_scan")}
+    zero(all_ops)
+    rows, state = {}, {}
+    with torch.no_grad():
+        for name, c in paths.items():
+            with plain_path() if name != "kernel" else contextlib.nullcontext():
+                out = [transformer.forward_prefill(params, p[None], c) for p in prompts]
+            rows[name] = [torch.cat([o[0] for o in out])]
+            caches = [o[1] for o in out]
+            slot = {n: torch.cat([c[n] for c in caches], dim=2) for n in ("m_h", "m_conv")}
+            state[name] = (*pages_from_prefill(caches, nb, bs, ("attn_k", "attn_v")), slot)
+            del out, caches
+        tok = rows["kernel"][0].argmax(-1)
+        for i in range(CHECK_STEPS):  # every path fed the kernel path's greedy tokens
+            for name, c in paths.items():
+                pages, tables, lengths, slot = state[name]
+                with plain_path() if name != "kernel" else contextlib.nullcontext():
+                    logits, _, _ = transformer.forward_decode_paged(
+                        params, tok, pages, tables, lengths + i, c, block_size=bs,
+                        slot_state=slot)
+                rows[name].append(logits)
+            tok = rows["kernel"][-1].argmax(-1)
+    attn, norms = per_forward(cfg)
+    # the kernel path's launches only: the plain paths launched none
+    expect_launches(counts(all_ops), {"flash_attention": attn * len(prompts),
+                                      "rmsnorm": norms * (len(prompts) + CHECK_STEPS),
+                                      "paged_attention": attn * CHECK_STEPS},
+                    "12c zamba2 kernel check", device)
+    return gate_rows(f"12c zamba2-2.7b ({cfg.n_layers} layers) prefill of {CHECK_PROMPTS} tokens "
+                     f"+ {CHECK_STEPS} teacher-forced paged decode steps, kernel vs plain",
+                     *(torch.cat(rows[n]) for n in paths))
+
+
+def zamba_prefill_32k(all_ops, cfg, params) -> dict:
+    """12d: the whole-prompt ``make_prefill_step`` at 32,768 tokens, batch 1
+    (the reference's prefill_32k, zamba2 among its long-context archs; its
+    batch of 32 cut to 1 for one card): wall time, tokens/s, peak memory,
+    and a profile by class and by the function that launched each kernel
+    (the SSD scans, the mamba2 layers)."""
+    from repro_torch.distributed import serve as dserve
+    from repro_torch.models import ssm
+
+    prefill = dserve.make_prefill_step(cfg)
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_LEN), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(7))
+    prefill(params, {"tokens": tokens[:, :2048]})  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero(all_ops)
+    t1 = time.perf_counter()
+    logits = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    attn, norms = per_forward(cfg)
+    expect_launches(counts(all_ops), {"flash_attention": attn, "rmsnorm": norms},
+                    "12d zamba2 32k prefill", torch.device("cuda"))
+    if not (logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()):
+        raise SystemExit(f"zamba2 32k prefill logits {tuple(logits.shape)} are not finite")
+    busy, per_pf = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
+    parts = annotated_device_ms(lambda: prefill(params, {"tokens": tokens}), 1, {
+        "ssd_scan": (ssm, "_ssd_scan"), "mamba2_apply": (ssm, "mamba2_apply")})
+    log(f"12d zamba2-2.7b prefill of {PREFILL_LEN} tokens, batch 1 (reference prefill_32k: batch "
+        f"32, cut to 1 for one card): {wall * 1e3:.1f} ms wall, {PREFILL_LEN / wall:.1f} tokens/s, "
+        f"peak device memory {peak:.3f} GiB; profiled device busy {busy:.1f} ms")
+    for name, (ms_p, n_p) in top_kernels(per_pf, 12):
+        log(f"  {ms_p:10.3f} ms {n_p:6.0f} launches  {name[:110]}")
+    classes = kernel_classes(per_pf, busy)
+    log("  device time by the function that launched it: " + ", ".join(
+        f"{k} {v:.1f} ms ({v / busy:.3f})" for k, v in parts.items())
+        + " (mamba2_apply holds the SSD scan, its projections, conv and gated norm)")
+    del logits, tokens, prefill
+    return {"tokens": PREFILL_LEN, "wall_ms": wall * 1e3, "tokens_per_s": PREFILL_LEN / wall,
+            "peak_gib": peak, "busy_ms": busy, "busy_ms_by_class": classes,
+            "busy_ms_by_function": parts}
+
+
+def hybrid_phases(all_ops, t: float) -> dict:
+    """12. zamba2-2.7b at full width on both pools, the kernel path against
+    the plain path, the 32k prefill, and the smoke configs of minicpm-2b and
+    internvl2-1b served through the kernels; each model freed before the
+    next loads."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import ssm, transformer
+
+    stats: dict = {}
+    launches = {op.__name__: 0 for op in all_ops}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"device memory allocated before phase 12: {left:.3f} GiB")
+    if left > PHASE11_HEADROOM_GIB:
+        raise SystemExit(f"{left:.3f} GiB still allocated before phase 12")
+    # 12a. the paged pool, then a profile of steady decode ticks
+    eng, stats["paged"], got = family_serve(all_ops, ZAMBA_PAGED_ARGV, "12a zamba2-2.7b paged")
+    add(got)
+    wl = eng.workload
+    state_gb = sum(x.numel() * x.element_size() for x in wl.pool.slot_state.values()) / 1e9
+    pages_gb = sum(x.numel() * x.element_size() for x in wl.pool.pages.values()) / 1e9
+    log(f"12a zamba2-2.7b: {wl.cfg.n_params()} parameters (the reference's count), page pools "
+        f"{pages_gb:.3f} GB, mamba2 state {state_gb:.3f} GB ({len(wl.pool.slot_state)} leaves)")
+    stats["paged"].update(pages_gb=pages_gb, state_gb=state_gb)
+    t = phase("zamba2-paged-full-width", t)
+    wall_ms, busy_ms, per_tick = profile_decode(
+        wl, serve.make_requests(wl.cfg, 8, 4096, 64, seed=1, min_prompt_len=1024), ticks=4)
+    log(f"12a zamba2-2.7b steady decode tick, 8 slots: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
+    for name, (ms_tick, n_tick) in top_kernels(per_tick, 12):
+        log(f"  {ms_tick * 1e3:9.2f} us/tick {n_tick:6.1f} launches/tick  {name[:110]}")
+    launches_tick = sum(n for _, n in per_tick.values())
+    log(f"  {launches_tick:.0f} kernel launches a tick")
+    classes = kernel_classes(per_tick, busy_ms)
+    active = np.ones(wl.slots, bool)
+    parts = annotated_device_ms(lambda: wl.step(active), 4, {
+        "mamba2_decode": (ssm, "mamba2_decode"),
+        "shared attention layer": (transformer, "_paged_attn_layer")})
+    log("  device time a tick by the function that launched it: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / busy_ms:.3f})" for k, v in parts.items()))
+    stats["paged"].update(tick_wall_ms=wall_ms, tick_busy_ms=busy_ms,
+                          tick_idle_share=1 - busy_ms / wall_ms, tick_launches=launches_tick,
+                          tick_classes_ms=classes, tick_by_function_ms=parts)
+    cfg, params = wl.cfg, wl.params
+    del eng, wl
+    free_device()
+    t = phase("zamba2-profile-decode", t)
+    # 12d. the 32k whole-prompt prefill, on the same weights
+    stats["prefill_32k"] = zamba_prefill_32k(all_ops, cfg, params)
+    del params
+    free_device()
+    t = phase("zamba2-prefill-32k", t)
+    # 12b. the contiguous pool
+    eng, stats["pool"], got = family_serve(all_ops, ZAMBA_POOL_ARGV, "12b zamba2-2.7b contiguous")
+    add(got)
+    del eng
+    free_device()
+    t = phase("zamba2-contiguous-full-width", t)
+    # 12c. the kernel path against the plain path at 12 layers
+    stats["check"] = zamba_kernel_check(
+        all_ops, registry.override(registry.get_config("zamba2-2.7b"),
+                                   n_layers=ZAMBA_CHECK_LAYERS))
+    free_device()
+    t = phase("zamba2-kernel-check", t)
+    # 12e. the smoke configs whose heads the kernels took only on the CPU before
+    for arch in ("minicpm-2b", "internvl2-1b"):
+        eng, stats[f"{arch}_smoke"], got = family_serve(
+            all_ops, ["--arch", arch] + SMOKE_ON_CARD_ARGV,
+            f"12e {arch} smoke config (hd {registry.get_smoke_config(arch).head_dim}) on the card")
+        add(got)
+        del eng
+    free_device()
+    t = phase("smoke-configs-on-card", t)
+    stats["launches"] = launches
+    log(f"phase 12 launches {launches}")
     return stats
 
 
@@ -2617,7 +2940,8 @@ def main() -> int:
 
     # 6. paged_attention at the served decode shape and at long context
     # (bf16), each beside SDPA on gathered views in this run
-    pa_t = {case: paged_timing(case) for case in (KERNEL_CASES[0], KERNEL_CASES[3], QWEN_PAGED)}
+    pa_t = {case: paged_timing(case) for case in (KERNEL_CASES[0], KERNEL_CASES[3], QWEN_PAGED,
+                                                   ZAMBA_PAGED)}
     torch.cuda.empty_cache()
 
     # mrd_combine at the largest bucket's stacked rows, fp32 (as the
@@ -2689,6 +3013,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     fa_new = flash_widened_timings()
+    fa_zamba = zamba_flash_timing()
 
     # rmsnorm at the 32k prefill's rows, gemma3's width (bf16)
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -2829,7 +3154,13 @@ def main() -> int:
     fam_stats = families_phases(all_ops, time.perf_counter())
     p11 = fam_stats["launches"]
 
-    # 12. results
+    # 12. zamba2-2.7b (the hybrid family) at full width, and the smoke
+    # configs' head dims on the card
+    free_device()
+    hyb_stats = hybrid_phases(all_ops, time.perf_counter())
+    p12 = hyb_stats["launches"]
+
+    # 13. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -2844,15 +3175,18 @@ def main() -> int:
     log(json.dumps({"serving_rest": {k: v for k, v in rest_stats.items()
                                      if k != "bench_serve"}}))
     log(json.dumps({"families": fam_stats}))
+    log(json.dumps({"hybrid": hyb_stats}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/paged_kernel.py:78",
-        "launches": launches + p10["paged_attention"] + p11["paged_attention"],
+        "launches": (launches + p10["paged_attention"] + p11["paged_attention"]
+                     + p12["paged_attention"]),
         "launches_by_path": {"llama_serve": launches, "serving_rest": p10["paged_attention"],
-                             "families": p11["paged_attention"]},
+                             "families": p11["paged_attention"],
+                             "hybrid": p12["paged_attention"]},
         "max_abs_err": errs[(KERNEL_CASES[0], torch.bfloat16)],
         **pa_t[KERNEL_CASES[0]],
         "long_context": {"shape": list(KERNEL_CASES[3]),
@@ -2862,6 +3196,10 @@ def main() -> int:
                            "max_abs_err": errs[(QWEN_PAGED, torch.bfloat16)],
                            "launches": fam_stats["qwen"]["launches"]["paged_attention"],
                            **pa_t[QWEN_PAGED]},
+        "zamba2_decode": {"shape": list(ZAMBA_PAGED),
+                          "max_abs_err": errs[(ZAMBA_PAGED, torch.bfloat16)],
+                          "launches": hyb_stats["paged"]["launches"]["paged_attention"],
+                          **pa_t[ZAMBA_PAGED]},
     }, {
         "name": "mrd_combine",
         "route": "cuda",
@@ -2884,22 +3222,26 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
-        "launches": fa_launches + p10["flash_attention"] + p11["flash_attention"],
+        "launches": (fa_launches + p10["flash_attention"] + p11["flash_attention"]
+                     + p12["flash_attention"]),
         "launches_by_path": {"gemma3_serve": fa_launches, "serving_rest": p10["flash_attention"],
-                             "families": p11["flash_attention"]},
+                             "families": p11["flash_attention"],
+                             "hybrid": p12["flash_attention"]},
         "max_abs_err": errs[(FLASH_CASES[0], torch.bfloat16)],
         **fa_t[(PREFILL_LEN, None)],
         "widened": [{**v, "max_abs_err": max(  # over phase 3's bf16 cases of these heads
             e for k, e in errs.items() if len(k) == 2 and k[1] == torch.bfloat16
             and k[0] in FLASH_CASES and k[0][3:6] == h)} for h, v in fa_new.items()],
+        "zamba2_32k": {**fa_zamba, "max_abs_err": errs[(ZAMBA_FLASH, torch.bfloat16)],
+                       "launches": p12["flash_attention"]},
     }, {
         "name": "rmsnorm",
         "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
-        "launches": rn_launches + p10["rmsnorm"] + p11["rmsnorm"],
+        "launches": rn_launches + p10["rmsnorm"] + p11["rmsnorm"] + p12["rmsnorm"],
         "launches_by_path": {"gemma3_serve": rn_launches, "serving_rest": p10["rmsnorm"],
-                             "families": p11["rmsnorm"]},
+                             "families": p11["rmsnorm"], "hybrid": p12["rmsnorm"]},
         "max_abs_err": errs[(RMSNORM_CASES[0], torch.bfloat16)],
         "ms": rn_ms,
         "plain_ms": rn_plain_ms,

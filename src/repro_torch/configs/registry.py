@@ -127,6 +127,21 @@ _register(
 )
 
 _register(
+    # [arXiv:2411.15242] mamba2 + shared attention blocks
+    ModelConfig(
+        name="zamba2-2.7b", family="hybrid", n_layers=54, d_model=2560,
+        n_heads=32, n_kv_heads=32, d_ff=10240, vocab=32000,
+        head_dim=80, ssm_state=64, ssm_version=2, ssm_headdim=64, attn_every=6,
+    ),
+    ModelConfig(
+        name="zamba2-2.7b", family="hybrid", n_layers=4, d_model=64,
+        n_heads=4, n_kv_heads=4, d_ff=128, vocab=256,
+        head_dim=16, ssm_state=16, ssm_version=2, ssm_headdim=16, attn_every=2,
+        param_dtype="float32", compute_dtype="float32",
+    ),
+)
+
+_register(
     # [arXiv:2404.16821] InternViT frontend (stub) + the language backbone
     ModelConfig(
         name="internvl2-1b", family="vlm", n_layers=24, d_model=896,

@@ -54,7 +54,7 @@ def make_train_step(cfg, tcfg, *, dp: int, device="cuda"):
         raise NotImplementedError(
             f"{cfg.name}: training the mamba1 family is not ported yet (serving is; the "
             "selective-scan kernel has no backward)")
-    if cfg.family in ("moe", "vlm"):
+    if cfg.family in ("moe", "vlm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family is not ported yet (serving is; "
             "ROADMAP queue 1, item 6)")

@@ -11,11 +11,13 @@ plain functions over tensors.
 - The contiguous decode pool (``serving.pool.DecodePool``):
   :func:`make_pool_decode_step` advances every slot one token at its own
   length, and :func:`make_slot_prefill_step` admits a prompt into one slot
-  of the cache.  Rolling local windows (gemma3) and the mamba1 state
-  (falcon-mamba) live here.
+  of the cache.  Rolling local windows (gemma3), the mamba1 state
+  (falcon-mamba) and the hybrid stack's (zamba2) live here.
 - The block-paged pool (``serving.paged.PagedDecodePool``), dense, moe
-  and vlm caches without a rolling window only (mixtral's 4,096-token
-  window pages only when ``max_len <= 4096``): ``attn="kernel"`` (the reference's
+  and vlm caches without a rolling window (mixtral's 4,096-token window
+  pages only when ``max_len <= 4096``) and the hybrid stack's shared-block
+  caches ``attn_k``/``attn_v``, whose mamba2 state ``m_h``/``m_conv`` stays
+  per slot (the steps' ``slot_state``): ``attn="kernel"`` (the reference's
   ``"pallas"``) reads K/V through the block table inside the
   paged-attention CUDA kernel; ``attn="gather"`` gathers each slot's
   blocks into the contiguous layout, runs the contiguous decode step and
@@ -23,9 +25,12 @@ plain functions over tensors.
   planes are paged beside its rows and served by the gather path only.
 
 Admission prefill runs one causal forward over the prompt (the flash
-kernel, or one selective scan a mamba1 layer, on the card) where the
-reference scans its decode step over the padded prompt; the cache rows,
-the state and the tokens are the same.  Over an int8 cache the forward
+kernel, or one selective scan a mamba1 layer, or one SSD scan in chunks of
+``ssm_chunk`` a mamba2 layer, on the card) where the reference scans its
+decode step over the padded prompt; the cache rows, the state (up to fp32
+rounding: the recurrence and the chunked scan sum in other orders) and
+the tokens are the same.  A slot's recurrent state is replaced whole by
+the prompt's at admission, so nothing of its previous request survives.  Over an int8 cache the forward
 attends over K/V quantized and dequantized, as each of the reference's
 prompt positions attends over its dequantized cache, its own row included.
 The moe family routes an admission's prompt a token a group, as the
@@ -41,12 +46,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
-# Cache leaves paged into fixed-size blocks of a shared physical pool (the
-# reference also pages hybrid attention caches, a family not ported).
-PAGED_LEAVES = ("k", "v", "k_scale", "v_scale")
+# Cache leaves paged into fixed-size blocks of a shared physical pool
+PAGED_LEAVES = ("k", "v", "k_scale", "v_scale", "attn_k", "attn_v")
 # cache leaf -> its batch (slot) axis in the transformer.init_cache layout
 CACHE_BATCH_AXIS = {"k": 1, "v": 1, "k_scale": 1, "v_scale": 1, "global_k": 1, "global_v": 1,
-                    "local_k": 2, "local_v": 2, "h": 1, "conv": 1}
+                    "local_k": 2, "local_v": 2, "h": 1, "conv": 1, "m_h": 2, "m_conv": 2,
+                    "attn_k": 1, "attn_v": 1}
 
 
 def make_prefill_step(cfg: ModelConfig, device="cuda"):
@@ -55,7 +60,8 @@ def make_prefill_step(cfg: ModelConfig, device="cuda"):
     ``batch["patches"]`` [B, P, 1024] where given, with the vision
     frontend; moved to ``device``, where the params live), keeping no
     cache: on the card every attention runs the flash kernel, every mamba1
-    scan the selective-scan kernel and every norm the rmsnorm kernel.  moe
+    scan the selective-scan kernel and every norm the rmsnorm kernel (the
+    mamba2 SSD scan is plain torch, as the reference's is plain jnp).  moe
     tokens are routed a sequence a group with capacity drops; ``stats``
     (a dict) collects the assignments routed and dropped."""
     device = resolve_device(device)
@@ -88,8 +94,8 @@ def _fill_cache(cache, rows, slot=None) -> None:
     """Copy a prompt's cache ``rows`` (``transformer.forward_prefill``'s)
     into ``cache``: the positions' rows at the front of each leaf (a
     rolling window's already at p % W) and zeros past them, or the whole
-    mamba1 state; into every sequence, or with ``slot`` into that slot from
-    ``rows``' one sequence."""
+    mamba1 or mamba2 state; into every sequence, or with ``slot`` into that
+    slot from ``rows``' one sequence."""
     for n, leaf in cache.items():
         ax = CACHE_BATCH_AXIS[n]
         if slot is None:
@@ -141,8 +147,8 @@ def make_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int):
     ``slot_prefill(params, prompt [plen], cache, slot) -> last_logits
     [V]``: one causal forward over the prompt; the slot's cache slice gets
     the prompt's K/V rows (a rolling window its last rows, at p % W) and
-    zeros past them, or the prompt's whole mamba1 state, so nothing of the
-    previous request survives.  The other slots are untouched and keep
+    zeros past them, and the prompt's whole recurrent state, so nothing of
+    the previous request survives.  The other slots are untouched and keep
     decoding across admissions.
     """
 
@@ -167,7 +173,9 @@ def split_paged_cache(cache):
 def validate_pageable(cfg: ModelConfig, max_len: int) -> None:
     """Raise unless this config's decode cache can be block-paged: a dense,
     moe or vlm cache with no rolling window (a modular write index breaks
-    the position -> block mapping).  The reference's rules and messages."""
+    the position -> block mapping), or the hybrid stack's shared-block
+    caches (its mamba2 state stays per slot).  The reference's rules and
+    messages."""
     if cfg.family == "ssm":
         raise ValueError(
             f"family {cfg.family!r} has no pageable KV cache (recurrent state "
@@ -191,7 +199,8 @@ def init_paged_pool(cfg: ModelConfig, max_len: int, num_blocks: int, block_size:
                     device="cuda"):
     """Physical block pools ``{"k","v": [L, num_blocks, block_size, KV, hd]}``
     (an int8 cache adds ``k_scale``/``v_scale`` [L, num_blocks, block_size,
-    KV]).
+    KV]; the hybrid stack's are ``attn_k``/``attn_v`` [G, num_blocks,
+    block_size, KV, hd]).
 
     Per-slot block tables map logical block ``j`` (positions ``[j*bs,
     (j+1)*bs)``) to a physical block.  Block 0 is reserved as the trash
@@ -217,19 +226,21 @@ def gather_block_views(pool_leaf, tables):
 
 def make_paged_pool_decode_step(cfg: ModelConfig, block_size: int, attn: str = "kernel"):
     """``pool_step(params, tokens [S], pages, tables [S,nb], lengths [S],
-    write_ok [S]) -> logits [S, V]``; ``pages`` are updated in place.  An
-    int8 cache takes the gather path: the paged-attention kernel reads no
-    int8 pages, so ``attn="kernel"`` raises for it."""
+    write_ok [S], slot_state=None) -> logits [S, V]``; ``pages`` and the
+    per-slot leaves ``slot_state`` (the hybrid stack's ``m_h``/``m_conv``;
+    none for the other families) are updated in place, the state only where
+    ``write_ok``.  An int8 cache takes the gather path: the paged-attention
+    kernel reads no int8 pages, so ``attn="kernel"`` raises for it."""
     if attn == "kernel":
         if cfg.kv_cache_dtype == "int8":
             raise NotImplementedError(
                 "int8 paged decode is served by the gather path (attn='gather')"
             )
 
-        def pool_step_kernel(params, tokens, pages, tables, lengths, write_ok):
-            logits, _ = transformer.forward_decode_paged(
+        def pool_step_kernel(params, tokens, pages, tables, lengths, write_ok, slot_state=None):
+            logits, _, _ = transformer.forward_decode_paged(
                 params, tokens, pages, tables, lengths, cfg,
-                block_size=block_size, write_ok=write_ok,
+                block_size=block_size, write_ok=write_ok, slot_state=slot_state,
             )
             return logits
 
@@ -237,9 +248,13 @@ def make_paged_pool_decode_step(cfg: ModelConfig, block_size: int, attn: str = "
     if attn != "gather":
         raise ValueError(f"attn must be 'kernel' or 'gather', got {attn!r}")
 
-    def pool_step_gather(params, tokens, pages, tables, lengths, write_ok):
+    def pool_step_gather(params, tokens, pages, tables, lengths, write_ok, slot_state=None):
         view = {n: gather_block_views(pages[n], tables) for n in pages}
-        logits, view = transformer.forward_decode(params, tokens, view, lengths, cfg)
+        # the view's rows of an inactive slot go to the trash block below; its
+        # recurrent state (in place) is kept by write_ok
+        logits, view = transformer.forward_decode(
+            params, tokens, {**view, **(slot_state or {})}, lengths, cfg,
+            write_ok=write_ok if slot_state else None)
         pb, off = transformer.paged_write_slots(tables, lengths, block_size, write_ok)
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         for n in pages:
@@ -254,15 +269,19 @@ def make_paged_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int, max_len:
     """Offset-prefill a prompt into a slot's block table (paged admission).
 
     ``slot_prefill(params, prompt [plen], pages, tables, slot, table_row
-    [nb], write_mask [nb]) -> last_logits [V]``: one causal forward over
-    the prompt, then whole blocks go into the pool: logical block ``j``
-    (zero past the prompt) to ``table_row[j]`` where ``write_mask[j]``,
-    else to the trash block, so shared prefix blocks are never rewritten.
-    ``tables[slot]`` becomes ``table_row``.
+    [nb], write_mask [nb], slot_state=None) -> last_logits [V]``: one
+    causal forward over the prompt, then whole blocks go into the pool:
+    logical block ``j`` (zero past the prompt) to ``table_row[j]`` where
+    ``write_mask[j]``, else to the trash block, so shared prefix blocks are
+    never rewritten.  ``tables[slot]`` becomes ``table_row``, and the slot's
+    leaves of ``slot_state`` become the prompt's recurrent state, computed
+    from the whole prompt (shared prefix or not), replacing the previous
+    request's whole.
     """
     nb = max_len // block_size
 
-    def slot_prefill(params, prompt, pages, tables, slot, table_row, write_mask):
+    def slot_prefill(params, prompt, pages, tables, slot, table_row, write_mask,
+                     slot_state=None):
         plen = int(prompt.shape[0])
         if not 0 < plen <= max_prompt_len:
             raise ValueError(f"prompt length {plen} not in (0, {max_prompt_len}]")
@@ -273,6 +292,9 @@ def make_paged_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int, max_len:
             full = leaf.new_zeros((leaf.shape[0], nb * block_size) + leaf.shape[2:])
             full[:, :plen] = leaf
             pages[n][:, dst] = full.reshape(leaf.shape[0], nb, block_size, *leaf.shape[2:])
+        for n, leaf in (slot_state or {}).items():
+            ax = CACHE_BATCH_AXIS[n]
+            leaf.select(ax, slot).copy_(rows[n].select(ax, 0))
         tables[slot] = table_row.to(tables.dtype)
         return last_logits[0]
 

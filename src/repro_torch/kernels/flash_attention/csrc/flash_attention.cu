@@ -62,16 +62,21 @@
 //   (a key tile, one kv head, 64 columns).  TMA zero-fills rows past Sq or
 //   Skv.  The output goes through the warpgroup's own Q tile in shared
 //   memory (swizzled) and out by a TMA store, which clips rows past Sq.
-// - Shared memory: tiles are loaded in the 128-byte swizzle (32-byte for
-//   hd 16, whose rows are 32 bytes), as boxes of 64 columns (16 at hd 16),
-//   and the wgmma descriptors use the same swizzle.  hd 256: Q 64 KB + 2
-//   stages x (K + V) of 64 keys, 192 KB; hd 128 and below: 128-key tiles.
+// - Shared memory: tiles are loaded in the 128-byte swizzle as boxes of 64
+//   columns where 64 divides hd, else in the 32-byte swizzle as boxes of
+//   16 (hd 16: one box; hd 80: five, P V at n = 80), and the wgmma
+//   descriptors use the same swizzle.  hd 256: Q 64 KB + 2 stages x (K +
+//   V) of 64 keys, 192 KB; hd 128 and below: 128-key tiles (hd 80: 100 KB).
+// - bf16 hd 8 and 12 (the smoke configs' heads) are less than one k16 step:
+//   the wrapper zero-pads them to 16 (the scale stays hd^-0.5).
 // - libcuda's cuTensorMapEncodeTiled is reached through
 //   cudaGetDriverEntryPoint(ByVersion), so the build links no -lcuda.
 // - fp32: CUDA cores only (no TF32), a 32-row tile (floor(32 / rep)
 //   positions; the rows past them dead, as above) and 32-key tiles, the
-//   accumulator in registers (hd * 32 / 256 floats a thread).  It serves
-//   the parity checks on the card.
+//   accumulator in registers (ceil(hd * 32 / 256) floats a thread: one
+//   column where hd divides 256, else a walk over the flattened tile, as
+//   at hd 12 and 80).  It serves the parity checks and the fp32 smoke
+//   configs (hd 8 to 256) on the card.
 //
 // Still simple: the two consumer warpgroups are not scheduled against each
 // other (ping-pong on named barriers was slower on the card), one block
@@ -347,6 +352,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t* a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -409,7 +431,12 @@ struct WgTile {
   static constexpr int kBQ = 2 * kWgPos;     // query positions a block
   static constexpr int kBK = HD == 256 ? 64 : 128;  // keys a tile
   static constexpr int kStages = 2;
-  static constexpr int kSW = HD >= 64 ? 128 : 2 * HD;  // swizzle span = bytes of a box row
+  // swizzle span = bytes of a box row: 128 (64 columns) where they divide
+  // the row, else 32 (16 columns, one k16 step): hd 16, and hd 80 in five
+  // boxes.  A 128-byte box and a 32-byte one for hd 80 would need two
+  // swizzles and two descriptor forms a tile; padding it to 128 columns
+  // would cost 1.6x the products and the bytes.
+  static constexpr int kSW = HD % 64 == 0 ? 128 : 32;
   static constexpr int kCols = kSW / 2;      // hd columns a box
   static constexpr int kChunks = HD / kCols;  // boxes a row of hd
   static constexpr uint32_t kQChunk = 64 * kSW;         // 64 rows of one box
@@ -422,7 +449,8 @@ struct WgTile {
   static constexpr uint32_t kBarOff = kVOff + kStages * kKV;
   // barriers: q_full, then k_full, v_full, k_empty, v_empty a stage
   static constexpr uint32_t kBytes = kBarOff + 8 * (1 + 4 * kStages) + 1024;  // + alignment
-  static_assert(HD % kCols == 0 && kCols % 16 == 0, "hd splits into boxes of k16 steps");
+  static_assert(HD % kCols == 0 && kCols % 16 == 0 && HD <= 256,
+                "hd splits into boxes of k16 steps (and P V's n is at most 256)");
   static_assert(kBytes <= 227 * 1024, "shared memory of one block");
 };
 
@@ -725,9 +753,16 @@ flash_f32_kernel(Args a) {
   using C = F32Tile<HD, REP>;
   constexpr int kM = C::kM, kBQ = C::kBQ, kBK = C::kBK, kLdk = C::kLdk, kLds = C::kLds;
   constexpr int kLive = C::kLive;
-  constexpr int kAcc = kM * HD / kThreads;  // accumulator entries a thread
-  constexpr int kRowStep = kThreads / HD;   // rows between a thread's entries
-  static_assert(kThreads % HD == 0 && kAcc >= 1, "a thread owns one column of the tile");
+  // A thread owns entries tid + kThreads * i of the flattened kM x HD
+  // tile.  Where HD divides kThreads they share one column, kRowStep rows
+  // apart; otherwise (hd 12, 80) the walk crosses columns, and where kM * HD
+  // is not a multiple of kThreads (hd 12) the last entry of some threads is
+  // past the tile: it repeats the tile's last entry and is not stored.
+  constexpr int kEntries = kM * HD;
+  constexpr int kAcc = (kEntries + kThreads - 1) / kThreads;  // accumulator entries a thread
+  constexpr bool kOneCol = kThreads % HD == 0;
+  constexpr int kRowStep = kOneCol ? kThreads / HD : 0;
+  static_assert(HD % 4 == 0, "rows are read in 16-byte vectors");
   extern __shared__ __align__(128) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem + C::kQ);
   float* k_s = reinterpret_cast<float*>(smem + C::kK);
@@ -755,7 +790,13 @@ flash_f32_kernel(Args a) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
-  const int col = tid % HD, row0 = tid / HD;
+  int row[kAcc], col[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    const int e = min(tid + kThreads * i, kEntries - 1);
+    row[i] = kOneCol ? tid / HD + kRowStep * i : e / HD;
+    col[i] = kOneCol ? tid % HD : e % HD;
+  }
   float acc[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
@@ -816,13 +857,13 @@ flash_f32_kernel(Args a) {
     }
     __syncthreads();
 
-    // acc = acc * alpha + P V over this thread's column
+    // acc = acc * alpha + P V over this thread's entries
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc[i] *= alpha_s[row0 + kRowStep * i];
+    for (int i = 0; i < kAcc; ++i) acc[i] *= alpha_s[row[i]];
     for (int j = 0; j < kBK; ++j) {
-      const float vj = v_s[j * HD + col];
+      const float* vj = v_s + j * HD;
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) acc[i] += s_s[(row0 + kRowStep * i) * kLds + j] * vj;
+      for (int i = 0; i < kAcc; ++i) acc[i] += s_s[row[i] * kLds + j] * vj[col[i]];
     }
   }
   __syncthreads();
@@ -831,10 +872,10 @@ flash_f32_kernel(Args a) {
                (int64_t)g * REP * HD;
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) {
-    const int r = row0 + kRowStep * i;
+    const int r = row[i];
     const int pos = r / REP, h = r % REP;
-    if (r < kLive && q0 + pos < a.Sq) {
-      out[pos * q_pos_stride + h * HD + col] = acc[i] / fmaxf(l_s[r], 1e-30f);
+    if (tid + kThreads * i < kEntries && r < kLive && q0 + pos < a.Sq) {
+      out[pos * q_pos_stride + h * HD + col[i]] = acc[i] / fmaxf(l_s[r], 1e-30f);
     }
   }
 }
@@ -925,7 +966,12 @@ int launch_bf16(int B, const Args& a, cudaStream_t stream) {
 
 template <int HD, int REP>
 int launch(int dtype, int B, const Args& a, cudaStream_t stream) {
-  if (dtype == 1) return launch_bf16<HD, REP>(B, a, stream);
+  if (dtype == 1) {
+    // below hd 16 a row is less than one k16 step of wgmma: the wrapper
+    // pads bf16 hd 8 and 12 to 16 before it gets here
+    if constexpr (HD % 16 == 0) return launch_bf16<HD, REP>(B, a, stream);
+    return kUnsupported;
+  }
   using C = F32Tile<HD, REP>;
   return launch_with_smem(flash_f32_kernel<HD, REP>, C::kBytes, (a.Sq + C::kBQ - 1) / C::kBQ,
                           B * a.KV, a, stream);
@@ -959,8 +1005,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   const int rep = H / KV;
   int rc;
   switch (hd) {
+    case 8: rc = dispatch_rep<8>(rep, dtype, B, a, s); break;
+    case 12: rc = dispatch_rep<12>(rep, dtype, B, a, s); break;
     case 16: rc = dispatch_rep<16>(rep, dtype, B, a, s); break;
     case 64: rc = dispatch_rep<64>(rep, dtype, B, a, s); break;
+    case 80: rc = dispatch_rep<80>(rep, dtype, B, a, s); break;
     case 128: rc = dispatch_rep<128>(rep, dtype, B, a, s); break;
     case 256: rc = dispatch_rep<256>(rep, dtype, B, a, s); break;
     default: rc = kUnsupported;

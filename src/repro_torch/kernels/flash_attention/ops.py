@@ -11,6 +11,12 @@ inputs that autograd would differentiate are refused
 ``flash_attention.launches`` counts kernel launches (a plain integer the
 caller may reset), so a run can show that its prefill went through the
 kernel.
+
+bf16 rows below hd 16 are less than one k16 step of the tensor cores'
+``wgmma``: for bf16 hd 8 and 12 (the internvl2-1b and minicpm-2b smoke
+configs' heads) the wrapper zero-pads q, k and v to hd 16, keeps the true
+scale ``hd**-0.5`` and slices the output back.  Every other instance,
+hd 80 among them, runs at its own width.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import functools
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import needs_grad
 from repro_torch.kernels.build import load_library
@@ -27,7 +34,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SUPPORTED_HEAD_DIMS = (16, 64, 128, 256)
+SUPPORTED_HEAD_DIMS = (8, 12, 16, 64, 80, 128, 256)
+BF16_PADDED_HEAD_DIMS = {8: 16, 12: 16}  # bf16 hd -> the width the kernel runs
 SUPPORTED_REPS = (1, 2, 4, 5, 7)
 
 
@@ -99,19 +107,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, q_offset: int 
         raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
+    width = BF16_PADDED_HEAD_DIMS.get(hd, hd) if q.dtype == torch.bfloat16 else hd
+    if width != hd:
+        q, k, v = (F.pad(x, (0, width - hd)) for x in (q, k, v))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = library().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, KV, hd, SUPPORTED_DTYPES[q.dtype], int(bool(causal)),
+            B, Sq, Skv, H, KV, width, SUPPORTED_DTYPES[q.dtype], int(bool(causal)),
             0 if window is None else int(window), int(q_offset), hd**-0.5, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (code {rc}) for q "
                            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}")
     flash_attention.launches += 1
-    return out
+    return out if width == hd else out[..., :hd].contiguous()
 
 
 flash_attention.launches = 0

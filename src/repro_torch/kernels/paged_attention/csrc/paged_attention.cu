@@ -36,7 +36,12 @@
 //   * 16-byte loads: a K or V row of one position is hd * sizeof(T) bytes,
 //     read by HD / (16 / sizeof(T)) adjacent lanes (8 at hd 64 bf16, so a
 //     warp-wide load covers 4 positions); each lane keeps the REP query
-//     rows' matching 16-byte slice in registers.
+//     rows' matching 16-byte slice in registers.  A row that is not a whole
+//     number of 16-byte pieces takes 8-byte loads (bf16 hd 12: 3 lanes of
+//     4 elements).  The reductions over a row's lanes are xor butterflies,
+//     so a row takes a power of two of lanes: the count rounded up, and the
+//     lanes past the row's own load nothing and hold zeros (hd 80: 10 of 16
+//     lanes load at bf16, 20 of 32 at fp32; hd 12 fp32: 3 of 4).
 //   * Warp-level scores and softmax: each of the block's 4 warps takes 16
 //     positions at a time, 8 or 4 where a row takes 16 or 32 lanes (at most
 //     4 loads of K and of V a lane, all issued before any is used, so that
@@ -77,27 +82,60 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// 16 bytes of T as floats (bf16: the low half of each word is the earlier
-// element)
-template <typename T>
-__device__ __forceinline__ void unpack(const uint4& u, float* f) {
-  if constexpr (std::is_same<T, float>::value) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
+// W 32-bit words: one load of 4 W bytes (16 or 8)
+template <int W>
+struct Words {
+  uint32_t w[W];
+};
+
+template <int W>
+__device__ __forceinline__ Words<W> load_words(const void* p) {
+  Words<W> r;
+  if constexpr (W == 4) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    r.w[0] = u.x, r.w[1] = u.y, r.w[2] = u.z, r.w[3] = u.w;
   } else {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    static_assert(W == 2, "16- or 8-byte loads");
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    r.w[0] = u.x, r.w[1] = u.y;
+  }
+  return r;
+}
+
+template <int W>
+__device__ __forceinline__ Words<W> zero_words() {
+  Words<W> r;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  for (int i = 0; i < W; ++i) r.w[i] = 0u;
+  return r;
+}
+
+// The words of one load as floats (bf16: the low half of each word is the
+// earlier element)
+template <typename T, int W>
+__device__ __forceinline__ void unpack(const Words<W>& u, float* f) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      f[i] = __uint_as_float(u.w[i]);
+    } else {
+      f[2 * i] = __uint_as_float(u.w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(u.w[i] & 0xffff0000u);
     }
   }
 }
 
-__device__ __forceinline__ uint4 load16(const void* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
+// The bytes of one lane's load: 16, or 8 where a row is no whole number of
+// 16-byte pieces
+template <typename T, int HD>
+__host__ __device__ constexpr int load_bytes() {
+  return (HD * (int)sizeof(T)) % 16 == 0 ? 16 : 8;
+}
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
 }
 
 // The length a block attends over: clamped to the table, as v1 did.
@@ -116,15 +154,19 @@ paged_attention_kernel(const T* __restrict__ q,             // [S, KV*REP, HD]
                        float* __restrict__ ws,              // partials (splits > 1)
                        int n_seq, int kv_heads, int nb, int pages_per_split, int splits,
                        float scale) {
-  constexpr int kVec = 16 / sizeof(T);        // elements a 16-byte load
-  constexpr int kLanesPerRow = HD / kVec;     // lanes that read one position's row
+  constexpr int kBytes = load_bytes<T, HD>();
+  constexpr int kWords = kBytes / 4;
+  constexpr int kVec = kBytes / sizeof(T);    // elements a load
+  constexpr int kRowLanes = HD / kVec;        // lanes that load one position's row
+  constexpr int kLanesPerRow = pow2_at_least(kRowLanes);  // lanes a row takes
   constexpr int kRows = 32 / kLanesPerRow;    // positions a warp-wide load covers
   // loads of K (and of V) a lane issues an iteration: at most 4, so that a
   // lane's query slice, accumulator and scores stay in registers up to rep
-  // 7 at hd 128; kStep positions a warp an iteration (16 at most)
-  constexpr int kU = kGroup / kRows < 4 ? kGroup / kRows : 4;
+  // 7 at hd 128, and at least 1; kStep positions a warp an iteration (16 at
+  // most, but 32 where one lane holds a row: bf16 hd 8)
+  constexpr int kU = kGroup / kRows < 1 ? 1 : kGroup / kRows < 4 ? kGroup / kRows : 4;
   constexpr int kStep = kU * kRows;
-  static_assert(kLanesPerRow >= 1 && kLanesPerRow <= 32 && kU * kRows == kStep,
+  static_assert(HD % kVec == 0 && kLanesPerRow <= 32 && kU * kRows == kStep,
                 "unsupported head dim");
 
   __shared__ int s_tab[kMaxPagesPerSplit];
@@ -139,6 +181,7 @@ paged_attention_kernel(const T* __restrict__ q,             // [S, KV*REP, HD]
   const int lane = threadIdx.x & 31;
   const int row = lane / kLanesPerRow;
   const int col = lane % kLanesPerRow;
+  const bool loads = col < kRowLanes;  // a lane past the row's own holds zeros
   const int n_heads = kv_heads * REP;
   const int64_t head0 = (int64_t)s * n_heads + (int64_t)g * REP;  // this group's first head
 
@@ -165,7 +208,9 @@ paged_attention_kernel(const T* __restrict__ q,             // [S, KV*REP, HD]
   float qv[REP][kVec];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
-    unpack<T>(load16(q + (head0 + r) * HD + col * kVec), qv[r]);
+    unpack<T, kWords>(loads ? load_words<kWords>(q + (head0 + r) * HD + col * kVec)
+                            : zero_words<kWords>(),
+                      qv[r]);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) qv[r][e] *= scale;
   }
@@ -183,25 +228,25 @@ paged_attention_kernel(const T* __restrict__ q,             // [S, KV*REP, HD]
   const int pos1 = min(length, pos0 + pages * BS);
   const int64_t row_stride = (int64_t)kv_heads * HD;  // one position of a page
   for (int base = pos0 + warp * kStep; base < pos1; base += kWarps * kStep) {
-    uint4 kr[kU], vr[kU];
+    Words<kWords> kr[kU], vr[kU];
     bool ok[kU];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const int p = base + u * kRows + row;
       ok[u] = p < pos1;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (ok[u]) {
+      kr[u] = vr[u] = zero_words<kWords>();
+      if (ok[u] && loads) {
         const int64_t phys = s_tab[p / BS - page0];
         const int64_t off = (phys * BS + p % BS) * row_stride + (int64_t)g * HD + col * kVec;
-        kr[u] = load16(k_pages + off);
-        vr[u] = load16(v_pages + off);
+        kr[u] = load_words<kWords>(k_pages + off);
+        vr[u] = load_words<kWords>(v_pages + off);
       }
     }
     float sc[kU][REP];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       float kf[kVec];
-      unpack<T>(kr[u], kf);
+      unpack<T, kWords>(kr[u], kf);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         float d = 0.f;
@@ -234,7 +279,7 @@ paged_attention_kernel(const T* __restrict__ q,             // [S, KV*REP, HD]
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       float vf[kVec];
-      unpack<T>(vr[u], vf);
+      unpack<T, kWords>(vr[u], vf);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float p = ok[u] ? expf(sc[u][r] - m[r]) : 0.f;
@@ -263,7 +308,7 @@ paged_attention_kernel(const T* __restrict__ q,             // [S, KV*REP, HD]
       m[r] = mx;
     }
   }
-  if (row == 0) {
+  if (row == 0 && loads) {
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
 #pragma unroll
@@ -387,8 +432,11 @@ int dispatch_rep(int rep, int bs, const Args& a) {
 template <typename T>
 int dispatch_hd(int hd, int rep, int bs, const Args& a) {
   switch (hd) {
+    case 8: return dispatch_rep<T, 8>(rep, bs, a);
+    case 12: return dispatch_rep<T, 12>(rep, bs, a);
     case 16: return dispatch_rep<T, 16>(rep, bs, a);
     case 64: return dispatch_rep<T, 64>(rep, bs, a);
+    case 80: return dispatch_rep<T, 80>(rep, bs, a);
     case 128: return dispatch_rep<T, 128>(rep, bs, a);
     default: return kUnsupported;
   }

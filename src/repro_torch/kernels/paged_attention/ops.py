@@ -33,11 +33,11 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SUPPORTED_HEAD_DIMS = (16, 64, 128)
+SUPPORTED_HEAD_DIMS = (8, 12, 16, 64, 80, 128)
 SUPPORTED_REPS = (1, 2, 4, 5, 7)
 SUPPORTED_BLOCK_SIZES = (8, 16)
 SPLIT_POSITIONS = 256  # positions a block takes: 16 pages of 16, 32 of 8
-ALIGN = 16  # q and the pools are read with 16-byte loads
+ALIGN = 16  # q and the pools are read with 16-byte loads (8-byte at bf16 hd 12)
 
 
 @functools.lru_cache(maxsize=1)
@@ -109,7 +109,8 @@ def check_inputs(q, k_pages, v_pages, block_tables, lengths) -> None:
 def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself where it starts on an ALIGN-byte boundary, else a copy
     that does (a fresh allocation; a row of hd in SUPPORTED_HEAD_DIMS
-    elements is a whole number of 16-byte pieces, so every row then is)."""
+    elements is a whole number of the kernel's loads, so every row then
+    starts on a load's boundary)."""
     return t if t.data_ptr() % ALIGN == 0 else t.clone()
 
 

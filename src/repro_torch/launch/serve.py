@@ -14,6 +14,9 @@ path, or continuous batching with ``--continuous``.
   python -m repro_torch.launch.serve --arch falcon-mamba-7b --continuous \\
       --workload llm_decode --dp 3 --slots 8 --requests 16 \\
       --min-prompt-len 1024 --prompt-len 8192 --gen 64 --max-len 8320
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --continuous \\
+      --workload llm_decode_paged --dp 3 --slots 8 --requests 16 \\
+      --min-prompt-len 1024 --prompt-len 4096 --gen 64 --max-len 4160 --block-size 16
   # per-request fixed-point solves (D-iteration / personalized PageRank),
   # each retired when the paper's detection protocol, agreed across --dp
   # replicas, certifies its residual below --eps; --gen is the iteration
@@ -32,11 +35,12 @@ An LLM workload serves the full-width config of ``--arch`` with random
 bf16 weights made from ``--seed`` on the card; ``--smoke`` takes the
 reduced config.  ``llm_decode`` keeps a contiguous cache per slot (rolling
 local windows and the mamba1 state included); ``llm_decode_paged`` a
-block-paged one (attention caches without a rolling window).  Every
-admission prefills its prompt in one causal forward (on the card: the
+block-paged one (attention caches without a rolling window, and zamba2's
+shared-block caches beside each slot's mamba2 state).  Every admission
+prefills its prompt in one causal forward (on the card: the
 flash-attention kernel, or one selective-scan kernel launch a mamba1
-layer); a mamba1 decode tick runs the same kernel one step from the
-slot's state.  ``fixedpoint_solve`` needs no ``--arch``: its requests are
+layer, or one SSD scan a mamba2 layer); a mamba1 decode tick runs the
+same kernel one step from the slot's state.  ``fixedpoint_solve`` needs no ``--arch``: its requests are
 payloads of ``--n`` elements (rounded up to a multiple of ``--dp``) for the
 ``--solver`` operator, queued as the reference CLI queues them at the same
 seed.  ``--dp`` replicas are simulated: they agree on every retirement

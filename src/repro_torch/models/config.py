@@ -1,13 +1,15 @@
 """Model configuration (port of ``repro.models.config``: the dense, moe,
-vlm and mamba1 ``ssm`` families).
+vlm, mamba1 ``ssm`` and mamba2 ``hybrid`` families).
 
 The reference dataclass covers every family (dense, moe, ssm, hybrid,
 vlm, audio); the port serves and trains dense decoders, including the
 grouped local/global stack of gemma3, and serves the moe stack (mixtral,
-llama4-scout), the vlm backbone (internvl2, its vision frontend a stub)
-and the attention-free mamba1 stack of falcon-mamba.  It keeps the fields
-those families read and refuses the others (audio, and mamba2 and
-hybrid) rather than ignoring them.
+llama4-scout), the vlm backbone (internvl2, its vision frontend a stub),
+the attention-free mamba1 stack of falcon-mamba and the hybrid stack of
+zamba2 (groups of mamba2 layers, each followed by one weight-shared
+attention block).  It keeps the fields those families read and refuses
+the others (audio, and mamba2 outside the hybrid family) rather than
+ignoring them.
 """
 
 from __future__ import annotations
@@ -18,14 +20,14 @@ from typing import Optional
 
 ATTN_IMPLS = ("auto", "full", "flash_scan", "kernel")
 KV_CACHE_DTYPES = ("bf16", "int8")
-FAMILIES = ("dense", "moe", "vlm", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 ATTN_FAMILIES = ("dense", "moe", "vlm")  # the plain attention stack (and gemma3's grouped one)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | vlm | ssm (mamba1); audio and hybrid are not ported yet
+    family: str  # dense | moe | vlm | ssm (mamba1) | hybrid (mamba2); audio is not ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,10 +45,13 @@ class ModelConfig:
     n_experts: int = 0  # moe
     top_k: int = 0
     capacity_factor: float = 1.25
-    ssm_state: int = 0  # ssm (mamba1)
+    ssm_state: int = 0  # ssm (mamba1) and hybrid (mamba2)
     ssm_conv: int = 4
     ssm_expand: int = 2
-    ssm_version: int = 1  # 1 = mamba1 (the only version ported)
+    ssm_version: int = 1  # 1 = mamba1 (ssm), 2 = mamba2 (hybrid only)
+    ssm_headdim: int = 64  # mamba2
+    attn_every: int = 0  # hybrid: the shared attention block after every k mamba2 layers
+    ssm_chunk: int = 256  # mamba2: the SSD scan's chunk length
     # modality frontend (a stub: precomputed patch embeddings are inputs)
     frontend: Optional[str] = None  # 'vision' (the only one ported)
     n_frontend_tokens: int = 0
@@ -71,25 +76,35 @@ class ModelConfig:
         if self.family not in FAMILIES:
             raise ValueError(
                 f"{self.name}: family {self.family!r} is not ported yet ({', '.join(FAMILIES)} "
-                "only; the audio and hybrid families are ROADMAP queue 1, item 5)"
+                "only; the audio family is ROADMAP queue 1, item 6)"
             )
         if self.kv_cache_dtype == "int8" and (self.family not in ATTN_FAMILIES
                                               or self.pattern_local):
             # the reference has scale planes only for the plain stack's k/v
             raise ValueError(f"{self.name}: an int8 KV cache needs the plain dense/moe/vlm "
-                             "stack (the grouped stack and the ssm family have no scale planes)")
+                             "stack (the grouped stack and the ssm and hybrid families have no "
+                             "scale planes)")
         if self.family == "moe" and (self.n_experts <= 0 or self.top_k <= 0):
             raise ValueError(f"{self.name}: moe family needs experts/top_k")
         if self.frontend not in (None, "vision"):
             raise ValueError(f"{self.name}: frontend {self.frontend!r} is not ported "
                              "(vision only)")
+        if self.family in ("ssm", "hybrid") and self.ssm_state <= 0:
+            raise ValueError(f"{self.name}: ssm family needs ssm_state > 0")
         if self.family == "ssm":
-            if self.ssm_state <= 0:
-                raise ValueError(f"{self.name}: ssm family needs ssm_state > 0")
             if self.ssm_version != 1:
-                raise ValueError(f"{self.name}: mamba{self.ssm_version} is not ported "
-                                 "(mamba1 only)")
+                raise ValueError(f"{self.name}: mamba{self.ssm_version} is not ported outside "
+                                 "the hybrid family (mamba1 only)")
             return
+        if self.family == "hybrid":
+            if self.ssm_version != 2:
+                raise ValueError(f"{self.name}: the hybrid family is mamba2 (ssm_version=2)")
+            if self.attn_every <= 0 or self.n_layers % self.attn_every:
+                raise ValueError(f"{self.name}: a hybrid stack needs attn_every > 0 dividing "
+                                 f"n_layers, got {self.attn_every} and {self.n_layers}")
+            if self.d_inner % self.ssm_headdim:
+                raise ValueError(f"{self.name}: d_inner {self.d_inner} is not a multiple of "
+                                 f"ssm_headdim {self.ssm_headdim}")
         if self.act != "silu":
             raise ValueError(f"{self.name}: act {self.act!r} is not ported (silu only)")
         if self.n_heads % self.n_kv_heads:
@@ -109,7 +124,10 @@ class ModelConfig:
 
     @property
     def n_groups(self) -> int:
-        """Groups of (pattern_local local + 1 global) layers; 0 for a plain stack."""
+        """Groups of (pattern_local local + 1 global) layers, or of attn_every
+        mamba2 layers (hybrid); 0 for a plain stack."""
+        if self.family == "hybrid":
+            return self.n_layers // self.attn_every
         return self.n_layers // (self.pattern_local + 1) if self.pattern_local else 0
 
     @property
@@ -128,6 +146,10 @@ class ModelConfig:
     def dt_rank(self) -> int:
         return max(1, -(-self.d_model // 16))  # ceil(d/16), mamba1 default
 
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim  # mamba2
+
     def n_params(self) -> int:
         """Analytic total parameter count (the reference's: it leaves out
         the qkv biases and the vision frontend's ``patch_proj``)."""
@@ -142,6 +164,13 @@ class ModelConfig:
             )
             return emb + self.n_layers * per + d
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.qk_dim * d
+        if self.family == "hybrid":
+            # the reference's count, which leaves out each layer's conv_b
+            # [di + 2 N] and two of its three [nh] vectors (D, dt_bias)
+            di, st, nh = self.d_inner, self.ssm_state, self.ssm_nheads
+            per = (d * (2 * di + 2 * st + nh) + self.ssm_conv * (di + 2 * st)
+                   + nh + di + di * d + d)
+            return emb + self.n_layers * per + d + attn + 3 * d * f + 2 * d
         if self.family == "moe":
             mlp = self.n_experts * 3 * d * f + d * self.n_experts
         else:

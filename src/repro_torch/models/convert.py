@@ -1,7 +1,8 @@
 """Carry the reference's weights and train state across to the port.
 
 The reference's ``transformer.init_params`` tree (the dense, moe and vlm
-families, plain or gemma3's grouped stack, or the mamba1 stack), already
+families, plain or gemma3's grouped stack, the mamba1 stack, or the hybrid
+stack's ``mamba_groups`` [G, k, ...] and its one ``shared_attn`` layer), already
 turned into numpy arrays by the caller, maps onto the port's parameter
 dict so that both packages compute the same function.  Both keep each
 stack's layers on leading axes (``layers`` [L, ...]; ``local_layers`` [G,
@@ -11,8 +12,8 @@ mamba1 matrices, norm weights ``w`` under the ``(1 + w)`` convention, a
 tied head read as ``embed.T`` (an untied one as ``lm_head``) and the
 vision frontend's ``patch_proj``; only the nesting differs (the reference
 groups ``attn``/``mlp``/``moe``/``mamba`` sub-dicts per layer).  mamba1's
-``A_log`` and ``D`` and the moe ``router`` stay fp32 whatever the param
-dtype, as in the reference.
+``A_log`` and ``D``, mamba2's ``A_log``, ``D`` and ``dt_bias`` and the moe
+``router`` stay fp32 whatever the param dtype, as in the reference.
 
 :func:`reference_tree` gives the port's params (or gradients) the
 reference's nesting, whose flatten order (sorted keys) decides the
@@ -47,12 +48,32 @@ LAYER_PATHS = {**ATTN_PATHS, **{k: ("mlp", k) for k in ("w1", "w3", "w2")}}
 MOE_LAYER_PATHS = {**ATTN_PATHS, **{k: ("moe", k) for k in moe.LEAVES}}
 SSM_LAYER_PATHS = {"ln": ("ln",), **{k: ("mamba", k) for k in (
     "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D", "out_proj")}}
-FP32_LEAVES = ssm.FP32_LEAVES + moe.FP32_LEAVES
+MAMBA2_LAYER_PATHS = {"ln": ("ln",), **{k: ("mamba", k) for k in (
+    "in_z", "in_x", "in_bc", "in_dt", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w",
+    "out_proj")}}
+# parameter trees with per-layer nesting: the stacks and the hybrid stack's
+# one shared layer
+LAYER_TREES = (*STACKS, "shared_attn")
+# leaves kept in fp32, by tree (the plain ``layers`` stack: mamba1's and moe's)
+FP32_LEAVES = {"mamba_groups": ssm.MAMBA2_FP32_LEAVES}
+PLAIN_FP32_LEAVES = ssm.FP32_LEAVES + moe.FP32_LEAVES
 
 
-def _nest(flat: Mapping[str, Any]) -> dict[str, Any]:
-    paths = (SSM_LAYER_PATHS if "in_proj" in flat
-             else MOE_LAYER_PATHS if "router" in flat else LAYER_PATHS)
+def _paths(tree: str, keys) -> dict[str, tuple]:
+    """The path table of a parameter tree, by its name; the plain
+    ``layers`` stack holds the mamba1, moe or attention family, which its
+    leaves tell apart (mamba1's ``in_proj`` and moe's ``router`` belong to
+    no other family of that stack)."""
+    if tree == "mamba_groups":
+        return MAMBA2_LAYER_PATHS
+    if tree != "layers":  # the grouped stack's and the shared attention layer
+        return LAYER_PATHS
+    return (SSM_LAYER_PATHS if "in_proj" in keys
+            else MOE_LAYER_PATHS if "router" in keys else LAYER_PATHS)
+
+
+def _nest(tree: str, flat: Mapping[str, Any]) -> dict[str, Any]:
+    paths = _paths(tree, flat)
     nested: dict[str, Any] = {}
     for k, path in paths.items():
         if k not in flat:  # the qkv biases exist only with qkv_bias
@@ -64,7 +85,7 @@ def _nest(flat: Mapping[str, Any]) -> dict[str, Any]:
     return nested
 
 
-def _unnest(nested: Mapping[str, Any]) -> dict[str, Any]:
+def _unnest(tree: str, nested: Mapping[str, Any]) -> dict[str, Any]:
     def get(path):
         node = nested
         for part in path:
@@ -73,21 +94,20 @@ def _unnest(nested: Mapping[str, Any]) -> dict[str, Any]:
             node = node[part]
         return node
 
-    paths = (SSM_LAYER_PATHS if "mamba" in nested
-             else MOE_LAYER_PATHS if "moe" in nested else LAYER_PATHS)
-    out = {k: get(path) for k, path in paths.items()}
+    keys = {*nested.get("mamba", ()), *nested.get("moe", ())}
+    out = {k: get(path) for k, path in _paths(tree, keys).items()}
     return {k: v for k, v in out.items() if v is not None}
 
 
 def reference_tree(params: Mapping[str, Any]) -> dict[str, Any]:
     """The port's params (or any tree of the same keys) nested as the
     reference nests them; the leaves are the same objects."""
-    return {k: _nest(v) if k in STACKS else v for k, v in params.items()}
+    return {k: _nest(k, v) if k in LAYER_TREES else v for k, v in params.items()}
 
 
 def port_tree(tree: Mapping[str, Any]) -> dict[str, Any]:
     """Inverse of :func:`reference_tree`."""
-    return {k: _unnest(v) if k in STACKS else v for k, v in tree.items()}
+    return {k: _unnest(k, v) if k in LAYER_TREES else v for k, v in tree.items()}
 
 
 def params_from_reference(np_params: Mapping[str, Any], cfg: ModelConfig,
@@ -95,7 +115,9 @@ def params_from_reference(np_params: Mapping[str, Any], cfg: ModelConfig,
     """Reference params (numpy leaves) -> the port's params on ``device``."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
-    if cfg.pattern_local:
+    if cfg.family == "hybrid":
+        leads = {"mamba_groups": (cfg.n_groups, cfg.attn_every), "shared_attn": ()}
+    elif cfg.pattern_local:
         leads = {"local_layers": (cfg.n_groups, cfg.pattern_local),
                  "global_layers": (cfg.n_groups,)}
     else:
@@ -110,7 +132,8 @@ def params_from_reference(np_params: Mapping[str, Any], cfg: ModelConfig,
             if tuple(np.shape(leaf)[:len(lead)]) != lead:
                 raise ValueError(f"{stack} leaf {name}: leading axes {np.shape(leaf)} "
                                  f"do not start with {lead}")
-        out[stack] = {k: _tensor(v, torch.float32 if k in FP32_LEAVES else dtype, device)
+        fp32 = FP32_LEAVES.get(stack, PLAIN_FP32_LEAVES)
+        out[stack] = {k: _tensor(v, torch.float32 if k in fp32 else dtype, device)
                       for k, v in src[stack].items()}
     if not cfg.tie_embeddings:
         out["lm_head"] = _tensor(np_params["lm_head"], dtype, device)

@@ -1,13 +1,18 @@
 """Decoder stacks for training and serving (port of
-``repro.models.transformer``, the dense, moe, vlm and mamba1 families):
+``repro.models.transformer``, the dense, moe, vlm, mamba1 and hybrid
+families):
 the plain attention stack (llama, qwen2.5 with its qkv biases, minicpm,
 mixtral's window on every layer, the vlm backbone of internvl2), gemma3's
 grouped stack of G groups of (``pattern_local`` local layers with a
 ``local_window``-token window and RoPE theta ``rope_theta``, then one
 global layer with no window and theta ``rope_theta_global``), and the
 attention-free mamba1 stack of falcon-mamba (``family="ssm"``, serving
-only).  The moe family (mixtral, llama4-scout) replaces each layer's MLP
-with ``models.moe``'s experts.
+only), and zamba2's hybrid stack (``family="hybrid"``, serving only): G
+groups of ``attn_every`` mamba2 layers, each group followed by one
+attention + MLP block whose weights all groups share (no window, theta
+``rope_theta``), with a KV cache of its own for each of its G
+applications.  The moe family (mixtral, llama4-scout) replaces each
+layer's MLP with ``models.moe``'s experts.
 
 Parameters are a plain dict of tensors in the reference's ``x @ W``
 layout, each layer's tensors stacked on leading layer axes::
@@ -16,6 +21,8 @@ layout, each layer's tensors stacked on leading layer axes::
     (patch_proj [1024, d] with the vision frontend),
     layers [L, ...]                       (plain stack: dense, moe, vlm or ssm)
     local_layers [G, P, ...], global_layers [G, ...]   (grouped stack)
+    mamba_groups [G, k, ...] (ln [d] and the mamba2 leaves of ``models.ssm``)
+    and shared_attn (one attention layer's leaves, not stacked)  (hybrid)
     attention: wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d], ln1/ln2 [d],
            (bq [H*hd], bk/bv [KV*hd] with qkv_bias)
     dense MLP: w1/w3 [d, f], w2 [f, d]
@@ -37,7 +44,7 @@ Interfaces:
   forward_last_logits(params, tokens, cfg)                    -> logits
   forward_decode(params, tokens, cache, lengths, cfg, write_ok) -> (logits, cache)
   forward_decode_paged(params, tokens, pages, tables, lengths, cfg, ...)
-                                                              -> (logits, pages)
+                                                  -> (logits, pages, slot_state)
 
 With ``cfg.kv_cache_dtype == "int8"`` (the plain stack) the cache keeps
 int8 K/V rows and an fp32 scale per (token, head), ``k_scale``/``v_scale``
@@ -74,9 +81,11 @@ from repro_torch.models.layers import (
 )
 
 # stacked parameter trees and the number of leading layer axes of each
-STACKS = {"layers": 1, "local_layers": 2, "global_layers": 1}
-# the mamba1 cache: a recurrent state per layer and slot, not rows per position
-STATE_LEAVES = ("h", "conv")
+STACKS = {"layers": 1, "local_layers": 2, "global_layers": 1, "mamba_groups": 2}
+# cache leaves that hold a recurrent state per layer and slot, not rows per
+# position: mamba1's, and the hybrid stack's mamba2 state
+STATE_LEAVES = ("h", "conv", "m_h", "m_conv")
+MAMBA2_STATE = {"h": "m_h", "conv": "m_conv"}  # mamba2 state key -> cache leaf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,14 +116,24 @@ def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
 
 
 def layer_params(params, cfg: ModelConfig) -> list[dict[str, torch.Tensor]]:
-    """Each layer's parameters in forward order.  Every stacked leaf is
-    unbound once (views), so autograd stacks its gradient in one pass."""
+    """Each layer's parameters in forward order (the hybrid stack: its
+    mamba2 layers, group by group).  Every stacked leaf is unbound once
+    (views), so autograd stacks its gradient in one pass."""
     views = {
         stack: {k: v.flatten(0, STACKS[stack] - 1).unbind(0) for k, v in params[stack].items()}
         for stack in STACKS if stack in params
     }
+    if cfg.family == "hybrid":
+        return [{k: leaves[i] for k, leaves in views["mamba_groups"].items()}
+                for i in range(cfg.n_layers)]
     return [{k: leaves[s.flat] for k, leaves in views[s.stack].items()}
             for s in layer_specs(cfg)]
+
+
+def shared_spec(cfg: ModelConfig, g: int) -> LayerSpec:
+    """The hybrid stack's shared block at its application after group g:
+    one set of weights (``shared_attn``), the cache of application g."""
+    return LayerSpec("shared_attn", "attn_", (g,), g, cfg.rope_theta, None)
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +181,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
         layers = ssm.mamba1_init(generator, (cfg.n_layers,), cfg, dtype)
         layers["ln"] = torch.zeros((cfg.n_layers, cfg.d_model), dtype=dtype, device=device)
         params["layers"] = layers
+    elif cfg.family == "hybrid":
+        lead = (cfg.n_groups, cfg.attn_every)
+        groups = ssm.mamba2_init(generator, lead, cfg, dtype)
+        groups["ln"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype, device=device)
+        params["mamba_groups"] = groups
+        params["shared_attn"] = {k: v[0] for k, v in _layer_stack(generator, (1,), cfg, dtype,
+                                                                     device).items()}
     elif cfg.pattern_local:
         G = cfg.n_groups
         params["local_layers"] = _layer_stack(generator, (G, cfg.pattern_local), cfg, dtype,
@@ -267,8 +293,31 @@ def _run_mamba_stack(params, x, cfg, *, cache):
     for i, lp in enumerate(layer_params(params, cfg)):
         x, state = _mamba_block(lp, x, cfg)
         if cache is not None:
-            for n in STATE_LEAVES:
+            for n in ("h", "conv"):
                 cache[n][i].copy_(state[n])
+    return x
+
+
+def _run_hybrid_stack(params, x, cfg, *, cache):
+    """Each group's mamba2 layers (``x + mamba2(norm(x))``), then the shared
+    block (causal attention through ``attention``, the flash kernel on the
+    card, and the MLP); with ``cache`` each mamba2 layer's final state and
+    each application's K/V rows are kept there."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    k = cfg.attn_every
+    mamba = layer_params(params, cfg)
+    for g in range(cfg.n_groups):
+        for i in range(k):
+            lp = mamba[g * k + i]
+            y, state = ssm.mamba2_apply(lp, rmsnorm(x, lp["ln"], cfg.norm_eps), cfg)
+            x = x + y
+            if cache is not None:
+                for n, leaf in MAMBA2_STATE.items():
+                    cache[leaf][g, i].copy_(state[n])
+        x, kk, vv = _decoder_layer(params["shared_attn"], x, cfg, positions, shared_spec(cfg, g))
+        if cache is not None:
+            _prefill_rows(cache["attn_k"][g], kk)
+            _prefill_rows(cache["attn_v"][g], vv)
     return x
 
 
@@ -280,9 +329,12 @@ def _run_stack(params, x, cfg, *, remat: str = "none", cache=None, moe_groups="s
     :func:`_mlp_block`."""
     if moe_groups not in MOE_GROUPS:
         raise ValueError(f"moe_groups {moe_groups!r} not in {MOE_GROUPS}")
-    if cfg.family == "ssm":
-        if remat != "none":  # the scan kernel has no backward: ssm training is not ported
-            raise ValueError(f"{cfg.name}: remat {remat!r} is not ported for the ssm family")
+    if cfg.family in ("ssm", "hybrid"):
+        if remat != "none":  # ssm and hybrid training are not ported
+            raise ValueError(f"{cfg.name}: remat {remat!r} is not ported for the "
+                             f"{cfg.family} family")
+        if cfg.family == "hybrid":
+            return _run_hybrid_stack(params, x, cfg, cache=cache)
         return _run_mamba_stack(params, x, cfg, cache=cache)
     if cfg.family == "moe" and remat != "none":
         raise ValueError(f"{cfg.name}: remat {remat!r} is not ported for the moe family")
@@ -369,13 +421,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     ``global_k``/``global_v`` [G, batch, max_len, KV, hd].  A windowed
     leaf is a rolling buffer: position p lives at row p % W.  mamba1: the
     recurrent state, ``h`` [L, batch, di, N] fp32 and ``conv`` [L, batch,
-    K-1, di] in the compute type, whatever ``max_len``."""
+    K-1, di] in the compute type, whatever ``max_len``.  Hybrid: the
+    :func:`init_state` of its mamba2 layers and the shared block's K/V of
+    each application, ``attn_k``/``attn_v`` [G, batch, max_len, KV, hd]."""
     device = resolve_device(device)
     if cfg.family == "ssm":
-        L = cfg.n_layers
-        state = ssm.mamba1_init_state(cfg, L * batch, dtype_of(cfg.compute_dtype), device)
-        return {n: t.unflatten(0, (L, batch)) for n, t in state.items()}
+        return init_state(cfg, batch, device)
     tail = (cfg.n_kv_heads, cfg.head_dim)
+    if cfg.family == "hybrid":
+        shape = (cfg.n_groups, batch, max_len) + tail
+        dtype = dtype_of(cfg.compute_dtype)
+        return {**init_state(cfg, batch, device),
+                **{n: torch.zeros(shape, dtype=dtype, device=device)
+                   for n in ("attn_k", "attn_v")}}
     if cfg.pattern_local:
         G, Wl = cfg.n_groups, min(max_len, cfg.local_window or max_len)
         shapes = {"local_": (G, cfg.pattern_local, batch, Wl) + tail,
@@ -390,6 +448,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
         for n in ("k_scale", "v_scale"):
             cache[n] = torch.zeros(shapes[""][:-1], dtype=torch.float32, device=device)
     return cache
+
+
+def init_state(cfg: ModelConfig, batch: int, device="cuda"):
+    """The recurrent state a slot carries whatever its length: mamba1's
+    ``h``/``conv`` [L, batch, ...]; the hybrid stack's ``m_h`` [G, k,
+    batch, nh, hp, N] fp32 and ``m_conv`` [G, k, batch, K-1, di + 2 N] in
+    the compute type; nothing for the attention stacks."""
+    device = resolve_device(device)
+    dtype = dtype_of(cfg.compute_dtype)
+    if cfg.family == "ssm":
+        L = cfg.n_layers
+        state = ssm.mamba1_init_state(cfg, L * batch, dtype, device)
+        return {n: t.unflatten(0, (L, batch)) for n, t in state.items()}
+    if cfg.family == "hybrid":
+        lead = (cfg.n_groups, cfg.attn_every)
+        state = ssm.mamba2_init_state(cfg, cfg.n_layers * batch, dtype, device)
+        return {MAMBA2_STATE[n]: t.unflatten(0, lead + (batch,)) for n, t in state.items()}
+    return {}
 
 
 def quant_heads(x):
@@ -415,7 +491,8 @@ def forward_prefill(params, tokens, cfg: ModelConfig, stats=None):
     routed a token a group, as the reference's scanned decode step routes
     them).  tokens: [B, S] -> (last-position logits [B, V] fp32, the
     :func:`init_cache` cache of max_len S holding the prompt's K/V rows, or
-    its mamba1 state)."""
+    its mamba1 state, or the hybrid stack's mamba2 states and its shared
+    block's K/V rows of each application)."""
     cache = init_cache(cfg, tokens.shape[0], tokens.shape[1], tokens.device)
     x = _run_stack(params, _embed(params, tokens, cfg), cfg, cache=cache, moe_groups="token",
                    stats=stats)
@@ -457,9 +534,42 @@ def _decode_mamba_stack(params, x, cache, cfg, write_ok):
     """The mamba1 layers of one decode step; each layer's state in the cache
     is updated in place, except where ``write_ok`` is False."""
     for i, lp in enumerate(layer_params(params, cfg)):
-        state = {n: cache[n][i] for n in STATE_LEAVES}
+        state = {n: cache[n][i] for n in ("h", "conv")}
         x = x + ssm.mamba1_decode(lp, rmsnorm(x, lp["ln"], cfg.norm_eps), state, cfg, write_ok)
     return x
+
+
+def _decode_mamba2_group(mamba, g, x, state, cfg, write_ok):
+    """Group g's mamba2 layers of one decode step (``mamba``: every layer's
+    parameters, :func:`layer_params`); ``state`` holds ``m_h``/``m_conv``,
+    updated in place, except where ``write_ok`` is False."""
+    k = cfg.attn_every
+    for i in range(k):
+        lp = mamba[g * k + i]
+        st = {n: state[leaf][g, i] for n, leaf in MAMBA2_STATE.items()}
+        x = x + ssm.mamba2_decode(lp, rmsnorm(x, lp["ln"], cfg.norm_eps), st, cfg, write_ok)
+    return x
+
+
+def _decode_attn_layer(lp, x, kc, vc, rows, lengths, cfg, spec: LayerSpec, write_ok,
+                       scales=None):
+    """One attention + MLP layer of a decode step over a contiguous cache
+    (kc/vc [B, W, KV, hd], written in place at row ``lengths[b]``, or
+    ``lengths[b] % W`` under a window; ``scales``: the int8 cache's k and v
+    scale leaves)."""
+    B, W = x.shape[0], kc.shape[1]
+    idx = lengths % W if spec.window is not None else lengths
+    h = rmsnorm(x[:, None], lp["ln1"], cfg.norm_eps)
+    q, k, v = qkv_project(lp, h, cfg, lengths[:, None], spec.theta)
+    if scales is not None:  # quantized rows and scales in, the whole cache dequantized out
+        k_at, v_at = (_write_int8_rows(c, sc, rows, idx, new[:, 0], write_ok, q.dtype)
+                      for c, sc, new in ((kc, scales[0], k), (vc, scales[1], v)))
+    else:
+        _write_rows(kc, rows, idx, k[:, 0], write_ok)
+        _write_rows(vc, rows, idx, v[:, 0], write_ok)
+        k_at, v_at = kc, vc
+    o = decode_attention(q, k_at, v_at, (lengths + 1).clamp(max=W))
+    return _mlp_block(lp, x + o.reshape(B, -1) @ lp["wo"], cfg)
 
 
 def forward_decode(params, tokens, cache, lengths, cfg: ModelConfig, write_ok=None):
@@ -467,7 +577,7 @@ def forward_decode(params, tokens, cache, lengths, cfg: ModelConfig, write_ok=No
 
     tokens: [B] int; cache: the :func:`init_cache` layout, written in place
     at row ``lengths[b]`` (``lengths[b] % W`` in a rolling window leaf; the
-    mamba1 state replaced); lengths: [B] int (positions before this token);
+    mamba1 or mamba2 state replaced); lengths: [B] int (positions before this token);
     write_ok: [B] bool (False keeps the sequence's cache rows or state as
     they were).  Returns (logits [B, V] fp32, cache).
     """
@@ -475,28 +585,24 @@ def forward_decode(params, tokens, cache, lengths, cfg: ModelConfig, write_ok=No
         x = _decode_mamba_stack(params, _embed(params, tokens, cfg), cache, cfg, write_ok)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return _logits(params, x, cfg), cache
-    B = tokens.shape[0]
-    rows = torch.arange(B, device=tokens.device)
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
     lengths = lengths.long()
-    int8 = "k_scale" in cache
     x = _embed(params, tokens, cfg)
-    for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
-        kc = cache[spec.cache + "k"][spec.index]
-        vc = cache[spec.cache + "v"][spec.index]
-        W = kc.shape[1]
-        idx = lengths % W if spec.window is not None else lengths
-        h = rmsnorm(x[:, None], lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv_project(lp, h, cfg, lengths[:, None], spec.theta)
-        if int8:  # quantized rows and scales in, the whole cache dequantized out
-            k_at, v_at = (_write_int8_rows(c, cache[n + "_scale"][spec.index], rows, idx,
-                                           new[:, 0], write_ok, q.dtype)
-                          for n, c, new in (("k", kc, k), ("v", vc, v)))
-        else:
-            _write_rows(kc, rows, idx, k[:, 0], write_ok)
-            _write_rows(vc, rows, idx, v[:, 0], write_ok)
-            k_at, v_at = kc, vc
-        o = decode_attention(q, k_at, v_at, (lengths + 1).clamp(max=W))
-        x = _mlp_block(lp, x + o.reshape(B, -1) @ lp["wo"], cfg)
+    if cfg.family == "hybrid":
+        mamba = layer_params(params, cfg)
+        for g in range(cfg.n_groups):
+            x = _decode_mamba2_group(mamba, g, x, cache, cfg, write_ok)
+            x = _decode_attn_layer(params["shared_attn"], x, cache["attn_k"][g],
+                                   cache["attn_v"][g], rows, lengths, cfg, shared_spec(cfg, g),
+                                   write_ok)
+    else:
+        int8 = "k_scale" in cache
+        for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
+            scales = ((cache["k_scale"][spec.index], cache["v_scale"][spec.index])
+                      if int8 else None)
+            x = _decode_attn_layer(lp, x, cache[spec.cache + "k"][spec.index],
+                                   cache[spec.cache + "v"][spec.index], rows, lengths, cfg,
+                                   spec, write_ok, scales)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), cache
 
@@ -543,16 +649,19 @@ def _paged_attn_layer(lp, x_tok, kp, vp, tables, positions, valid, pb, off, cfg,
 
 
 def forward_decode_paged(params, tokens, pages, tables, lengths, cfg: ModelConfig, *,
-                         block_size: int, write_ok=None):
+                         block_size: int, write_ok=None, slot_state=None):
     """One batched decode step over a block-paged cache.
 
     tokens: [S] int; pages: ``{"k","v": [L, N, bs, KV, hd]}`` physical
-    pools, written in place; tables: [S, nb] int32; lengths: [S] int32;
-    write_ok: [S] bool (False redirects the slot's write to the trash
-    block 0).  Attention reads K/V through the block table inside the
+    pools (hybrid: ``attn_k``/``attn_v`` [G, N, bs, KV, hd]), written in
+    place; tables: [S, nb] int32; lengths: [S] int32; write_ok: [S] bool
+    (False redirects the slot's write to the trash block 0, and keeps its
+    recurrent state); slot_state: the per-slot leaves (hybrid: ``m_h``/
+    ``m_conv`` of :func:`init_state`, updated in place; none for the other
+    families).  Attention reads K/V through the block table inside the
     paged-attention kernel on the card (its plain version on the CPU); all
     other math matches :func:`forward_decode`.  Returns (logits [S, V]
-    fp32, pages).
+    fp32, pages, slot_state).
     """
     if "k_scale" in pages:
         raise NotImplementedError(
@@ -563,8 +672,17 @@ def forward_decode_paged(params, tokens, pages, tables, lengths, cfg: ModelConfi
     positions = lengths.long()[:, None]
     valid = (lengths + 1).to(torch.int32).contiguous()
     x = _embed(params, tokens, cfg)
-    for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
-        x = _paged_attn_layer(lp, x, pages["k"][spec.flat], pages["v"][spec.flat], tables,
-                              positions, valid, pb, off, cfg, theta=spec.theta)
+    slot_state = {} if slot_state is None else slot_state
+    if cfg.family == "hybrid":
+        mamba = layer_params(params, cfg)
+        for g in range(cfg.n_groups):
+            x = _decode_mamba2_group(mamba, g, x, slot_state, cfg, write_ok)
+            x = _paged_attn_layer(params["shared_attn"], x, pages["attn_k"][g],
+                                  pages["attn_v"][g], tables, positions, valid, pb, off, cfg,
+                                  theta=cfg.rope_theta)
+    else:
+        for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
+            x = _paged_attn_layer(lp, x, pages["k"][spec.flat], pages["v"][spec.flat], tables,
+                                  positions, valid, pb, off, cfg, theta=spec.theta)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x, cfg), pages
+    return _logits(params, x, cfg), pages, slot_state

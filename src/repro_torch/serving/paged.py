@@ -17,7 +17,10 @@ Block 0 is the trash block: device writes of inactive slots land there.
 With ``share_prefixes=False`` every block is private: no registry lookup
 or registration, and :meth:`PagedDecodePool.can_admit` counts no hits.
 An int8 cache's scale planes are pages beside its rows (``attn="gather"``
-only).
+only).  The hybrid stack (zamba2) pages its shared block's ``attn_k``/
+``attn_v`` and keeps each slot's mamba2 state (``m_h``/``m_conv``,
+``transformer.init_state``) beside the pools: admission replaces the
+slot's state with the prompt's, a decode tick advances it in place.
 
 Unlike the reference, a block may carry several registry keys (a set per
 block): the reference keeps one key per block, so registering a second
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import serve as dserve
+from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -149,8 +153,9 @@ class BlockAllocator:
 class PagedDecodePool:
     """Block-paged continuous-batching pool over one device.
 
-    Device state: the page pools, the block tables ``[slots, nb]`` and the
-    last token of each slot.  Host state: the allocator, each slot's block
+    Device state: the page pools, the per-slot recurrent state (hybrid
+    stack), the block tables ``[slots, nb]`` and the last token of each
+    slot.  Host state: the allocator, each slot's block
     list, and the per-slot ``lengths`` and ``slot_cap`` (the host advances
     them, so reading them never waits on the device).
     """
@@ -186,6 +191,7 @@ class PagedDecodePool:
         self.pages = dserve.init_paged_pool(
             self.cfg, self.max_len, self.num_blocks, self.block_size, self.device
         )
+        self.slot_state = transformer.init_state(self.cfg, self.slots, self.device)
         dev = self.device
         self.tables = torch.zeros((self.slots, self.blocks_per_slot), dtype=torch.int32, device=dev)
         self.tokens = torch.zeros((self.slots,), dtype=torch.long, device=dev)
@@ -200,7 +206,7 @@ class PagedDecodePool:
         active_d = torch.from_numpy(active).to(self.device)
         lengths_d = torch.from_numpy(self.lengths).to(self.device)
         logits = self._pool_step(params, self.tokens, self.pages, self.tables,
-                                 lengths_d, active_d)
+                                 lengths_d, active_d, self.slot_state)
         self.tokens = torch.where(active_d, torch.argmax(logits, dim=-1), self.tokens)
         # freeze at the slot's reserved capacity: the reservation covers
         # plen + max_new + 1, so useful tokens come strictly before it
@@ -293,6 +299,7 @@ class PagedDecodePool:
         last_logits = self._slot_prefill(
             params, torch.from_numpy(prompt).long().to(dev), self.pages, self.tables,
             slot, torch.from_numpy(table_row).to(dev), torch.from_numpy(mask).to(dev),
+            self.slot_state,
         )
         tok0 = torch.argmax(last_logits)
         self.tokens[slot] = tok0
@@ -308,5 +315,5 @@ class PagedDecodePool:
 
     @property
     def cache_bytes(self) -> int:
-        return int(sum(t.numel() * t.element_size() for t in self.pages.values())
-                   + self.tables.numel() * self.tables.element_size())
+        leaves = (*self.pages.values(), *self.slot_state.values(), self.tables)
+        return int(sum(t.numel() * t.element_size() for t in leaves))

@@ -5,7 +5,8 @@ A fixed number of slots over the contiguous decode cache
 retired slot is re-used by prefilling the next request into that slot's
 cache slice while every other slot keeps decoding.  Unlike the block-paged
 pool, it holds rolling local windows (gemma3) and the mamba1 state
-(falcon-mamba), which are not paged.  ``max_len`` bounds a slot's
+(falcon-mamba), which are not paged; the hybrid stack's (zamba2) mamba2
+state and shared-block caches sit in the same cache.  ``max_len`` bounds a slot's
 sequence in both (the reference's rule), though an SSM's state does not
 grow with it.
 

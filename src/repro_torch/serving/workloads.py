@@ -9,11 +9,12 @@ arrival=)`` draws one request of a tenant of the traffic model
 
 - ``llm_decode`` — greedy LLM decode over the contiguous
   :class:`~repro_torch.serving.pool.DecodePool`; serves every ported
-  config, rolling local windows (gemma3) and the mamba1 state
-  (falcon-mamba) included;
+  config, rolling local windows (gemma3), the mamba1 state (falcon-mamba)
+  and the hybrid stack (zamba2) included;
 - ``llm_decode_paged`` — greedy LLM decode over a
   :class:`~repro_torch.serving.paged.PagedDecodePool` (dense configs
-  without a rolling window);
+  without a rolling window, and the hybrid stack: its shared-block caches
+  paged, its mamba2 state per slot);
 - ``fixedpoint_solve`` — per-request fixed-point solves over a
   :class:`~repro_torch.serving.pool.FixedPointPool`, from the
   ``repro_torch.asynchrony`` solvers whose parameter enters affinely

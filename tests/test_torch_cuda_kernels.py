@@ -23,7 +23,11 @@ pytestmark = pytest.mark.cuda
 CASES = [(8, 32, 8, 64, 7, 16), (8, 4, 2, 16, 3, 8), (4, 4, 4, 16, 3, 16), (3, 8, 2, 16, 5, 8),
          # qwen2.5-32b's and llama4-scout's heads (rep 5, hd 128) over 66 pages
          # (5 splits), internvl2-1b's (rep 7, hd 64), minicpm-2b's (rep 1, hd 64)
-         (8, 40, 8, 128, 66, 16), (8, 14, 2, 64, 5, 16), (4, 36, 36, 64, 3, 16)]
+         (8, 40, 8, 128, 66, 16), (8, 14, 2, 64, 5, 16), (4, 36, 36, 64, 3, 16),
+         # zamba2-2.7b's shared block (32/32 heads at hd 80) over 260 pages (17
+         # splits); the smoke configs' heads: internvl2-1b's (rep 7, hd 8),
+         # minicpm-2b's (rep 1, hd 12)
+         (8, 32, 32, 80, 260, 16), (4, 7, 1, 8, 3, 8), (4, 6, 6, 12, 3, 8)]
 
 
 @pytest.fixture
@@ -73,7 +77,7 @@ def test_unsupported_shape_raises_on_the_card(cuda):
 # every hd x rep x bs instance, at lengths that probe the v2 kernel's edges:
 # 1, page multiples, the 256-position split's boundaries +-1, a full table
 EDGE_LENGTHS = [1, 8, 16, 32, 255, 256, 257, 511, 512, 513, 1024]
-EDGE_INSTANCES = [(hd, rep, bs) for hd in (16, 64, 128) for rep in (1, 2, 4, 5, 7)
+EDGE_INSTANCES = [(hd, rep, bs) for hd in (8, 12, 16, 64, 80, 128) for rep in (1, 2, 4, 5, 7)
                   for bs in (8, 16)]
 
 
@@ -240,6 +244,14 @@ FLASH_CASES = [
     (1, 130, 90, 7, 1, 128, False, 33, 0), (1, 40, 70, 7, 1, 256, True, 16, 300),
     (1, 30, 200, 14, 2, 64, True, 8, 150), (1, 25, 50, 5, 1, 64, True, 4, 100),
     (1, 300, 300, 40, 8, 128, True, None, 0), (1, 256, 256, 14, 2, 64, True, None, 0),
+    # hd 80 (zamba2-2.7b's shared block, 32/32 heads; bf16 in five 16-column
+    # boxes) at every rep with the same edges, then the smoke configs' hd 8
+    # and 12 (fp32 natively; bf16 padded to hd 16 by the wrapper)
+    (1, 300, 300, 32, 32, 80, True, None, 0), (2, 129, 200, 4, 4, 80, True, 100, 71),
+    (1, 77, 130, 4, 2, 80, False, None, 0), (1, 100, 257, 8, 2, 80, True, 150, 157),
+    (1, 50, 150, 5, 1, 80, True, 40, 100), (1, 40, 70, 7, 1, 80, True, 16, 300),
+    (2, 40, 40, 14, 2, 8, True, None, 0), (1, 60, 60, 7, 1, 8, True, 16, 0),
+    (2, 40, 40, 6, 6, 12, True, None, 0), (1, 45, 90, 12, 6, 12, False, 20, 0),
 ]
 
 

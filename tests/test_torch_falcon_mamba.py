@@ -85,8 +85,10 @@ def test_other_ssm_versions_and_families_are_refused():
     full = registry.get_config(ARCH)
     with pytest.raises(ValueError, match="mamba2 is not ported"):
         registry.override(full, ssm_version=2)
+    with pytest.raises(ValueError, match="hybrid family is mamba2"):
+        registry.override(full, family="hybrid")  # the hybrid family is ported, mamba2 only
     with pytest.raises(ValueError, match="not ported yet"):
-        registry.override(full, family="hybrid")
+        registry.override(full, family="audio")
     with pytest.raises(ValueError, match="ssm_state > 0"):
         registry.override(full, ssm_state=0)
 

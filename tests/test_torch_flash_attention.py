@@ -7,7 +7,7 @@ through the reference's ``flash_attention_ref``, its Pallas kernel in
 interpret mode (as ``tests/test_kernel_flash_attention.py`` runs it) and
 its own ``flash_scan``.  Cases cover causal and bidirectional masks,
 windows of 16 and 48, a query offset, GQA rep 1/2/4/5/7, head dims
-16/64/128/256, and lengths that are not multiples of the chunk.
+8/12/16/64/80/128/256, and lengths that are not multiples of the chunk.
 
 Tolerances: fp32 atol = rtol = 2e-5 (summation order); bf16 2e-2 (the
 two sides round p and the output to bf16 at other places).
@@ -46,6 +46,13 @@ CASES = {
     "rep5-hd16-bidirectional": (2, 30, 45, 5, 1, 16, False, None, 0),
     "rep7-hd64-offset-window24": (1, 40, 70, 14, 2, 64, True, 24, 30),
     "rep7-hd256": (1, 20, 20, 7, 1, 256, True, None, 0),
+    # the reference's own hd 80 case (tests/test_kernel_flash_attention.py),
+    # zamba2's shared block (32/32 heads, rep 1) cut to 4 heads, and the smoke
+    # configs' heads: internvl2-1b's hd 8 (rep 7), minicpm-2b's hd 12 (rep 1)
+    "hd80": (1, 64, 192, 2, 2, 80, True, None, 0),
+    "hd80-window48-offset": (1, 40, 90, 4, 4, 80, True, 48, 50),
+    "rep7-hd8": (2, 30, 30, 7, 1, 8, True, None, 0),
+    "rep1-hd12-window16": (1, 45, 45, 6, 6, 12, True, 16, 0),
 }
 
 

@@ -73,7 +73,7 @@ def test_forward_decode_paged_matches_reference(setup, write_ok):
     pages, tables, lengths, tokens = _state(1, cfg)
     ok = None if write_ok is None else np.asarray(write_ok)
     tpages = {n: _t(v) for n, v in pages.items()}
-    logits, tpages = transformer.forward_decode_paged(
+    logits, tpages, _ = transformer.forward_decode_paged(
         params, _t(tokens, torch.long), tpages, _t(tables), _t(lengths), cfg,
         block_size=BS, write_ok=None if ok is None else _t(ok))
     rlogits, rpages, _ = ref_tf.forward_decode_paged(

@@ -33,8 +33,11 @@ GRID = [
     (8, 40, 8, 128, 5, 16),  # qwen2.5-32b / llama4-scout heads: rep 5, hd 128
     (4, 14, 2, 64, 3, 16),  # internvl2-1b: rep 7
     (3, 7, 1, 128, 4, 8),  # rep 7, hd 128
+    (4, 32, 32, 80, 3, 16),  # zamba2-2.7b's shared block: 32/32 heads at hd 80
+    (3, 7, 1, 8, 3, 8),  # internvl2-1b smoke: rep 7, hd 8
+    (2, 6, 6, 12, 3, 8),  # minicpm-2b smoke: rep 1, hd 12
 ]
-NEW = GRID[6:]  # the widths added with the qwen2.5 / internvl2 / moe configs
+NEW = GRID[6:]  # the widths added with the qwen2.5 / internvl2 / moe / zamba2 configs
 
 
 def _mk(seed, *, S, H, KV, hd, nb, bs):

@@ -136,7 +136,7 @@ def paged_decode_matches_reference(cfg, rcfg, rp, params, *, steps, atol, bs=8, 
     for i in range(steps):
         rl, rpages, _ = ref_step_fn(rp, jnp.asarray(tok), rpages, jnp.asarray(tables),
                                     jnp.asarray(lengths + i))
-        logits, tpages = transformer.forward_decode_paged(
+        logits, tpages, _ = transformer.forward_decode_paged(
             params, as_long(tok), tpages, torch.from_numpy(tables),
             torch.from_numpy(lengths + i), cfg, block_size=bs)
         np.testing.assert_allclose(logits.numpy(), np.asarray(rl), rtol=0, atol=atol,
