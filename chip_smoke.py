@@ -261,7 +261,42 @@ Phases, in order (any failure ends the run with a non-zero exit):
    the plain path, under 11a's bar; 12e. the smoke configs of minicpm-2b
    (hd 12) and internvl2-1b (hd 8) served on the paged pool through the
    kernels (6 requests, dp 3);
-13. the kernels line, then the device line as the last line of stdout.
+13. training every family on one card, random bf16 weights drawn on the
+   card from seed 0: 13a. each family through the train CLI's
+   ``main()`` at published widths, 2 x 1024 tokens a rank, ``--remat
+   full``, a warm-up step and 2 counted ones, each run counted from 0:
+   hubert-xlarge and internvl2-1b whole, minicpm-2b cut to 18 layers,
+   falcon-mamba-7b to 10, zamba2-2.7b to 24 (4 groups) under
+   ``compressed`` at dp 3; gemma3-12b cut to one group (5 local + 1
+   global) under ``mrd_zero1`` at dp 2 and mixtral-8x7b to 1 layer under
+   ``compressed`` at dp 2 (``TRAIN_FAMILIES`` says why): every loss and
+   grad norm finite, ``mrd_combine`` launched once a reducing stage a
+   bucket a step under ``compressed`` (never under ``mrd_zero1``), no other
+   kernel (autograd takes the plain versions), the moe run's aux loss; ms a
+   step, tokens/s and the peak; 13b. the smoke configs of gemma3,
+   falcon-mamba, mixtral, llama4-scout, internvl2, zamba2 and hubert trained
+   3 steps under ``compressed`` at dp 3 on the CPU, each step run on the
+   card too from a copy of the CPU's state before it, on the same batches:
+   losses atol 1e-4, grad norms rtol 5e-4, the monitor certifying at step
+   3 on both, and the card's state after each step (params, masters,
+   moments, EF residuals, monitor rows) against the CPU's under the
+   family tests' int8 tie rule; the moe configs also run free, for the
+   record of the tokens their drift reroutes; 13c. ``mrd_leaf`` and
+   ``local_sgd`` at llama3.2-1b's full width, dp 3, 4 steps with
+   ``local_sync_every`` 2: ms a step, the average's share of a sync step,
+   and every replica's params equal bit for bit after each average; 13d.
+   the checkpoint round trip (llama3.2-1b at full width cut to 4 layers,
+   ``compressed``, dp 3): 5 steps, ``save(block=False)`` after steps 2
+   and 3 (the second into the first's pinned buffers); then a fresh train
+   step restored from step 3 through the CLI's resume path runs the same
+   2 batches: its losses and final params equal bit for bit; each save's
+   hold on the loop, the writer's time, the bytes, the step time with a
+   write in flight; 13e. hubert-xlarge whole at remat ``none``, ``full``
+   and ``dots``: ms a step and the peak, the losses within 1e-4 relative;
+   13f. hubert-xlarge's (remat ``full`` and ``dots``) and the falcon-mamba
+   cut's train step profiled (wall, busy, idle share, the costliest
+   kernels, device time by class and by launching function);
+14. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
@@ -2341,6 +2376,514 @@ def hybrid_phases(all_ops, t: float) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# 13. training every family on one card
+# ---------------------------------------------------------------------------
+
+# 13a: arch -> (layers kept, or None for the whole model; dp; grad sync).
+# Published widths; a depth cut keeps the peak under ~72 GiB (llama3.2-1b
+# at dp 3 under compressed peaks at ~47 B a parameter): minicpm-2b's 40
+# layers to 18 (1.38 B parameters), falcon-mamba-7b's 64 to 10 (1.32 B),
+# zamba2-2.7b's 54 to 24 (4 groups of 6 and the shared block, 1.23 B),
+# gemma3-12b's 48 to one group of 5 local + 1 global (2.35 B, 1.0 B of it
+# the embedding: dp 2 under mrd_zero1, which holds no EF rows), mixtral-8x7b's
+# 32 to 1 (1.71 B, 1.41 B of it experts: dp 2)
+TRAIN_FAMILIES = {
+    "hubert-xlarge": (None, 3, "compressed"),
+    "internvl2-1b": (None, 3, "compressed"),
+    "minicpm-2b": (18, 3, "compressed"),
+    "falcon-mamba-7b": (10, 3, "compressed"),
+    "zamba2-2.7b": (24, 3, "compressed"),
+    "gemma3-12b": (6, 2, "mrd_zero1"),
+    "mixtral-8x7b": (1, 2, "compressed"),
+}
+TRAIN_SEQ, TRAIN_PER_RANK = 1024, 2  # 2 x 1024 tokens a rank
+TRAIN_STEPS = 3  # one warm-up step, then the counted ones (ms/step, tokens/s)
+# 13b: the smoke configs trained on the card and on the CPU
+TRAIN_SMOKE = ("gemma3-12b", "falcon-mamba-7b", "mixtral-8x7b", "llama4-scout-17b-a16e",
+               "internvl2-1b", "zamba2-2.7b", "hubert-xlarge")
+MODE_STEPS, MODE_SYNC_EVERY = 4, 2  # 13c
+CKPT_LAYERS = 4  # 13d: llama3.2-1b at full width, cut to 4 of 16 layers (a 16 GB state)
+
+
+def train_argv(arch: str, dp: int, mode: str, steps: int, remat: str = "full") -> list:
+    return ["--arch", arch, "--steps", str(steps), "--batch", str(TRAIN_PER_RANK * dp),
+            "--seq", str(TRAIN_SEQ), "--dp", str(dp), "--grad-sync", mode, "--remat", remat,
+            "--device", "cuda"]
+
+
+@contextlib.contextmanager
+def depth_cut(arch: str, layers):
+    """The registry's full config of ``arch`` cut to ``layers`` (None: whole)."""
+    from repro_torch.configs import registry
+
+    cut = ({} if layers is None else
+           {arch: registry.override(registry.get_config(arch), n_layers=layers)})
+    with mock.patch.dict(registry._FULL, cut):
+        yield registry.get_config(arch)
+
+
+def combine_launches_expected(params, dp: int, mode: str, steps: int) -> int:
+    """``mrd_combine`` launches of ``steps`` steps: one a reducing stage a
+    bucket under the int8 transform, none under identity."""
+    from repro_torch.collectives import plans
+    from repro_torch.distributed import step as step_lib
+
+    if mode != "compressed":
+        return 0
+    layout, _ = step_lib.zero1_layout(params, dp)
+    stages = [st for st, *_ in plans.reduce_scatter_plan(p=dp).bound_stage_table()
+              if st.kind in ("bshift", "rs")]
+    return steps * len(stages) * len(layout.buckets)
+
+
+def train_family(all_ops, arch: str, layers, dp: int, mode: str, *, steps=TRAIN_STEPS,
+                 remat="full") -> dict:
+    """One family through the CLI's ``main()`` at published widths, counted
+    from 0: finite losses and grad norms, ``mrd_combine`` launched once a
+    reducing stage a bucket a step, no other kernel (autograd takes the
+    plain versions); ms a step and tokens/s over the steps after the
+    first, the peak device memory."""
+    from repro_torch.launch import train
+
+    free_device()
+    zero(all_ops)
+    torch.cuda.reset_peak_memory_stats()
+    with depth_cut(arch, layers) as cfg:
+        rec = train.main(train_argv(arch, dp, mode, steps, remat))
+    got = counts(all_ops)
+    want = combine_launches_expected(rec["state"]["params"], dp, mode, steps)
+    expect_launches(got, {"mrd_combine": want}, f"13a {arch} train", torch.device("cuda"))
+    if mode == "compressed" and not want:
+        raise SystemExit(f"{arch}: the compressed sync launched no mrd_combine")
+    vals = rec["losses"] + rec["grad_norms"] + rec.get("aux_losses", [])
+    if len(rec["losses"]) != steps or not all(np.isfinite(vals)):
+        raise SystemExit(f"{arch}: training did not finish every step with finite values: "
+                         f"{rec['losses']} {rec['grad_norms']}")
+    if cfg.family == "moe" and len(rec.get("aux_losses", [])) != steps:
+        raise SystemExit(f"{arch}: the moe run reported no aux loss")
+    steady = rec["ms_per_step"][1:]
+    stats = {"layers": cfg.n_layers, "params": cfg.n_params(), "dp": dp, "grad_sync": mode,
+             "remat": remat, "tokens_a_step": TRAIN_PER_RANK * dp * TRAIN_SEQ,
+             "losses": rec["losses"], "grad_norms": rec["grad_norms"],
+             "ms_per_step": rec["ms_per_step"], "ms_per_step_mean": sum(steady) / len(steady),
+             "tokens_per_s": rec["tokens_per_s"], "peak_gib": rec["peak_bytes"] / 2**30,
+             "mrd_combine": got["mrd_combine"]}
+    if "aux_losses" in rec:
+        stats["aux_losses"] = rec["aux_losses"]
+    log(f"13a {arch}: {cfg.n_layers} layers ({cfg.n_params() / 1e9:.3f} B parameters), dp {dp}, "
+        f"{mode}, remat {remat}: losses {rec['losses']}, grad norms {rec['grad_norms']}"
+        + (f", aux {rec['aux_losses']}" if "aux_losses" in rec else "")
+        + f"; ms/step {[round(m, 1) for m in rec['ms_per_step']]} (steps 2-{steps}: "
+        f"{stats['ms_per_step_mean']:.1f}), tokens/s {rec['tokens_per_s']:.1f}, peak device "
+        f"memory {stats['peak_gib']:.3f} GiB, mrd_combine launches {got['mrd_combine']}")
+    stats["state"] = rec["state"]
+    return stats
+
+
+SMOKE_LR = 1e-2  # 13b's learning rate: a flipped int8 tie moves a coordinate by up to 2 x lr
+
+
+def state_gap(card, cpu) -> dict:
+    """The card's train state after a step against the CPU's after the
+    same step from the same state, under the family tests' rule for the
+    int8 sync (``tests/test_torch_train_families.py``): at most 2% of a
+    leaf's elements beyond 1e-4, and none beyond 2 x lr (params, masters),
+    1e-2 (moments) or 2.5 x the CPU's largest residual of the leaf (EF);
+    the monitor rows' counters and flags equal, their values within phase
+    5c's loss bar.  Returns the elements beyond 1e-4 (the footprint of
+    the flipped ties) and what broke the rule (None)."""
+    from repro_torch.collectives import buckets
+
+    beyond, bad = 0, []
+    for part in ("params", "opt"):
+        ours, names = buckets.tree_flatten(card[part])
+        theirs, rnames = buckets.tree_flatten(cpu[part])
+        if names != rnames:
+            return {"beyond_1e-4": None, "bad": [f"{part}: leaves {names} != {rnames}"]}
+        for name, a, b in zip(names, ours, theirs):
+            d = (a.detach().cpu().float() - b.float()).abs()
+            over = int((d > 1e-4).sum())
+            beyond += over
+            bound = 2 * SMOKE_LR
+            if part == "opt" and name[0] in ("mu", "nu"):
+                bound = 1e-2
+            elif part == "opt" and name[0] == "ef":
+                bound = 2.5 * float(b.abs().max())
+            if float(d.max()) > bound or over > 0.02 * d.numel():
+                bad.append(f"{part}/{'/'.join(map(str, name))}: max {float(d.max()):.3e} (bound "
+                           f"{bound:.3e}), {over} of {d.numel()} beyond 1e-4")
+    ma, mb = card["monitor"], cpu["monitor"]
+    if any(ma["nb"][k] != mb["nb"][k] for k in ("stage", "flag", "cycles")) or not torch.equal(
+            ma["done"].cpu(), mb["done"]) or sorted(ma["m"]) != sorted(mb["m"]) or not all(
+            torch.allclose(x.cpu().float(), y.float(), rtol=0, atol=1e-4) for x, y in
+            [(ma["nb"]["buf"], mb["nb"]["buf"]), (ma["nb"]["result"], mb["nb"]["result"]),
+             (ma["value"], mb["value"])] + [(ma["m"][k], mb["m"][k]) for k in mb["m"]]):
+        bad.append(f"monitor rows: card {ma} != cpu {mb}")
+    return {"beyond_1e-4": beyond, "bad": bad or None}
+
+
+def moe_routes(params, batch, cfg, device) -> torch.Tensor:
+    """The experts that keep each token of ``batch`` in each moe layer
+    under ``params`` (its routing after the capacity drops), through the
+    training forward (autograd on, so the plain versions, as in a train
+    step) on ``device``: [layers x tokens, experts] of 0/1."""
+    from repro_torch.models import moe, transformer
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return {k: leaves(v) for k, v in tree.items()}
+        return tree.detach().to(device).requires_grad_(tree.is_floating_point())
+
+    got, capacity_keep = [], moe.capacity_keep
+
+    def record(idx, c):
+        out = capacity_keep(idx, c)
+        flat_e, _, keep = out
+        kept = torch.nn.functional.one_hot(flat_e, c.n_experts) * keep[..., None]
+        got.append(kept.reshape(-1, c.top_k, c.n_experts).sum(1).detach().cpu())
+        return out
+
+    with torch.enable_grad(), mock.patch.object(moe, "capacity_keep", record):
+        transformer.forward_train(leaves(params), to_device(batch, device), cfg)
+    return torch.cat(got)
+
+
+def free_running_drift(steps, state, batches, cfg) -> list:
+    """For the record (no gate): a moe smoke config's free-running card run
+    against the CPU's from the same state.  A step: the tokens (of every
+    moe layer) whose experts differ from the CPU's routing of the CPU's
+    state (:func:`moe_routes`), when the CPU routes the card's state
+    (``reroutes_by_state``) and when the card routes the CPU's
+    (``reroutes_by_device``); after it, the state's elements beyond 1e-4
+    and the loss and grad-norm gaps."""
+    card, cpu = to_device(state, "cuda"), to_device(state, "cpu")
+    out = []
+    for i, b in enumerate(batches):
+        ref = moe_routes(cpu["params"], b, cfg, "cpu")
+        by_state = int((moe_routes(card["params"], b, cfg, "cpu") != ref).any(-1).sum())
+        by_device = int((moe_routes(cpu["params"], b, cfg, "cuda") != ref).any(-1).sum())
+        card, mg = steps["cuda"](card, to_device(b, "cuda"))
+        cpu, mc = steps["cpu"](cpu, b)
+        out.append({"step": i + 1, "tokens": ref.shape[0], "reroutes_by_state": by_state,
+                    "reroutes_by_device": by_device,
+                    "beyond_1e-4": state_gap(card, cpu)["beyond_1e-4"],
+                    "loss_gap": float(mg["loss"]) - float(mc["loss"]),
+                    "grad_norm_rel_gap": float(mg["grad_norm"]) / float(mc["grad_norm"]) - 1})
+    return out
+
+
+def smoke_card_vs_cpu(all_ops, arch: str) -> dict:
+    """13b. ``arch``'s smoke config trained 3 steps under ``compressed`` at dp
+    3 on the CPU, each step run on the card too from a copy of the CPU's
+    state before it (weights drawn once on the CPU), on the same batches:
+    phase 5c's tolerances (losses atol 1e-4, grad norms rtol 5e-4, the
+    monitor's flags equal and certifying at step 3), and the card's state
+    after each step against the CPU's (:func:`state_gap`).  Each card step
+    starts from the CPU's state because a gradient on an int8 rounding tie
+    rounds one way on each device, AdamW's first updates move that
+    coordinate by about 2 x lr whatever its size, and under top-1 routing
+    with capacity drops (llama4-scout) such a coordinate can reroute a
+    token: a free-running card run leaves 5c's bounds by step 2 (3e-4 in
+    the loss at step 2, 2% in the grad norm at step 3).  The moe configs
+    also run free (:func:`free_running_drift`), to count the reroutes."""
+    from repro_torch.collectives import buckets
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.kernels.mrd_combine import ops as mc_ops
+    from repro_torch.optim.optimizer import OptimizerConfig
+
+    smoke = registry.get_smoke_config(arch)
+    tcfg = step_lib.TrainConfig(
+        remat="full", grad_sync="compressed", monitor=True, monitor_threshold=100.0,
+        bucket_bytes=1 << 15, optimizer=OptimizerConfig(lr=SMOKE_LR, schedule="const",
+                                                        warmup_steps=0))
+    steps = {dev: step_lib.make_train_step(smoke, tcfg, dp=3, device=dev)
+             for dev in ("cpu", "cuda")}
+    state = steps["cpu"].init_state(torch.Generator().manual_seed(0))
+    pipe = SyntheticPipeline(smoke, DataConfig(batch=6, seq_len=16, seed=0), "cpu")
+    batches = [pipe.next_batch() for _ in range(3)]
+    state0 = to_device(state, "cpu")
+    hist, beyond = {"cuda": [], "cpu": []}, []
+    n0 = mc_ops.mrd_combine.launches
+    for i, b in enumerate(batches):
+        card, m = steps["cuda"](to_device(state, "cuda"), to_device(b, "cuda"))
+        hist["cuda"].append((float(m["loss"]), float(m["grad_norm"]), bool(m["converged"])))
+        state, m = steps["cpu"](state, b)
+        hist["cpu"].append((float(m["loss"]), float(m["grad_norm"]), bool(m["converged"])))
+        gap = state_gap(card, state)
+        if gap["bad"]:
+            raise SystemExit(f"13b {arch} smoke training, the state after step {i + 1}: "
+                             + "; ".join(gap["bad"]))
+        beyond.append(gap["beyond_1e-4"])
+        del card
+    launched = mc_ops.mrd_combine.launches - n0
+    for (lg, gg, cg), (lc, gc, cc) in zip(hist["cuda"], hist["cpu"]):
+        if not (abs(lg - lc) <= 1e-4 and abs(gg - gc) <= 5e-4 * abs(gc) and cg == cc):
+            raise SystemExit(f"13b {arch} smoke training: card {hist['cuda']} != cpu "
+                             f"{hist['cpu']}")
+    if [c for *_, c in hist["cuda"]] != [False, False, True] or not launched:
+        raise SystemExit(f"13b {arch}: the monitor did not certify at step 3, or no "
+                         f"mrd_combine launch: {hist['cuda']}, {launched} launches")
+    n_state = sum(t.numel() for part in ("params", "opt")
+                  for t in buckets.tree_flatten(state[part])[0])
+    log(f"13b {arch} smoke, compressed dp 3, 3 steps, each from the CPU's state: card "
+        f"({launched} mrd_combine launches) {hist['cuda']} vs cpu {hist['cpu']}; the state "
+        f"after each step within the int8 tie rule, elements beyond 1e-4 {beyond} of {n_state}")
+    out = {"card": hist["cuda"], "cpu": hist["cpu"], "mrd_combine": launched,
+           "state_beyond_1e-4": beyond, "state_elements": n_state}
+    if smoke.family == "moe":
+        out["free_running"] = free_running_drift(steps, state0, batches, smoke)
+        log(f"13b {arch} free-running, for the record: " + "; ".join(
+            f"step {d['step']}: reroutes {d['reroutes_by_state']} by state, "
+            f"{d['reroutes_by_device']} by device of {d['tokens']} token-layers, "
+            f"{d['beyond_1e-4']} state elements beyond 1e-4, loss gap {d['loss_gap']:.3e}, "
+            f"grad norm {d['grad_norm_rel_gap']:+.3e} relative" for d in out["free_running"]))
+    return out
+
+
+def train_modes_phase() -> dict:
+    """13c. ``mrd_leaf`` and ``local_sgd`` at llama3.2-1b's full width, dp 3,
+    4 steps with ``local_sync_every`` 2 (two averages): ms a step each, and
+    for ``local_sgd`` the average's share of a sync step; after each
+    average every replica's params equal bit for bit."""
+    from repro_torch.collectives import buckets
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.optim.optimizer import OptimizerConfig
+
+    cfg = registry.get_config("llama3.2-1b")
+    out = {}
+    for mode in ("mrd_leaf", "local_sgd"):
+        free_device()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = step_lib.TrainConfig(remat="full", grad_sync=mode, monitor=mode != "local_sgd",
+                                    monitor_threshold=1e-3, local_sync_every=MODE_SYNC_EVERY,
+                                    optimizer=OptimizerConfig(lr=3e-3, warmup_steps=0,
+                                                              total_steps=MODE_STEPS))
+        step = step_lib.make_train_step(cfg, tcfg, dp=3, device="cuda")
+        state = step.init_state(torch.Generator(device="cuda").manual_seed(0))
+        pipe = SyntheticPipeline(cfg, DataConfig(batch=6, seq_len=TRAIN_SEQ), "cuda")
+        avg_ms = []
+        if mode == "local_sgd":
+            average = step.average_
+
+            def timed(params):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                average(params)
+                torch.cuda.synchronize()
+                avg_ms.append((time.perf_counter() - t1) * 1e3)
+
+            step.average_ = timed
+        ms, losses, equal = [], [], []
+        for i in range(MODE_STEPS):
+            batch = pipe.next_batch()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if mode == "local_sgd" and (i + 1) % MODE_SYNC_EVERY == 0:
+                equal.append(all(torch.equal(leaf[0], leaf[r]) for leaf in
+                                 buckets.tree_flatten(state["params"])[0] for r in range(1, 3)))
+        if not all(np.isfinite(losses)) or (mode == "local_sgd" and not (
+                len(equal) == 2 and all(equal) and len(avg_ms) == 2)):
+            raise SystemExit(f"13c {mode}: losses {losses}, replicas equal after the averages "
+                             f"{equal}")
+        out[mode] = {"losses": losses, "ms_per_step": ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        line = (f"13c {mode} llama3.2-1b dp 3, {MODE_STEPS} steps: losses {losses}, ms/step "
+                f"{[round(x, 1) for x in ms]}, peak device memory {out[mode]['peak_gib']:.3f} GiB")
+        if mode == "local_sgd":
+            sync_ms = [ms[i] for i in range(MODE_STEPS) if (i + 1) % MODE_SYNC_EVERY == 0]
+            out[mode].update(average_ms=avg_ms, average_share=[a / s for a, s in
+                                                                zip(avg_ms, sync_ms)])
+            line += (f"; the average {[round(x, 1) for x in avg_ms]} ms, "
+                     f"{[round(x, 3) for x in out[mode]['average_share']]} of its sync step; "
+                     f"every replica's params equal bit for bit after each average")
+        log(line)
+        del step, state, pipe
+    return out
+
+
+def checkpoint_phase() -> dict:
+    """13d. The checkpoint round trip at full width (llama3.2-1b cut to
+    CKPT_LAYERS layers, compressed, dp 3) with the CLI's pieces: run A
+    trains 5 steps and snapshots with ``save(block=False)`` after step 2
+    (the first save, which allocates the pinned host buffers) and after
+    step 3 (which joins step 2's writer, then stages into the same
+    buffers), so steps 4-5 run with step 3's write in flight; run B is a
+    fresh train step and pipeline restored from step 3 through the CLI's
+    resume path, then trains the same 2 batches.  B's losses and final
+    params must equal A's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.collectives import buckets
+    from repro_torch.launch import train
+    from repro_torch.models import convert
+
+    argv = train_argv("llama3.2-1b", 3, "compressed", 5) + ["--schedule", "const"]
+    args = train.build_parser().parse_args(argv)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        with depth_cut("llama3.2-1b", CKPT_LAYERS):
+            free_device()
+            device, cfg, train_step, pipe = train.make(args)
+            state = train_step.init_state(torch.Generator(device=device).manual_seed(0))
+            ck = Checkpointer(os.path.join(root, "a"))
+            ms, losses_a = [], []
+            for i in range(5):
+                batch = pipe.next_batch()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, m = train_step(state, batch)
+                losses_a.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t1) * 1e3)
+                if i in (1, 2):
+                    ck.save(state["step"], convert.train_state_to_reference(state),
+                            extra={"data": pipe.state_dict(), "dp": args.dp,
+                                   "grad_sync": args.grad_sync}, block=False)
+                if i == 3:  # the writer records its time when it is done
+                    in_flight = "write_s" not in ck.saves[1]
+            ck.wait()
+            first, save = ck.saves
+            final_a = {k: v.cpu() for k, v in zip(
+                *reversed(buckets.tree_flatten(state["params"])))}
+            del state, train_step, pipe, ck  # ck holds the pinned buffers
+            free_device()
+            device, cfg, train_step, pipe = train.make(args)
+            state = train_step.init_state(torch.Generator(device=device).manual_seed(1))
+            t1 = time.perf_counter()
+            state, step0 = train.resume(Checkpointer(os.path.join(root, "a")), state, cfg, pipe,
+                                        args.dp, device)
+            restore_s = time.perf_counter() - t1
+            losses_b = []
+            for _ in range(2):
+                state, m = train_step(state, pipe.next_batch())
+                losses_b.append(float(m["loss"]))
+            final_b = dict(zip(*reversed(buckets.tree_flatten(state["params"]))))
+            same = all(torch.equal(final_a[k], final_b[k].cpu()) for k in final_a)
+            del state, train_step, pipe
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats = {"layers": CKPT_LAYERS, "bytes": save["bytes"], "hold_ms": save["hold_s"] * 1e3,
+             "first_hold_ms": first["hold_s"] * 1e3, "first_write_s": first["write_s"],
+             "wait_ms": save["wait_s"] * 1e3,
+             "write_s": save["write_s"], "restore_s": restore_s, "ms_per_step": ms,
+             "ms_without_save": ms[1], "ms_with_save_in_flight": ms[2:],
+             "write_in_flight_through_step_4": in_flight, "losses_a": losses_a,
+             "losses_b": losses_b, "resumed_from": step0, "bitwise": same}
+    log(f"13d checkpoint round trip, llama3.2-1b full width cut to {CKPT_LAYERS} layers, "
+        f"compressed dp 3: {save['bytes'] / 2**30:.3f} GiB a save; the first save(block=False), "
+        f"after step 2, held the loop {stats['first_hold_ms']:.1f} ms (the pinned buffers "
+        f"allocated), its writer took {first['write_s']:.2f} s; the second, after step 3, joined "
+        f"that writer for {stats['wait_ms']:.1f} ms, then held the loop {stats['hold_ms']:.1f} ms "
+        f"(the buffers reused), its writer took {save['write_s']:.2f} s (still "
+        f"writing when step 4 ended: {in_flight}); step 2 {ms[1]:.1f} ms without a save, steps "
+        f"3-5 {[round(x, 1) for x in ms[2:]]} ms with one in flight; restore through the CLI's "
+        f"resume path {restore_s:.2f} s; run A losses 4-5 {losses_a[3:]}, run B {losses_b}; "
+        f"final params equal bit for bit: {same}")
+    if step0 != 3 or losses_b != losses_a[3:] or not same:
+        raise SystemExit(f"13d: the resumed run differs from the uninterrupted one: {stats}")
+    return stats
+
+
+def train_profile(arch: str, layers, dp: int, mode: str, state, remat: str = "full") -> dict:
+    """13f. Where one train step's time goes: wall without the profiler,
+    device busy, idle share, the costliest kernels, device time by class
+    and by the function that launched it (attention, the MLP, the chunked
+    scan, the gradient sync's plans, the optimizer; each function's forward
+    and recompute, not the backward's kernels, which carry no range)."""
+    from repro_torch.collectives import plans
+    from repro_torch.launch import train
+    from repro_torch.models import ssm, transformer
+    from repro_torch.optim import optimizer as opt_lib
+
+    with depth_cut(arch, layers):
+        args = train.build_parser().parse_args(train_argv(arch, dp, mode, 1, remat))
+        _, cfg, train_step, pipe = train.make(args)
+        box = {"s": state}
+        batch = pipe.next_batch()
+
+        def one_step():
+            box["s"], m = train_step(box["s"], batch)
+            return m
+
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        float(one_step()["loss"])
+        wall = (time.perf_counter() - t1) * 1e3
+        busy, per_step = device_profile(one_step, 1)
+        targets = {"attention": (transformer, "attention"), "mlp": (transformer, "mlp_apply"),
+                   "chunk_scan": (ssm, "chunk_scan"),
+                   "grad_sync": (plans.CollectivePlan, "run_buffers"),
+                   "adamw": (opt_lib, "apply_update_vector")}
+        names = (("chunk_scan", "grad_sync", "adamw") if cfg.family == "ssm"
+                 else ("attention", "mlp", "grad_sync", "adamw"))
+        parts = annotated_device_ms(one_step, 1, {k: targets[k] for k in names})
+    log(f"13f {arch} train step ({TRAIN_PER_RANK * dp} x {TRAIN_SEQ} tokens, dp {dp}, {mode}, "
+        f"remat {remat}): wall {wall:.1f} ms, device busy {busy:.1f} ms, device idle share "
+        f"{1 - busy / wall:.3f}")
+    for name, (ms_s, n_s) in top_kernels(per_step, 10):
+        log(f"  {ms_s:10.3f} ms/step {n_s:6.0f} launches/step  {name[:110]}")
+    classes = kernel_classes(per_step, busy)
+    log("  device time by the function that launched it: " + ", ".join(
+        f"{k} {v:.1f} ms ({v / busy:.3f})" for k, v in parts.items()))
+    box.clear()
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "busy_ms_by_class": classes, "busy_ms_by_function": parts}
+
+
+def training_phases(all_ops, t: float) -> dict:
+    """13. Training every family on one card: 13a each family through the
+    CLI at published widths (counted launches), 13b the smoke configs card
+    against CPU, 13c ``mrd_leaf`` and ``local_sgd``, 13d the checkpoint
+    round trip, 13e remat on hubert-xlarge, 13f three profiled steps."""
+    stats: dict = {"families": {}, "profiles": {}}
+    launches = 0
+    for arch, (layers, dp, mode) in TRAIN_FAMILIES.items():
+        fam = train_family(all_ops, arch, layers, dp, mode)
+        launches += fam["mrd_combine"]
+        state = fam.pop("state")
+        if arch in ("hubert-xlarge", "falcon-mamba-7b"):  # 13f
+            stats["profiles"][arch] = train_profile(arch, layers, dp, mode, state)
+        del state
+        stats["families"][arch] = fam
+        t = phase(f"train-{arch}", t)
+    stats["launches"] = {"mrd_combine": launches}
+    stats["smoke_card_vs_cpu"] = {a: smoke_card_vs_cpu(all_ops, a) for a in TRAIN_SMOKE}
+    t = phase("train-smoke-card-vs-cpu", t)
+    stats["modes"] = train_modes_phase()
+    t = phase("train-mrd-leaf-local-sgd", t)
+    stats["checkpoint"] = checkpoint_phase()
+    t = phase("train-checkpoint", t)
+    remat = {}
+    for r in ("none", "full", "dots"):  # 13e
+        fam = train_family(all_ops, "hubert-xlarge", None, 3, "compressed", remat=r)
+        state = fam.pop("state")
+        if r == "dots":  # 13f: where dots' step goes, beside 13a's remat full profile
+            stats["profiles"]["hubert-xlarge dots"] = train_profile(
+                "hubert-xlarge", None, 3, "compressed", state, remat="dots")
+        del state
+        remat[r] = {k: fam[k] for k in ("losses", "ms_per_step_mean", "peak_gib")}
+    base = remat["none"]["losses"]
+    for r, v in remat.items():
+        if any(abs(a - b) > 1e-4 * abs(b) for a, b in zip(v["losses"], base)):
+            raise SystemExit(f"13e remat {r}: losses {v['losses']} != none's {base}")
+    log("13e hubert-xlarge remat: " + "; ".join(
+        f"{r} {v['ms_per_step_mean']:.1f} ms/step, peak {v['peak_gib']:.3f} GiB"
+        for r, v in remat.items()) + " (losses within 1e-4 relative of remat none's)")
+    stats["remat"] = remat
+    t = phase("train-remat", t)
+    free_device()
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2393,6 +2936,8 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     build_kernels(t)
     t = phase("build", t)
+    all_ops = (ops.paged_attention, mc_ops.mrd_combine, fa_ops.flash_attention, rn_ops.rmsnorm,
+               ss_ops.selective_scan)
 
     # 3. kernel vs plain on the card
     errs = {}
@@ -2451,8 +2996,6 @@ def main() -> int:
     serve.main(SERVE_ARGV + ["--requests", "2", "--gen", "4", "--device", "cuda"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    all_ops = (ops.paged_attention, mc_ops.mrd_combine, fa_ops.flash_attention, rn_ops.rmsnorm,
-               ss_ops.selective_scan)
     for op in all_ops:
         op.launches = 0
     eng = serve.main(SERVE_ARGV + ["--device", "cuda"])
@@ -3160,7 +3703,12 @@ def main() -> int:
     hyb_stats = hybrid_phases(all_ops, time.perf_counter())
     p12 = hyb_stats["launches"]
 
-    # 13. results
+    # 13. training every family on one card (13a's runs counted from 0)
+    free_device()
+    train13 = training_phases(all_ops, time.perf_counter())
+    p13 = train13["launches"]["mrd_combine"]
+
+    # 14. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -3176,6 +3724,7 @@ def main() -> int:
                                      if k != "bench_serve"}}))
     log(json.dumps({"families": fam_stats}))
     log(json.dumps({"hybrid": hyb_stats}))
+    log(json.dumps({"training": train13}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
@@ -3205,8 +3754,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/mrd_combine/csrc/mrd_combine.cu",
         "replaces": "src/repro/kernels/mrd_combine/kernel.py:31",
-        "launches": train_launches + coll_launches,
-        "launches_by_path": {"train": train_launches, "collectives": coll_launches},
+        "launches": train_launches + coll_launches + p13,
+        "launches_by_path": {"train": train_launches, "collectives": coll_launches,
+                             "training_families": p13},
         "max_abs_err": errs[(COMBINE_CASES[-1], torch.float32)],
         "ms": mc_ms,
         "plain_ms": mc_plain_ms,

@@ -1,8 +1,9 @@
 """Architecture registry (port of ``repro.configs.registry``).
 
-Only the archs the port can serve (and, dense ones, train) are registered:
-the full config of each and its reduced smoke config, with the reference's
-numbers.  Each arch also has a module of its own (``configs/<arch>.py``:
+Every arch of the reference is registered: the full config of each and
+its reduced smoke config, with the reference's numbers.  The port trains
+all of them and serves all but the encoder-only hubert-xlarge, which the
+reference never serves either.  Each arch also has a module of its own (``configs/<arch>.py``:
 ``ARCH``, ``CONFIG``, ``SMOKE``), as in the reference.
 """
 
@@ -152,6 +153,21 @@ _register(
         name="internvl2-1b", family="vlm", n_layers=2, d_model=56,
         n_heads=7, n_kv_heads=1, d_ff=112, vocab=256,
         head_dim=8, frontend="vision", n_frontend_tokens=8,
+        param_dtype="float32", compute_dtype="float32",
+    ),
+)
+
+_register(
+    # [arXiv:2106.07447] encoder-only; frame embeddings from a stub frontend
+    ModelConfig(
+        name="hubert-xlarge", family="audio", n_layers=48, d_model=1280,
+        n_heads=16, n_kv_heads=16, d_ff=5120, vocab=512,  # 504 padded to /16 for TP
+        head_dim=80, causal=False, frontend="audio", act="gelu",
+    ),
+    ModelConfig(
+        name="hubert-xlarge", family="audio", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=4, d_ff=128, vocab=64,
+        causal=False, frontend="audio", act="gelu",
         param_dtype="float32", compute_dtype="float32",
     ),
 )

@@ -1,15 +1,17 @@
 """Synthetic but deterministic LM batches (port of
-``repro.data.pipeline``, the token stream).
+``repro.data.pipeline``): the token stream, and the frontends' stub
+inputs (vision patches; audio frames with per-frame labels).
 
 A batch is keyed only on ``(seed, step)``, so the stream is the same
-across restarts.  Tokens mix short repeated motifs from a fixed bank with
+across restarts, and the pipeline's state is its step: the checkpointable
+cursor (:meth:`SyntheticPipeline.state_dict`) that a resumed run loads.  Tokens mix short repeated motifs from a fixed bank with
 25% uniform noise, which gives a model something to learn without an
 external dataset.  Draws come from explicit ``torch.Generator``s on the
-CPU (a few thousand integers a batch) and the batch is then moved to the
-pipeline's device, so the card and the CPU see the same tokens.  torch
+CPU (a few thousand integers a batch; the frontends' inputs are normal
+draws of [B, P, 1024] or [B, S, 80]) and the batch is then moved to the
+pipeline's device, so the card and the CPU see the same batches.  torch
 draws other numbers than ``jax.random``: the stream has the reference's
-shape and mix, not its values.  The reference's checkpointable cursor
-(``state_dict``) waits for the checkpointer.
+shape and mix, not its values.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontends import audio_frames, vision_patches
 
 
 @dataclasses.dataclass
@@ -47,6 +50,16 @@ class SyntheticPipeline:
         self._motifs = torch.randint(0, cfg.vocab, (dcfg.n_motifs, dcfg.motif_len),
                                      generator=gen)
 
+    # --- checkpointable state ---
+    def state_dict(self) -> dict:
+        return {"step": self.step, "seed": self.dcfg.seed}
+
+    def load_state_dict(self, st: dict) -> None:
+        if st["seed"] != self.dcfg.seed:
+            raise ValueError(f"data seed mismatch on restore: the checkpoint's stream is seed "
+                             f"{st['seed']}, this pipeline's {self.dcfg.seed}")
+        self.step = int(st["step"])
+
     def _tokens(self, gen: torch.Generator, B: int, S: int) -> torch.Tensor:
         n_chunks = -(-S // self.dcfg.motif_len)
         ids = torch.randint(0, self.dcfg.n_motifs, (B, n_chunks), generator=gen)
@@ -57,8 +70,21 @@ class SyntheticPipeline:
 
     def next_batch(self) -> dict[str, torch.Tensor]:
         """``{"tokens", "labels": [batch, seq_len] int64}``, labels the
-        tokens shifted by one."""
+        tokens shifted by one; with the vision frontend also ``patches``
+        [batch, n_frontend_tokens, 1024] in the compute type (bf16, or fp32
+        for an fp32 config); for the audio encoder ``{"frames": [batch,
+        seq_len, 80] fp32, "labels": [batch, seq_len] int64}`` instead, a
+        uniform label a frame, as the reference's."""
         gen = torch.Generator().manual_seed((self.dcfg.seed << 32) + self.step)
         self.step += 1
-        toks = self._tokens(gen, self.dcfg.batch, self.dcfg.seq_len + 1).to(self.device)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        B, S = self.dcfg.batch, self.dcfg.seq_len
+        toks = self._tokens(gen, B, S + 1)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if self.cfg.frontend == "vision":
+            dt = torch.float32 if self.cfg.compute_dtype == "float32" else torch.bfloat16
+            batch["patches"] = vision_patches(gen, B, self.cfg.n_frontend_tokens, dt)
+        elif self.cfg.frontend == "audio":
+            frames = audio_frames(gen, B, S, torch.float32)
+            batch = {"frames": frames,
+                     "labels": torch.randint(0, self.cfg.vocab, (B, S), generator=gen)}
+        return {k: v.to(self.device) for k, v in batch.items()}

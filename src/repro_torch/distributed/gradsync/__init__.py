@@ -11,9 +11,15 @@ batch) -> (state, metrics)`` and ``train_step.init_state(generator)``.
   all-gather of the params.  Non-power-of-two rank counts work natively.
 - ``compressed``: mrd_zero1 with int8 wire payloads, combined on receive
   by the ``mrd_combine`` kernel on the card, and the EF-SGD residual carry.
+- ``local_sgd``: bounded-staleness local SGD; the replicas are averaged by
+  the paper's collectives every ``local_sync_every`` steps.
+- ``mrd_leaf``: the butterfly allreduce of the bucketed gradient tree and
+  a replicated tree-shaped optimizer.
 
-The reference's ``gspmd``, ``mrd_leaf`` and ``local_sgd`` modes, its
-overlap path and its elastic resize hooks are not ported yet.
+Every family trains under every mode.  The reference's ``gspmd`` mode,
+its overlap path and its elastic resize hooks are not ported yet, and the
+ranks are rows of one device's tensors (the multi-process trainer is the
+next slice, ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -46,24 +52,14 @@ def available() -> list[str]:
 
 def make_train_step(cfg, tcfg, *, dp: int, device="cuda"):
     """The train step of ``tcfg.grad_sync`` over ``dp`` ranks."""
-    if cfg.pattern_local:
-        raise NotImplementedError(
-            f"{cfg.name}: training a grouped local/global stack is not ported yet "
-            "(serving is)")
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: training the mamba1 family is not ported yet (serving is; the "
-            "selective-scan kernel has no backward)")
-    if cfg.family in ("moe", "vlm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported yet (serving is; "
-            "ROADMAP queue 1, item 6)")
     return get(tcfg.grad_sync)(cfg, tcfg, dp=dp, device=device)
 
 
 # populate the registry (import order = doc order)
 from repro_torch.distributed.gradsync import (  # noqa: E402,F401
     compressed,
+    local_sgd,
+    mrd_leaf,
     mrd_paper,
     mrd_zero1,
 )

@@ -1,0 +1,113 @@
+"""Grad-sync strategy ``local_sgd``: bounded-staleness local SGD (port of
+``repro.distributed.gradsync.local_sgd``).
+
+Each rank trains its own replica on its own batch shard: its gradient
+never crosses the ranks, it is clipped by its own global norm and applied
+by a local AdamW (fp32 tree-shaped ``master``/``mu``/``nu``).  The params
+and optimizer trees are stacked ``[dp, ...]``, a row a replica, and updated
+in place.  On every step where ``(step + 1) % local_sync_every == 0`` the
+replicas are averaged by the paper's collectives: an fp32 allreduce under
+the ``rabenseifner`` schedule (recursive-halving reduce-scatter, then the
+all-gather, whose copies move raw bytes, so every replica ends equal bit
+for bit), divided by dp and cast back to the params' type.  The average
+runs through :func:`plans.tree_allreduce` one piece of at most
+``bucket_bytes`` a rank at a time (a leaf, or a slice of a larger one), so
+the fp32 copies in flight are one piece's, not the replicas' whole tree
+(the reference's one call over the tree sums every element in the same
+order: the schedule's reduction order depends on the ranks, not on an
+element's place in its bucket).  There is no monitor:
+``converged`` is False and ``monitor_value`` 0, as in the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.collectives import plans
+from repro_torch.device import resolve_device
+from repro_torch.distributed.gradsync import common, register
+from repro_torch.distributed.gradsync.common import TrainConfig
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
+from repro_torch.optim import optimizer as opt_lib
+
+
+PIECE_BYTES = 32 << 20  # a piece of the average without a bucket cap (fp32, a rank)
+
+
+def _rows(tree, r: int):
+    """Row ``r`` of every ``[dp, ...]`` leaf of a nested dict (views)."""
+    return {k: _rows(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
+
+
+@dataclasses.dataclass
+class LocalSGDStep:
+    """``(state, batch) -> (state, metrics)`` of one ``local_sgd`` step over
+    ``dp`` replicas, and :meth:`init_state`."""
+
+    cfg: ModelConfig
+    tcfg: TrainConfig
+    dp: int
+    device: torch.device
+
+    def __post_init__(self):
+        self.every = max(self.tcfg.local_sync_every, 1)
+        self.executor = common.resolve_executor(self.tcfg)
+
+    def init_state(self, generator: torch.Generator):
+        """One random init from ``generator``, replicated to every row, and
+        the optimizer trees of the replicas."""
+        def rep(tree):
+            return {k: rep(v) if isinstance(v, dict)
+                    else v[None].expand((self.dp,) + v.shape).clone() for k, v in tree.items()}
+
+        params = rep(transformer.init_params(self.cfg, generator, self.device))
+        return {"params": params, "opt": opt_lib.init_opt_state(params), "step": 0}
+
+    def average_(self, params) -> None:
+        """Replace every replica by the replicas' mean, in place."""
+        dp = torch.tensor(float(self.dp), device=self.device)  # true division on the card
+        piece = max(1, (self.tcfg.bucket_bytes or PIECE_BYTES) // 4)  # fp32 elements a rank
+        for leaf in common.reference_leaves(params):
+            rows = leaf.view(self.dp, -1)
+            for a in range(0, rows.shape[1], piece):
+                part = rows[:, a:a + piece]
+                avg = plans.tree_allreduce({"x": part.float()}, schedule="rabenseifner",
+                                           p=self.dp, executor=self.executor)["x"]
+                part.copy_((avg / dp).to(part.dtype))
+
+    def __call__(self, state, batch):
+        params, opt, step = state["params"], state["opt"], state["step"]
+        pdt = dtype_of(self.cfg.param_dtype)
+        losses, gnorms, auxes = [], [], []
+        for r, local in enumerate(common.rank_shards(batch, self.dp)):
+            p_r = _rows(params, r)
+            grads, loss, met = common.microbatched_grads(p_r, local, self.cfg, self.tcfg.remat,
+                                                         self.tcfg.microbatches)
+            if "aux_loss" in met:
+                auxes.append(met["aux_loss"])
+            g = [t.float() for t in common.reference_leaves(grads)]
+            del grads
+            gnorms.append(common.clip_by_global_norm_(g, self.tcfg.optimizer.grad_clip))
+            leaves = {k: common.reference_leaves(_rows(v, r)) for k, v in opt.items()}
+            new = opt_lib.apply_update_tree_(g, leaves, self.tcfg.optimizer, step, pdt)
+            del g
+            for dst, src in zip(common.reference_leaves(p_r), new):
+                dst.copy_(src)
+            losses.append(loss)
+        if (step + 1) % self.every == 0:
+            self.average_(params)
+        zero = torch.zeros((), device=self.device)
+        metrics = {"loss": torch.stack(losses).mean(), "grad_norm": torch.stack(gnorms).mean(),
+                   "converged": zero.bool(), "monitor_value": zero}
+        if auxes:
+            metrics["aux_loss"] = torch.stack(auxes).mean()
+        return {"params": params, "opt": opt, "step": step + 1}, metrics
+
+
+@register("local_sgd")
+def make(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda"):
+    return LocalSGDStep(cfg, tcfg, dp, resolve_device(device))

@@ -1,0 +1,93 @@
+"""Grad-sync strategy ``mrd_leaf``: the MRD butterfly allreduce of the
+bucketed gradient tree and a replicated tree-shaped optimizer (port of
+``repro.distributed.gradsync.mrd_leaf``).
+
+Each rank's gradient (fp32, in the reference's leaf order) is packed into
+size-capped buckets and allreduced by the ``mrd`` schedule with the
+``identity`` transform, stage-major across the buckets
+(:meth:`CollectivePlan.run_buffers`, the reference's ``run_bucketed``).
+Every rank then holds the same sum, so the step divides one row by dp,
+clips it by its global norm and runs AdamW on fp32 ``master``/``mu``/
+``nu`` trees shaped like the params (``optim.apply_update_tree_``): the
+reference's replicated optimizer, held once (16 B a parameter).  The new
+params are the masters rounded to the param type, each leaf then kept in
+its own type (fp32 leaves such as the moe router stay fp32, as the ZeRO-1
+modes keep them; the reference's tree update leaves them in the param
+type).  The monitor rows advance as in ``mrd_zero1``.  The reference's ``overlap``
+branch (each ready bucket sent during the backward) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.collectives import buckets, plans
+from repro_torch.device import resolve_device
+from repro_torch.distributed.gradsync import common, register
+from repro_torch.distributed.gradsync.common import TrainConfig
+from repro_torch.models import convert, transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
+from repro_torch.optim import optimizer as opt_lib
+
+
+@dataclasses.dataclass
+class LeafStep:
+    """``(state, batch) -> (state, metrics)`` of one ``mrd_leaf`` step over
+    ``dp`` ranks, and :meth:`init_state`.  The optimizer trees are updated
+    in place."""
+
+    cfg: ModelConfig
+    tcfg: TrainConfig
+    dp: int
+    device: torch.device
+
+    def __post_init__(self):
+        self.monitor = common.build_monitor(self.tcfg, self.dp)
+        self.grad_ar = plans.allreduce_plan(schedule="mrd", p=self.dp, op="sum",
+                                            executor=common.resolve_executor(self.tcfg))
+
+    def init_state(self, generator: torch.Generator):
+        params = transformer.init_params(self.cfg, generator, self.device)
+        state = {"params": params, "opt": opt_lib.init_opt_state(params), "step": 0}
+        if self.monitor is not None:
+            state["monitor"] = common.monitor_rows_init(self.monitor, device=self.device)
+        return state
+
+    def __call__(self, state, batch):
+        params, opt, step = state["params"], state["opt"], state["step"]
+        layout = buckets.build_layout(convert.reference_tree(params),
+                                      bucket_bytes=self.tcfg.bucket_bytes,
+                                      quantum=self.grad_ar.pad_quantum(), dtype=torch.float32)
+        aux = {}
+        bufs, losses, metric = common.stacked_grad_buckets(params, batch, self.cfg, self.tcfg,
+                                                           self.dp, layout, aux)
+        # the paper's butterfly over every bucket, stage-major; every row
+        # then holds the sum, so one row is kept
+        red = [b[0] for b in self.grad_ar.run_buffers(bufs)]
+        grads = buckets.tree_flatten(buckets.unpack(red, layout))[0]
+        del red
+        dp = torch.tensor(float(self.dp), device=self.device)  # true division on the card
+        for g in grads:
+            g.div_(dp)
+        gnorm = common.clip_by_global_norm_(grads, self.tcfg.optimizer.grad_clip)
+        leaves = {k: common.reference_leaves(v) for k, v in opt.items()}
+        new = opt_lib.apply_update_tree_(grads, leaves, self.tcfg.optimizer, step,
+                                         dtype_of(self.cfg.param_dtype))
+        del grads
+        new_params = common.like(convert.port_tree(buckets.tree_unflatten(layout.treedef, new)),
+                                 params)
+        mon, done, val = common.local_monitor_tick(self.monitor, state.get("monitor"), metric,
+                                                   step)
+        new_state = {"params": new_params, "opt": opt, "step": step + 1}
+        if self.monitor is not None:
+            new_state["monitor"] = mon
+        return new_state, {"loss": losses.mean(), "grad_norm": gnorm, "converged": done[0],
+                           "monitor_value": val[0], **aux}
+
+
+@register("mrd_leaf")
+def make(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda"):
+    return LeafStep(cfg, tcfg, dp, resolve_device(device))

@@ -132,40 +132,12 @@ class Zero1Step:
             state["monitor"] = common.monitor_rows_init(self.monitor, device=self.device)
         return state
 
-    def _grads(self, params, batch, layout):
-        """Every rank's gradient of its batch shard, packed into fp32
-        ``[dp, len]`` bucket rows; returns (buffers, losses [dp], monitor
-        metrics [dp]).  The ranks' gradients are kept in the params' type
-        until all are computed, and each bucket's leaves are released as
-        soon as that bucket is packed: the fp32 rows (14.8 GB at full
-        width, dp 3) never coexist with a backward pass."""
-        B = batch["tokens"].shape[0]
-        if B % self.dp:
-            raise ValueError(f"batch {B} does not split over dp={self.dp} ranks")
-        per = B // self.dp
-        rank_leaves, losses, metric = [], [], []
-        for r in range(self.dp):
-            local = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
-            grads, loss, metrics = common.microbatched_grads(
-                params, local, self.cfg, self.tcfg.remat, self.tcfg.microbatches)
-            rank_leaves.append(buckets.tree_flatten(convert.reference_tree(grads))[0])
-            del grads
-            losses.append(loss)
-            metric.append(metrics["per_example"].mean())
-        bufs = []
-        for i, b in enumerate(layout.buckets):
-            buf = torch.zeros((self.dp, b.length), dtype=torch.float32, device=self.device)
-            for r, leaves in enumerate(rank_leaves):
-                buckets.pack_bucket(leaves, layout, i, out=buf[r])
-                for s in b.slots:
-                    leaves[s.index] = None
-            bufs.append(buf)
-        return bufs, torch.stack(losses), torch.stack(metric)
-
     def __call__(self, state, batch):
         params, opt, step = state["params"], state["opt"], state["step"]
         layout, _ = self._layout(params)
-        bufs, losses, metric = self._grads(params, batch, layout)
+        aux = {}
+        bufs, losses, metric = common.stacked_grad_buckets(params, batch, self.cfg, self.tcfg,
+                                                           self.dp, layout, aux)
         if self.use_ef:
             # EF-SGD: send the grid round trip of (grad + residual) and
             # carry what the quantizer dropped into the next step
@@ -212,7 +184,11 @@ class Zero1Step:
             # recursive-doubling all-gather of the updated params, per bucket
             out = self.ag_plan.run_buffers(list(torch.split(master, seg_lens, dim=1)))
         del master
-        new_params = convert.port_tree(buckets.unpack([b[0] for b in out], layout, dtype=pdt))
+        # every leaf rounded to the param type, then back to its own type
+        # (the fp32 leaves, router, A_log, D, dt_bias, stay fp32), as the
+        # reference's astype(b.dtype)
+        new_params = common.like(convert.port_tree(
+            buckets.unpack([b[0] for b in out], layout, dtype=pdt)), params)
         del out
         mon, done, val = common.local_monitor_tick(self.monitor, state.get("monitor"), metric,
                                                    step)
@@ -220,7 +196,7 @@ class Zero1Step:
         if self.monitor is not None:
             new_state["monitor"] = mon
         metrics = {"loss": losses.mean(), "grad_norm": gnorm[0], "converged": done[0],
-                   "monitor_value": val[0]}
+                   "monitor_value": val[0], **aux}
         return new_state, metrics
 
 

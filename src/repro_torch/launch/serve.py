@@ -228,11 +228,20 @@ def serve(args: argparse.Namespace):
     return eng, wl, eng.run(reqs)
 
 
-def _serve_llm(args, device):
+def _llm_config(args):
+    """The served arch's config (``--gen`` defaults to 32 for it); an
+    encoder-only arch is refused, as the reference refuses it."""
     if not args.arch:
         raise SystemExit("--arch is required for LLM serving")
     args.gen = args.gen or 32
     cfg = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
+    if cfg.is_encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
+    return cfg
+
+
+def _serve_llm(args, device):
+    cfg = _llm_config(args)
     max_len = args.max_len or (args.prompt_len + args.gen + 4)
     kw = {}
     if args.workload == "llm_decode_paged":
@@ -304,10 +313,7 @@ def fence(device) -> None:
 
 
 def _static_main(args) -> dict:
-    if not args.arch:
-        raise SystemExit("--arch is required for LLM serving")
-    args.gen = args.gen or 32
-    cfg = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
+    cfg = _llm_config(args)
     r = static_serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
                      seed=args.seed, device=args.device)
     pre_tok, dec_tok = args.batch * args.prompt_len, args.batch * args.gen

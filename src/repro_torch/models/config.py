@@ -1,15 +1,18 @@
-"""Model configuration (port of ``repro.models.config``: the dense, moe,
-vlm, mamba1 ``ssm`` and mamba2 ``hybrid`` families).
+"""Model configuration (port of ``repro.models.config``: every family of
+the reference, dense, moe, vlm, mamba1 ``ssm``, mamba2 ``hybrid`` and the
+``audio`` encoder).
 
-The reference dataclass covers every family (dense, moe, ssm, hybrid,
-vlm, audio); the port serves and trains dense decoders, including the
-grouped local/global stack of gemma3, and serves the moe stack (mixtral,
-llama4-scout), the vlm backbone (internvl2, its vision frontend a stub),
-the attention-free mamba1 stack of falcon-mamba and the hybrid stack of
-zamba2 (groups of mamba2 layers, each followed by one weight-shared
-attention block).  It keeps the fields those families read and refuses
-the others (audio, and mamba2 outside the hybrid family) rather than
-ignoring them.
+The port trains every family and serves all but the encoder-only audio
+one (hubert, whose reference never serves it either): dense decoders,
+including the grouped local/global stack of gemma3, the moe stack
+(mixtral, llama4-scout), the vlm backbone (internvl2, its vision frontend
+a stub), the attention-free mamba1 stack of falcon-mamba, the hybrid
+stack of zamba2 (groups of mamba2 layers, each followed by one
+weight-shared attention block) and the bidirectional audio stack of
+hubert (its conv frontend a stub, a two-matrix gelu MLP).  It keeps the
+fields those families read and refuses combinations the reference does
+not run (mamba2 outside the hybrid family, int8 caches outside the plain
+stack) rather than ignoring them.
 """
 
 from __future__ import annotations
@@ -20,14 +23,18 @@ from typing import Optional
 
 ATTN_IMPLS = ("auto", "full", "flash_scan", "kernel")
 KV_CACHE_DTYPES = ("bf16", "int8")
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
-ATTN_FAMILIES = ("dense", "moe", "vlm")  # the plain attention stack (and gemma3's grouped one)
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+# the plain attention stack (and gemma3's grouped one); audio's is the same
+# stack, bidirectional, and never served
+ATTN_FAMILIES = ("dense", "moe", "vlm")
+FRONTENDS = (None, "vision", "audio")
+ACTS = ("silu", "gelu")  # SwiGLU, or the two-matrix MLP with tanh-approximated gelu
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | vlm | ssm (mamba1) | hybrid (mamba2); audio is not ported
+    family: str  # dense | moe | vlm | ssm (mamba1) | hybrid (mamba2) | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +49,7 @@ class ModelConfig:
     local_window: Optional[int] = None  # gemma3 local layers
     pattern_local: int = 0  # gemma3: local layers per group
     pattern_global: int = 0  # gemma3: global layers per group
+    causal: bool = True  # False: an encoder-only stack (hubert)
     n_experts: int = 0  # moe
     top_k: int = 0
     capacity_factor: float = 1.25
@@ -53,11 +61,11 @@ class ModelConfig:
     attn_every: int = 0  # hybrid: the shared attention block after every k mamba2 layers
     ssm_chunk: int = 256  # mamba2: the SSD scan's chunk length
     # modality frontend (a stub: precomputed patch embeddings are inputs)
-    frontend: Optional[str] = None  # 'vision' (the only one ported)
+    frontend: Optional[str] = None  # 'vision' | 'audio'
     n_frontend_tokens: int = 0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    act: str = "silu"  # SwiGLU
+    act: str = "silu"  # 'silu': SwiGLU; 'gelu': w2(gelu(x w1))
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     attn_impl: str = "auto"  # auto | full | flash_scan | kernel (the reference's pallas)
@@ -74,10 +82,8 @@ class ModelConfig:
             raise ValueError(f"{self.name}: kv_cache_dtype {self.kv_cache_dtype!r} not in "
                              f"{KV_CACHE_DTYPES}")
         if self.family not in FAMILIES:
-            raise ValueError(
-                f"{self.name}: family {self.family!r} is not ported yet ({', '.join(FAMILIES)} "
-                "only; the audio family is ROADMAP queue 1, item 6)"
-            )
+            raise ValueError(f"{self.name}: unknown family {self.family!r} (one of "
+                             f"{', '.join(FAMILIES)})")
         if self.kv_cache_dtype == "int8" and (self.family not in ATTN_FAMILIES
                                               or self.pattern_local):
             # the reference has scale planes only for the plain stack's k/v
@@ -86,9 +92,8 @@ class ModelConfig:
                              "scale planes)")
         if self.family == "moe" and (self.n_experts <= 0 or self.top_k <= 0):
             raise ValueError(f"{self.name}: moe family needs experts/top_k")
-        if self.frontend not in (None, "vision"):
-            raise ValueError(f"{self.name}: frontend {self.frontend!r} is not ported "
-                             "(vision only)")
+        if self.frontend not in FRONTENDS:
+            raise ValueError(f"{self.name}: frontend {self.frontend!r} not in {FRONTENDS}")
         if self.family in ("ssm", "hybrid") and self.ssm_state <= 0:
             raise ValueError(f"{self.name}: ssm family needs ssm_state > 0")
         if self.family == "ssm":
@@ -105,8 +110,8 @@ class ModelConfig:
             if self.d_inner % self.ssm_headdim:
                 raise ValueError(f"{self.name}: d_inner {self.d_inner} is not a multiple of "
                                  f"ssm_headdim {self.ssm_headdim}")
-        if self.act != "silu":
-            raise ValueError(f"{self.name}: act {self.act!r} is not ported (silu only)")
+        if self.act not in ACTS:
+            raise ValueError(f"{self.name}: act {self.act!r} not in {ACTS}")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads must be a multiple of n_kv_heads")
         if self.attn_impl not in ATTN_IMPLS:
@@ -131,6 +136,10 @@ class ModelConfig:
         return self.n_layers // (self.pattern_local + 1) if self.pattern_local else 0
 
     @property
+    def is_encoder_only(self) -> bool:
+        return not self.causal
+
+    @property
     def qk_dim(self) -> int:
         return self.n_heads * self.head_dim
 
@@ -152,7 +161,7 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic total parameter count (the reference's: it leaves out
-        the qkv biases and the vision frontend's ``patch_proj``)."""
+        the qkv biases and the frontends' ``patch_proj``/``frame_proj``)."""
         d, f, V, hd = self.d_model, self.d_ff, self.vocab, self.head_dim
         emb = V * d * (1 if self.tie_embeddings else 2)
         if self.family == "ssm":  # the reference's count, which leaves out dt_bias [di]
@@ -174,7 +183,7 @@ class ModelConfig:
         if self.family == "moe":
             mlp = self.n_experts * 3 * d * f + d * self.n_experts
         else:
-            mlp = 3 * d * f
+            mlp = (3 if self.act == "silu" else 2) * d * f
         return emb + self.n_layers * (attn + mlp + 2 * d) + d
 
     def n_active_params(self) -> int:

@@ -1,16 +1,17 @@
-"""Carry the reference's weights and train state across to the port.
+"""Carry the reference's weights and train state across to the port, and
+back.
 
-The reference's ``transformer.init_params`` tree (the dense, moe and vlm
-families, plain or gemma3's grouped stack, the mamba1 stack, or the hybrid
-stack's ``mamba_groups`` [G, k, ...] and its one ``shared_attn`` layer), already
-turned into numpy arrays by the caller, maps onto the port's parameter
-dict so that both packages compute the same function.  Both keep each
+The reference's ``transformer.init_params`` tree (the dense, moe, vlm and
+audio families, plain or gemma3's grouped stack, the mamba1 stack, or the
+hybrid stack's ``mamba_groups`` [G, k, ...] and its one ``shared_attn``
+layer), already turned into numpy arrays by the caller, maps onto the
+port's parameter dict so that both packages compute the same function.  Both keep each
 stack's layers on leading axes (``layers`` [L, ...]; ``local_layers`` [G,
 P, ...] and ``global_layers`` [G, ...]), the ``x @ W`` layout of the
 attention (and its ``bq``/``bk``/``bv`` biases), SwiGLU, expert and
 mamba1 matrices, norm weights ``w`` under the ``(1 + w)`` convention, a
 tied head read as ``embed.T`` (an untied one as ``lm_head``) and the
-vision frontend's ``patch_proj``; only the nesting differs (the reference
+frontends' ``patch_proj`` and ``frame_proj``; only the nesting differs (the reference
 groups ``attn``/``mlp``/``moe``/``mamba`` sub-dicts per layer).  mamba1's
 ``A_log`` and ``D``, mamba2's ``A_log``, ``D`` and ``dt_bias`` and the moe
 ``router`` stay fp32 whatever the param dtype, as in the reference.
@@ -18,6 +19,12 @@ groups ``attn``/``mlp``/``moe``/``mamba`` sub-dicts per layer).  mamba1's
 :func:`reference_tree` gives the port's params (or gradients) the
 reference's nesting, whose flatten order (sorted keys) decides the
 gradient buckets and so the int8 blocks of the compressed sync.
+
+A train state crosses in either direction (:func:`train_state_from_reference`,
+:func:`train_state_to_reference`) for every grad-sync layout: the ZeRO-1
+rows (``mrd_paper``, ``mrd_zero1``, ``compressed``), ``mrd_leaf``'s
+replicated tree-shaped optimizer and ``local_sgd``'s ``[dp, ...]`` stacked
+params and optimizer; the checkpointer writes the reference's layout.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from repro_torch.models.transformer import STACKS
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype, copy=True)
     # through fp32: numpy has no bfloat16, and bf16 -> fp32 -> bf16 is exact
     return torch.from_numpy(np.array(x, np.float32)).to(device=device, dtype=dtype)
 
@@ -135,39 +144,106 @@ def params_from_reference(np_params: Mapping[str, Any], cfg: ModelConfig,
         fp32 = FP32_LEAVES.get(stack, PLAIN_FP32_LEAVES)
         out[stack] = {k: _tensor(v, torch.float32 if k in fp32 else dtype, device)
                       for k, v in src[stack].items()}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = _tensor(np_params["lm_head"], dtype, device)
-    if cfg.frontend == "vision":
-        out["patch_proj"] = _tensor(np_params["patch_proj"], dtype, device)
+    for name in ("lm_head", "patch_proj", "frame_proj"):  # untied head, frontends
+        if name in np_params:
+            out[name] = _tensor(np_params[name], dtype, device)
     return out
+
+
+def _numpy(x) -> np.ndarray:
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _stacked_params(np_params: Mapping[str, Any], cfg: ModelConfig, dp: int, device):
+    """A ``[dp, ...]`` stacked reference param tree -> the port's, each
+    leaf stacked ``[dp, ...]`` (``local_sgd``'s replicas)."""
+    ranks = [params_from_reference(_map(lambda t, r=r: t[r], np_params), cfg, device)
+             for r in range(dp)]
+    return _map(lambda *leaves: torch.stack(leaves), *ranks)
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same keys."""
+    if isinstance(trees[0], Mapping):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def sync_layout(state: Mapping[str, Any]) -> str:
+    """The grad-sync layout of a train state (the port's or the
+    reference's): ``"zero1"`` (``opt`` rows [dp, m]), ``"leaf"`` (a
+    replicated tree-shaped ``opt``) or ``"local"`` (``[dp, ...]`` stacked
+    params and ``opt``)."""
+    if not isinstance(state["opt"]["master"], Mapping):
+        return "zero1"
+    embed = state["opt"]["master"]["embed"]
+    return "local" if np.ndim(embed) == 3 else "leaf"
 
 
 def train_state_from_reference(state: Mapping[str, Any], cfg: ModelConfig,
                                device="cuda") -> dict[str, Any]:
-    """A reference ZeRO-1 train state (``make_zero1``'s, numpy leaves) ->
-    the port's: params, the ``opt`` rows (``master``/``mu``/``nu``, and
-    ``ef`` under the compressed sync), ``step`` and the ``monitor`` rows.
-    Both sides then start the same step from the same state."""
+    """A reference train state (numpy leaves, or CPU tensors for leaves
+    numpy cannot hold, bf16) -> the port's: params, ``opt``, ``step`` and
+    the ``monitor`` rows.  ``opt`` is ``master``/``mu``/``nu`` [dp, m] rows
+    (and ``ef`` under the compressed sync) for the ZeRO-1 modes, fp32
+    trees in the params' layout for ``mrd_leaf``, and both params and
+    ``opt`` trees stacked ``[dp, ...]`` for ``local_sgd``.  Both sides then
+    start the same step from the same state."""
     device = resolve_device(device)
 
     def f32(x):
-        return torch.from_numpy(np.array(x, np.float32)).to(device)
+        return _tensor(x, torch.float32, device)
 
-    out = {
-        "params": params_from_reference(state["params"], cfg, device),
-        "opt": {k: f32(v) for k, v in state["opt"].items()},
-        "step": int(np.asarray(state["step"])),
-    }
+    layout = sync_layout(state)
+    if layout == "local":
+        dp = np.shape(state["opt"]["master"]["embed"])[0]
+        out = {
+            "params": _stacked_params(state["params"], cfg, dp, device),
+            "opt": {k: _map(f32, port_tree(v)) for k, v in state["opt"].items()},
+        }
+    else:
+        out = {"params": params_from_reference(state["params"], cfg, device),
+               "opt": {k: f32(v) if layout == "zero1" else _map(f32, port_tree(v))
+                       for k, v in state["opt"].items()}}
+    out["step"] = int(_numpy(state["step"]))
     mon = state.get("monitor")
     if mon is not None:
         nb = mon["nb"]
         out["monitor"] = {
             # the reference keeps the counters per rank; they agree
-            "nb": {"stage": int(np.asarray(nb["stage"])[0]), "buf": f32(nb["buf"]),
-                   "result": f32(nb["result"]), "flag": bool(np.asarray(nb["flag"])[0]),
-                   "cycles": int(np.asarray(nb["cycles"])[0])},
+            "nb": {"stage": int(_numpy(nb["stage"])[0]), "buf": f32(nb["buf"]),
+                   "result": f32(nb["result"]), "flag": bool(_numpy(nb["flag"])[0]),
+                   "cycles": int(_numpy(nb["cycles"])[0])},
             "m": {k: f32(v) for k, v in mon.get("m", {}).items()},
             "value": f32(mon["value"]),
-            "done": torch.from_numpy(np.array(mon["done"], bool)).to(device),
+            "done": torch.as_tensor(_numpy(mon["done"]), dtype=torch.bool).to(device),
+        }
+    return out
+
+
+def train_state_to_reference(state: Mapping[str, Any]) -> dict[str, Any]:
+    """The inverse of :func:`train_state_from_reference`: the port's train
+    state as the reference nests it, leaves still the port's tensors on
+    their device (the step a 0-d int32 tensor, the monitor's counters
+    ``[dp]`` rows, as the reference keeps them), so that a checkpoint of
+    it has the reference's keys, shapes and types."""
+    out = {"params": reference_tree(state["params"]),
+           "opt": {k: reference_tree(v) if isinstance(v, Mapping) else v
+                   for k, v in state["opt"].items()},
+           "step": torch.tensor(state["step"], dtype=torch.int32)}
+    mon = state.get("monitor")
+    if mon is not None:
+        nb = mon["nb"]
+        dp, dev = mon["done"].shape[0], mon["done"].device
+
+        def rows(v, dtype):
+            return torch.full((dp,), v, dtype=dtype, device=dev)
+
+        out["monitor"] = {
+            "nb": {"stage": rows(nb["stage"], torch.int32), "buf": nb["buf"],
+                   "result": nb["result"], "flag": rows(nb["flag"], torch.bool),
+                   "cycles": rows(nb["cycles"], torch.int32)},
+            **({"m": dict(mon["m"])} if mon.get("m") else {}),
+            "value": mon["value"], "done": mon["done"],
         }
     return out

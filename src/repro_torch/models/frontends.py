@@ -5,8 +5,9 @@ frontend's output is a model input of fixed width (precomputed patch or
 frame embeddings).  These draw synthetic inputs of those shapes from an
 explicit ``torch.Generator`` (the reference draws from a JAX key: the
 distributions are the same, the numbers are not).  The backbone projects
-them with ``patch_proj`` [1024, d] (``frame_proj`` [80, d] for audio, a
-family not ported yet) and prepends them to the token embeddings.
+them with ``patch_proj`` [1024, d] and prepends them to the token
+embeddings; the audio encoder projects its frames with ``frame_proj``
+[80, d] and takes no tokens.
 """
 
 from __future__ import annotations

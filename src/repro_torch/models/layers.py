@@ -1,5 +1,5 @@
-"""Shared functional layers: norms, RoPE, SwiGLU MLP, initializers
-(port of ``repro.models.layers``).
+"""Shared functional layers: norms, RoPE, the SwiGLU and gelu MLPs,
+initializers (port of ``repro.models.layers``).
 
 Same mixed-precision policy as the reference: parameters in
 ``cfg.param_dtype``, matmuls in ``cfg.compute_dtype``, normalization
@@ -94,9 +94,26 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# SwiGLU MLP (x @ W layout, as the reference)
+# MLPs (x @ W layout, as the reference)
 # ---------------------------------------------------------------------------
 
 
-def mlp_apply(lp, x):
-    return (F.silu(x @ lp["w1"]) * (x @ lp["w3"])) @ lp["w2"]
+def mlp_init(gen: torch.Generator, lead: tuple, d: int, f: int, dtype,
+             act: str = "silu") -> dict[str, torch.Tensor]:
+    """One layer's MLP (stacked on ``lead`` axes): SwiGLU's ``w1``/``w3``
+    [d, f] and ``w2`` [f, d], or, with ``act="gelu"``, ``w1`` and ``w2``
+    only."""
+    p = {"w1": dense_init(gen, lead + (d, f), dtype)}
+    if act == "silu":
+        p["w3"] = dense_init(gen, lead + (d, f), dtype)
+    p["w2"] = dense_init(gen, lead + (f, d), dtype, fan_in=f)
+    return p
+
+
+def mlp_apply(lp, x, act: str = "silu"):
+    """SwiGLU, ``w2(silu(x w1) * x w3)``; or ``w2(gelu(x w1))`` with the
+    tanh approximation, which is ``jax.nn.gelu``'s default (the erf form
+    differs by ~1e-3)."""
+    if act == "silu":
+        return (F.silu(x @ lp["w1"]) * (x @ lp["w3"])) @ lp["w2"]
+    return F.gelu(x @ lp["w1"], approximate="tanh") @ lp["w2"]

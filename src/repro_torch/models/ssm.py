@@ -1,14 +1,16 @@
 """Mamba-1 blocks of falcon-mamba and Mamba-2 (SSD) blocks of zamba2
 (port of ``repro.models.ssm``).
 
-Every selective scan goes through the selective-scan kernel's fused form
-(``kernels.selective_scan.selective_scan_fused``): the whole prompt in one
-launch a layer, where the reference runs a chunked associative scan in
-plain jnp, and one step a decode tick from the carried state, where the
+Serving's selective scans go through the selective-scan kernel's fused
+form (``kernels.selective_scan.selective_scan_fused``): the whole prompt
+in one launch a layer, where the reference runs a chunked associative scan
+in plain jnp, and one step a decode tick from the carried state, where the
 reference computes ``decay * h + Bx`` eagerly.  On the CPU the wrapper runs
-its plain version.  The projections stay matrix products; the depthwise
-conv, softplus, the ``D * x`` skip and the ``silu(z)`` gate stay plain
-torch.
+its plain version.  The kernel has no backward, so training (inputs that
+autograd differentiates, ``kernels.needs_grad``) takes the reference's
+chunked scan instead (:func:`chunk_scan`).  The projections stay matrix
+products; the depthwise conv, softplus, the ``D * x`` skip and the
+``silu(z)`` gate stay plain torch.
 
 Parameters of one layer (the reference's ``mamba`` dict, ``x @ W``
 layout): in_proj [d, 2 di], conv_w [K, di], conv_b [di], x_proj [di, dtr +
@@ -29,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import needs_grad
 from repro_torch.kernels.selective_scan.ops import selective_scan_fused
 from repro_torch.models.layers import dense_init, rmsnorm
 
@@ -93,16 +96,88 @@ def _gate_out(p, y, x1, z, dtype):
     return (y.to(dtype) * F.silu(z)) @ p["out_proj"]
 
 
+def _linear_scan(a, b, h0=None, reverse: bool = False):
+    """h_t = a_t * h_{t-1} + b_t along dim 0, time-major (h_{-1} = h0, or
+    0): the inclusive scan of the pairs (a_t, b_t) under the reference's
+    ``combine``, ``(al, bl), (ar, br) -> (al * ar, bl * ar + br)``, in
+    log2(length) Hillis-Steele steps; each step's slices along dim 0 are
+    contiguous, so every pass is a vectorized one.  ``reverse``: h_t =
+    a_t * h_{t+1} + b_t, from the end.  The inputs are not changed."""
+    a, b = a.clone(), b.clone()
+    q, s = a.shape[0], 1
+    while s < q:
+        if reverse:
+            b[:-s] += b[s:] * a[:-s]
+            a[:-s] = a[:-s] * a[s:]
+        else:
+            b[s:] += b[:-s] * a[s:]
+            a[s:] = a[s:] * a[:-s]
+        s *= 2
+    return b if h0 is None else b.add_(a * h0)
+
+
+class _ChunkRecurrence(torch.autograd.Function):
+    """:func:`_linear_scan` with a backward of its own: the adjoint runs
+    the same scan backwards in time (lam_t = g_t + a_{t+1} lam_{t+1}), so
+    only a and the states h are kept, not the scan's log2(q) steps."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _linear_scan(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        nxt = torch.cat([a[1:], torch.zeros_like(a[:1])])  # a_{t+1}
+        lam = _linear_scan(nxt, g.contiguous(), reverse=True)
+        h_prev = torch.cat([h0[None], h[:-1]])
+        return lam * h_prev, lam, a[0] * lam[0]
+
+
+def chunk_scan(dt, x1, A, Bs, Cs, h0, chunk: int):
+    """The reference's ``_chunk_scan``, differentiable: sequential over
+    chunks of ``chunk`` steps (the last one ragged, not padded), and within
+    a chunk the fp32 decay ``exp(dt A)`` and input ``dt x B`` [q, B, di, N]
+    formed and combined (:class:`_ChunkRecurrence`), so only
+    O(B * chunk * di * N) of them is live at once.
+
+    dt [B, S, di] fp32 (after softplus); x1 [B, S, di]; A [di, N] fp32;
+    Bs, Cs [B, S, N]; h0 [B, di, N] fp32 -> (y [B, S, di] fp32, h_final
+    [B, di, N], the state at position S)."""
+    S = x1.shape[1]
+    ys, h = [], h0.float()
+    for c0 in range(0, S, chunk):
+        # time-major [q, B, ...] pieces, so the scan's shifts along time are
+        # contiguous slices
+        dt_i, x_i, b_i, c_i = (t[:, c0:c0 + chunk].float().transpose(0, 1).contiguous()
+                               for t in (dt, x1, Bs, Cs))
+        a = torch.exp(dt_i[..., None] * A)
+        b = (dt_i * x_i)[..., None] * b_i[:, :, None, :]
+        h_all = _ChunkRecurrence.apply(a, b, h)  # [q, B, di, N]
+        ys.append(torch.einsum("qbds,qbs->bqd", h_all, c_i))
+        h = h_all[-1]
+    return torch.cat(ys, dim=1), h
+
+
 def mamba1_apply(p, x, cfg):
     """Full-sequence mamba1 block: x [B, S, d] -> (out [B, S, d], the state
     a prefill leaves: ``h`` [B, di, N] fp32 and ``conv`` [B, K-1, di], the
-    last K-1 pre-conv inputs, zeros in front of a shorter prompt)."""
-    K = cfg.ssm_conv
+    last K-1 pre-conv inputs, zeros in front of a shorter prompt).  The
+    scan kernel's fused form, or, for inputs autograd differentiates, the
+    chunked scan in chunks of min(cfg.ssm_chunk, S), as the reference's
+    stack passes it."""
+    K, S = cfg.ssm_conv, x.shape[1]
     x1, z = (x @ p["in_proj"]).chunk(2, dim=-1)
-    conv = F.pad(x1, (0, 0, max(0, K - 1 - x1.shape[1]), 0))[:, -(K - 1):]
+    conv = F.pad(x1, (0, 0, max(0, K - 1 - S), 0))[:, -(K - 1):]
     x1 = F.silu(causal_conv1d(x1, p["conv_w"], p["conv_b"]))
     dt, A, Bs, Cs = _ssm_inputs(p, x1, cfg)
-    y, h = selective_scan_fused(dt, x1, A, Bs, Cs)
+    if needs_grad(dt, x1, A, Bs, Cs):
+        h0 = x1.new_zeros((x1.shape[0], cfg.d_inner, cfg.ssm_state), dtype=torch.float32)
+        y, h = chunk_scan(dt, x1, A, Bs, Cs, h0, min(cfg.ssm_chunk, S))
+    else:
+        y, h = selective_scan_fused(dt, x1, A, Bs, Cs)
     return _gate_out(p, y, x1, z, x.dtype), {"h": h, "conv": conv.contiguous()}
 
 

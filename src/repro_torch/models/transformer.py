@@ -1,31 +1,33 @@
-"""Decoder stacks for training and serving (port of
-``repro.models.transformer``, the dense, moe, vlm, mamba1 and hybrid
-families):
+"""Layer stacks for training and serving (port of
+``repro.models.transformer``, every family):
 the plain attention stack (llama, qwen2.5 with its qkv biases, minicpm,
-mixtral's window on every layer, the vlm backbone of internvl2), gemma3's
+mixtral's window on every layer, the vlm backbone of internvl2, and
+hubert's bidirectional encoder, ``family="audio"``, trained only, with a
+two-matrix gelu MLP and its frames projected by ``frame_proj``), gemma3's
 grouped stack of G groups of (``pattern_local`` local layers with a
 ``local_window``-token window and RoPE theta ``rope_theta``, then one
-global layer with no window and theta ``rope_theta_global``), and the
-attention-free mamba1 stack of falcon-mamba (``family="ssm"``, serving
-only), and zamba2's hybrid stack (``family="hybrid"``, serving only): G
-groups of ``attn_every`` mamba2 layers, each group followed by one
-attention + MLP block whose weights all groups share (no window, theta
-``rope_theta``), with a KV cache of its own for each of its G
-applications.  The moe family (mixtral, llama4-scout) replaces each
-layer's MLP with ``models.moe``'s experts.
+global layer with no window and theta ``rope_theta_global``), the
+attention-free mamba1 stack of falcon-mamba (``family="ssm"``), and
+zamba2's hybrid stack (``family="hybrid"``): G groups of ``attn_every``
+mamba2 layers, each group followed by one attention + MLP block whose
+weights all groups share (no window, theta ``rope_theta``), with a KV
+cache of its own for each of its G applications.  The moe family
+(mixtral, llama4-scout) replaces each layer's MLP with ``models.moe``'s
+experts.
 
 Parameters are a plain dict of tensors in the reference's ``x @ W``
 layout, each layer's tensors stacked on leading layer axes::
 
     embed [V, d], final_norm [d], (lm_head [d, V] unless tied),
-    (patch_proj [1024, d] with the vision frontend),
+    (patch_proj [1024, d] with the vision frontend, frame_proj [80, d]
+    with the audio one),
     layers [L, ...]                       (plain stack: dense, moe, vlm or ssm)
     local_layers [G, P, ...], global_layers [G, ...]   (grouped stack)
     mamba_groups [G, k, ...] (ln [d] and the mamba2 leaves of ``models.ssm``)
     and shared_attn (one attention layer's leaves, not stacked)  (hybrid)
     attention: wq [d, H*hd], wk/wv [d, KV*hd], wo [H*hd, d], ln1/ln2 [d],
            (bq [H*hd], bk/bv [KV*hd] with qkv_bias)
-    dense MLP: w1/w3 [d, f], w2 [f, d]
+    dense MLP: w1/w3 [d, f], w2 [f, d] (gelu: w1 and w2 only)
     moe:   router [d, E] fp32, w1/w3 [E, d, f], w2 [E, f, d]
     ssm:   ln [d] and the mamba1 leaves of ``models.ssm``
 
@@ -39,6 +41,7 @@ prompt, routes them (``moe.moe_tokens``: nothing is dropped).
 Interfaces:
   init_params(cfg, generator, device)                         -> params
   forward_train(params, batch, cfg, remat)                    -> (loss, metrics)
+                                      (remat: "none", "full" or "dots")
   init_cache(cfg, batch, max_len, device)                     -> cache
   forward_prefill(params, tokens, cfg)                        -> (logits, cache)
   forward_last_logits(params, tokens, cfg)                    -> logits
@@ -64,19 +67,24 @@ import functools
 from typing import Any, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import moe, ssm
 from repro_torch.models.attention import attention, decode_attention, qkv_project
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.frontends import VISION_EMBED_DIM
+from repro_torch.models.frontends import AUDIO_FEAT_DIM, VISION_EMBED_DIM
 from repro_torch.models.layers import (
     dense_init,
     dtype_of,
     embed_init,
     mlp_apply,
+    mlp_init,
     rmsnorm,
 )
 
@@ -158,9 +166,7 @@ def _layer_stack(gen, lead: tuple, cfg: ModelConfig, dtype, device) -> dict[str,
     if cfg.family == "moe":
         p.update(moe.moe_init(gen, lead, cfg, dtype))
         return p
-    p["w1"] = dense_init(gen, lead + (d, f), dtype)
-    p["w3"] = dense_init(gen, lead + (d, f), dtype)
-    p["w2"] = dense_init(gen, lead + (f, d), dtype, fan_in=f)
+    p.update(mlp_init(gen, lead, d, f, dtype, cfg.act))
     return p
 
 
@@ -197,6 +203,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
         params["layers"] = _layer_stack(generator, (cfg.n_layers,), cfg, dtype, device)
     if cfg.frontend == "vision":
         params["patch_proj"] = dense_init(generator, (VISION_EMBED_DIM, cfg.d_model), dtype)
+    elif cfg.frontend == "audio":
+        params["frame_proj"] = dense_init(generator, (AUDIO_FEAT_DIM, cfg.d_model), dtype)
     return params
 
 
@@ -223,6 +231,18 @@ def _embed_inputs(params, tokens, cfg, patches=None):
     return x.to(dtype_of(cfg.compute_dtype)), patches.shape[1]
 
 
+def _train_inputs(params, batch, cfg):
+    """A train batch's stack input and label offset: the audio frontend's
+    ``frames`` [B, S, 80] through ``frame_proj`` (in the promoted type of
+    the two, as the reference's ``@``; no tokens, no offset), else
+    :func:`_embed_inputs` of ``tokens`` (and ``patches``)."""
+    if cfg.frontend == "audio":
+        frames, proj = batch["frames"], params["frame_proj"]
+        dt = torch.promote_types(frames.dtype, proj.dtype)
+        return (frames.to(dt) @ proj.to(dt)).to(dtype_of(cfg.compute_dtype)), 0
+    return _embed_inputs(params, batch["tokens"], cfg, batch.get("patches"))
+
+
 def _logits(params, x, cfg):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (x @ head).float()
@@ -232,12 +252,12 @@ MOE_GROUPS = ("token", "sequence")
 
 
 def _mlp_block(lp, x, cfg, *, moe_groups: str = "token", stats=None):
-    """x + the layer's MLP of norm(x): SwiGLU, or the moe family's experts
-    with a token a group (serving) or a sequence a group (``moe_apply``,
-    whose aux loss is added to ``stats["aux"]``)."""
+    """x + the layer's MLP of norm(x): SwiGLU (gelu with ``cfg.act``), or
+    the moe family's experts with a token a group (serving) or a sequence a
+    group (``moe_apply``, whose aux loss is added to ``stats["aux"]``)."""
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family != "moe":
-        return x + mlp_apply(lp, h)
+        return x + mlp_apply(lp, h, cfg.act)
     if moe_groups == "token":
         return x + moe.moe_tokens(lp, h, cfg, stats)
     y, aux = moe.moe_apply(lp, h, cfg, stats=stats)
@@ -248,8 +268,9 @@ def _mlp_block(lp, x, cfg, *, moe_groups: str = "token", stats=None):
 
 def _decoder_layer(lp, x, cfg, positions, spec: LayerSpec, kv_int8: bool = False, *,
                    moe_groups: str = "sequence", stats=None):
-    """One full-sequence causal layer: x [B, S, d] -> (x, k, v), with k/v
-    [B, S, KV, hd] after RoPE (what the layer's cache keeps).
+    """One full-sequence layer (causal unless ``cfg.causal`` is False, the
+    audio encoder): x [B, S, d] -> (x, k, v), with k/v [B, S, KV, hd]
+    after RoPE (what the layer's cache keeps).
 
     ``kv_int8``: K and V are quantized to the int8 cache's rows before the
     attention, which reads them dequantized, as the reference's decode
@@ -264,14 +285,62 @@ def _decoder_layer(lp, x, cfg, positions, spec: LayerSpec, kv_int8: bool = False
         k_at, v_at = (dequant(*kv, q.dtype) for kv in (k, v))
     else:
         k_at, v_at = k, v
-    o = attention(q, k_at, v_at, causal=True, window=spec.window, impl=cfg.attn_impl,
+    o = attention(q, k_at, v_at, causal=cfg.causal, window=spec.window, impl=cfg.attn_impl,
                   chunk=min(cfg.attn_chunk, S))
     x = x + o.reshape(B, S, -1) @ lp["wo"]
     return _mlp_block(lp, x, cfg, moe_groups=moe_groups, stats=stats), k, v
 
 
 def _layer_output(lp, x, cfg, positions, spec: LayerSpec):
+    """x after one attention layer, and its moe aux loss (None outside the
+    moe family): the body a recomputed layer runs.  Its moe counters stay
+    in a dict of its own, which a recompute fills again."""
+    stats = {} if cfg.family == "moe" else None
+    x = _decoder_layer(lp, x, cfg, positions, spec, stats=stats)[0]
+    return x, None if stats is None else stats["aux"]
+
+
+def _shared_output(lp, x, cfg, positions, spec: LayerSpec):
     return _decoder_layer(lp, x, cfg, positions, spec)[0]
+
+
+def _mamba_output(lp, x, cfg):
+    return _mamba_block(lp, x, cfg)[0]
+
+
+def _mamba2_output(lp, x, cfg):
+    return x + ssm.mamba2_apply(lp, rmsnorm(x, lp["ln"], cfg.norm_eps), cfg)[0]
+
+
+# ---------------------------------------------------------------------------
+# Rematerialization
+# ---------------------------------------------------------------------------
+
+REMAT = ("none", "full", "dots")
+# the ops whose outputs "dots" keeps: the weight products, [B, S, d] @ W,
+# which eager matmul folds into mm (the reference's
+# dots_with_no_batch_dims_saveable); attention's batched einsums (bmm) and
+# the experts' are recomputed, as everything else is
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, remat: str, *args):
+    """``fn(*args)``, its activations kept (``"none"``), recomputed in the
+    backward pass (``"full"``: ``torch.utils.checkpoint``, the reference's
+    ``nothing_saveable``), or recomputed but for the weight products
+    (``"dots"``: a selective checkpoint)."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat {remat!r} not in {REMAT}")
 
 
 def _prefill_rows(leaf, rows):
@@ -289,8 +358,11 @@ def _mamba_block(lp, x, cfg):
     return x + y, state
 
 
-def _run_mamba_stack(params, x, cfg, *, cache):
+def _run_mamba_stack(params, x, cfg, *, cache, remat: str = "none"):
     for i, lp in enumerate(layer_params(params, cfg)):
+        if cache is None:
+            x = remat_call(functools.partial(_mamba_output, cfg=cfg), remat, lp, x)
+            continue
         x, state = _mamba_block(lp, x, cfg)
         if cache is not None:
             for n in ("h", "conv"):
@@ -298,15 +370,25 @@ def _run_mamba_stack(params, x, cfg, *, cache):
     return x
 
 
-def _run_hybrid_stack(params, x, cfg, *, cache):
+def _run_hybrid_stack(params, x, cfg, *, cache, remat: str = "none"):
     """Each group's mamba2 layers (``x + mamba2(norm(x))``), then the shared
     block (causal attention through ``attention``, the flash kernel on the
     card, and the MLP); with ``cache`` each mamba2 layer's final state and
-    each application's K/V rows are kept there."""
+    each application's K/V rows are kept there.  Without, ``remat``
+    applies to each mamba2 layer and each application of the shared
+    block, as the reference's."""
     positions = torch.arange(x.shape[1], device=x.device)
     k = cfg.attn_every
     mamba = layer_params(params, cfg)
     for g in range(cfg.n_groups):
+        if cache is None:
+            for i in range(k):
+                x = remat_call(functools.partial(_mamba2_output, cfg=cfg), remat,
+                               mamba[g * k + i], x)
+            x = remat_call(functools.partial(_shared_output, cfg=cfg, positions=positions,
+                                             spec=shared_spec(cfg, g)),
+                           remat, params["shared_attn"], x)
+            continue
         for i in range(k):
             lp = mamba[g * k + i]
             y, state = ssm.mamba2_apply(lp, rmsnorm(x, lp["ln"], cfg.norm_eps), cfg)
@@ -326,24 +408,28 @@ def _run_stack(params, x, cfg, *, remat: str = "none", cache=None, moe_groups="s
     """Every layer over the full sequence x [B, S, d]; with ``cache`` (the
     :func:`init_cache` layout for max_len S) each layer's K/V rows (mamba1:
     its final state) are kept there.  ``moe_groups``/``stats``: see
-    :func:`_mlp_block`."""
+    :func:`_mlp_block`.  ``remat`` (no cache) recomputes each layer in
+    the backward pass (:func:`remat_call`), where the reference's
+    ``maybe_remat`` wraps its scan bodies; a recomputed moe layer adds
+    only its aux loss to ``stats``."""
     if moe_groups not in MOE_GROUPS:
         raise ValueError(f"moe_groups {moe_groups!r} not in {MOE_GROUPS}")
-    if cfg.family in ("ssm", "hybrid"):
-        if remat != "none":  # ssm and hybrid training are not ported
-            raise ValueError(f"{cfg.name}: remat {remat!r} is not ported for the "
-                             f"{cfg.family} family")
-        if cfg.family == "hybrid":
-            return _run_hybrid_stack(params, x, cfg, cache=cache)
-        return _run_mamba_stack(params, x, cfg, cache=cache)
-    if cfg.family == "moe" and remat != "none":
-        raise ValueError(f"{cfg.name}: remat {remat!r} is not ported for the moe family")
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
+    if remat != "none" and cache is not None:
+        raise ValueError("a recomputed stack keeps no cache")
+    if cfg.family == "hybrid":
+        return _run_hybrid_stack(params, x, cfg, cache=cache, remat=remat)
+    if cfg.family == "ssm":
+        return _run_mamba_stack(params, x, cfg, cache=cache, remat=remat)
     positions = torch.arange(x.shape[1], device=x.device)
     kv_int8 = cache is not None and "k_scale" in cache
     for spec, lp in zip(layer_specs(cfg), layer_params(params, cfg)):
-        if remat == "full":  # recompute in the backward pass; no cache
+        if remat != "none":
             fn = functools.partial(_layer_output, cfg=cfg, positions=positions, spec=spec)
-            x = checkpoint(fn, lp, x, use_reentrant=False)
+            x, aux = remat_call(fn, remat, lp, x)
+            if aux is not None and stats is not None:
+                stats["aux"] = stats.get("aux", 0) + aux
             continue
         x, k, v = _decoder_layer(lp, x, cfg, positions, spec, kv_int8, moe_groups=moe_groups,
                                  stats=stats)
@@ -360,8 +446,6 @@ def _run_stack(params, x, cfg, *, remat: str = "none", cache=None, moe_groups="s
 # ---------------------------------------------------------------------------
 # Training forward
 # ---------------------------------------------------------------------------
-
-REMAT = ("none", "full")
 
 
 def _train_head(params, x, batch, cfg: ModelConfig, label_offset: int = 0):
@@ -386,19 +470,20 @@ def _train_head(params, x, batch, cfg: ModelConfig, label_offset: int = 0):
 
 
 def forward_train(params, batch, cfg: ModelConfig, remat: str = "none"):
-    """Causal LM loss of ``batch`` (``tokens``/``labels`` [B, S], and
+    """Token loss of ``batch``: ``tokens``/``labels`` [B, S] (and
     ``patches`` [B, P, 1024] with the vision frontend: the labels are those
-    of the tokens after the patches).
+    of the tokens after the patches), or, for the audio encoder, ``frames``
+    [B, S, 80] and per-frame ``labels`` [B, S].
 
-    ``remat="full"`` recomputes each layer in the backward pass
-    (``torch.utils.checkpoint`` per layer, the reference's
-    ``nothing_saveable`` policy on its scan body); ``"none"`` keeps every
-    activation.  Returns (loss, metrics); for the moe family the loss is
-    the token loss + 0.01 x the layers' summed aux loss (``metrics["loss"]``
-    the token loss, ``metrics["aux_loss"]`` the aux), as the reference's."""
+    ``remat`` (:func:`remat_call`, per layer): ``"none"`` keeps every
+    activation, ``"full"`` recomputes each layer in the backward pass,
+    ``"dots"`` keeps only its weight products.  Returns (loss, metrics);
+    for the moe family the loss is the token loss + 0.01 x the layers'
+    summed aux loss (``metrics["loss"]`` the token loss,
+    ``metrics["aux_loss"]`` the aux), as the reference's."""
     if remat not in REMAT:
-        raise ValueError(f"remat {remat!r} is not ported; choose one of {REMAT}")
-    x, off = _embed_inputs(params, batch["tokens"], cfg, batch.get("patches"))
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
+    x, off = _train_inputs(params, batch, cfg)
     stats = {} if cfg.family == "moe" else None
     x = _run_stack(params, x, cfg, remat=remat, stats=stats)
     loss, metrics = _train_head(params, x, batch, cfg, off)

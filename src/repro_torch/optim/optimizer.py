@@ -1,7 +1,8 @@
-"""AdamW on flat fp32 shards, with cosine, WSD and constant learning-rate
-schedules (port of ``repro.optim.optimizer``, the vector form the ZeRO-1
-gradient sync runs; the reference's Lion and SGD and its tree form are
-not ported yet).
+"""AdamW with cosine, WSD and constant learning-rate schedules (port of
+``repro.optim.optimizer``): the vector form on flat fp32 shards, which the
+ZeRO-1 gradient syncs run, and the tree form, fp32 ``master``/``mu``/
+``nu`` trees shaped like the params, which ``mrd_leaf`` and ``local_sgd``
+run.  The reference's Lion and SGD are not ported yet.
 
 The scalar arithmetic (learning rate, bias corrections) runs in float32,
 as the reference's does on its int32 step counter.  Divisors are tensors:
@@ -54,6 +55,33 @@ def schedule_lr(ocfg: OptimizerConfig, step) -> float:
         tail = torch.clamp((step - decay_start) / _f32(max(total - decay_start, 1)), 0, 1)
         return float(lr * warm * (1 - tail))
     raise ValueError(ocfg.schedule)
+
+
+def init_opt_state(params) -> dict:
+    """Tree form: fp32 ``master`` copies of ``params`` (a nested dict of
+    tensors) and zero ``mu``/``nu`` trees of the same shapes."""
+    def tree(fn, t):
+        return {k: tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in t.items()}
+
+    return {"master": tree(lambda p: p.to(torch.float32, copy=True), params),
+            "mu": tree(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+            "nu": tree(lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
+
+
+def apply_update_tree_(grads: list, opt: dict[str, list], ocfg: OptimizerConfig, step,
+                       param_dtype) -> list:
+    """Tree form of :func:`apply_update_vector`, leaf by leaf: ``grads``
+    and each of ``opt["master"]``/``["mu"]``/``["nu"]`` are lists of
+    matching leaves (fp32 optimizer leaves, updated in place).  Returns the
+    new params, each master leaf cast to ``param_dtype``."""
+    out = []
+    for i, g in enumerate(grads):
+        part = {k: opt[k][i] for k in ("master", "mu", "nu")}
+        _, new = apply_update_vector(g.float(), part, ocfg, step)
+        for k, v in part.items():
+            v.copy_(new[k])
+        out.append(part["master"].to(param_dtype, copy=True))
+    return out
 
 
 def init_opt_vector(n: int, device="cpu") -> dict[str, torch.Tensor]:

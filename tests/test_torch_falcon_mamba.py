@@ -87,8 +87,8 @@ def test_other_ssm_versions_and_families_are_refused():
         registry.override(full, ssm_version=2)
     with pytest.raises(ValueError, match="hybrid family is mamba2"):
         registry.override(full, family="hybrid")  # the hybrid family is ported, mamba2 only
-    with pytest.raises(ValueError, match="not ported yet"):
-        registry.override(full, family="audio")
+    with pytest.raises(ValueError, match="unknown family"):  # audio is ported now
+        registry.override(full, family="encoder")
     with pytest.raises(ValueError, match="ssm_state > 0"):
         registry.override(full, ssm_state=0)
 
@@ -289,16 +289,25 @@ def test_ssm_is_not_pageable():
 
 
 def test_training_the_ssm_family_is_refused(setup):
+    """No longer refused: the mamba1 stack trains through the chunked scan
+    (``ssm.chunk_scan``, the kernel has no backward); one step builds and
+    runs with finite values (its parity: ``test_torch_train_families.py``)."""
     from repro_torch.distributed import step as step_lib
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        step_lib.make_train_step(setup[0], step_lib.TrainConfig(), dp=1, device="cpu")
+    step = step_lib.make_train_step(setup[0], step_lib.TrainConfig(), dp=1, device="cpu")
+    state = step.init_state(torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 5), dtype=torch.long)
+    _, m = step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
 
 
 def test_ssm_forward_refuses_remat(setup):
-    """The scan has no backward, so the ssm stack takes no remat policy."""
+    """Remat is no longer refused for the ssm stack: under autograd the
+    mamba1 layer runs the chunked scan, so ``"full"`` and ``"dots"``
+    recompute it and give the loss of ``"none"`` (fp32, within 1e-6)."""
     cfg, params = setup[0], setup[2]
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
              "labels": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(ValueError, match="remat 'full' is not ported"):
-        transformer.forward_train(params, batch, cfg, "full")
+    losses = [float(transformer.forward_train(params, batch, cfg, r)[0])
+              for r in ("none", "full", "dots")]
+    assert max(losses) - min(losses) <= 1e-6, losses

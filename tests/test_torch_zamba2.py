@@ -148,11 +148,12 @@ def test_configs_and_n_params_are_the_references(setup):
 
 
 def test_refusals():
-    """audio stays refused, mamba2 only in the hybrid family, the hybrid
-    stack's own rules; no int8 cache (no scale planes for attn_k/attn_v)."""
+    """An unknown family (the audio family is ported now), mamba2 only in
+    the hybrid family, the hybrid stack's own rules; no int8 cache (no
+    scale planes for attn_k/attn_v)."""
     full = registry.get_config(ARCH)
-    with pytest.raises(ValueError, match="not ported yet"):
-        registry.override(full, family="audio")
+    with pytest.raises(ValueError, match="unknown family"):
+        registry.override(full, family="encoder")
     with pytest.raises(ValueError, match="mamba2 is not ported outside the hybrid family"):
         registry.override(registry.get_config("falcon-mamba-7b"), ssm_version=2)
     with pytest.raises(ValueError, match="hybrid family is mamba2"):
@@ -166,10 +167,16 @@ def test_refusals():
 
 
 def test_training_the_hybrid_family_is_refused(setup):
+    """No longer refused: the hybrid stack trains (its parity against the
+    reference: ``test_torch_train_families.py``); one step builds and runs
+    with finite values."""
     from repro_torch.distributed import step as step_lib
 
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        step_lib.make_train_step(setup[0], step_lib.TrainConfig(), dp=1, device="cpu")
+    step = step_lib.make_train_step(setup[0], step_lib.TrainConfig(), dp=1, device="cpu")
+    state = step.init_state(torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 5), dtype=torch.long)
+    _, m = step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
 
 
 def test_fp32_leaves_stay_fp32_from_a_bf16_tree():
