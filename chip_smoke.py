@@ -296,7 +296,21 @@ Phases, in order (any failure ends the run with a non-zero exit):
    13f. hubert-xlarge's (remat ``full`` and ``dots``) and the falcon-mamba
    cut's train step profiled (wall, busy, idle share, the costliest
    kernels, device time by class and by launching function);
-14. the kernels line, then the device line as the last line of stdout.
+14. the multi-process trainer and the optimizers at llama3.2-1b's full
+   width: 14a. the train CLI as a one-rank NCCL world
+   (``torch.distributed.run --nproc-per-node 1`` in a subprocess, the
+   ``device`` executor over a ``("data",)`` mesh) under ``compressed``,
+   ``mrd_zero1`` and ``mrd_leaf``, 3 steps of 2 x 1024 tokens at
+   ``--dp 1``, against the stacked-rows trainer at dp 1 in this process
+   on the same card: losses, grad norms and the digest of the final
+   params and optimizer state equal bit for bit; 14b. Lion and SGD in the
+   stacked-rows trainer at dp 3 under ``compressed`` and ``mrd_leaf``, 3
+   steps, counted from 0: every loss and grad norm finite,
+   ``mrd_combine`` launched 2 reducing stages x buckets a step under
+   ``compressed`` and never under ``mrd_leaf``, no other kernel; and the
+   smoke config under ``compressed`` at dp 3 with each optimizer, each
+   card step from the CPU's state held to the CPU's as in 13b;
+15. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
@@ -2573,7 +2587,7 @@ def free_running_drift(steps, state, batches, cfg) -> list:
     return out
 
 
-def smoke_card_vs_cpu(all_ops, arch: str) -> dict:
+def smoke_card_vs_cpu(all_ops, arch: str, optimizer: str = "adamw") -> dict:
     """13b. ``arch``'s smoke config trained 3 steps under ``compressed`` at dp
     3 on the CPU, each step run on the card too from a copy of the CPU's
     state before it (weights drawn once on the CPU), on the same batches:
@@ -2597,8 +2611,8 @@ def smoke_card_vs_cpu(all_ops, arch: str) -> dict:
     smoke = registry.get_smoke_config(arch)
     tcfg = step_lib.TrainConfig(
         remat="full", grad_sync="compressed", monitor=True, monitor_threshold=100.0,
-        bucket_bytes=1 << 15, optimizer=OptimizerConfig(lr=SMOKE_LR, schedule="const",
-                                                        warmup_steps=0))
+        bucket_bytes=1 << 15, optimizer=OptimizerConfig(name=optimizer, lr=SMOKE_LR,
+                                                        schedule="const", warmup_steps=0))
     steps = {dev: step_lib.make_train_step(smoke, tcfg, dp=3, device=dev)
              for dev in ("cpu", "cuda")}
     state = steps["cpu"].init_state(torch.Generator().manual_seed(0))
@@ -2628,7 +2642,7 @@ def smoke_card_vs_cpu(all_ops, arch: str) -> dict:
                          f"mrd_combine launch: {hist['cuda']}, {launched} launches")
     n_state = sum(t.numel() for part in ("params", "opt")
                   for t in buckets.tree_flatten(state[part])[0])
-    log(f"13b {arch} smoke, compressed dp 3, 3 steps, each from the CPU's state: card "
+    log(f"13b {arch} smoke, compressed dp 3, {optimizer}, 3 steps, each from the CPU's state: card "
         f"({launched} mrd_combine launches) {hist['cuda']} vs cpu {hist['cpu']}; the state "
         f"after each step within the int8 tie rule, elements beyond 1e-4 {beyond} of {n_state}")
     out = {"card": hist["cuda"], "cpu": hist["cpu"], "mrd_combine": launched,
@@ -2760,7 +2774,7 @@ def checkpoint_phase() -> dict:
             state = train_step.init_state(torch.Generator(device=device).manual_seed(1))
             t1 = time.perf_counter()
             state, step0 = train.resume(Checkpointer(os.path.join(root, "a")), state, cfg, pipe,
-                                        args.dp, device)
+                                        args.dp, device, args.grad_sync)
             restore_s = time.perf_counter() - t1
             losses_b = []
             for _ in range(2):
@@ -2880,6 +2894,150 @@ def training_phases(all_ops, t: float) -> dict:
         for r, v in remat.items()) + " (losses within 1e-4 relative of remat none's)")
     stats["remat"] = remat
     t = phase("train-remat", t)
+    free_device()
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# 14. the multi-process trainer (a one-rank NCCL world), Lion and SGD
+# ---------------------------------------------------------------------------
+
+WORLD_MODES = ("compressed", "mrd_zero1", "mrd_leaf")  # 14a
+WORLD_STEPS = 3
+OPTIMIZER_RUNS = tuple((name, mode) for name in ("lion", "sgd")
+                       for mode in ("compressed", "mrd_leaf"))  # 14b, at dp 3
+
+
+# 14a's one-rank world: the train CLI's world entry (``main()``'s
+# ``init_world``, ``train``, ``destroy_process_group``) with one process
+# group for every argument list of its JSON argument, so that the three
+# modes pay the process start and the card's cold first step once
+WORLD_RUNNER = """
+import json, sys
+import torch
+import torch.distributed as dist
+from repro_torch.launch import train
+
+runs = [train.build_parser().parse_args(argv) for argv in json.loads(sys.argv[1])]
+device, mesh = train.init_world(runs[0], train.world_env())
+try:
+    for args in runs:
+        torch.cuda.reset_peak_memory_stats(device)
+        train.train(args, device, mesh)
+        torch.cuda.empty_cache()
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def world_vs_sim(all_ops) -> dict:
+    """14a. llama3.2-1b at full width, 3 steps at dp 1 under each of
+    ``WORLD_MODES``: the train CLI as a one-rank NCCL world (one
+    ``torch.distributed.run`` subprocess for the three modes, each writing
+    its record and the digest of its final state) against the
+    stacked-rows trainer in this process, on the same card: the losses,
+    grad norms and digests equal bit for bit, and no kernel launched (at
+    dp 1 no plan has a stage)."""
+    from repro_torch.launch import train
+
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    summary = {mode: out / f"p14_world_{mode}.json" for mode in WORLD_MODES}
+    argvs = [train_argv("llama3.2-1b", 1, mode, WORLD_STEPS)
+             + ["--summary-json", str(summary[mode])] for mode in WORLD_MODES]
+    free_device()
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "--no-python", sys.executable, "-c", WORLD_RUNNER, json.dumps(argvs)],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    world_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise SystemExit(f"14a: the one-rank world failed ({proc.returncode}):\n"
+                         f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+    log(f"14a the one-rank NCCL world ran {', '.join(WORLD_MODES)} in {world_s:.1f} s with "
+        f"its start")
+    stats = {"world_wall_s": world_s}
+    for mode in WORLD_MODES:
+        world = json.loads(summary[mode].read_text())
+        free_device()
+        zero(all_ops)
+        torch.cuda.reset_peak_memory_stats()
+        rec = train.main(train_argv("llama3.2-1b", 1, mode, WORLD_STEPS))
+        expect_launches(counts(all_ops), {}, f"14a {mode} stacked rows at dp 1",
+                        torch.device("cuda"))
+        digest = train.state_digest(rec.pop("state"))
+        free_device()
+        same = (world["losses"] == rec["losses"] and world["grad_norms"] == rec["grad_norms"]
+                and world["state_digest"] == digest)
+        stats[mode] = {"world": {k: world[k] for k in (
+                           "losses", "grad_norms", "ms_per_step", "tokens_per_s", "peak_bytes",
+                           "mrd_combine_launches", "rank", "world_size", "state_digest")},
+                       "sim": {k: rec[k] for k in ("losses", "grad_norms", "ms_per_step",
+                                                   "tokens_per_s", "peak_bytes",
+                                                   "mrd_combine_launches")},
+                       "sim_digest": digest, "bit_for_bit": same}
+        log(f"14a {mode} llama3.2-1b dp 1, {WORLD_STEPS} steps: one-rank NCCL world losses "
+            f"{world['losses']}, grad norms {world['grad_norms']}, ms/step "
+            f"{[round(m, 1) for m in world['ms_per_step']]}, peak "
+            f"{world['peak_bytes'] / 2**30:.3f} GiB; stacked rows ms/step "
+            f"{[round(m, 1) for m in rec['ms_per_step']]}, peak "
+            f"{rec['peak_bytes'] / 2**30:.3f} GiB; digests {world['state_digest'][:16]} / "
+            f"{digest[:16]}; bit for bit {same}")
+        if (not same or world["mrd_combine_launches"]
+                or (world["rank"], world["world_size"]) != (0, 1)):
+            raise SystemExit(f"14a {mode}: the one-rank world differs from the stacked-rows "
+                             f"trainer: {stats[mode]}")
+    return stats
+
+
+def optimizer_run(all_ops, name: str, mode: str) -> dict:
+    """14b. ``name`` (Lion or SGD) in the stacked-rows trainer at
+    llama3.2-1b's full width, dp 3 under ``mode``, counted from 0."""
+    from repro_torch.launch import train
+
+    free_device()
+    zero(all_ops)
+    torch.cuda.reset_peak_memory_stats()
+    rec = train.main(train_argv("llama3.2-1b", 3, mode, WORLD_STEPS) + ["--optimizer", name])
+    got = counts(all_ops)
+    want = combine_launches_expected(rec.pop("state")["params"], 3, mode, WORLD_STEPS)
+    free_device()
+    expect_launches(got, {"mrd_combine": want}, f"14b {name} {mode}", torch.device("cuda"))
+    if mode == "compressed" and not want:
+        raise SystemExit(f"14b {name}: the compressed sync launched no mrd_combine")
+    if not all(np.isfinite(rec["losses"] + rec["grad_norms"])):
+        raise SystemExit(f"14b {name} {mode}: non-finite values {rec['losses']} "
+                         f"{rec['grad_norms']}")
+    steady = rec["ms_per_step"][1:]
+    stats = {"losses": rec["losses"], "grad_norms": rec["grad_norms"],
+             "ms_per_step": rec["ms_per_step"], "ms_per_step_mean": sum(steady) / len(steady),
+             "peak_gib": rec["peak_bytes"] / 2**30, "mrd_combine": got["mrd_combine"]}
+    log(f"14b {name} {mode} llama3.2-1b dp 3: losses {rec['losses']}, grad norms "
+        f"{rec['grad_norms']}, ms/step {[round(m, 1) for m in rec['ms_per_step']]}, peak "
+        f"{stats['peak_gib']:.3f} GiB, mrd_combine launches {got['mrd_combine']}")
+    return stats
+
+
+def world_phases(all_ops, t: float) -> dict:
+    """14. 14a the one-rank NCCL world against the stacked rows, 14b Lion
+    and SGD at full width and on the smoke config card against CPU."""
+    stats: dict = {"world": {}, "optimizers": {}, "smoke_card_vs_cpu": {}}
+    stats["world"] = world_vs_sim(all_ops)
+    t = phase("world-vs-sim", t)
+    launches = 0
+    for name, mode in OPTIMIZER_RUNS:
+        run = optimizer_run(all_ops, name, mode)
+        launches += run["mrd_combine"]
+        stats["optimizers"][f"{name} {mode}"] = run
+    for name in ("lion", "sgd"):
+        smoke = smoke_card_vs_cpu(all_ops, "llama3.2-1b", optimizer=name)
+        launches += smoke["mrd_combine"]
+        stats["smoke_card_vs_cpu"][name] = smoke
+    stats["launches"] = {"mrd_combine": launches}
+    t = phase("lion-sgd", t)
     free_device()
     return stats
 
@@ -3708,7 +3866,12 @@ def main() -> int:
     train13 = training_phases(all_ops, time.perf_counter())
     p13 = train13["launches"]["mrd_combine"]
 
-    # 14. results
+    # 14. the multi-process trainer as a one-rank NCCL world; Lion and SGD
+    free_device()
+    train14 = world_phases(all_ops, time.perf_counter())
+    p14 = train14["launches"]["mrd_combine"]
+
+    # 15. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -3725,6 +3888,7 @@ def main() -> int:
     log(json.dumps({"families": fam_stats}))
     log(json.dumps({"hybrid": hyb_stats}))
     log(json.dumps({"training": train13}))
+    log(json.dumps({"world_training": train14}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
@@ -3754,9 +3918,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/mrd_combine/csrc/mrd_combine.cu",
         "replaces": "src/repro/kernels/mrd_combine/kernel.py:31",
-        "launches": train_launches + coll_launches + p13,
+        "launches": train_launches + coll_launches + p13 + p14,
         "launches_by_path": {"train": train_launches, "collectives": coll_launches,
-                             "training_families": p13},
+                             "training_families": p13, "world_and_optimizers": p14},
         "max_abs_err": errs[(COMBINE_CASES[-1], torch.float32)],
         "ms": mc_ms,
         "plain_ms": mc_plain_ms,

@@ -37,10 +37,12 @@ are host integers (the reference carries them as device scalars for
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional, Sequence
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.collectives import buckets as B
 from repro_torch.collectives import transforms as T
@@ -118,6 +120,18 @@ def _tree_map(fn: Callable, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+PROFILE_RANGE = "collective_plan"  # the profiler's name for a blocking plan run
+
+
+def profiled():
+    """A ``PROFILE_RANGE`` range around a blocking plan run while
+    ``torch.profiler`` records (its kernels then sum to the plans' device
+    time); nothing otherwise."""
+    if torch.autograd._profiler_enabled():
+        return record_function(PROFILE_RANGE)
+    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,6 +280,10 @@ class CollectivePlan:
         reduction (a tree of buffers reduces leaf by leaf); a reduce-scatter
         leaves pivot rank r holding segment r; an all-gather concatenates
         the segments back."""
+        with profiled():
+            return self._run(x)
+
+    def _run(self, x):
         op, tf = resolve_op(self.op), self._transform()
         phases = self._phases()
         if all(ph.collective == "allreduce" for ph in phases):
@@ -293,6 +311,10 @@ class CollectivePlan:
         work = list(bufs)
         if isinstance(bufs, list):
             bufs.clear()
+        with profiled():
+            return self._run_buffers(work)
+
+    def _run_buffers(self, work: list) -> list:
         table = self.bound_stage_table()
         if not table or not work:
             return work

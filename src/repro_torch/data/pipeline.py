@@ -38,12 +38,20 @@ NOISE = 0.25  # share of positions replaced by uniform noise
 
 
 class SyntheticPipeline:
-    """Deterministic per-step batch generator; its state is the step."""
+    """Deterministic per-step batch generator; its state is the step.
 
-    def __init__(self, cfg: ModelConfig, dcfg: DataConfig, device="cuda"):
+    In a world of ``dp`` ranks (one process a rank) every rank draws the
+    global batch and keeps its contiguous ``batch / dp`` slice ``rank``,
+    the sequences a stacked-rows trainer gives that rank's row."""
+
+    def __init__(self, cfg: ModelConfig, dcfg: DataConfig, device="cuda", *, rank: int = 0,
+                 dp: int = 1):
+        if dcfg.batch % dp:
+            raise ValueError(f"batch {dcfg.batch} does not split over dp={dp} ranks")
         self.cfg = cfg
         self.dcfg = dcfg
         self.device = resolve_device(device)
+        self.rank, self.dp = rank, dp
         self.step = 0
         gen = torch.Generator().manual_seed(dcfg.seed)
         # fixed motif bank (part of the 'dataset', not the per-step state)
@@ -74,7 +82,8 @@ class SyntheticPipeline:
         [batch, n_frontend_tokens, 1024] in the compute type (bf16, or fp32
         for an fp32 config); for the audio encoder ``{"frames": [batch,
         seq_len, 80] fp32, "labels": [batch, seq_len] int64}`` instead, a
-        uniform label a frame, as the reference's."""
+        uniform label a frame, as the reference's.  In a world: this rank's
+        ``batch / dp`` rows of each."""
         gen = torch.Generator().manual_seed((self.dcfg.seed << 32) + self.step)
         self.step += 1
         B, S = self.dcfg.batch, self.dcfg.seq_len
@@ -87,4 +96,6 @@ class SyntheticPipeline:
             frames = audio_frames(gen, B, S, torch.float32)
             batch = {"frames": frames,
                      "labels": torch.randint(0, self.cfg.vocab, (B, S), generator=gen)}
-        return {k: v.to(self.device) for k, v in batch.items()}
+        per = B // self.dp
+        return {k: v[self.rank * per:(self.rank + 1) * per].to(self.device)
+                for k, v in batch.items()}

@@ -1,7 +1,7 @@
 """Grad-sync strategy registry (port of ``repro.distributed.gradsync``).
 
 Each strategy is one module registering a builder ``make(cfg, tcfg, *,
-dp, device) -> train_step`` under its mode name; ``train_step(state,
+dp, device, mesh=None) -> train_step`` under its mode name; ``train_step(state,
 batch) -> (state, metrics)`` and ``train_step.init_state(generator)``.
 
 - ``mrd_paper``: the paper's recursive-doubling Allreduce of the full
@@ -16,10 +16,13 @@ batch) -> (state, metrics)`` and ``train_step.init_state(generator)``.
 - ``mrd_leaf``: the butterfly allreduce of the bucketed gradient tree and
   a replicated tree-shaped optimizer.
 
-Every family trains under every mode.  The reference's ``gspmd`` mode,
-its overlap path and its elastic resize hooks are not ported yet, and the
-ranks are rows of one device's tensors (the multi-process trainer is the
-next slice, ROADMAP queue 1, item 6).
+Every family trains under every mode, in either layout of the ranks
+(``gradsync.common``): stacked rows on one device (``mesh=None``, the
+``sim`` executor), or a world of one process a rank over the ``"data"``
+dimension of a ``torch.distributed`` :class:`DeviceMesh` (the ``device``
+and ``device_fused`` executors).  The reference's ``gspmd`` mode, its
+overlap path and its elastic resize hooks are not ported yet (ROADMAP
+queue 1, items 6 and 7).
 """
 
 from __future__ import annotations
@@ -50,9 +53,11 @@ def available() -> list[str]:
     return sorted(GRAD_SYNC)
 
 
-def make_train_step(cfg, tcfg, *, dp: int, device="cuda"):
-    """The train step of ``tcfg.grad_sync`` over ``dp`` ranks."""
-    return get(tcfg.grad_sync)(cfg, tcfg, dp=dp, device=device)
+def make_train_step(cfg, tcfg, *, dp: int, device="cuda", mesh=None):
+    """The train step of ``tcfg.grad_sync`` over ``dp`` ranks: stacked rows
+    on ``device``, or with ``mesh`` this process's rank of a world of
+    ``dp`` (its step takes the rank's batch shard)."""
+    return get(tcfg.grad_sync)(cfg, tcfg, dp=dp, device=device, mesh=mesh)
 
 
 # populate the registry (import order = doc order)

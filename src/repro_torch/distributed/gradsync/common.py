@@ -8,15 +8,28 @@ train step, never blocking) and the optimizer.  Strategies differ only in
 how the gradient crosses the data-parallel ranks and where the optimizer
 state lives.
 
-The data-parallel ranks are the rows of stacked ``[dp, ...]`` tensors on
-one device (the reference's sim layout): each rank computes its own
-gradient on its own batch shard, one rank after the other.
+The data-parallel ranks run in one of two layouts:
+
+- *sim* (no mesh): the ranks are the rows of stacked ``[dp, ...]``
+  tensors on one device; each rank computes its own gradient on its own
+  batch shard, one rank after the other, and the plans run on the
+  ``sim`` executor;
+- *world* (a ``torch.distributed`` :class:`DeviceMesh` with the dimension
+  ``"data"``): one process a rank, each holding only its own state and
+  batch shard; the plans run on the ``device``/``device_fused``
+  executors, and every value that crosses the ranks (the gradient
+  buckets, the grad norm, the logged loss, the monitor) goes through
+  them, as the reference's ``shard_map`` bodies use only the plans.
+
+A world rank computes what the sim computes for its row, with the same
+operations on the same values, so each rank's state equals the sim's row
+of it bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -44,18 +57,68 @@ class TrainConfig:
     # Ignored by identity-transform modes.
     error_feedback: bool = True
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+    # collectives executor of the gradient plans: None = auto
+    # (resolve_executor); 'device_fused' routes the int8 combine through
+    # the mrd_combine kernel
+    collective_executor: Optional[str] = None
     # cap on each dtype-homogeneous gradient bucket; None = one bucket
     bucket_bytes: Optional[int] = 32 * 2**20
 
 
-def resolve_executor(tcfg: TrainConfig, *, compressed: bool = False) -> str:
-    """The executor of the gradient plans: ``sim``, the ranks as rows of
-    one device's tensors, whose int8 combine on a CUDA tensor is the
-    ``mrd_combine`` kernel (the reference reaches it through
-    ``device_fused`` on a TPU).  The training loop runs its ranks in one
-    process; the ``device``/``device_fused`` executors over
-    ``torch.distributed`` need one process a rank."""
-    return "sim"
+DATA = "data"  # the mesh dimension of the data-parallel ranks
+
+
+def resolve_executor(tcfg: TrainConfig, *, compressed: bool = False, mesh=None,
+                     device=None) -> str:
+    """The executor of the gradient plans, the reference's rule with CUDA
+    in the TPU's place: an explicit ``tcfg.collective_executor`` wins; in
+    a world (``mesh``) the int8 sync on a CUDA device gets
+    ``device_fused`` (the ``mrd_combine`` kernel combines each received
+    payload) and anything else ``device``; without a world the ranks are
+    rows and the executor is ``sim`` (whose int8 combine on a CUDA tensor
+    is the kernel too)."""
+    if tcfg.collective_executor is not None:
+        return tcfg.collective_executor
+    if mesh is None:
+        return "sim"
+    if compressed and torch.device(device).type == "cuda":
+        return "device_fused"
+    return "device"
+
+
+def world_rank(mesh) -> tuple[int, int]:
+    """(this process's rank, the rank count) along ``mesh``'s ``"data"``
+    dimension."""
+    return mesh.get_local_rank(DATA), mesh.size(mesh.mesh_dim_names.index(DATA))
+
+
+def plan_binding(dp: int, mesh) -> dict:
+    """The keyword arguments that bind a plan to the ranks: the sim's rank
+    count, or the world's ``"data"`` dimension."""
+    return {"p": dp} if mesh is None else {"axes": (DATA,), "mesh": mesh}
+
+
+def check_world(dp: int, mesh) -> Optional[int]:
+    """This process's rank in the world of ``mesh`` (None without one);
+    raises unless the world has ``dp`` ranks."""
+    if mesh is None:
+        return None
+    rank, size = world_rank(mesh)
+    if size != dp:
+        raise ValueError(f"dp={dp} but the mesh's {DATA!r} dimension has {size} ranks")
+    return rank
+
+
+def gather_scalars(plan, values: list, rank: int, dp: int) -> torch.Tensor:
+    """Every rank's ``values`` (scalars: 0-d, or one element): ``[len(values), dp]`` fp32,
+    column r rank r's, on every rank.  Each rank writes its values into
+    its own column of zeros and ``plan`` (an MRD sum over the world) adds
+    the columns: a sum with one nonzero term a slot is exact, so the rows
+    are the values themselves, bit for bit, and a mean over a row is the
+    sim's mean over its stacked ranks."""
+    x = values[0].new_zeros((len(values), dp), dtype=torch.float32)
+    x[:, rank] = torch.stack([v.float().reshape(()) for v in values])
+    return plan.run(x.reshape(-1)).reshape(len(values), dp)
 
 
 def microbatched_grads(params, batch, cfg, remat: str, microbatches: int):
@@ -110,6 +173,18 @@ def rank_shards(batch, dp: int) -> list:
         raise ValueError(f"batch {B} does not split over dp={dp} ranks")
     per = B // dp
     return [{k: v[r * per:(r + 1) * per] for k, v in batch.items()} for r in range(dp)]
+
+
+def local_shards(batch, dp: int, rank: Optional[int]) -> list:
+    """The batch shards this process computes: every rank's of the global
+    batch (the sim), or a world rank's own ``batch``."""
+    return rank_shards(batch, dp) if rank is None else [batch]
+
+
+def rows(x: torch.Tensor, rank: Optional[int]) -> torch.Tensor:
+    """``x`` as rows a rank: the sim's stacked ``[dp, ...]`` as it is, a
+    world rank's own ``[...]`` as its one row ``[1, ...]`` (a view)."""
+    return x if rank is None else x[None]
 
 
 def clip_by_global_norm_(leaves: list, max_norm: float) -> torch.Tensor:
@@ -177,27 +252,72 @@ def stacked_grad_buckets(params, batch, cfg, tcfg: TrainConfig, dp: int, layout,
     return bufs, torch.stack(losses), torch.stack(metric)
 
 
+def rank_grad_buckets(params, batch, cfg, tcfg: TrainConfig, layout, aux=None):
+    """A world rank's :func:`stacked_grad_buckets`: the gradient of its own
+    batch shard ``batch``, packed into fp32 1-D buckets of ``layout``;
+    returns (buffers, loss, monitor metric), the loss and the metric 0-d.
+    Each bucket's leaves are released as soon as it is packed.  The moe
+    family's aux loss of the rank goes into ``aux`` as ``aux_loss``."""
+    grads, loss, metrics = microbatched_grads(params, batch, cfg, tcfg.remat,
+                                              tcfg.microbatches)
+    leaves = reference_leaves(grads)
+    del grads
+    if aux is not None and "aux_loss" in metrics:
+        aux["aux_loss"] = metrics["aux_loss"]
+    bufs = []
+    for i, b in enumerate(layout.buckets):
+        buf = torch.zeros((b.length,), dtype=torch.float32, device=loss.device)
+        pack_bucket(leaves, layout, i, out=buf)
+        for s in b.slots:
+            leaves[s.index] = None
+        bufs.append(buf)
+    return bufs, loss, metrics["per_example"].mean()
+
+
+def grad_buckets(params, batch, cfg, tcfg: TrainConfig, dp: int, layout, rank: Optional[int],
+                 aux=None):
+    """The gradient buckets of :func:`stacked_grad_buckets` (the sim,
+    ``rank`` None) or of :func:`rank_grad_buckets` (a world rank)."""
+    if rank is None:
+        return stacked_grad_buckets(params, batch, cfg, tcfg, dp, layout, aux)
+    return rank_grad_buckets(params, batch, cfg, tcfg, layout, aux)
+
+
+def step_metrics(plan, rank: Optional[int], dp: int, means: dict, firsts: dict) -> dict:
+    """A step's metrics in either layout: each of ``means`` the ranks'
+    mean (the sim's ``[dp]`` rows, or every world rank's own value
+    gathered exactly by ``plan``, :func:`gather_scalars`), each of
+    ``firsts`` (values every rank holds equal) its first row."""
+    if rank is not None and means:
+        means = dict(zip(means, gather_scalars(plan, list(means.values()), rank, dp)))
+    return {**{k: v.mean() for k, v in means.items()},
+            **{k: v.reshape(-1)[0] for k, v in firsts.items()}}
+
+
 # ---------------------------------------------------------------------------
 # Monitor wiring (identical across strategies)
 # ---------------------------------------------------------------------------
 
 
-def build_monitor(tcfg: TrainConfig, dp: int) -> Optional[ConvergenceMonitor]:
-    """The paper's staged detector over the ``dp`` ranks, or None."""
+def build_monitor(tcfg: TrainConfig, dp: int, mesh=None) -> Optional[ConvergenceMonitor]:
+    """The paper's staged detector over the ``dp`` ranks (stacked rows, or
+    the ``"data"`` dimension of a world's ``mesh``), or None."""
     if not tcfg.monitor:
         return None
-    return ConvergenceMonitor(p=dp, threshold=tcfg.monitor_threshold, mode=tcfg.monitor_mode)
+    where: dict[str, Any] = {"p": dp} if mesh is None else {"axis_name": DATA, "mesh": mesh}
+    return ConvergenceMonitor(threshold=tcfg.monitor_threshold, mode=tcfg.monitor_mode, **where)
 
 
 def monitor_rows_init(monitor: Optional[ConvergenceMonitor], *, device):
-    """The monitor's state, one row per rank (None without a monitor)."""
+    """The monitor's state, one row per rank (a world rank's own scalars;
+    None without a monitor)."""
     return None if monitor is None else monitor.init(device=device)
 
 
 def local_monitor_tick(monitor, mon_state, metric, step: int):
     """Advance every rank's monitor row by one stage with its ``metric``
-    [dp].  Returns (new rows, done [dp], value [dp]); zeros without a
-    monitor."""
+    [dp] (a world rank: its own 0-d metric).  Returns (new rows, done
+    [dp], value [dp]); zeros without a monitor."""
     if monitor is None:
         zeros = torch.zeros_like(metric)
         return mon_state, zeros.bool(), zeros.float()

@@ -19,5 +19,5 @@ from repro_torch.distributed.gradsync.mrd_zero1 import make_zero1
 
 
 @register("compressed")
-def make(cfg, tcfg, *, dp: int, device="cuda"):
-    return make_zero1(cfg, tcfg, dp=dp, device=device, transform="int8")
+def make(cfg, tcfg, *, dp: int, device="cuda", mesh=None):
+    return make_zero1(cfg, tcfg, dp=dp, device=device, mesh=mesh, transform="int8")

@@ -17,11 +17,18 @@ the fp32 copies in flight are one piece's, not the replicas' whole tree
 order: the schedule's reduction order depends on the ranks, not on an
 element's place in its bucket).  There is no monitor:
 ``converged`` is False and ``monitor_value`` 0, as in the reference.
+
+In a world (one process a rank over a mesh) each rank holds its own
+replica, its params and optimizer trees unstacked; the average runs the
+same ``rabenseifner`` allreduce over the mesh in the same pieces, and the
+logged loss and grad norm, the replicas' means, are gathered by the
+paper's MRD allreduce.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -38,9 +45,11 @@ from repro_torch.optim import optimizer as opt_lib
 PIECE_BYTES = 32 << 20  # a piece of the average without a bucket cap (fp32, a rank)
 
 
-def _rows(tree, r: int):
-    """Row ``r`` of every ``[dp, ...]`` leaf of a nested dict (views)."""
-    return {k: _rows(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
+def _replica(tree, i: int, rank):
+    """The ``i``-th replica this process holds of a nested dict (views):
+    row ``i`` of the sim's ``[dp, ...]`` leaves, a world rank's own."""
+    return {k: _replica(v, i, rank) if isinstance(v, dict) else common.rows(v, rank)[i]
+            for k, v in tree.items()}
 
 
 @dataclasses.dataclass
@@ -52,14 +61,25 @@ class LocalSGDStep:
     tcfg: TrainConfig
     dp: int
     device: torch.device
+    mesh: Any = None
 
     def __post_init__(self):
         self.every = max(self.tcfg.local_sync_every, 1)
-        self.executor = common.resolve_executor(self.tcfg)
+        self.rank = common.check_world(self.dp, self.mesh)
+        self.executor = common.resolve_executor(self.tcfg, mesh=self.mesh, device=self.device)
+        bind = common.plan_binding(self.dp, self.mesh)
+        self.avg_plan = plans.allreduce_plan(schedule="rabenseifner", executor=self.executor,
+                                             **bind)
+        self.scalar_ar = plans.allreduce_plan(schedule="mrd", executor=self.executor, **bind)
 
     def init_state(self, generator: torch.Generator):
-        """One random init from ``generator``, replicated to every row, and
-        the optimizer trees of the replicas."""
+        """One random init from ``generator``, replicated to every row (a
+        world rank: its replica), and the optimizer trees of the
+        replicas."""
+        if self.rank is not None:
+            params = transformer.init_params(self.cfg, generator, self.device)
+            return {"params": params, "opt": opt_lib.init_opt_state(params), "step": 0}
+
         def rep(tree):
             return {k: rep(v) if isinstance(v, dict)
                     else v[None].expand((self.dp,) + v.shape).clone() for k, v in tree.items()}
@@ -72,42 +92,44 @@ class LocalSGDStep:
         dp = torch.tensor(float(self.dp), device=self.device)  # true division on the card
         piece = max(1, (self.tcfg.bucket_bytes or PIECE_BYTES) // 4)  # fp32 elements a rank
         for leaf in common.reference_leaves(params):
-            rows = leaf.view(self.dp, -1)
+            rows = common.rows(leaf, self.rank)
+            rows = rows.view(rows.shape[0], -1)
             for a in range(0, rows.shape[1], piece):
                 part = rows[:, a:a + piece]
-                avg = plans.tree_allreduce({"x": part.float()}, schedule="rabenseifner",
-                                           p=self.dp, executor=self.executor)["x"]
+                avg = self.avg_plan.run_bucketed({"x": part.float()})["x"]
                 part.copy_((avg / dp).to(part.dtype))
 
     def __call__(self, state, batch):
         params, opt, step = state["params"], state["opt"], state["step"]
         pdt = dtype_of(self.cfg.param_dtype)
         losses, gnorms, auxes = [], [], []
-        for r, local in enumerate(common.rank_shards(batch, self.dp)):
-            p_r = _rows(params, r)
-            grads, loss, met = common.microbatched_grads(p_r, local, self.cfg, self.tcfg.remat,
+        for i, local in enumerate(common.local_shards(batch, self.dp, self.rank)):
+            p_i = _replica(params, i, self.rank)
+            grads, loss, met = common.microbatched_grads(p_i, local, self.cfg, self.tcfg.remat,
                                                          self.tcfg.microbatches)
             if "aux_loss" in met:
                 auxes.append(met["aux_loss"])
             g = [t.float() for t in common.reference_leaves(grads)]
             del grads
             gnorms.append(common.clip_by_global_norm_(g, self.tcfg.optimizer.grad_clip))
-            leaves = {k: common.reference_leaves(_rows(v, r)) for k, v in opt.items()}
+            leaves = {k: common.reference_leaves(_replica(v, i, self.rank))
+                      for k, v in opt.items()}
             new = opt_lib.apply_update_tree_(g, leaves, self.tcfg.optimizer, step, pdt)
             del g
-            for dst, src in zip(common.reference_leaves(p_r), new):
+            for dst, src in zip(common.reference_leaves(p_i), new):
                 dst.copy_(src)
             losses.append(loss)
         if (step + 1) % self.every == 0:
             self.average_(params)
         zero = torch.zeros((), device=self.device)
-        metrics = {"loss": torch.stack(losses).mean(), "grad_norm": torch.stack(gnorms).mean(),
-                   "converged": zero.bool(), "monitor_value": zero}
-        if auxes:
-            metrics["aux_loss"] = torch.stack(auxes).mean()
+        # every replica's loss, grad norm and aux loss, averaged
+        means = {"loss": losses, "grad_norm": gnorms, **({"aux_loss": auxes} if auxes else {})}
+        metrics = common.step_metrics(self.scalar_ar, self.rank, self.dp,
+                                      {k: torch.stack(v) for k, v in means.items()},
+                                      {"converged": zero.bool(), "monitor_value": zero})
         return {"params": params, "opt": opt, "step": step + 1}, metrics
 
 
 @register("local_sgd")
-def make(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda"):
-    return LocalSGDStep(cfg, tcfg, dp, resolve_device(device))
+def make(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda", mesh=None):
+    return LocalSGDStep(cfg, tcfg, dp, resolve_device(device), mesh)

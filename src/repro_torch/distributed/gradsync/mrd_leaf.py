@@ -13,13 +13,16 @@ reference's replicated optimizer, held once (16 B a parameter).  The new
 params are the masters rounded to the param type, each leaf then kept in
 its own type (fp32 leaves such as the moe router stay fp32, as the ZeRO-1
 modes keep them; the reference's tree update leaves them in the param
-type).  The monitor rows advance as in ``mrd_zero1``.  The reference's ``overlap``
+type).  The monitor rows advance as in ``mrd_zero1``.  In a world (one
+process a rank over a mesh) each rank keeps its own reduced buckets and
+runs the replicated optimizer on them.  The reference's ``overlap``
 branch (each ready bucket sent during the backward) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -43,11 +46,14 @@ class LeafStep:
     tcfg: TrainConfig
     dp: int
     device: torch.device
+    mesh: Any = None
 
     def __post_init__(self):
-        self.monitor = common.build_monitor(self.tcfg, self.dp)
-        self.grad_ar = plans.allreduce_plan(schedule="mrd", p=self.dp, op="sum",
-                                            executor=common.resolve_executor(self.tcfg))
+        self.rank = common.check_world(self.dp, self.mesh)
+        self.monitor = common.build_monitor(self.tcfg, self.dp, self.mesh)
+        self.grad_ar = plans.allreduce_plan(
+            schedule="mrd", op="sum", **common.plan_binding(self.dp, self.mesh),
+            executor=common.resolve_executor(self.tcfg, mesh=self.mesh, device=self.device))
 
     def init_state(self, generator: torch.Generator):
         params = transformer.init_params(self.cfg, generator, self.device)
@@ -62,11 +68,11 @@ class LeafStep:
                                       bucket_bytes=self.tcfg.bucket_bytes,
                                       quantum=self.grad_ar.pad_quantum(), dtype=torch.float32)
         aux = {}
-        bufs, losses, metric = common.stacked_grad_buckets(params, batch, self.cfg, self.tcfg,
-                                                           self.dp, layout, aux)
+        bufs, loss, metric = common.grad_buckets(params, batch, self.cfg, self.tcfg, self.dp,
+                                                 layout, self.rank, aux)
         # the paper's butterfly over every bucket, stage-major; every row
-        # then holds the sum, so one row is kept
-        red = [b[0] for b in self.grad_ar.run_buffers(bufs)]
+        # then holds the sum, so the first is kept
+        red = [common.rows(b, self.rank)[0] for b in self.grad_ar.run_buffers(bufs)]
         grads = buckets.tree_flatten(buckets.unpack(red, layout))[0]
         del red
         dp = torch.tensor(float(self.dp), device=self.device)  # true division on the card
@@ -84,10 +90,11 @@ class LeafStep:
         new_state = {"params": new_params, "opt": opt, "step": step + 1}
         if self.monitor is not None:
             new_state["monitor"] = mon
-        return new_state, {"loss": losses.mean(), "grad_norm": gnorm, "converged": done[0],
-                           "monitor_value": val[0], **aux}
+        return new_state, common.step_metrics(
+            self.grad_ar, self.rank, self.dp, {"loss": loss, **aux},
+            {"grad_norm": gnorm, "converged": done, "monitor_value": val})
 
 
 @register("mrd_leaf")
-def make(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda"):
-    return LeafStep(cfg, tcfg, dp, resolve_device(device))
+def make(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda", mesh=None):
+    return LeafStep(cfg, tcfg, dp, resolve_device(device), mesh)

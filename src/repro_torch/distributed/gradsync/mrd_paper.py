@@ -15,5 +15,5 @@ from repro_torch.distributed.gradsync.mrd_zero1 import make_zero1
 
 
 @register("mrd_paper")
-def make(cfg, tcfg, *, dp: int, device="cuda"):
-    return make_zero1(cfg, tcfg, dp=dp, device=device, paper_mode=True)
+def make(cfg, tcfg, *, dp: int, device="cuda", mesh=None):
+    return make_zero1(cfg, tcfg, dp=dp, device=device, mesh=mesh, paper_mode=True)

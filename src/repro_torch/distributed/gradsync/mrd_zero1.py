@@ -22,12 +22,21 @@ functional update would hold a second copy of them (22 GB at full width,
 dp 3).  The params are held once: the all-gather's copy stages move raw
 bytes, so every rank's row of the gathered buffers is the same, and the
 step keeps row 0.
+
+In a world (``mesh``: one process a rank, ``gradsync.common``) a rank
+holds its own ``master``/``mu``/``nu`` row [m] and ``ef`` row [n], its
+buckets are 1-D and the plans run over the mesh.  A rank that owns no
+segment (rank 2 at dp 3) runs no optimizer update, its rows stay as they
+were, and it still takes part in every stage of the scalar allreduce and
+the all-gather, whose forward shift hands it the params; the sim, as the
+reference, runs the update on that row's stale values, which nothing
+reads.  Each rank keeps its own gathered buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -71,6 +80,21 @@ def zero1_owner_segments(dp: int) -> list:
     return [r if r < p0 else None for r in range(dp)]
 
 
+def zero1_master_row(params, dp: int, rank: int, *,
+                     bucket_bytes: Optional[int] = buckets.DEFAULT_BUCKET_BYTES,
+                     paper_mode: bool = False) -> torch.Tensor:
+    """Row ``rank`` of :func:`zero1_masters_from_params`, without the other
+    rows."""
+    layout, prod_p0 = zero1_layout(params, dp, bucket_bytes=bucket_bytes)
+    bufs = buckets.pack(convert.reference_tree(params), layout)
+    if paper_mode:
+        return torch.cat(bufs)
+    own = zero1_owner_segments(dp)[rank]
+    if own is None:
+        return bufs[0].new_zeros((layout.total_padded // prod_p0,))
+    return torch.cat([b.reshape(prod_p0, -1)[own] for b in bufs])
+
+
 def zero1_masters_from_params(params, dp: int, *,
                               bucket_bytes: Optional[int] = buckets.DEFAULT_BUCKET_BYTES,
                               paper_mode: bool = False) -> torch.Tensor:
@@ -90,7 +114,9 @@ def zero1_masters_from_params(params, dp: int, *,
 @dataclasses.dataclass
 class Zero1Step:
     """``(state, batch) -> (state, metrics)`` of one ZeRO-1 train step
-    over ``dp`` ranks, and :meth:`init_state`."""
+    over ``dp`` ranks, and :meth:`init_state`.  Without a ``mesh`` the
+    ranks are stacked rows and ``batch`` is the global batch; in a world
+    ``batch`` is this rank's shard."""
 
     cfg: ModelConfig
     tcfg: TrainConfig
@@ -98,20 +124,38 @@ class Zero1Step:
     device: torch.device
     transform: str = "identity"
     paper_mode: bool = False
+    mesh: Any = None
 
     def __post_init__(self):
-        self.monitor = common.build_monitor(self.tcfg, self.dp)
+        self.rank = common.check_world(self.dp, self.mesh)
+        self.monitor = common.build_monitor(self.tcfg, self.dp, self.mesh)
         self.use_ef = self.tcfg.error_feedback and self.transform != "identity"
-        executor = common.resolve_executor(self.tcfg, compressed=self.transform != "identity")
+        executor = common.resolve_executor(self.tcfg, compressed=self.transform != "identity",
+                                           mesh=self.mesh, device=self.device)
+        bind = common.plan_binding(self.dp, self.mesh)
         if self.paper_mode:
-            self.grad_plan = plans.allreduce_plan(schedule="mrd", p=self.dp, op="sum",
-                                                  transform=self.transform, executor=executor)
+            self.grad_plan = plans.allreduce_plan(schedule="mrd", op="sum",
+                                                  transform=self.transform, executor=executor,
+                                                  **bind)
         else:
-            self.grad_plan = plans.reduce_scatter_plan(p=self.dp, op="sum",
-                                                       transform=self.transform,
-                                                       executor=executor)
-            self.ag_plan = plans.allgather_plan(p=self.dp, executor=executor)
-            self.scalar_ar = plans.allreduce_plan(schedule="mrd", p=self.dp, op="sum")
+            self.grad_plan = plans.reduce_scatter_plan(op="sum", transform=self.transform,
+                                                       executor=executor, **bind)
+            self.ag_plan = plans.allgather_plan(executor=executor, **bind)
+        # the grad norm's squares (ZeRO-1) and, in a world, the logged
+        # loss: scalars over the paper's MRD allreduce
+        self.scalar_ar = plans.allreduce_plan(schedule="mrd", op="sum",
+                                              executor=common.resolve_executor(
+                                                  self.tcfg, mesh=self.mesh, device=self.device),
+                                              **bind)
+        # the rows this process holds (every rank's in the sim, a world
+        # rank's own), whether each owns a segment, and whether each is
+        # updated: every row in the sim (a non-pivot's from stale values, as
+        # the reference), a world rank's only if it owns one (every rank
+        # holds the full vector under mrd_paper)
+        local = range(self.dp) if self.rank is None else [self.rank]
+        owners = [self.paper_mode or zero1_owner_segments(self.dp)[r] is not None for r in local]
+        self.owns = torch.tensor(owners, device=self.device)
+        self.updates = [self.rank is None or o for o in owners]
 
     def _layout(self, params):
         return zero1_layout(params, self.dp, bucket_bytes=self.tcfg.bucket_bytes)
@@ -121,11 +165,15 @@ class Zero1Step:
         rows from them, zero moments and EF residuals, a fresh monitor."""
         params = transformer.init_params(self.cfg, generator, self.device)
         layout, _ = self._layout(params)
-        masters = zero1_masters_from_params(params, self.dp, bucket_bytes=self.tcfg.bucket_bytes,
-                                            paper_mode=self.paper_mode)
+        kw = dict(bucket_bytes=self.tcfg.bucket_bytes, paper_mode=self.paper_mode)
+        if self.rank is None:
+            masters = zero1_masters_from_params(params, self.dp, **kw)
+        else:
+            masters = zero1_master_row(params, self.dp, self.rank, **kw)
         opt = {"master": masters, "mu": torch.zeros_like(masters), "nu": torch.zeros_like(masters)}
         if self.use_ef:
-            opt["ef"] = torch.zeros((self.dp, layout.total_padded), dtype=torch.float32,
+            rows = () if self.rank is not None else (self.dp,)
+            opt["ef"] = torch.zeros(rows + (layout.total_padded,), dtype=torch.float32,
                                     device=self.device)
         state = {"params": params, "opt": opt, "step": 0}
         if self.monitor is not None:
@@ -136,77 +184,82 @@ class Zero1Step:
         params, opt, step = state["params"], state["opt"], state["step"]
         layout, _ = self._layout(params)
         aux = {}
-        bufs, losses, metric = common.stacked_grad_buckets(params, batch, self.cfg, self.tcfg,
-                                                           self.dp, layout, aux)
+        bufs, loss, metric = common.grad_buckets(params, batch, self.cfg, self.tcfg, self.dp,
+                                                 layout, self.rank, aux)
         if self.use_ef:
             # EF-SGD: send the grid round trip of (grad + residual) and
             # carry what the quantizer dropped into the next step
-            for i, ef in enumerate(torch.split(opt["ef"], layout.bucket_lengths, dim=1)):
+            for i, ef in enumerate(torch.split(opt["ef"], layout.bucket_lengths, dim=-1)):
                 bufs[i] = tf_lib.ef_roundtrip_(bufs[i], ef)
         # the paper's full-bucket butterfly allreduce (mrd_paper) or the
         # recursive-halving reduce-scatter: one stage-major pass over all
         # buckets (run_buffers consumes the list, freeing each bucket early)
         red = self.grad_plan.run_buffers(bufs)
-        seg_lens = [r.shape[1] for r in red]
+        seg_lens = [r.shape[-1] for r in red]
         # a tensor divisor: CUDA's division by a Python number multiplies
         # by its reciprocal (not bit-equal to the reference's division)
-        gshard = torch.cat(red, dim=1).div_(torch.tensor(float(self.dp), device=self.device))
+        gshard = torch.cat(red, dim=-1).div_(torch.tensor(float(self.dp), device=self.device))
         del red
-        sq = torch.stack([torch.dot(g, g) for g in gshard])
+        g_rows = common.rows(gshard, self.rank)
+        sq = torch.stack([torch.dot(g, g) for g in g_rows])
         if self.paper_mode:
             gnorm = torch.sqrt(sq)
         else:
             # global grad norm via the paper's MRD allreduce of the owners'
             # squared norms (a non-pivot rank holds no segment)
-            own = torch.tensor([o is not None for o in zero1_owner_segments(self.dp)],
-                               device=self.device)
-            gnorm = torch.sqrt(self.scalar_ar.run(torch.where(own, sq, 0.0)))
+            gnorm = torch.sqrt(self.scalar_ar.run(torch.where(self.owns, sq, 0.0)))
         ocfg = self.tcfg.optimizer
         if ocfg.grad_clip > 0:
             clip = torch.full_like(gnorm, ocfg.grad_clip)  # true division, as above
             scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-            gshard.mul_(scale[:, None])
-        # shard-local AdamW, row by row and bucket segment by segment (the
-        # update is elementwise), written back into the optimizer rows
+            g_rows.mul_(scale[:, None])
+        # the shard-local optimizer, row by row and bucket segment by
+        # segment (the update is elementwise), written back into the
+        # optimizer rows
         starts = [sum(seg_lens[:i]) for i in range(len(seg_lens))]
-        for r in range(self.dp):
+        opt_rows = {k: common.rows(opt[k], self.rank) for k in ("master", "mu", "nu")}
+        for i, g_row in enumerate(g_rows):
+            if not self.updates[i]:
+                continue
             for a, n in zip(starts, seg_lens):
-                part = {k: opt[k][r, a:a + n] for k in ("master", "mu", "nu")}
-                _, new = opt_lib.apply_update_vector(gshard[r, a:a + n], part, ocfg, step)
+                part = {k: v[i, a:a + n] for k, v in opt_rows.items()}
+                _, new = opt_lib.apply_update_vector(g_row[a:a + n], part, ocfg, step)
                 for k, v in part.items():
-                    v.copy_(new[k])
-        del gshard
+                    if new[k] is not v:  # a moment the optimizer leaves as it is
+                        v.copy_(new[k])
+        del gshard, g_rows, g_row
         pdt = dtype_of(self.cfg.param_dtype)
         master = opt["master"].to(pdt)
         if self.paper_mode:
-            out = list(torch.split(master, layout.bucket_lengths, dim=1))
+            out = list(torch.split(master, layout.bucket_lengths, dim=-1))
         else:
             # recursive-doubling all-gather of the updated params, per bucket
-            out = self.ag_plan.run_buffers(list(torch.split(master, seg_lens, dim=1)))
+            out = self.ag_plan.run_buffers(list(torch.split(master, seg_lens, dim=-1)))
         del master
         # every leaf rounded to the param type, then back to its own type
         # (the fp32 leaves, router, A_log, D, dt_bias, stay fp32), as the
-        # reference's astype(b.dtype)
-        new_params = common.like(convert.port_tree(
-            buckets.unpack([b[0] for b in out], layout, dtype=pdt)), params)
+        # reference's astype(b.dtype); every row of the gathered buffers is
+        # the same, and the first is kept
+        new_params = common.like(convert.port_tree(buckets.unpack(
+            [common.rows(b, self.rank)[0] for b in out], layout, dtype=pdt)), params)
         del out
         mon, done, val = common.local_monitor_tick(self.monitor, state.get("monitor"), metric,
                                                    step)
         new_state = {"params": new_params, "opt": opt, "step": step + 1}
         if self.monitor is not None:
             new_state["monitor"] = mon
-        metrics = {"loss": losses.mean(), "grad_norm": gnorm[0], "converged": done[0],
-                   "monitor_value": val[0], **aux}
-        return new_state, metrics
+        return new_state, common.step_metrics(
+            self.scalar_ar, self.rank, self.dp, {"loss": loss, **aux},
+            {"grad_norm": gnorm, "converged": done, "monitor_value": val})
 
 
-def make_zero1(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda",
+def make_zero1(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda", mesh=None,
                transform: str = "identity", paper_mode: bool = False) -> Zero1Step:
     """Shared builder of the bucketed MRD strategies: the step object,
     callable as ``train_step(state, batch)``, with ``init_state``."""
-    return Zero1Step(cfg, tcfg, dp, resolve_device(device), transform, paper_mode)
+    return Zero1Step(cfg, tcfg, dp, resolve_device(device), transform, paper_mode, mesh)
 
 
 @register("mrd_zero1")
-def make(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda"):
-    return make_zero1(cfg, tcfg, dp=dp, device=device)
+def make(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda", mesh=None):
+    return make_zero1(cfg, tcfg, dp=dp, device=device, mesh=mesh)

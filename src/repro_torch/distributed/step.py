@@ -17,10 +17,13 @@ from repro_torch.distributed.gradsync import (  # noqa: F401
     make_train_step,
 )
 from repro_torch.distributed.gradsync.common import (  # noqa: F401
+    DATA,
     REMAT_POLICIES,
     TrainConfig,
     build_monitor,
     microbatched_grads,
+    resolve_executor,
+    world_rank,
 )
 from repro_torch.distributed.gradsync.mrd_zero1 import (  # noqa: F401
     zero1_layout,

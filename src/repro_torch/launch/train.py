@@ -25,22 +25,45 @@ steps of this run, or ``--ckpt-every-seconds``, have passed (an async
 save: the loop goes on while the writer writes), and once more, blocking,
 at the end.  The reference's tensor parallelism, elastic runtime, overlap
 and telemetry are not ported yet.
+
+Under ``torch.distributed.run`` (``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK`` in the environment) the trainer is a world of one process
+a rank over a ``DeviceMesh`` with the dimension ``("data",)``: NCCL with
+card ``LOCAL_RANK`` a rank, or gloo with ``--device cpu``; ``--dp`` must
+equal the world size; each rank holds its own state and batch shard, and
+its gradient plans run on the ``device`` executor (``device_fused`` for
+``compressed`` on the card, whose int8 combine is the ``mrd_combine``
+kernel).  Rank 0 logs; every rank writes its part of a checkpoint.
+
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch llama3.2-1b --steps 4 --batch 8 --seq 1024 --dp 4 --grad-sync compressed
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
+import hashlib
+import json
+import os
 import time
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.checkpoint.checkpointer import flatten_with_paths
+from repro_torch.collectives import plans
 from repro_torch.configs import registry
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
-from repro_torch.device import resolve_device
+from repro_torch.device import rank_device, resolve_device
 from repro_torch.distributed import step as step_lib
+from repro_torch.kernels.mrd_combine import mrd_combine
 from repro_torch.models import convert
 from repro_torch.optim.optimizer import OptimizerConfig
+
+DIST_TIMEOUT_S = 600.0  # a world rank that waits longer for another raises instead of hanging
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,8 +73,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
-    ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks (rows)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks: rows of stacked tensors on one device, or under "
+                         "torch.distributed.run the world size (one process a rank)")
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "lion", "sgd"])
     ap.add_argument("--grad-sync", default="mrd_zero1", choices=step_lib.available_grad_sync())
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--remat", default="none", choices=step_lib.REMAT_POLICIES)
@@ -72,7 +98,48 @@ def build_parser() -> argparse.ArgumentParser:
                     help="also snapshot whenever this much wall time has passed since the last "
                          "save (whichever of the two fires first)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile the last step on rank 0 (torch.profiler): the plans' runs and, "
+                         "on a card, device busy, the plans' device time, mrd_combine's time "
+                         "and launches; the other steps give ms/step and tokens/s")
+    ap.add_argument("--summary-json", default=None, metavar="PATH",
+                    help="write each rank's record (no state) and a digest of its final state "
+                         "to PATH, with {rank} replaced by the rank")
     return ap
+
+
+def world_env() -> Optional[tuple[int, int, int]]:
+    """(rank, world size, local rank) from ``torch.distributed.run``'s
+    environment, or None outside a world."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+    if not all(k in os.environ for k in keys):
+        return None
+    return tuple(int(os.environ[k]) for k in keys)
+
+
+def init_world(args, env) -> tuple:
+    """Join the world of ``env`` (rank, world size, local rank): set the
+    rank's card, start the process group (NCCL on the card, gloo with
+    ``--device cpu``, never a fallback from one to the other) with its
+    timeout, build the ``("data",)`` mesh and check ``--dp``.  Returns
+    (device, mesh)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    rank, world, local = env
+    device = rank_device(local, args.device,
+                         local_world=int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    kw = {}
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        kw["device_id"] = device
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S), **kw)
+    mesh = init_device_mesh(device.type, (world,), mesh_dim_names=(step_lib.DATA,))
+    if args.dp != world:
+        raise SystemExit(f"--dp {args.dp} but the world has {world} ranks: a world trains one "
+                         f"rank a process, so --dp must equal WORLD_SIZE")
+    return device, mesh
 
 
 def _sync(device: torch.device) -> None:
@@ -80,10 +147,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def make(args: argparse.Namespace):
+def make(args: argparse.Namespace, device=None, mesh=None):
     """(device, cfg, train step, data pipeline) for parsed ``args``; the
-    train state is ``step.init_state(generator)``."""
-    device = resolve_device(args.device)
+    train state is ``step.init_state(generator)``.  In a world (``mesh``)
+    the step is this rank's and the pipeline yields its batch shard."""
+    device = resolve_device(args.device if device is None else device)
     cfg = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
     tcfg = step_lib.TrainConfig(
         microbatches=args.microbatches,
@@ -94,65 +162,174 @@ def make(args: argparse.Namespace):
         monitor_threshold=args.monitor_threshold,
         error_feedback=not args.no_error_feedback,
         bucket_bytes=args.bucket_bytes or None,
-        optimizer=OptimizerConfig(lr=args.lr, schedule=args.schedule,
+        optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr, schedule=args.schedule,
                                   warmup_steps=min(20, args.steps // 10),
                                   total_steps=args.steps),
     )
-    train_step = step_lib.make_train_step(cfg, tcfg, dp=args.dp, device=device)
+    train_step = step_lib.make_train_step(cfg, tcfg, dp=args.dp, device=device, mesh=mesh)
+    rank = 0 if mesh is None else step_lib.world_rank(mesh)[0]
     pipe = SyntheticPipeline(cfg, DataConfig(batch=args.batch, seq_len=args.seq,
-                                             seed=args.seed), device)
+                                             seed=args.seed), device,
+                             rank=rank, dp=1 if mesh is None else args.dp)
     return device, cfg, train_step, pipe
 
 
-def resume(ck: Checkpointer, state, cfg, pipe, dp: int, device):
+def to_reference(state, ck: Checkpointer, grad_sync: str) -> tuple:
+    """(the state as the reference nests it, the parts of it that are this
+    rank's rows): a world rank's own part, or the stacked rows whole."""
+    if ck.world:
+        return convert.rank_state_to_reference(state, replica=grad_sync == "local_sgd")
+    return convert.train_state_to_reference(state), ()
+
+
+def resume(ck: Checkpointer, state, cfg, pipe, dp: int, device, grad_sync: str):
     """The state of ``ck``'s latest step in place of ``state`` (which the
     restore reads as its template, then lets go), and ``pipe``'s cursor;
     returns (state, the step or None when the directory holds none)."""
     step0 = ck.latest_step()
     if step0 is None:
         return state, None
-    template = convert.train_state_to_reference(state)
-    restored = ck.restore(step0, template, "cpu", dp=dp)
-    del template, state
-    state = convert.train_state_from_reference(restored, cfg, device)
+    template, rows = to_reference(state, ck, grad_sync)
+    if ck.world:
+        restored = ck.restore_rank(step0, template, rows, "cpu")
+        del template, state
+        state = convert.rank_state_from_reference(restored, cfg, device)
+    else:
+        restored = ck.restore(step0, template, "cpu", dp=dp)
+        del template, state
+        state = convert.train_state_from_reference(restored, cfg, device)
     pipe.load_state_dict(ck.manifest(step0)["extra"]["data"])
     return state, step0
+
+
+def profile_step(run, device) -> dict:
+    """Run ``run()`` (one train step, waited on) under ``torch.profiler``:
+    the step's wall ms (profiler included), the blocking plan runs
+    (``plans.PROFILE_RANGE``: the gradient sync, its scalars, the logged
+    loss) and, on a card, the device busy ms (every kernel, NCCL's
+    included), the device ms of the kernels launched inside the plans
+    and ``mrd_combine``'s device ms and launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    t = time.perf_counter()
+    with profile(activities=acts) as prof:
+        run()
+        _sync(device)
+    wall = (time.perf_counter() - t) * 1e3
+    events = prof.events()
+    ranges = [e for e in events
+              if e.name == plans.PROFILE_RANGE and e.device_type == DeviceType.CPU]
+    out = {"wall_ms": wall, "plan_runs": len(ranges)}
+    if cuda:
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        combine = [e for e in kernels if "mrd_combine" in e.name]
+        busy = sum(e.device_time_total for e in kernels) / 1e3
+        plan_ms = sum(e.device_time_total for e in ranges) / 1e3
+        out.update(busy_ms=busy, plan_ms=plan_ms, plan_share=plan_ms / busy if busy else None,
+                   mrd_combine_ms=sum(e.device_time_total for e in combine) / 1e3,
+                   mrd_combine_launches=len(combine))
+    return out
+
+
+DIGEST_PIECE = 1 << 24  # 32-bit words a piece of the digest
+
+
+def state_digest(state) -> str:
+    """A fingerprint of a train state's bytes: for each params and
+    optimizer leaf (the reference's key paths, so stacked rows at dp 1 and
+    a world rank's rows give the same one), the wrapping int64 sums of its
+    32-bit words (16-bit for a 2-byte leaf, 8-bit for a 1-byte one) and of
+    the words times their place.  Computed on the leaf's device in pieces;
+    integer sums wrap and do not depend on the order of the reduction, so
+    equal bytes give equal digests on any device."""
+    tree = {"params": convert.reference_tree(state["params"]),
+            "opt": {k: convert.reference_tree(v) if isinstance(v, dict) else v
+                    for k, v in state["opt"].items()}}
+    parts = []
+    for key, leaf in sorted(flatten_with_paths(tree).items()):
+        flat = leaf.detach().contiguous().reshape(-1)
+        words = flat.view({4: torch.int32, 2: torch.int16, 1: torch.uint8}[flat.element_size()])
+        s1 = s2 = 0
+        place = torch.arange(1, DIGEST_PIECE + 1, dtype=torch.int64, device=flat.device)
+        for i, a in enumerate(range(0, words.numel(), DIGEST_PIECE)):
+            w = words[a:a + DIGEST_PIECE].to(torch.int64)
+            s1 += int(w.sum())
+            s2 += (i + 1) * int((w * place[:w.numel()]).sum())
+        parts.append(f"{key}:{s1 & (2**64 - 1):x}:{s2 & (2**64 - 1):x}")
+    return hashlib.sha256("\n".join(parts).encode()).hexdigest()
 
 
 def main(argv=None) -> dict:
     """Parse ``argv`` and train.  Returns the run's record: per-step
     ``losses``, ``grad_norms`` and ``ms_per_step``, ``tokens_per_s`` over
     the steps after the first, the step the monitor certified at (or
-    None), the moe family's ``aux_losses``, the peak device memory in
-    bytes (CUDA), the step resumed from
-    (or None), the checkpointer's save records (``ckpt_saves``: step,
-    wait_s, hold_s, write_s, bytes) and the final ``state``."""
+    None), the moe family's ``aux_losses``, the ``rank`` and
+    ``world_size`` (0 and 1 outside a world), the peak memory of the
+    rank's device in bytes (CUDA), ``mrd_combine``'s launches in the loop,
+    the step resumed from (or None), the checkpointer's save records
+    (``ckpt_saves``: step, wait_s, hold_s, write_s, bytes) and the final
+    ``state``."""
     args = build_parser().parse_args(argv)
-    device, cfg, train_step, pipe = make(args)
+    env = world_env()
+    if env is None:
+        return train(args)
+    device, mesh = init_world(args, env)
+    try:
+        return train(args, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def train(args, device=None, mesh=None) -> dict:
+    """The training loop of :func:`main`: stacked rows on one device, or
+    with ``mesh`` this process's rank of a world."""
+    device, cfg, train_step, pipe = make(args, device, mesh)
+    rank, world = (0, 1) if mesh is None else step_lib.world_rank(mesh)
+    say = print if rank == 0 else (lambda *a, **k: None)
     tcfg = train_step.tcfg
     state = train_step.init_state(torch.Generator(device=device).manual_seed(args.seed))
     ck = (Checkpointer(args.ckpt_dir, save_every_steps=args.ckpt_every,
-                       save_every_seconds=args.ckpt_every_seconds) if args.ckpt_dir else None)
+                       save_every_seconds=args.ckpt_every_seconds,
+                       world=None if mesh is None else (rank, world))
+          if args.ckpt_dir else None)
     rec = {"losses": [], "grad_norms": [], "ms_per_step": [], "converged_at": None,
-           "resumed_from": None, "ckpt_saves": []}
+           "resumed_from": None, "ckpt_saves": [], "rank": rank, "world_size": world}
     if ck is not None:
-        state, rec["resumed_from"] = resume(ck, state, cfg, pipe, args.dp, device)
+        state, rec["resumed_from"] = resume(ck, state, cfg, pipe, args.dp, device,
+                                            args.grad_sync)
         if rec["resumed_from"] is not None:
-            print(f"resumed from checkpoint step {rec['resumed_from']}")
-    print(f"train {cfg.name}{' smoke' if args.smoke else ''} x {args.grad_sync} "
-          f"(dp={args.dp}, batch {args.batch} x seq {args.seq}, {device})")
+            say(f"resumed from checkpoint step {rec['resumed_from']}")
+    layout = f"dp={args.dp}" if mesh is None else f"a world of {world} ranks"
+    say(f"train {cfg.name}{' smoke' if args.smoke else ''} x {args.grad_sync} "
+        f"({layout}, batch {args.batch} x seq {args.seq}, {device}, {args.optimizer})")
 
     def snapshot(block):
         # the data cursor is taken in the same instant the leaves are staged
-        ck.save(state["step"], convert.train_state_to_reference(state),
-                extra={"data": pipe.state_dict(), "dp": args.dp, "grad_sync": args.grad_sync},
-                block=block)
+        tree, rows = to_reference(state, ck, args.grad_sync)
+        ck.save(state["step"], tree, extra={"data": pipe.state_dict(), "dp": args.dp,
+                                            "grad_sync": args.grad_sync},
+                block=block, rows=rows)
 
+    launches0 = mrd_combine.launches
     for i in range(args.steps):
         batch = pipe.next_batch()
         _sync(device)
         t = time.perf_counter()
-        state, metrics = train_step(state, batch)
+        if args.profile and i == args.steps - 1 and rank == 0:
+            box = {}
+
+            def run():
+                box["out"] = train_step(state, batch)
+
+            rec["profile"] = profile_step(run, device)
+            state, metrics = box.pop("out")
+            say("profiled step: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                                               f"{k} {v}" for k, v in rec["profile"].items()))
+        else:
+            state, metrics = train_step(state, batch)
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])  # waits for the step
         ms = (time.perf_counter() - t) * 1e3
         rec["losses"].append(loss)
@@ -162,29 +339,35 @@ def main(argv=None) -> dict:
         rec["ms_per_step"].append(ms)
         if (i + 1) % args.log_every == 0 or i == 0:
             aux = f" aux={rec['aux_losses'][-1]:.4f}" if "aux_losses" in rec else ""
-            print(f"step {state['step']}: loss={loss:.4f}{aux} gnorm={gnorm:.3f} "
-                  f"({ms:.0f} ms/step, {args.batch * args.seq / ms * 1e3:.0f} tokens/s)")
+            say(f"step {state['step']}: loss={loss:.4f}{aux} gnorm={gnorm:.3f} "
+                f"({ms:.0f} ms/step, {args.batch * args.seq / ms * 1e3:.0f} tokens/s)")
         if ck is not None and ck.should_save(i + 1):
             snapshot(block=False)
         if tcfg.monitor and bool(metrics["converged"]):
             rec["converged_at"] = state["step"]
-            print(f"ConvergenceMonitor ({args.monitor_mode}) certified loss "
-                  f"{float(metrics['monitor_value']):.4f} < {args.monitor_threshold} at step "
-                  f"{state['step']} - stopping.")
+            say(f"ConvergenceMonitor ({args.monitor_mode}) certified loss "
+                f"{float(metrics['monitor_value']):.4f} < {args.monitor_threshold} at step "
+                f"{state['step']} - stopping.")
             break
+    rec["mrd_combine_launches"] = mrd_combine.launches - launches0
     if ck is not None:
         snapshot(block=True)
         rec["ckpt_saves"] = ck.saves
-        print("checkpoint saves: " + ", ".join(
+        say("checkpoint saves: " + ", ".join(
             f"step {r['step']} ({r['bytes'] / 2**20:.1f} MiB, held the loop "
             f"{r['hold_s'] * 1e3:.1f} ms, written in {r['write_s'] * 1e3:.1f} ms)"
             for r in ck.saves))
-    steady = rec["ms_per_step"][1:] or rec["ms_per_step"]
+    timed = rec["ms_per_step"][:-1] if args.profile else rec["ms_per_step"]
+    steady = timed[1:] or timed or rec["ms_per_step"]
     rec["tokens_per_s"] = args.batch * args.seq / (sum(steady) / len(steady)) * 1e3
     rec["peak_bytes"] = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     if rec["peak_bytes"] is not None:
-        print(f"peak device memory {rec['peak_bytes'] / 2**30:.3f} GiB")
-    print(f"done. final loss: {rec['losses'][-1]:.4f}")
+        say(f"peak device memory {rec['peak_bytes'] / 2**30:.3f} GiB"
+            + ("" if mesh is None else " (rank 0's card)"))
+    say(f"done. final loss: {rec['losses'][-1]:.4f}")
+    if args.summary_json:
+        with open(args.summary_json.format(rank=rank), "w") as f:
+            json.dump({**rec, "state_digest": state_digest(state)}, f)
     rec["state"] = state
     return rec
 

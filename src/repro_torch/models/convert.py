@@ -247,3 +247,65 @@ def train_state_to_reference(state: Mapping[str, Any]) -> dict[str, Any]:
             "value": mon["value"], "done": mon["done"],
         }
     return out
+
+
+def rank_state_to_reference(state: Mapping[str, Any], *,
+                            replica: bool = False) -> tuple[dict[str, Any], tuple[str, ...]]:
+    """A world rank's train state (one process a rank) as the reference
+    nests it, and the top-level parts whose leaves are this rank's rows of
+    the reference's ``[dp, ...]`` leaves: the optimizer rows and the
+    monitor's (the ZeRO-1 modes), the monitor's (``mrd_leaf``, whose
+    optimizer trees are replicated), or the replica's params and optimizer
+    trees (``local_sgd``: ``replica``).  The other parts are the same on
+    every rank.  Stacking the rows of every rank gives
+    :func:`train_state_to_reference` of the stacked-rows state."""
+    out = {"params": reference_tree(state["params"]),
+           "opt": {k: reference_tree(v) if isinstance(v, Mapping) else v
+                   for k, v in state["opt"].items()},
+           "step": torch.tensor(state["step"], dtype=torch.int32)}
+    mon = state.get("monitor")
+    if mon is not None:
+        nb, dev = mon["nb"], mon["done"].device
+        out["monitor"] = {
+            "nb": {"stage": torch.tensor(nb["stage"], dtype=torch.int32, device=dev),
+                   "buf": nb["buf"], "result": nb["result"],
+                   "flag": torch.tensor(bool(nb["flag"]), device=dev),
+                   "cycles": torch.tensor(nb["cycles"], dtype=torch.int32, device=dev)},
+            **({"m": dict(mon["m"])} if mon.get("m") else {}),
+            "value": mon["value"], "done": mon["done"],
+        }
+    if replica:
+        rows = ("params", "opt")
+    elif isinstance(state["opt"]["master"], Mapping):
+        rows = ("monitor",)
+    else:
+        rows = ("opt", "monitor")
+    return out, rows
+
+
+def rank_state_from_reference(state: Mapping[str, Any], cfg: ModelConfig,
+                              device="cuda") -> dict[str, Any]:
+    """The inverse of :func:`rank_state_to_reference`: a rank's part of a
+    reference train state (its rows unstacked) -> the world rank's state."""
+    device = resolve_device(device)
+
+    def f32(x):
+        return _tensor(x, torch.float32, device)
+
+    zero1 = not isinstance(state["opt"]["master"], Mapping)
+    out = {"params": params_from_reference(state["params"], cfg, device),
+           "opt": {k: f32(v) if zero1 else _map(f32, port_tree(v))
+                   for k, v in state["opt"].items()},
+           "step": int(_numpy(state["step"]))}
+    mon = state.get("monitor")
+    if mon is not None:
+        nb = mon["nb"]
+        out["monitor"] = {
+            "nb": {"stage": int(_numpy(nb["stage"])), "buf": f32(nb["buf"]),
+                   "result": f32(nb["result"]), "flag": bool(_numpy(nb["flag"])),
+                   "cycles": int(_numpy(nb["cycles"]))},
+            "m": {k: f32(v) for k, v in mon.get("m", {}).items()},
+            "value": f32(mon["value"]),
+            "done": torch.as_tensor(_numpy(mon["done"]), dtype=torch.bool).to(device),
+        }
+    return out

@@ -1,8 +1,10 @@
-"""AdamW with cosine, WSD and constant learning-rate schedules (port of
-``repro.optim.optimizer``): the vector form on flat fp32 shards, which the
-ZeRO-1 gradient syncs run, and the tree form, fp32 ``master``/``mu``/
-``nu`` trees shaped like the params, which ``mrd_leaf`` and ``local_sgd``
-run.  The reference's Lion and SGD are not ported yet.
+"""AdamW, Lion and SGD with cosine, WSD and constant learning-rate
+schedules (port of ``repro.optim.optimizer``): the vector form on flat
+fp32 shards, which the ZeRO-1 gradient syncs run, and the tree form, fp32
+``master``/``mu``/``nu`` trees shaped like the params, which ``mrd_leaf``
+and ``local_sgd`` run.  Every optimizer keeps the same three fp32 leaves,
+so the checkpoint layout is one: Lion leaves ``nu`` untouched, SGD both
+moments.
 
 The scalar arithmetic (learning rate, bias corrections) runs in float32,
 as the reference's does on its int32 step counter.  Divisors are tensors:
@@ -20,6 +22,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
+    name: str = "adamw"  # 'adamw' | 'lion' | 'sgd'
     lr: float = 3e-4
     beta1: float = 0.9
     beta2: float = 0.95
@@ -79,7 +82,8 @@ def apply_update_tree_(grads: list, opt: dict[str, list], ocfg: OptimizerConfig,
         part = {k: opt[k][i] for k in ("master", "mu", "nu")}
         _, new = apply_update_vector(g.float(), part, ocfg, step)
         for k, v in part.items():
-            v.copy_(new[k])
+            if new[k] is not v:  # a moment the optimizer leaves as it is
+                v.copy_(new[k])
         out.append(part["master"].to(param_dtype, copy=True))
     return out
 
@@ -90,11 +94,22 @@ def init_opt_vector(n: int, device="cpu") -> dict[str, torch.Tensor]:
 
 
 def apply_update_vector(g, opt, ocfg: OptimizerConfig, step):
-    """AdamW on g: fp32 [n] gradient shard; opt: ``master``/``mu``/``nu``
-    [n] fp32; step: int.  Returns (new_master [n], new_opt)."""
+    """The optimizer ``ocfg.name`` on g: fp32 [n] gradient shard; opt:
+    ``master``/``mu``/``nu`` [n] fp32; step: int.  Returns (new_master
+    [n], new_opt); a moment the optimizer does not use is passed through."""
     lr = schedule_lr(ocfg, step)
-    t = _f32(step + 1)
     m, mu, nu = opt["master"], opt["mu"], opt["nu"]
+    if ocfg.name == "sgd":
+        new_m = m - lr * (g + ocfg.weight_decay * m)
+        return new_m, {"master": new_m, "mu": mu, "nu": nu}
+    if ocfg.name == "lion":
+        u = torch.sign(ocfg.beta1 * mu + (1 - ocfg.beta1) * g)
+        new_mu = ocfg.beta2 * mu + (1 - ocfg.beta2) * g
+        new_m = m - lr * (u + ocfg.weight_decay * m)
+        return new_m, {"master": new_m, "mu": new_mu, "nu": nu}
+    if ocfg.name != "adamw":
+        raise ValueError(f"unknown optimizer {ocfg.name!r}; known: adamw, lion, sgd")
+    t = _f32(step + 1)
     bc1 = (1 - _f32(ocfg.beta1) ** t).to(g.device)
     bc2 = (1 - _f32(ocfg.beta2) ** t).to(g.device)
     new_mu = ocfg.beta1 * mu + (1 - ocfg.beta1) * g

@@ -75,16 +75,24 @@ def _tmap(fn, *trees):
     return fn(*trees)
 
 
-def check_exact(state, ref, before, what: str) -> None:
+def check_exact(state, ref, before, what: str, optimizer: str = "adamw") -> None:
     """The exact syncs' params and masters: within 5e-4 of the reference's
     but for the coordinates whose reference gradient of the step (from its
     first moment; ``before``: its state before the step) is within
     ``NOISE`` of zero.  The ZeRO-1 params are compared in the master rows'
     layout; a ``local_sgd`` replica's params at every replica's noise
-    coordinates (an average carries each replica's)."""
-    b1 = OptimizerConfig().beta1
+    coordinates (an average carries each replica's).  Under Lion the tie is
+    its ``sign``'s argument ``beta1 mu + (1 - beta1) g`` within ``NOISE``
+    of zero (the gradient from its moment ``beta2 mu + (1 - beta2) g``);
+    SGD's update is ``lr`` times the gradient, with no tie to excuse."""
+    b1, b2 = OptimizerConfig().beta1, OptimizerConfig().beta2
 
     def noise(mu, mu0):
+        if optimizer == "sgd":
+            return torch.zeros_like(mu, dtype=torch.bool)
+        if optimizer == "lion":
+            g = (mu - b2 * mu0) / (1 - b2)
+            return (b1 * mu0 + (1 - b1) * g).abs() <= NOISE
         return ((mu - b1 * mu0) / (1 - b1)).abs() <= NOISE
 
     if sync_layout(ref) == "zero1":
@@ -112,7 +120,8 @@ def check_exact(state, ref, before, what: str) -> None:
         assert worst <= 5e-4, (what, name, worst)
 
 
-def check_state(state, ref, what: str, compressed: bool, before=None) -> None:
+def check_state(state, ref, what: str, compressed: bool, before=None,
+                optimizer: str = "adamw") -> None:
     """Params and optimizer leaves after one step: at most 2% of the
     elements of a leaf beyond 1e-4 and none beyond 2 x lr (the compressed
     sync's moments: 1e-2; its EF residuals: 2.5 x the reference's
@@ -137,40 +146,60 @@ def check_state(state, ref, what: str, compressed: bool, before=None) -> None:
             assert float((d > 1e-4).float().mean()) <= 0.02, (what, name,
                                                               float((d > 1e-4).float().mean()))
     if not compressed:
-        check_exact(state, ref, before, what)
+        check_exact(state, ref, before, what, optimizer)
 
 
-def check_train_steps(z, arch, mode, dp=DP, steps=STEPS, **tcfg_kw):
+def train_tcfg(mode, optimizer=None, **tcfg_kw) -> step_lib.TrainConfig:
+    """The recording's TrainConfig of ``mode`` (``optimizer``: its
+    OptimizerConfig fields; ``tcfg_kw``: TrainConfig fields)."""
+    kw = dict(microbatches=1, remat="none")
+    kw.update(tcfg_kw)
+    return step_lib.TrainConfig(
+        grad_sync=mode, monitor=mode != "local_sgd",
+        monitor_mode=MODES.get(mode, "inexact"), monitor_threshold=6.0, bucket_bytes=BUCKET_BYTES,
+        optimizer=OptimizerConfig(lr=LR, schedule="const", warmup_steps=0, grad_clip=1.0,
+                                  **(optimizer or {})), **kw)
+
+
+def check_metrics(m, rm, mode: str, what) -> None:
+    """A step's metrics ``m`` against the reference's ``rm``."""
+    assert abs(float(m["loss"]) - float(rm["loss"])) <= 1e-5, (what, float(m["loss"]))
+    rtol = 5e-4 if mode == "compressed" else 1e-4
+    np.testing.assert_allclose(float(m["grad_norm"]), float(rm["grad_norm"]), rtol=rtol)
+    assert bool(m["converged"]) == bool(rm["converged"]), what
+    np.testing.assert_allclose(float(m["monitor_value"]), float(rm["monitor_value"]), rtol=1e-6)
+
+
+def check_monitor(state, after) -> None:
+    """The monitor's counters and flags after a step against the
+    reference's."""
+    if "monitor" in state:
+        assert state["monitor"]["nb"]["stage"] == after["monitor"]["nb"]["stage"]
+        assert state["monitor"]["nb"]["cycles"] == after["monitor"]["nb"]["cycles"]
+        torch.testing.assert_close(state["monitor"]["done"], after["monitor"]["done"])
+
+
+def check_train_steps(z, arch, mode, dp=DP, steps=STEPS, tag=None, optimizer=None, **tcfg_kw):
     """Run every step of the port from the reference's state before it on
     the reference's batch, and hold its metrics and the state after it to
-    the reference's.  Returns the port's state after the last step."""
+    the reference's.  Returns the port's state after the last step.
+    ``tag`` names a recording's extra run, ``optimizer`` its
+    OptimizerConfig fields."""
     cfg = registry.get_smoke_config(arch)
-    tag = f"{arch}/{mode}/{dp}/"
-    tcfg = step_lib.TrainConfig(
-        microbatches=1, remat="none", grad_sync=mode, monitor=mode != "local_sgd",
-        monitor_mode=MODES.get(mode, "inexact"), monitor_threshold=6.0, bucket_bytes=BUCKET_BYTES,
-        optimizer=OptimizerConfig(lr=LR, schedule="const", warmup_steps=0, grad_clip=1.0),
-        **tcfg_kw)
+    tag = tag or f"{arch}/{mode}/{dp}/"
+    tcfg = train_tcfg(mode, optimizer, **tcfg_kw)
     step = step_lib.make_train_step(cfg, tcfg, dp=dp, device="cpu")
     for i in range(steps):
         before = tree(z, tag + ("init/" if i == 0 else f"state{i}/"))
         state, m = step(train_state_from_reference(before, cfg, "cpu"),
                         torch_batch(tree(z, f"{tag}batch{i}/")))
-        rm = tree(z, f"{tag}metrics{i}/")
-        assert abs(float(m["loss"]) - float(rm["loss"])) <= 1e-5, (i, float(m["loss"]))
-        rtol = 5e-4 if mode == "compressed" else 1e-4
-        np.testing.assert_allclose(float(m["grad_norm"]), float(rm["grad_norm"]), rtol=rtol)
-        assert bool(m["converged"]) == bool(rm["converged"]), i
-        np.testing.assert_allclose(float(m["monitor_value"]), float(rm["monitor_value"]),
-                                   rtol=1e-6)
+        check_metrics(m, tree(z, f"{tag}metrics{i}/"), mode, i)
         after = train_state_from_reference(tree(z, f"{tag}state{i + 1}/"), cfg, "cpu")
         assert state["step"] == after["step"] == i + 1
         check_state(state, after, f"step {i + 1}", mode == "compressed",
-                    before=train_state_from_reference(before, cfg, "cpu"))
-        if "monitor" in state:
-            assert state["monitor"]["nb"]["stage"] == after["monitor"]["nb"]["stage"]
-            assert state["monitor"]["nb"]["cycles"] == after["monitor"]["nb"]["cycles"]
-            torch.testing.assert_close(state["monitor"]["done"], after["monitor"]["done"])
+                    before=train_state_from_reference(before, cfg, "cpu"),
+                    optimizer=tcfg.optimizer.name)
+        check_monitor(state, after)
     return state
 
 

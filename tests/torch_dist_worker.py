@@ -204,8 +204,193 @@ def mismatched(mesh, rank: int, device) -> dict:
     return {"x": be.permute(torch.ones(4, device=device), pairs)}
 
 
+# ---------------------------------------------------------------------------
+# The trainer's world: every grad-sync mode, one process a rank
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_SEQ = 16
+TRAIN_LR = 1e-2
+
+
+def train_tcfg(conf: dict):
+    """The TrainConfig of one run of the train scenario: ``conf`` names
+    the mode, the optimizer, the microbatches; the rest is fixed (small
+    buckets so the smoke model spans several, the monitor on where the
+    mode has one, ``local_sgd`` averaging every 2 steps)."""
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.optim.optimizer import OptimizerConfig
+
+    return step_lib.TrainConfig(
+        microbatches=conf.get("microbatches", 2), remat=conf.get("remat", "none"),
+        grad_sync=conf["mode"], monitor=conf["mode"] != "local_sgd", monitor_mode="inexact",
+        monitor_threshold=6.0, local_sync_every=2, bucket_bytes=1 << 14,
+        optimizer=OptimizerConfig(name=conf.get("optimizer", "adamw"), lr=TRAIN_LR,
+                                  schedule="const", warmup_steps=0, grad_clip=1.0))
+
+
+def conf_tag(conf: dict) -> str:
+    return f"{conf['mode']}-{conf.get('optimizer', 'adamw')}"
+
+
+class MonitorMessages:
+    """Counts the messages the ConvergenceMonitor's plan sends while this
+    is entered: on a world rank its own sends, on the sim every pair of a
+    stage (one message each)."""
+
+    def __init__(self):
+        from repro_torch.asynchrony.protocols import ConvergenceMonitor
+        from repro_torch.collectives import executors
+
+        self.count, self.inside = 0, False
+        counter = self
+        dev_permute, sim_permute = executors.DeviceBackend.permute, executors.SimBackend.permute
+        mon_step = ConvergenceMonitor.step
+
+        def device_permute(be, x, pairs):
+            if counter.inside:
+                counter.count += len(executors._peers(be._rank, tuple(pairs))[0])
+            return dev_permute(be, x, pairs)
+
+        def stacked_permute(be, x, pairs):
+            if counter.inside:
+                counter.count += len(pairs)
+            return sim_permute(be, x, pairs)
+
+        def step(mon, *a, **k):
+            counter.inside = True
+            try:
+                return mon_step(mon, *a, **k)
+            finally:
+                counter.inside = False
+
+        executors.DeviceBackend.permute = device_permute
+        executors.SimBackend.permute = stacked_permute
+        ConvergenceMonitor.step = step
+
+    def take(self) -> int:
+        n, self.count = self.count, 0
+        return n
+
+
+def _record(out: dict, prefix: str, state, metrics, msgs: int, *, world: bool, replica: bool):
+    from repro_torch.models import convert
+
+    if world:
+        tree, _ = convert.rank_state_to_reference(state, replica=replica)
+    else:
+        tree = convert.train_state_to_reference(state)
+    out.update({k: v.detach().clone() for k, v in flat(tree, prefix + "/state").items()})
+    for k in ("loss", "grad_norm", "converged", "monitor_value", "aux_loss"):
+        if k in metrics:
+            out[f"{prefix}/metrics/{k}"] = metrics[k].detach().clone()
+    out[f"{prefix}/monitor_msgs"] = torch.tensor(msgs)
+
+
+def train_world(mesh, rank: int, device, *, dp: int, configs: list, steps: int, batch: int,
+                ckpt: dict = None) -> dict:
+    """Train the smoke ``llama3.2-1b`` under every ``configs`` entry for
+    ``steps`` steps as this rank of a world, from seed 0, recording after
+    each step the rank's state (as the reference nests it), its metrics
+    and the monitor's messages.  With ``ckpt`` ({tag: {"world": dir,
+    "sim": dir}}) the run of ``tag`` also saves a world checkpoint after
+    step 1, then resumes from it and, separately, from the sim's
+    checkpoint of step 1 in ``sim``, and records the steps after."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.models import convert
+
+    cfg = registry.get_smoke_config(TRAIN_ARCH)
+    msgs = MonitorMessages()
+    pipe = SyntheticPipeline(cfg, DataConfig(batch=batch, seq_len=TRAIN_SEQ, seed=0), device,
+                             rank=rank, dp=dp)
+    batches = [pipe.next_batch() for _ in range(steps)]
+    out = {}
+    for conf in configs:
+        tag = conf_tag(conf)
+        replica = conf["mode"] == "local_sgd"
+        step = step_lib.make_train_step(cfg, train_tcfg(conf), dp=dp, device=device, mesh=mesh)
+        state = step.init_state(torch.Generator(device=device).manual_seed(0))
+        msgs.take()
+        for i in range(steps):
+            state, m = step(state, batches[i])
+            _record(out, f"{tag}/step{i + 1}", state, m, msgs.take(), world=True,
+                    replica=replica)
+            if ckpt and tag in ckpt and i == 0:
+                ck = Checkpointer(ckpt[tag]["world"], world=(rank, dp))
+                tree, rows = convert.rank_state_to_reference(state, replica=replica)
+                ck.save(1, tree, extra={"dp": dp}, block=True, rows=rows)
+        if not ckpt or tag not in ckpt:
+            continue
+        for name, where in (("resumed", ckpt[tag]["world"]), ("from_sim", ckpt[tag]["sim"])):
+            ck = Checkpointer(where, world=(rank, dp))
+            template, rows = convert.rank_state_to_reference(state, replica=replica)
+            state = convert.rank_state_from_reference(
+                ck.restore_rank(1, template, rows), cfg, device)
+            for i in range(1, steps):
+                state, m = step(state, batches[i])
+                _record(out, f"{tag}/{name}/step{i + 1}", state, m, msgs.take(), world=True,
+                        replica=replica)
+    return out
+
+
+def sim_train(dp: int, configs: list, steps: int, batch: int, device="cpu",
+              save: dict = None) -> dict:
+    """What the stacked-rows trainer gives on :func:`train_world`'s runs
+    (the same keys, rows ``[dp, ...]``); with ``save`` ({tag: dir}) each
+    such run saves its checkpoint after step 1 there."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.models import convert
+
+    cfg = registry.get_smoke_config(TRAIN_ARCH)
+    msgs = MonitorMessages()
+    pipe = SyntheticPipeline(cfg, DataConfig(batch=batch, seq_len=TRAIN_SEQ, seed=0), device)
+    batches = [pipe.next_batch() for _ in range(steps)]
+    out = {}
+    for conf in configs:
+        tag = conf_tag(conf)
+        step = step_lib.make_train_step(cfg, train_tcfg(conf), dp=dp, device=device)
+        state = step.init_state(torch.Generator(device=device).manual_seed(0))
+        msgs.take()
+        for i in range(steps):
+            state, m = step(state, batches[i])
+            _record(out, f"{tag}/step{i + 1}", state, m, msgs.take(), world=False,
+                    replica=False)
+            if save and tag in save and i == 0:
+                Checkpointer(save[tag]).save(1, convert.train_state_to_reference(state),
+                                             extra={"dp": dp}, block=True)
+    return out
+
+
+def train_forced(mesh, rank, device, *, dp: int, runs: dict) -> dict:
+    """Teacher-forced world steps of the smoke ``llama3.2-1b``: ``runs``
+    maps a tag to (its TrainConfig, [(every rank's state before the step,
+    the step's global batch), ...]); each step starts from this rank's
+    state and runs its shard of the batch, and the state after it and the
+    step's metrics are recorded as :func:`train_world` records them."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.distributed.gradsync.common import rank_shards
+
+    cfg = registry.get_smoke_config(TRAIN_ARCH)
+    msgs = MonitorMessages()
+    out = {}
+    for tag, (tcfg, steps) in runs.items():
+        step = step_lib.make_train_step(cfg, tcfg, dp=dp, device=device, mesh=mesh)
+        for i, (states, batch) in enumerate(steps):
+            msgs.take()
+            state, m = step(states[rank], rank_shards(batch, dp)[rank])
+            _record(out, f"{tag}step{i + 1}", state, m, msgs.take(), world=True, replica=False)
+    return out
+
+
 SCENARIOS = {"one_axis": one_axis, "two_axis": two_axis, "monitor": monitor,
-             "mismatched": mismatched}
+             "mismatched": mismatched, "train": train_world, "train_forced": train_forced}
 
 
 # ---------------------------------------------------------------------------

@@ -111,7 +111,9 @@ def tree(z: dict, prefix: str) -> dict:
 
 
 # the reference's train-step recorder: MODES, ARCHS (arch -> [modes]),
-# STEPS, LR, DPS and TCFG_KW are prepended by the caller
+# STEPS, LR, DPS, TCFG_KW and EXTRA are prepended by the caller; each EXTRA
+# entry is one more run (tag, arch, mode, dp, steps, its own TrainConfig
+# and OptimizerConfig fields), recorded under its tag
 RECORD = """
 import sys
 import jax, numpy as np
@@ -129,41 +131,49 @@ def save(prefix, tree):
         key = "/".join(str(getattr(k, "key", k)) for k in path)
         out[prefix + key] = np.asarray(jax.device_get(leaf))
 
-for dp in DPS:
+def record(tag, arch, mode, dp, steps, tcfg_kw, opt_kw):
     mesh = compat.make_mesh((dp,), ("data",), devices=jax.devices()[:dp],
                             axis_types=compat.default_axis_types(1))
+    cfg = registry.get_smoke_config(arch)
+    kw = dict(microbatches=1, remat="none")
+    kw.update(tcfg_kw)
+    tcfg = step_lib.TrainConfig(
+        grad_sync=mode, monitor=mode != "local_sgd",
+        monitor_mode=MODES.get(mode, "inexact"), monitor_threshold=6.0,
+        bucket_bytes=1 << 15,
+        optimizer=OptimizerConfig(lr=LR, schedule="const", warmup_steps=0, grad_clip=1.0,
+                                  **opt_kw),
+        **kw)
+    train_step, init_state, state_specs, _ = step_lib.make_train_step(cfg, mesh, tcfg)
+    with mesh:
+        state = init_state(jax.random.PRNGKey(0))
+        state = jax.device_put(state, jax.tree.map(lambda s: NamedSharding(mesh, s),
+                                                   state_specs(state)))
+        save(tag + "init/", state)
+        pipe = SyntheticPipeline(cfg, DataConfig(batch=2 * dp, seq_len=16, seed=0), mesh)
+        jstep = jax.jit(train_step)
+        for i in range(steps):
+            b = pipe.next_batch()
+            save(f"{tag}batch{i}/", b)
+            state, metrics = jstep(state, b)
+            save(f"{tag}metrics{i}/", metrics)
+            save(f"{tag}state{i + 1}/", state)
+
+for dp in DPS:
     for arch, modes in ARCHS.items():
-        cfg = registry.get_smoke_config(arch)
         for mode in modes:
-            tag = f"{arch}/{mode}/{dp}/"
-            tcfg = step_lib.TrainConfig(
-                microbatches=1, remat="none", grad_sync=mode, monitor=mode != "local_sgd",
-                monitor_mode=MODES.get(mode, "inexact"), monitor_threshold=6.0,
-                bucket_bytes=1 << 15,
-                optimizer=OptimizerConfig(lr=LR, schedule="const", warmup_steps=0, grad_clip=1.0),
-                **TCFG_KW)
-            train_step, init_state, state_specs, _ = step_lib.make_train_step(cfg, mesh, tcfg)
-            with mesh:
-                state = init_state(jax.random.PRNGKey(0))
-                state = jax.device_put(state, jax.tree.map(lambda s: NamedSharding(mesh, s),
-                                                           state_specs(state)))
-                save(tag + "init/", state)
-                pipe = SyntheticPipeline(cfg, DataConfig(batch=2 * dp, seq_len=16, seed=0), mesh)
-                jstep = jax.jit(train_step)
-                for i in range(STEPS):
-                    b = pipe.next_batch()
-                    save(f"{tag}batch{i}/", b)
-                    state, metrics = jstep(state, b)
-                    save(f"{tag}metrics{i}/", metrics)
-                    save(f"{tag}state{i + 1}/", state)
+            record(f"{arch}/{mode}/{dp}/", arch, mode, dp, STEPS, TCFG_KW, {})
+for x in EXTRA:
+    record(x["tag"], x["arch"], x["mode"], x["dp"], x["steps"], x.get("tcfg", {}),
+           x.get("optimizer", {}))
 np.savez(sys.argv[1], **out)
 """
 
 
 def record_script(archs: dict, *, dps=(3,), steps: int = 3, lr: float = 1e-2,
-                  modes: dict = None, **tcfg_kw) -> str:
-    """:data:`RECORD` for ``archs`` ({arch: [grad-sync modes]})."""
+                  modes: dict = None, extra=(), **tcfg_kw) -> str:
+    """:data:`RECORD` for ``archs`` ({arch: [grad-sync modes]}) and the
+    ``extra`` runs."""
     head = (f"ARCHS = {archs!r}\nDPS = {tuple(dps)!r}\nSTEPS = {steps}\nLR = {lr}\n"
-            f"MODES = {modes or {}!r}\nTCFG_KW = {tcfg_kw!r}\n")
+            f"MODES = {modes or {}!r}\nTCFG_KW = {tcfg_kw!r}\nEXTRA = {list(extra)!r}\n")
     return head + RECORD
-
