@@ -310,7 +310,20 @@ Phases, in order (any failure ends the run with a non-zero exit):
    ``compressed`` and never under ``mrd_leaf``, no other kernel; and the
    smoke config under ``compressed`` at dp 3 with each optimizer, each
    card step from the CPU's state held to the CPU's as in 13b;
-15. the kernels line, then the device line as the last line of stdout.
+15. the sharded entry points as one-rank NCCL worlds (one
+   ``torch.distributed.run`` subprocess, :data:`TP_RUNNER`): the train
+   CLI under its default ``gspmd`` (a ``("data",)`` mesh of 1, the
+   params, optimizer trees and the step placed by ``sharding``), 3 steps
+   of 2 x 1024 tokens of llama3.2-1b at full width, against the
+   stacked-rows ``gspmd`` step at dp 1 in this process: losses, grad norms
+   and the digest of the final state equal bit for bit; then the serving
+   CLI's world entry (``launch.serve.run`` under the world's mesh) serving
+   8 requests of llama3.2-1b on the paged kernel path against the plain
+   CLI in this process: tokens, admission and retirement ticks equal;
+   ``mrd_combine`` launched 0 times in the ``gspmd`` runs, and
+   ``flash_attention``, ``paged_attention`` and ``rmsnorm`` more than 0
+   times in both serving runs;
+16. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
@@ -3042,6 +3055,131 @@ def world_phases(all_ops, t: float) -> dict:
     return stats
 
 
+# 15's one-rank world: the train CLI's gspmd world, then the serving CLI's
+# world entry, in one process group (one process start and one cold card)
+TP_RUNNER = """
+import json, sys
+import torch
+import torch.distributed as dist
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.mrd_combine import ops as mc
+from repro_torch.kernels.paged_attention import ops as pa
+from repro_torch.kernels.rmsnorm import ops as rn
+from repro_torch.kernels.selective_scan import ops as ss
+from repro_torch.launch import serve, train
+
+ops = (pa.paged_attention, mc.mrd_combine, fa.flash_attention, rn.rmsnorm, ss.selective_scan)
+job = json.loads(sys.argv[1])
+targs = train.build_parser().parse_args(job["train"])
+device = train.start_world(train.world_env(), targs.device)
+out = {}
+try:
+    mesh = train.build_mesh(1, 1, device.type)
+    for op in ops:
+        op.launches = 0
+    rec = train.train(targs, device, mesh)
+    out["train"] = {"losses": rec["losses"], "grad_norms": rec["grad_norms"],
+                    "ms_per_step": rec["ms_per_step"], "peak_bytes": rec["peak_bytes"],
+                    "digest": train.state_digest(rec["state"]),
+                    "launches": {op.__name__: op.launches for op in ops}}
+    del rec
+    torch.cuda.empty_cache()
+    sargs = serve.build_parser().parse_args(job["serve"])
+    sargs.device = str(device)
+    for op in ops:
+        op.launches = 0
+    eng = serve.run(sargs, mesh)
+    out["serve"] = {"results": {str(i): [r.output.tolist(), r.admit_tick, r.retire_tick]
+                                for i, r in eng.results.items()},
+                    "summary": {k: eng.summary()[k] for k in (
+                        "completed", "ticks", "throughput_tok_s", "ttft_p50_ms",
+                        "tpot_p50_ms")},
+                    "launches": {op.__name__: op.launches for op in ops}}
+finally:
+    dist.destroy_process_group()
+with open(job["out"], "w") as f:
+    json.dump(out, f)
+"""
+TP_SERVE_ARGV = [
+    "--arch", "llama3.2-1b", "--continuous", "--workload", "llm_decode_paged",
+    "--attn", "kernel", "--dp", "3", "--slots", "8", "--requests", "8",
+    "--prompt-len", "64", "--gen", "16", "--block-size", "16",
+]
+
+
+def tp_world_phase(all_ops, t: float) -> dict:
+    """15. The train CLI's ``gspmd`` world and the serving CLI's world
+    entry as one-rank NCCL worlds (one subprocess) against the stacked-rows
+    ``gspmd`` trainer and the plain serving CLI in this process, on the
+    same card; this process's runs counted from 0."""
+    from repro_torch.launch import serve, train
+
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    targv = train_argv("llama3.2-1b", 1, "gspmd", WORLD_STEPS)
+    job = {"train": targv, "serve": TP_SERVE_ARGV + ["--device", "cuda"],
+           "out": str(out / "p15_tp_world.json")}
+    free_device()
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "--no-python", sys.executable, "-c", TP_RUNNER, json.dumps(job)],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    world_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"15: the one-rank world failed ({proc.returncode}):\n"
+                         f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+    world = json.loads(Path(job["out"]).read_text())
+    t = phase("tp-world-subprocess", t)
+    free_device()
+    zero(all_ops)
+    torch.cuda.reset_peak_memory_stats()
+    rec = train.main(targv)
+    digest = train.state_digest(rec.pop("state"))
+    free_device()
+    trained = counts(all_ops)
+    expect_launches(trained, {}, "15 stacked gspmd at dp 1", torch.device("cuda"))
+    eng = serve.main(TP_SERVE_ARGV + ["--device", "cuda"])
+    served = {k: v - trained[k] for k, v in counts(all_ops).items()}
+    plain = {str(i): [r.output.tolist(), r.admit_tick, r.retire_tick]
+             for i, r in eng.results.items()}
+    del eng
+    free_device()
+    wt, ws = world["train"], world["serve"]
+    same_train = (wt["losses"] == rec["losses"] and wt["grad_norms"] == rec["grad_norms"]
+                  and wt["digest"] == digest)
+    same_serve = ws["results"] == plain
+    stats = {"world_wall_s": world_s, "train_bit_for_bit": same_train,
+             "serve_equal": same_serve,
+             "world_train": {k: wt[k] for k in ("losses", "grad_norms", "ms_per_step",
+                                                "peak_bytes", "launches")},
+             "stacked_train": {k: rec[k] for k in ("losses", "grad_norms", "ms_per_step",
+                                                   "peak_bytes")},
+             "world_serve": {k: ws[k] for k in ("summary", "launches")},
+             "plain_serve_launches": served,
+             "launches": {k: trained[k] + served[k] for k in trained}}
+    log(f"15 gspmd llama3.2-1b dp 1, {WORLD_STEPS} steps: one-rank NCCL world losses "
+        f"{wt['losses']}, grad norms {wt['grad_norms']}, ms/step "
+        f"{[round(m, 1) for m in wt['ms_per_step']]}, peak {wt['peak_bytes'] / 2**30:.3f} GiB; "
+        f"stacked ms/step {[round(m, 1) for m in rec['ms_per_step']]}; digests "
+        f"{wt['digest'][:16]} / {digest[:16]}; bit for bit {same_train}")
+    log(f"15 serving world entry: {ws['summary']}, launches {ws['launches']}; plain CLI "
+        f"launches {served}; tokens and ticks equal {same_serve}")
+    if not same_train or not same_serve:
+        raise SystemExit(f"15: a one-rank world differs from the plain entry: {stats}")
+    for name, got in (("world train", wt["launches"]), ("stacked train", trained),
+                      ("world serve", ws["launches"]), ("plain serve", served)):
+        if got["mrd_combine"]:
+            raise SystemExit(f"15 {name}: gspmd launched mrd_combine {got['mrd_combine']} times")
+        if "serve" in name and not all(got[k] > 0 for k in (
+                "flash_attention", "paged_attention", "rmsnorm")):
+            raise SystemExit(f"15 {name}: a serving kernel never launched: {got}")
+    t = phase("tp-world-vs-plain", t)
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3871,7 +4009,13 @@ def main() -> int:
     train14 = world_phases(all_ops, time.perf_counter())
     p14 = train14["launches"]["mrd_combine"]
 
-    # 15. results
+    # 15. the sharded entry points (gspmd trainer, TP serving CLI) as
+    # one-rank NCCL worlds
+    free_device()
+    tp15 = tp_world_phase(all_ops, time.perf_counter())
+    p15 = tp15["launches"]
+
+    # 16. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -3889,6 +4033,7 @@ def main() -> int:
     log(json.dumps({"hybrid": hyb_stats}))
     log(json.dumps({"training": train13}))
     log(json.dumps({"world_training": train14}))
+    log(json.dumps({"tp_world": tp15}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
@@ -3896,10 +4041,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/paged_kernel.py:78",
         "launches": (launches + p10["paged_attention"] + p11["paged_attention"]
-                     + p12["paged_attention"]),
+                     + p12["paged_attention"] + p15["paged_attention"]),
         "launches_by_path": {"llama_serve": launches, "serving_rest": p10["paged_attention"],
                              "families": p11["paged_attention"],
-                             "hybrid": p12["paged_attention"]},
+                             "hybrid": p12["paged_attention"],
+                             "tp_world": p15["paged_attention"]},
         "max_abs_err": errs[(KERNEL_CASES[0], torch.bfloat16)],
         **pa_t[KERNEL_CASES[0]],
         "long_context": {"shape": list(KERNEL_CASES[3]),
@@ -3918,9 +4064,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/mrd_combine/csrc/mrd_combine.cu",
         "replaces": "src/repro/kernels/mrd_combine/kernel.py:31",
-        "launches": train_launches + coll_launches + p13 + p14,
+        "launches": train_launches + coll_launches + p13 + p14 + p15["mrd_combine"],
         "launches_by_path": {"train": train_launches, "collectives": coll_launches,
-                             "training_families": p13, "world_and_optimizers": p14},
+                             "training_families": p13, "world_and_optimizers": p14,
+                             "tp_world_gspmd": p15["mrd_combine"]},
         "max_abs_err": errs[(COMBINE_CASES[-1], torch.float32)],
         "ms": mc_ms,
         "plain_ms": mc_plain_ms,
@@ -3937,10 +4084,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
         "launches": (fa_launches + p10["flash_attention"] + p11["flash_attention"]
-                     + p12["flash_attention"]),
+                     + p12["flash_attention"] + p15["flash_attention"]),
         "launches_by_path": {"gemma3_serve": fa_launches, "serving_rest": p10["flash_attention"],
                              "families": p11["flash_attention"],
-                             "hybrid": p12["flash_attention"]},
+                             "hybrid": p12["flash_attention"],
+                             "tp_world": p15["flash_attention"]},
         "max_abs_err": errs[(FLASH_CASES[0], torch.bfloat16)],
         **fa_t[(PREFILL_LEN, None)],
         "widened": [{**v, "max_abs_err": max(  # over phase 3's bf16 cases of these heads
@@ -3953,9 +4101,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
-        "launches": rn_launches + p10["rmsnorm"] + p11["rmsnorm"] + p12["rmsnorm"],
+        "launches": (rn_launches + p10["rmsnorm"] + p11["rmsnorm"] + p12["rmsnorm"]
+                     + p15["rmsnorm"]),
         "launches_by_path": {"gemma3_serve": rn_launches, "serving_rest": p10["rmsnorm"],
-                             "families": p11["rmsnorm"], "hybrid": p12["rmsnorm"]},
+                             "families": p11["rmsnorm"], "hybrid": p12["rmsnorm"],
+                             "tp_world": p15["rmsnorm"]},
         "max_abs_err": errs[(RMSNORM_CASES[0], torch.bfloat16)],
         "ms": rn_ms,
         "plain_ms": rn_plain_ms,

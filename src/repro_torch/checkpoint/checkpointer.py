@@ -52,6 +52,12 @@ read each other's checkpoints.
   rows' CRC-32s in a marker file, the checksums, the central directory
   and the publish.  A world restore reads a rank's rows out of the file
   through ``np.memmap`` (:meth:`Checkpointer.restore_rank`).
+- *Sharded states* (a ``gspmd`` world, whose leaves are blocks of global
+  leaves): :meth:`Checkpointer.save_streamed` writes the global leaves
+  one at a time as the ranks gather them, into the archive a one-process
+  trainer writes, so the writer holds one leaf at a time; a rank's
+  restore reads its blocks out of the file through ``np.memmap``
+  (:meth:`Checkpointer.restore_blocks`).
 
 The reference's telemetry spans around the stage, the d2h wait and the
 write wait for the port's ``obs`` (ROADMAP queue 1, item 7); the save's
@@ -352,6 +358,8 @@ class Checkpointer:
         # writer), hold_s (the staging after it), write_s (the writer's,
         # once it is done)
         self.saves: list[dict] = []
+        # one record a restore: step, bytes (copied out of the file)
+        self.restores: list[dict] = []
         # {key path: host buffer} of the last save, reused by the next
         self._staging: Dict[str, torch.Tensor] = {}
 
@@ -561,6 +569,56 @@ class Checkpointer:
             self.wait()
         record["hold_s"] = time.perf_counter() - t0
 
+    def save_streamed(self, step: int, specs: dict, leaves, extra: Optional[dict] = None) -> None:
+        """A blocking save that holds one leaf on the host at a time (a
+        sharded state whose leaves are gathered one by one): ``specs`` is
+        {key: (shape, torch dtype)} of every leaf, in the archive's order,
+        and ``leaves`` yields (key, tensor) for each, in any order; each is
+        copied to the host, written at its offset in ``arrays.npz``
+        (:class:`_NpzLayout`) and let go before the next is taken.  The
+        file, manifest and publish are :meth:`save`'s; the record also
+        has ``peak_bytes``, the largest leaf held."""
+        tw0 = time.perf_counter()
+        self.wait()
+        t0 = time.perf_counter()
+        layout = _NpzLayout({k: (shape, _np_dtype(dt)) for k, (shape, dt) in specs.items()})
+        tmp = os.path.join(self.dir, f"step_{step}.tmp")
+        final = os.path.join(self.dir, f"step_{step}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        crcs, nbytes, peak = {}, 0, 0
+        with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
+            f.truncate(layout.end)
+            layout.write_headers(f)
+            for key, leaf in leaves:
+                shape, dtype = specs[key]
+                host = leaf.detach().to("cpu", memory_format=torch.contiguous_format)
+                if tuple(host.shape) != tuple(shape) or host.dtype != dtype:
+                    raise ValueError(f"checkpoint leaf {key}: {tuple(host.shape)} {host.dtype} "
+                                     f"given, {tuple(shape)} {dtype} expected")
+                data = _to_numpy(host).reshape(-1).view(np.uint8)
+                f.seek(layout.row_offset(key, 0, 0))
+                f.write(data)
+                crcs[key] = zlib.crc32(data, layout.npy_crc(key))
+                nbytes += data.nbytes
+                peak = max(peak, data.nbytes)
+                del host, data
+            missing = sorted(set(specs) - set(crcs))
+            if missing:
+                raise ValueError(f"checkpoint step {step}: no leaf given for {missing[:8]}")
+            layout.finish(f, crcs)
+            f.flush()
+            os.fsync(f.fileno())
+        manifest = {"step": int(step), "time": time.time(), "extra": extra or {},
+                    "n_arrays": len(specs), "layout_version": LAYOUT_VERSION,
+                    "bf16": sorted(k for k, (_, dt) in specs.items() if dt == torch.bfloat16)}
+        self._publish(tmp, final, step, manifest)
+        self._last_save_at = self._clock()
+        took = time.perf_counter() - t0
+        self.saves.append({"step": int(step), "wait_s": t0 - tw0, "bytes": nbytes,
+                           "peak_bytes": peak, "hold_s": took, "write_s": took})
+
     def _publish(self, tmp: str, final: str, step: int, manifest: dict) -> None:
         """Write the manifest into ``tmp``, rename it to ``final`` and
         point ``LATEST`` at ``step``; then drop the steps past ``keep``."""
@@ -659,33 +717,49 @@ class Checkpointer:
         row ``rank`` of the file's through ``np.memmap``, so a rank reads
         its rows and not the others'.  The checkpoint must have this
         world's dp."""
+        full = {k: (((self.dp,) if _in_parts(k, rows) else ()) + shape, dtype)
+                for k, (shape, dtype) in _specs(template).items()}
+        return self._read_mapped(step, full, {k: self.rank for k in full if _in_parts(k, rows)},
+                                 device, self.dp)
+
+    def restore_blocks(self, step: int, template: Any, blocks: dict, device="cpu", *,
+                       dp: Optional[int] = None):
+        """:meth:`restore` of a rank that holds blocks of the saved leaves:
+        a leaf whose key ``blocks`` names is read as ``leaf[blocks[key]]``
+        (a numpy index, e.g. ``sharding.local_index``'s slices) through
+        ``np.memmap``, so only the block is copied out of the file; the
+        other leaves whole.  ``template`` has the saved (global) shapes."""
+        return self._read_mapped(step, _specs(template), blocks, device, dp)
+
+    def _read_mapped(self, step: int, specs: dict, index: dict, device, dp: Optional[int]):
+        """The leaves of ``specs`` ({key: (saved shape, dtype)}) read out of
+        step ``step``'s archive through ``np.memmap``, leaf ``k`` cut to
+        ``[index[k]]`` where given; records the bytes copied out in
+        :attr:`restores`."""
         device = resolve_device(device)
-        manifest = self._checked_manifest(step, self.dp)
+        manifest = self._checked_manifest(step, dp)
         path = os.path.join(self.dir, f"step_{step}", "arrays.npz")
         flat = {k: np.memmap(path, dtype=dt, mode="r", offset=off, shape=shape)
                 if int(np.prod(shape)) else np.zeros(shape, dt)
                 for k, (shape, dt, off) in npz_members(path).items()}
-        specs = _specs(template)
-        full = {k: (((self.dp,) if _in_parts(k, rows) else ()) + shape, dtype)
-                for k, (shape, dtype) in specs.items()}
         version = manifest.get("layout_version", 1)
         if version != LAYOUT_VERSION:
             flat = migrate_layout(flat, _unflatten({
                 k: torch.empty(shape, dtype=dtype, device="meta")
-                for k, (shape, dtype) in full.items()}), version)
+                for k, (shape, dtype) in specs.items()}), version)
         bf16 = set(manifest.get("bf16", ()))
         out = {}
-        for key, (shape, dtype) in full.items():
-            out[key] = _leaf(step, key, flat, shape, dtype, bf16, device,
-                             row=self.rank if _in_parts(key, rows) else None)
+        for key, (shape, dtype) in specs.items():
+            out[key] = _leaf(step, key, flat, shape, dtype, bf16, device, index.get(key))
+        self.restores.append({"step": int(step), "bytes": sum(
+            t.numel() * t.element_size() for t in out.values())})
         return _unflatten(out)
 
-
 def _leaf(step: int, key: str, flat: dict, shape: tuple, dtype, bf16: set, device,
-          row: Optional[int] = None) -> torch.Tensor:
+          index=None) -> torch.Tensor:
     """The restored tensor of ``key`` from a checkpoint's ``flat`` arrays:
-    of ``shape`` and ``dtype`` (its row ``row`` when given), bf16 leaves
-    from their bit patterns."""
+    of ``shape`` and ``dtype`` (its part ``[index]`` when given: a row, a
+    block), bf16 leaves from their bit patterns."""
     if key not in flat:
         raise ValueError(f"checkpoint step {step} has no leaf {key!r}")
     arr = flat[key]
@@ -693,8 +767,8 @@ def _leaf(step: int, key: str, flat: dict, shape: tuple, dtype, bf16: set, devic
         raise ValueError(f"shape mismatch for {key}: {tuple(arr.shape)} saved, "
                          f"{shape} expected (if the data-parallel width differs: "
                          f"{RESIZE_HINT})")
-    if row is not None:
-        arr = arr[row]
+    if index is not None:
+        arr = arr[index]
     arr = np.require(np.asarray(arr), requirements="C")  # keeps 0-d leaves 0-d
     if isinstance(arr, np.memmap) or not arr.flags.writeable:
         arr = np.array(arr)

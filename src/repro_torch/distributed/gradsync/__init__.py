@@ -4,6 +4,11 @@ Each strategy is one module registering a builder ``make(cfg, tcfg, *,
 dp, device, mesh=None) -> train_step`` under its mode name; ``train_step(state,
 batch) -> (state, metrics)`` and ``train_step.init_state(generator)``.
 
+- ``gspmd``: the reference's default and the baseline every MRD mode is
+  measured against: params and optimizer state placed by
+  ``distributed.sharding`` (FSDP over ``"data"``, TP over ``"model"``),
+  the model's tensor-parallel collectives and the DP reductions of the
+  gradients placed by hand where XLA's GSPMD inserts them in the reference.
 - ``mrd_paper``: the paper's recursive-doubling Allreduce of the full
   bucketed fp32 gradient (paper S2) and replicated optimizer rows.
 - ``mrd_zero1``: the butterfly as a ZeRO-1 distributed optimizer:
@@ -20,9 +25,10 @@ Every family trains under every mode, in either layout of the ranks
 (``gradsync.common``): stacked rows on one device (``mesh=None``, the
 ``sim`` executor), or a world of one process a rank over the ``"data"``
 dimension of a ``torch.distributed`` :class:`DeviceMesh` (the ``device``
-and ``device_fused`` executors).  The reference's ``gspmd`` mode, its
-overlap path and its elastic resize hooks are not ported yet (ROADMAP
-queue 1, items 6 and 7).
+and ``device_fused`` executors); ``gspmd`` also over a ``("data",
+"model")`` mesh.  The MRD modes at ``tp > 1`` (ROADMAP 6.3b), the
+overlap path and the elastic resize hooks are not ported yet (ROADMAP
+queue 1, items 6.4 and 7).
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ def make_train_step(cfg, tcfg, *, dp: int, device="cuda", mesh=None):
 # populate the registry (import order = doc order)
 from repro_torch.distributed.gradsync import (  # noqa: E402,F401
     compressed,
+    gspmd,
     local_sgd,
     mrd_leaf,
     mrd_paper,

@@ -45,7 +45,7 @@ REMAT_POLICIES = transformer.REMAT
 class TrainConfig:
     microbatches: int = 1
     remat: str = "full"  # 'none' | 'full' | 'dots'
-    grad_sync: str = "mrd_zero1"  # any name in repro_torch.distributed.gradsync.GRAD_SYNC
+    grad_sync: str = "gspmd"  # any name in repro_torch.distributed.gradsync.GRAD_SYNC
     local_sync_every: int = 8  # local_sgd: the replicas' average period (staleness bound)
     monitor: bool = True
     # any DETECTION_PROTOCOLS entry: 'inexact' (Alg. 1) | 'exact' (Alg. 2)
@@ -187,18 +187,23 @@ def rows(x: torch.Tensor, rank: Optional[int]) -> torch.Tensor:
     return x if rank is None else x[None]
 
 
-def clip_by_global_norm_(leaves: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(leaves: list, max_norm: float, sum_squares=None) -> torch.Tensor:
     """The reference's ``clip_by_global_norm`` in place on a list of leaves
     (in the reference's flatten order: the norm's squares are summed leaf
     by leaf in that order): with ``max_norm`` > 0, every leaf is scaled by
     ``min(1, max_norm / max(norm, 1e-12))``.  Returns the fp32 norm (0
-    when ``max_norm`` <= 0, as the reference's)."""
+    when ``max_norm`` <= 0, as the reference's).  ``sum_squares``, when
+    given, maps the leaves' own sums of squares to the global sum: over
+    sharded leaves each element's square must count once (``gspmd``)."""
     if max_norm <= 0:
         return leaves[0].new_zeros((), dtype=torch.float32)
-    sq = None
-    for g in leaves:
-        s = g.float().square().sum()
-        sq = s if sq is None else sq + s
+    if sum_squares is not None:
+        sq = sum_squares([g.float().square().sum() for g in leaves])
+    else:
+        sq = None
+        for g in leaves:
+            s = g.float().square().sum()
+            sq = s if sq is None else sq + s
     gnorm = torch.sqrt(sq)
     clip = torch.full_like(gnorm, max_norm)  # true division on the card too
     scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)

@@ -1,7 +1,21 @@
 """Serving step factories (port of ``repro.distributed.serve``).
 
-Single device: there is no mesh and no sharding rule; the factories return
-plain functions over tensors.
+Without a mesh the factories return plain functions over tensors.  With a
+``DeviceMesh`` (a world, one process a rank: ``("data", "model")`` of
+``(1, tp)`` for the continuous pools, ``(dp, tp)`` for the static path)
+every step runs under a sharding context (:func:`serving_ctx`): the
+model's TP layers run on the rank's heads, channels and vocabulary, the
+caches hold the K/V heads the rank's attention reads
+(``sharding.attn_heads``: every head where the query heads do not shard,
+where the reference's ``cache_specs`` shards the cache's sequence over
+``"model"``), and the logits are gathered over ``"model"``, so every rank
+takes the same greedy token and the host engines of the ranks make the
+same decisions.  The flash, paged-attention and selective-scan kernels
+see the rank's plain local tensors.  The weights are the rank's blocks
+over ``"model"`` alone (:func:`serve_rules`): the static path's data
+ranks are replicas that each serve their shard of the batch; the
+reference shards the weights over ``"data"`` too when they are large
+(its ``_serve_needs_fsdp``), which the port does not yet (ROADMAP).
 
 - :func:`make_prefill_step`: the whole-prompt forward that returns the
   last position's logits (the reference's ``prefill_32k`` shape cell).
@@ -40,11 +54,16 @@ reference's scan does (``transformer.forward_prefill``); the whole-prompt
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import keep
 
 # Cache leaves paged into fixed-size blocks of a shared physical pool
 PAGED_LEAVES = ("k", "v", "k_scale", "v_scale", "attn_k", "attn_v")
@@ -52,6 +71,65 @@ PAGED_LEAVES = ("k", "v", "k_scale", "v_scale", "attn_k", "attn_v")
 CACHE_BATCH_AXIS = {"k": 1, "v": 1, "k_scale": 1, "v_scale": 1, "global_k": 1, "global_v": 1,
                     "local_k": 2, "local_v": 2, "h": 1, "conv": 1, "m_h": 2, "m_conv": 2,
                     "attn_k": 1, "attn_v": 1}
+
+
+# ---------------------------------------------------------------------------
+# Placement
+# ---------------------------------------------------------------------------
+
+def serve_rules(cfg: ModelConfig, mesh) -> shd.ShardingRules:
+    """The sharding rules of the port's serving over ``mesh``: TP over
+    ``"model"``, no FSDP (the weights are the rank's blocks over
+    ``"model"`` alone)."""
+    return shd.make_rules(cfg, mesh, fsdp=False)
+
+
+def serving_ctx(cfg: ModelConfig, mesh):
+    """The sharding context every serving step of a world runs under (no
+    context without a mesh)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return shd.sharding_ctx(cfg, serve_rules(cfg, mesh), mesh)
+
+
+def _in_ctx(fn, cfg: ModelConfig, mesh):
+    """``fn`` run under :func:`serving_ctx`'s context, made once (``fn``
+    itself without a mesh)."""
+    if mesh is None:
+        return fn
+    ctx = shd.ShardingContext(cfg, serve_rules(cfg, mesh), mesh)
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with shd.use(ctx):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def param_placer(cfg: ModelConfig, mesh):
+    """``place`` for ``transformer.init_params``: the rank's blocks over
+    ``"model"`` (None without a mesh: every leaf whole)."""
+    if mesh is None:
+        return keep
+    return shd.Placer(cfg, serve_rules(cfg, mesh), shd.mesh_coords(mesh))
+
+
+def shard_params(params, cfg: ModelConfig, mesh):
+    """This rank's blocks of whole ``params`` (the caller's weights, e.g.
+    the reference's carried across)."""
+    if mesh is None:
+        return params
+    place = param_placer(cfg, mesh)
+    return {k: {n: place(n, v) for n, v in leaf.items()} if isinstance(leaf, dict)
+            else place(k, leaf) for k, leaf in params.items()}
+
+
+def gather_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every data rank's rows of ``x`` [B / dp, ...] -> [B, ...] (the
+    static path's tokens)."""
+    ax = shd.ShardingContext(None, None, mesh).axis(shd.DATA)
+    return x if ax is None else shd._all_gather(x, 0, ax)
 
 
 def make_prefill_step(cfg: ModelConfig, device="cuda"):
@@ -75,7 +153,7 @@ def make_prefill_step(cfg: ModelConfig, device="cuda"):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None):
     """``serve_step(params, tokens [B], cache, cache_len) -> (logits [B, V],
     cache)``: one decode step of every sequence at position ``cache_len``
     (an int, or a tensor of one length a sequence); the cache is written in
@@ -87,7 +165,7 @@ def make_serve_step(cfg: ModelConfig):
         lengths = torch.as_tensor(cache_len, device=tokens.device).expand(tokens.shape[0])
         return transformer.forward_decode(params, tokens, cache, lengths, cfg)
 
-    return serve_step
+    return _in_ctx(serve_step, cfg, mesh)
 
 
 def _fill_cache(cache, rows, slot=None) -> None:
@@ -110,7 +188,7 @@ def _fill_cache(cache, rows, slot=None) -> None:
         dst.narrow(seq, w, dst.shape[seq] - w).zero_()
 
 
-def make_cached_prefill_step(cfg: ModelConfig):
+def make_cached_prefill_step(cfg: ModelConfig, mesh=None):
     """``prefill_step(params, prompt [B, S], cache) -> (last_logits [B, V],
     cache)``: one causal forward over the prompts (on the card the flash
     kernel, every layer) fills positions ``[0, S)`` of the cache, whose
@@ -122,10 +200,10 @@ def make_cached_prefill_step(cfg: ModelConfig):
         _fill_cache(cache, rows)
         return last_logits, cache
 
-    return prefill_step
+    return _in_ctx(prefill_step, cfg, mesh)
 
 
-def make_pool_decode_step(cfg: ModelConfig):
+def make_pool_decode_step(cfg: ModelConfig, mesh=None):
     """``pool_step(params, tokens [S], cache, lengths [S], active [S]) ->
     logits [S, V]``: every slot advances at its own length; the cache is
     written in place, and only for active slots.  (The reference decodes
@@ -138,10 +216,10 @@ def make_pool_decode_step(cfg: ModelConfig):
                                                write_ok=active)
         return logits
 
-    return pool_step
+    return _in_ctx(pool_step, cfg, mesh)
 
 
-def make_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int):
+def make_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int, mesh=None):
     """Offset-prefill into a live cache slot (slot recycling).
 
     ``slot_prefill(params, prompt [plen], cache, slot) -> last_logits
@@ -160,7 +238,7 @@ def make_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int):
         _fill_cache(cache, rows, slot)
         return last_logits[0]
 
-    return slot_prefill
+    return _in_ctx(slot_prefill, cfg, mesh)
 
 
 def split_paged_cache(cache):
@@ -224,7 +302,8 @@ def gather_block_views(pool_leaf, tables):
     return g.reshape(g.shape[0], g.shape[1], g.shape[2] * g.shape[3], *g.shape[4:])
 
 
-def make_paged_pool_decode_step(cfg: ModelConfig, block_size: int, attn: str = "kernel"):
+def make_paged_pool_decode_step(cfg: ModelConfig, block_size: int, attn: str = "kernel",
+                                mesh=None):
     """``pool_step(params, tokens [S], pages, tables [S,nb], lengths [S],
     write_ok [S], slot_state=None) -> logits [S, V]``; ``pages`` and the
     per-slot leaves ``slot_state`` (the hybrid stack's ``m_h``/``m_conv``;
@@ -244,7 +323,7 @@ def make_paged_pool_decode_step(cfg: ModelConfig, block_size: int, attn: str = "
             )
             return logits
 
-        return pool_step_kernel
+        return _in_ctx(pool_step_kernel, cfg, mesh)
     if attn != "gather":
         raise ValueError(f"attn must be 'kernel' or 'gather', got {attn!r}")
 
@@ -261,11 +340,11 @@ def make_paged_pool_decode_step(cfg: ModelConfig, block_size: int, attn: str = "
             pages[n][:, pb, off] = view[n][:, rows, lengths.long()]
         return logits
 
-    return pool_step_gather
+    return _in_ctx(pool_step_gather, cfg, mesh)
 
 
 def make_paged_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int, max_len: int,
-                                 block_size: int):
+                                 block_size: int, mesh=None):
     """Offset-prefill a prompt into a slot's block table (paged admission).
 
     ``slot_prefill(params, prompt [plen], pages, tables, slot, table_row
@@ -298,4 +377,4 @@ def make_paged_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int, max_len:
         tables[slot] = table_row.to(tables.dtype)
         return last_logits[0]
 
-    return slot_prefill
+    return _in_ctx(slot_prefill, cfg, mesh)

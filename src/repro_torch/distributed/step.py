@@ -5,8 +5,9 @@ facade over the grad-sync registry, and the serving steps of
 The strategies live in ``repro_torch.distributed.gradsync`` (one module
 per mode), composing the shared monitor, optimizer and microbatching
 pieces of ``gradsync.common`` with their own gradient-crossing plan; every
-collective they issue runs through a
-:class:`repro_torch.collectives.plans.CollectivePlan`.
+collective the MRD modes issue runs through a
+:class:`repro_torch.collectives.plans.CollectivePlan`, and ``gspmd``
+places its params and collectives by ``repro_torch.distributed.sharding``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from repro_torch.distributed.gradsync.common import (  # noqa: F401
     resolve_executor,
     world_rank,
 )
+from repro_torch.distributed.gradsync.gspmd import GspmdStep  # noqa: F401
 from repro_torch.distributed.gradsync.mrd_zero1 import (  # noqa: F401
     zero1_layout,
     zero1_masters_from_params,

@@ -50,22 +50,43 @@ arrive at the ticks ``--arrival`` draws from ``--seed + 7``; with
 that seed, and tenant quotas bound admission.  ``--device`` defaults to
 ``cuda`` and raises when there is no card; ``--device cpu`` runs on the
 CPU, where every kernel is its plain PyTorch version.  The reference's
-``--tp``, elastic resize (``--elastic-policy``, ``--autoscale``,
+elastic resize (``--elastic-policy``, ``--autoscale``,
 ``--kill``/``--join``/``--stall``, ``--slots-per-replica``) and
 ``--telemetry`` are not ported yet.
+
+``--tp`` runs the model tensor-parallel over a world of one process a
+rank, under ``torch.distributed.run``, with the mesh the reference's
+implies: ``("data", "model")`` of ``(1, tp)`` for ``--continuous`` (the
+``--dp`` replicas stay simulated) and ``(dp, tp)`` for the static path
+(each data rank serves its shard of the batch).  NCCL with card
+``LOCAL_RANK`` a rank, gloo with ``--device cpu``.  Every rank runs the
+same host-side engine on the same requests and takes the same greedy
+token from the logits gathered over ``"model"``, so admissions and
+retirements agree; rank 0 alone prints.  ``fixedpoint_solve`` ignores
+``--tp``, as the reference's.
+
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --arch qwen2.5-32b --continuous --workload llm_decode_paged --tp 4 \\
+      --slots 8 --requests 16 --prompt-len 512 --gen 64
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import json
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import registry
 from repro_torch.device import resolve_device
+from repro_torch.distributed import serve as dserve
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import step as step_lib
 from repro_torch.models import transformer
 from repro_torch.serving import (
@@ -103,6 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="default: eos_maxlen (LLM) / residual_interval (fixed point)")
     ap.add_argument("--dp", type=int, default=1,
                     help="termination-agreement replicas (MRD over [dp])")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel model ranks: a world of --tp ranks (--continuous) or "
+                         "--dp x --tp (the static path) under torch.distributed.run")
     ap.add_argument("--slots", type=int, default=4, help="decode pool slots")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--arrival", default="none",
@@ -136,6 +160,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="requeues granted to a request forced at cache capacity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--summary-json", default=None, metavar="PATH",
+                    help="write each rank's record (the summary, every request's tokens and "
+                         "ticks, the peak device memory, the kernels' launches) to PATH, with "
+                         "{rank} replaced by the rank")
     return ap
 
 
@@ -197,9 +225,10 @@ def _serve_fixedpoint(args, device):
     return wl, reqs
 
 
-def serve(args: argparse.Namespace):
+def serve(args: argparse.Namespace, mesh=None):
     """Build the workload and engine from parsed ``args`` (``--continuous``)
-    and serve ``--requests`` requests -> (engine, workload, results)."""
+    and serve ``--requests`` requests -> (engine, workload, results).
+    With ``mesh`` (a TP world) the model runs on this rank's part."""
     try:
         get_scheduler(args.scheduler)
     except ValueError as e:
@@ -208,7 +237,7 @@ def serve(args: argparse.Namespace):
     if args.workload == "fixedpoint_solve":
         wl, reqs = _serve_fixedpoint(args, device)
     else:
-        wl, reqs = _serve_llm(args, device)
+        wl, reqs = _serve_llm(args, device, mesh)
     quotas = None
     if args.tenants:
         try:
@@ -240,7 +269,7 @@ def _llm_config(args):
     return cfg
 
 
-def _serve_llm(args, device):
+def _serve_llm(args, device, mesh=None):
     cfg = _llm_config(args)
     max_len = args.max_len or (args.prompt_len + args.gen + 4)
     kw = {}
@@ -250,6 +279,8 @@ def _serve_llm(args, device):
         kw = {"block_size": bs, "attn": args.attn}
         if args.num_blocks:
             kw["num_blocks"] = args.num_blocks
+    if mesh is not None:
+        kw["mesh"] = mesh
     wl = make_workload(
         args.workload, cfg=cfg, slots=args.slots, max_len=max_len,
         max_prompt_len=args.prompt_len, seed=args.seed, device=device, **kw,
@@ -263,7 +294,7 @@ def _serve_llm(args, device):
 
 
 def static_serve(cfg, *, gen: int, batch: int = 0, prompt_len: int = 0, prompt=None,
-                 seed: int = 0, device="cuda", params=None) -> dict:
+                 seed: int = 0, device="cuda", params=None, mesh=None) -> dict:
     """The static batch path: ``prompt`` [batch, prompt_len] (by default
     ``batch`` random prompts of ``prompt_len`` tokens, drawn on the device
     from ``seed + 1``; weights from ``seed`` unless ``params`` are given)
@@ -271,19 +302,31 @@ def static_serve(cfg, *, gen: int, batch: int = 0, prompt_len: int = 0, prompt=N
     greedy ``make_serve_step`` calls; each timed region is fenced by a
     device synchronize.  Returns the prompts (on the device), the greedy
     tokens [batch, gen] (host), the two times in seconds and the cache's
-    bytes."""
+    bytes.  With ``mesh`` (a world of ``(dp, tp)``) each data rank serves
+    its shard of the batch on its blocks of the weights (``params``, when
+    given, are already the rank's), and the tokens are gathered over
+    ``"data"``."""
     device = resolve_device(device)
     if params is None:
         params = transformer.init_params(
-            cfg, torch.Generator(device=device).manual_seed(seed), device)
+            cfg, torch.Generator(device=device).manual_seed(seed), device,
+            place=dserve.param_placer(cfg, mesh))
     if prompt is None:
         prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), device=device,
                                generator=torch.Generator(device=device).manual_seed(seed + 1))
     prompt = torch.as_tensor(prompt, device=device)
+    whole = prompt
+    if mesh is not None:  # this data rank's sequences
+        r, dp = mesh.get_local_rank(shd.DATA), mesh.size(0)
+        if prompt.shape[0] % dp:
+            raise SystemExit(f"--batch {prompt.shape[0]} does not split over dp={dp} ranks")
+        per = prompt.shape[0] // dp
+        prompt = prompt[r * per:(r + 1) * per]
     batch, prompt_len = prompt.shape
-    serve_step = step_lib.make_serve_step(cfg)
-    prefill_step = step_lib.make_cached_prefill_step(cfg)
-    cache = transformer.init_cache(cfg, batch, prompt_len + gen, device)
+    serve_step = step_lib.make_serve_step(cfg, mesh)
+    prefill_step = step_lib.make_cached_prefill_step(cfg, mesh)
+    with dserve.serving_ctx(cfg, mesh):
+        cache = transformer.init_cache(cfg, batch, prompt_len + gen, device)
     positions = torch.arange(prompt_len, prompt_len + gen, device=device)
 
     fence(device)
@@ -300,7 +343,10 @@ def static_serve(cfg, *, gen: int, batch: int = 0, prompt_len: int = 0, prompt=N
         toks = torch.argmax(logits, -1)
     fence(device)
     dt_decode = time.perf_counter() - t0
-    return {"prompt": prompt, "tokens": torch.stack(out, 1).cpu().numpy(),
+    tokens = torch.stack(out, 1)
+    if mesh is not None:
+        tokens = dserve.gather_batch(tokens, mesh)
+    return {"prompt": whole, "tokens": tokens.cpu().numpy(),
             "prefill_s": dt_prefill,
             "decode_s": dt_decode,
             "cache_bytes": sum(t.numel() * t.element_size() for t in cache.values())}
@@ -312,10 +358,10 @@ def fence(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _static_main(args) -> dict:
+def _static_main(args, mesh=None) -> dict:
     cfg = _llm_config(args)
     r = static_serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
-                     seed=args.seed, device=args.device)
+                     seed=args.seed, device=args.device, mesh=mesh)
     pre_tok, dec_tok = args.batch * args.prompt_len, args.batch * args.gen
     print(f"prefill: {pre_tok} tokens in {r['prefill_s'] * 1e3:.1f} ms "
           f"({pre_tok / r['prefill_s']:.1f} tok/s)")
@@ -340,11 +386,79 @@ def _print_sla(eng, s) -> None:
 def main(argv=None):
     """Parse ``argv`` and serve.  ``--continuous``: print the summary and
     return the engine (its ``summary()`` and ``results``); else run the
-    static path, print its lines and return :func:`static_serve`'s dict."""
+    static path, print its lines and return :func:`static_serve`'s dict.
+    Under ``torch.distributed.run`` this process is one rank of the
+    world of ``--tp`` (``--dp`` x ``--tp`` static) ranks."""
     args = build_parser().parse_args(argv)
+    from repro_torch.launch import train as train_cli
+
+    needs_model = not (args.continuous and args.workload == "fixedpoint_solve")
+    env = train_cli.world_env()
+    if env is None or not needs_model:
+        if args.tp > 1 and needs_model:
+            world = args.tp if args.continuous else args.dp * args.tp
+            raise SystemExit(f"--tp {args.tp} needs a world of {world} ranks "
+                             f"(python -m torch.distributed.run --nproc-per-node {world} ...)")
+        return run(args)
+    device = train_cli.start_world(env, args.device)
+    try:
+        mesh = train_cli.build_mesh(1 if args.continuous else args.dp, args.tp, device.type)
+        args.device = str(device)
+        quiet = contextlib.nullcontext() if dist.get_rank() == 0 else contextlib.redirect_stdout(
+            io.StringIO())
+        with quiet:
+            return run(args, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def kernel_launches() -> dict:
+    """Every hand-written kernel's launch count so far."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mrd_combine import ops as mc
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.selective_scan import ops as ss
+
+    return {op.__name__: op.launches for op in (pa.paged_attention, mc.mrd_combine,
+                                                fa.flash_attention, rn.rmsnorm,
+                                                ss.selective_scan)}
+
+
+def write_summary(args, out, launches0: dict) -> None:
+    """``--summary-json``: this rank's record of ``out`` (the engine, or
+    the static path's dict)."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    device = resolve_device(args.device)
+    rec = {"rank": rank, "world_size": dist.get_world_size() if dist.is_initialized() else 1,
+           "tp": args.tp, "launches": {k: v - launches0[k] for k, v in kernel_launches().items()},
+           "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                          if device.type == "cuda" else None)}
+    if isinstance(out, dict):
+        rec.update(tokens=out["tokens"].tolist(), prefill_s=out["prefill_s"],
+                   decode_s=out["decode_s"], cache_bytes=out["cache_bytes"])
+    else:
+        s = out.summary()
+        rec["summary"] = {k: v for k, v in s.items() if isinstance(v, (int, float, str))}
+        rec["results"] = {str(i): [np.asarray(r.output).tolist(), r.admit_tick, r.retire_tick]
+                          for i, r in out.results.items()}
+    with open(args.summary_json.format(rank=rank), "w") as f:
+        json.dump(rec, f)
+
+
+def run(args, mesh=None):
+    """:func:`main`'s serving, in this process (``mesh``: its TP world)."""
+    launches0 = kernel_launches()
+    out = _run(args, mesh)
+    if args.summary_json:
+        write_summary(args, out, launches0)
+    return out
+
+
+def _run(args, mesh=None):
     if not args.continuous:
-        return _static_main(args)
-    eng, wl, res = serve(args)
+        return _static_main(args, mesh)
+    eng, wl, res = serve(args, mesh)
     s = eng.summary()
     term = eng.cfg.termination
     first = res[min(res)]

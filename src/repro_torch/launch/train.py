@@ -19,24 +19,36 @@ With ``--monitor-threshold`` > 0 the ConvergenceMonitor runs, and the loop
 stops when it certifies the loss below the threshold.
 
 With ``--ckpt-dir`` the run resumes from the directory's latest step (the
-train state and the data cursor, at the same ``--dp``), then runs
+train state and the data cursor, at the same ``--dp`` and ``--tp``), then runs
 ``--steps`` more steps; it snapshots the state whenever ``--ckpt-every``
 steps of this run, or ``--ckpt-every-seconds``, have passed (an async
 save: the loop goes on while the writer writes), and once more, blocking,
-at the end.  The reference's tensor parallelism, elastic runtime, overlap
-and telemetry are not ported yet.
+at the end.  The reference's elastic runtime, overlap and telemetry are
+not ported yet.
+
+``--grad-sync`` defaults to ``gspmd``, as the reference's: params and
+optimizer state placed by ``distributed.sharding`` (FSDP over the data
+ranks, TP over ``--tp`` model ranks).  On stacked rows it is the
+unsharded full-batch step, and ``--dp`` only splits the monitor's rows.
 
 Under ``torch.distributed.run`` (``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK`` in the environment) the trainer is a world of one process
-a rank over a ``DeviceMesh`` with the dimension ``("data",)``: NCCL with
-card ``LOCAL_RANK`` a rank, or gloo with ``--device cpu``; ``--dp`` must
-equal the world size; each rank holds its own state and batch shard, and
-its gradient plans run on the ``device`` executor (``device_fused`` for
-``compressed`` on the card, whose int8 combine is the ``mrd_combine``
-kernel).  Rank 0 logs; every rank writes its part of a checkpoint.
+a rank over a ``DeviceMesh`` (:func:`build_mesh`): ``("data", "model")``
+of ``(--dp, --tp)`` when ``--tp`` > 1, else ``("data",)``; NCCL with card
+``LOCAL_RANK`` a rank, or gloo with ``--device cpu``; ``--dp`` x ``--tp``
+must equal the world size.  Each rank holds its own state and the batch
+shard of its ``"data"`` coordinate.  The MRD modes run their gradient
+plans on the ``device`` executor (``device_fused`` for ``compressed`` on
+the card, whose int8 combine is the ``mrd_combine`` kernel) over
+``("data",)`` only: ``--tp`` > 1 with an MRD mode exits (ROADMAP 6.3b).
+Rank 0 logs.  An MRD world's ranks each write their part of a
+checkpoint; a ``gspmd`` world's are gathered leaf by leaf to rank 0,
+which writes the global leaves.
 
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch llama3.2-1b --steps 4 --batch 8 --seq 1024 --dp 4 --grad-sync compressed
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch llama3.2-1b --steps 4 --batch 4 --seq 1024 --dp 2 --tp 2
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import hashlib
+import itertools
 import json
 import os
 import time
@@ -53,12 +66,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.checkpoint.checkpointer import flatten_with_paths
+from repro_torch.checkpoint.checkpointer import RESIZE_HINT, flatten_with_paths
 from repro_torch.collectives import plans
 from repro_torch.configs import registry
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.device import rank_device, resolve_device
 from repro_torch.distributed import step as step_lib
+from repro_torch.distributed.sharding import MODEL
 from repro_torch.kernels.mrd_combine import mrd_combine
 from repro_torch.models import convert
 from repro_torch.optim.optimizer import OptimizerConfig
@@ -76,9 +90,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel ranks: rows of stacked tensors on one device, or under "
                          "torch.distributed.run the world size (one process a rank)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel model ranks of a world (gspmd): the mesh is "
+                         "(--dp, --tp) over ('data', 'model')")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "lion", "sgd"])
-    ap.add_argument("--grad-sync", default="mrd_zero1", choices=step_lib.available_grad_sync())
+    ap.add_argument("--grad-sync", default="gspmd", choices=step_lib.available_grad_sync())
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--remat", default="none", choices=step_lib.REMAT_POLICIES)
     ap.add_argument("--schedule", default="cosine", choices=["cosine", "wsd", "const"])
@@ -117,16 +134,29 @@ def world_env() -> Optional[tuple[int, int, int]]:
     return tuple(int(os.environ[k]) for k in keys)
 
 
-def init_world(args, env) -> tuple:
-    """Join the world of ``env`` (rank, world size, local rank): set the
-    rank's card, start the process group (NCCL on the card, gloo with
-    ``--device cpu``, never a fallback from one to the other) with its
-    timeout, build the ``("data",)`` mesh and check ``--dp``.  Returns
-    (device, mesh)."""
+def build_mesh(dp: int, tp: int, device_type: str):
+    """The world's ``DeviceMesh``, as the reference's ``build_mesh``: axes
+    ``("data", "model")`` of ``(dp, tp)`` when ``tp`` > 1, else
+    ``("data",)`` of ``(dp,)``; ``dp * tp`` must be the world size."""
     from torch.distributed.device_mesh import init_device_mesh
 
+    world = dist.get_world_size()
+    if dp * tp != world:
+        what = "--dp" if tp == 1 else "--dp x --tp"
+        raise SystemExit(f"{what} {dp * tp} but the world has {world} ranks: a world runs one "
+                         f"rank a process, so {what} must equal WORLD_SIZE")
+    if tp > 1:
+        return init_device_mesh(device_type, (dp, tp), mesh_dim_names=(step_lib.DATA, MODEL))
+    return init_device_mesh(device_type, (dp,), mesh_dim_names=(step_lib.DATA,))
+
+
+def start_world(env, device: str) -> torch.device:
+    """Join the world of ``env`` (rank, world size, local rank): set the
+    rank's card and start the process group (NCCL on the card, gloo with
+    ``device="cpu"``, never a fallback from one to the other) with its
+    timeout.  Returns the rank's device."""
     rank, world, local = env
-    device = rank_device(local, args.device,
+    device = rank_device(local, device,
                          local_world=int(os.environ.get("LOCAL_WORLD_SIZE", world)))
     kw = {}
     if device.type == "cuda":
@@ -135,11 +165,15 @@ def init_world(args, env) -> tuple:
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo", rank=rank,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S), **kw)
-    mesh = init_device_mesh(device.type, (world,), mesh_dim_names=(step_lib.DATA,))
-    if args.dp != world:
-        raise SystemExit(f"--dp {args.dp} but the world has {world} ranks: a world trains one "
-                         f"rank a process, so --dp must equal WORLD_SIZE")
-    return device, mesh
+    return device
+
+
+def init_world(args, env) -> tuple:
+    """Join the world of ``env`` (:func:`start_world` on ``args.device``)
+    and build its mesh of ``(--dp, --tp)`` (:func:`build_mesh`).  Returns
+    (device, mesh)."""
+    device = start_world(env, args.device)
+    return device, build_mesh(args.dp, getattr(args, "tp", 1), device.type)
 
 
 def _sync(device: torch.device) -> None:
@@ -182,13 +216,116 @@ def to_reference(state, ck: Checkpointer, grad_sync: str) -> tuple:
     return convert.train_state_to_reference(state), ()
 
 
-def resume(ck: Checkpointer, state, cfg, pipe, dp: int, device, grad_sync: str):
+def gspmd_world(train_step, mesh) -> bool:
+    """Is this a ``gspmd`` world (whose checkpoints are global leaves)?"""
+    return mesh is not None and train_step.tcfg.grad_sync == "gspmd"
+
+
+def save_global(ck: Checkpointer, state, train_step, extra: dict) -> None:
+    """A ``gspmd`` world's snapshot, the file a one-process trainer writes
+    (global leaves, nested as the reference nests them): every rank
+    gathers the leaves one at a time (``GspmdStep.global_leaves``) and
+    rank 0 writes each into the archive as it comes
+    (``Checkpointer.save_streamed``), so no rank holds more than one
+    global leaf beside its own blocks.  The save is done when it returns."""
+    leaves = train_step.global_leaves(state, "cpu")
+    mon = train_step.global_monitor(state, "cpu")
+    if train_step.mesh.get_rank() != 0:
+        for _ in leaves:  # the gathers, in step with rank 0's
+            pass
+        return
+    template = convert.train_state_to_reference(global_template(train_step))
+    specs = {k: (tuple(v.shape), v.dtype) for k, v in flatten_with_paths(template).items()}
+    keys = reference_keys(train_step.cfg)
+    small = {"step": state["step"], "params": {}, "opt": {}}
+    if mon is not None:
+        small["monitor"] = mon
+    rest = flatten_with_paths(convert.train_state_to_reference(small))
+    ck.save_streamed(state["step"], specs, itertools.chain(
+        ((keys[k], leaf) for k, leaf in leaves), rest.items()), extra=extra)
+
+
+def restore_global(ck: Checkpointer, step0: int, train_step, cfg, device) -> dict:
+    """A ``gspmd`` world rank's state from a checkpoint of global leaves:
+    each leaf's block (``GspmdStep.blocks``) read straight out of the file
+    (``Checkpointer.restore_blocks``, through ``np.memmap``), so a rank
+    reads its own blocks and no whole leaf of the params or optimizer,
+    then placed on ``device``."""
+    template = convert.train_state_to_reference(global_template(train_step))
+    keys = reference_keys(cfg)
+    blocks = {keys[k]: index for k, index in train_step.blocks().items()}
+    restored = ck.restore_blocks(step0, template, blocks, "cpu", dp=train_step.dp)
+    state = {"params": convert.port_tree(restored["params"]),
+             "opt": {k: convert.port_tree(v) for k, v in restored["opt"].items()},
+             "step": int(restored["step"])}
+    if "monitor" in restored:
+        state["monitor"] = train_step.rank_monitor(
+            convert.monitor_from_reference(restored["monitor"], "cpu"))
+    return _to_device(state, device)
+
+
+def reference_keys(cfg) -> dict:
+    """{the port's key path: the reference's} of every leaf of a train
+    state's params and optimizer trees (``params/...``, ``opt/<name>/...``;
+    ``convert.reference_tree`` moves leaves, it does not change them)."""
+    from repro_torch.models import transformer
+
+    def paths(tree, prefix):
+        return {k: paths(v, f"{prefix}/{k}") if isinstance(v, dict) else f"{prefix}/{k}"
+                for k, v in tree.items()}
+
+    shapes = transformer.param_shapes(cfg)
+    out = {}
+    for prefix in ("params", "opt/master", "opt/mu", "opt/nu"):
+        nested = convert.reference_tree(paths(shapes, prefix))
+        out.update({port: f"{prefix}/{ref}" for ref, port in flatten_with_paths(nested).items()})
+    return out
+
+
+def global_template(train_step) -> dict:
+    """Meta tensors of a ``gspmd`` world's stacked-layout state: the
+    global params, fp32 optimizer trees and the monitor's ``[dp]`` rows."""
+    from repro_torch.models import transformer
+
+    def meta(tree, dtype=None):
+        return {k: meta(v, dtype) if isinstance(v, dict) else
+                torch.empty(v.shape, dtype=dtype or v.dtype, device="meta")
+                for k, v in tree.items()}
+
+    params = meta(transformer.param_shapes(train_step.cfg))
+    state = {"params": params, "opt": {k: meta(params, torch.float32)
+                                       for k in ("master", "mu", "nu")}, "step": 0}
+    if train_step.monitor is not None:
+        mon = step_lib.build_monitor(train_step.tcfg, train_step.dp)
+        state["monitor"] = mon.init(device="cpu")
+    return state
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def resume(ck: Checkpointer, state, cfg, pipe, dp: int, device, grad_sync: str,
+           train_step=None, mesh=None, tp: int = 1):
     """The state of ``ck``'s latest step in place of ``state`` (which the
     restore reads as its template, then lets go), and ``pipe``'s cursor;
-    returns (state, the step or None when the directory holds none)."""
+    returns (state, the step or None when the directory holds none).  A
+    checkpoint of another ``--tp`` is refused, as one of another ``--dp``
+    is."""
     step0 = ck.latest_step()
     if step0 is None:
         return state, None
+    saved_tp = ck.manifest(step0)["extra"].get("tp", 1)
+    if saved_tp != tp:
+        raise ValueError(f"checkpoint step {step0} was saved at tp={saved_tp}, this run has "
+                         f"tp={tp}: {RESIZE_HINT}")
+    if train_step is not None and gspmd_world(train_step, mesh):
+        del state
+        state = restore_global(ck, step0, train_step, cfg, device)
+        pipe.load_state_dict(ck.manifest(step0)["extra"]["data"])
+        return state, step0
     template, rows = to_reference(state, ck, grad_sync)
     if ck.world:
         restored = ck.restore_rank(step0, template, rows, "cpu")
@@ -207,8 +344,11 @@ def profile_step(run, device) -> dict:
     the step's wall ms (profiler included), the blocking plan runs
     (``plans.PROFILE_RANGE``: the gradient sync, its scalars, the logged
     loss) and, on a card, the device busy ms (every kernel, NCCL's
-    included), the device ms of the kernels launched inside the plans
-    and ``mrd_combine``'s device ms and launches."""
+    included), the device ms of the kernels launched inside the plans,
+    the device ms of every NCCL kernel (the step's collectives: a
+    ``gspmd`` step's DP and TP reductions, gathers and all-to-alls) and
+    its share of the busy time, and ``mrd_combine``'s device ms and
+    launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -228,7 +368,9 @@ def profile_step(run, device) -> dict:
         combine = [e for e in kernels if "mrd_combine" in e.name]
         busy = sum(e.device_time_total for e in kernels) / 1e3
         plan_ms = sum(e.device_time_total for e in ranges) / 1e3
+        nccl_ms = sum(e.device_time_total for e in kernels if "nccl" in e.name.lower()) / 1e3
         out.update(busy_ms=busy, plan_ms=plan_ms, plan_share=plan_ms / busy if busy else None,
+                   collective_ms=nccl_ms, collective_share=nccl_ms / busy if busy else None,
                    mrd_combine_ms=sum(e.device_time_total for e in combine) / 1e3,
                    mrd_combine_launches=len(combine))
     return out
@@ -273,8 +415,16 @@ def main(argv=None) -> dict:
     (``ckpt_saves``: step, wait_s, hold_s, write_s, bytes) and the final
     ``state``."""
     args = build_parser().parse_args(argv)
+    if args.tp > 1 and args.grad_sync != "gspmd":
+        raise SystemExit(f"--tp {args.tp} with --grad-sync {args.grad_sync}: the MRD modes run "
+                         f"over the data ranks alone for now (ROADMAP 6.3b); use --grad-sync "
+                         f"gspmd")
     env = world_env()
     if env is None:
+        if args.tp > 1:
+            raise SystemExit(f"--tp {args.tp} needs a world of --dp x --tp = {args.dp * args.tp} "
+                             f"ranks (python -m torch.distributed.run --nproc-per-node "
+                             f"{args.dp * args.tp} ...)")
         return train(args)
     device, mesh = init_world(args, env)
     try:
@@ -287,31 +437,36 @@ def train(args, device=None, mesh=None) -> dict:
     """The training loop of :func:`main`: stacked rows on one device, or
     with ``mesh`` this process's rank of a world."""
     device, cfg, train_step, pipe = make(args, device, mesh)
-    rank, world = (0, 1) if mesh is None else step_lib.world_rank(mesh)
+    rank, world = (0, 1) if mesh is None else (dist.get_rank(), dist.get_world_size())
     say = print if rank == 0 else (lambda *a, **k: None)
     tcfg = train_step.tcfg
+    tp = getattr(args, "tp", 1)
     state = train_step.init_state(torch.Generator(device=device).manual_seed(args.seed))
+    global_leaves = gspmd_world(train_step, mesh)
     ck = (Checkpointer(args.ckpt_dir, save_every_steps=args.ckpt_every,
                        save_every_seconds=args.ckpt_every_seconds,
-                       world=None if mesh is None else (rank, world))
+                       world=None if mesh is None or global_leaves else (rank, world))
           if args.ckpt_dir else None)
     rec = {"losses": [], "grad_norms": [], "ms_per_step": [], "converged_at": None,
            "resumed_from": None, "ckpt_saves": [], "rank": rank, "world_size": world}
     if ck is not None:
         state, rec["resumed_from"] = resume(ck, state, cfg, pipe, args.dp, device,
-                                            args.grad_sync)
+                                            args.grad_sync, train_step, mesh, tp)
         if rec["resumed_from"] is not None:
             say(f"resumed from checkpoint step {rec['resumed_from']}")
-    layout = f"dp={args.dp}" if mesh is None else f"a world of {world} ranks"
+    layout = (f"dp={args.dp}" if mesh is None else
+              f"a world of {world} ranks, dp={args.dp} x tp={tp}")
     say(f"train {cfg.name}{' smoke' if args.smoke else ''} x {args.grad_sync} "
         f"({layout}, batch {args.batch} x seq {args.seq}, {device}, {args.optimizer})")
 
     def snapshot(block):
         # the data cursor is taken in the same instant the leaves are staged
+        extra = {"data": pipe.state_dict(), "dp": args.dp, "tp": tp,
+                 "grad_sync": args.grad_sync}
+        if global_leaves:
+            return save_global(ck, state, train_step, extra)
         tree, rows = to_reference(state, ck, args.grad_sync)
-        ck.save(state["step"], tree, extra={"data": pipe.state_dict(), "dp": args.dp,
-                                            "grad_sync": args.grad_sync},
-                block=block, rows=rows)
+        ck.save(state["step"], tree, extra=extra, block=block, rows=rows)
 
     launches0 = mrd_combine.launches
     for i in range(args.steps):

@@ -13,12 +13,23 @@ masks (port of ``repro.models.attention``).  Three implementations:
 differentiate, else the reference's rule: ``full`` up to 2048 keys,
 ``flash_scan`` beyond.  Masks are positional (query ``i`` at ``q_offset +
 i``, key ``j`` at ``j``), so one function serves prefill and decode.
+
+Under tensor parallelism (``distributed.sharding``) a rank attends with
+its own query heads when ``n_heads`` shards over ``"model"``, and with the
+K/V heads they read (repeated ``kv_repeat_factor`` times first when the K/V
+heads are fewer than the ranks); the kernels get those plain local
+tensors.  When ``n_heads`` does not shard, every rank keeps every head
+(its caches replicated over ``"model"``) and runs the whole attention,
+where the reference shards the decode caches over sequence; a
+sequence-sharded cache merged across ranks by log-sum-exp is a later
+item (ROADMAP 6.3).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import needs_grad
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ATTN_IMPLS
@@ -141,16 +152,70 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 def qkv_project(ap, x, cfg, positions, theta: float):
     """x: [B,S,d] -> q [B,S,H,hd], k/v [B,S,KV,hd] with RoPE at ``positions``;
     with ``cfg.qkv_bias`` the biases ``bq``/``bk``/``bv`` are added to the
-    projections before RoPE, as the reference does."""
+    projections before RoPE, as the reference does.  Under TP (``sharding``)
+    the heads are this rank's (:func:`_tp_qkv`)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q, k, v = x @ ap["wq"], x @ ap["wk"], x @ ap["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if shd.tp_axis() is None:
+        q, k, v = x @ ap["wq"], x @ ap["wk"], x @ ap["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
+    else:
+        q, k, v = _tp_qkv(ap, x, cfg)
+    q = q.reshape(B, S, q.shape[-1] // hd, hd)
+    k = k.reshape(B, S, k.shape[-1] // hd, hd)
+    v = v.reshape(B, S, v.shape[-1] // hd, hd)
     if theta > 0:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
     return q, k, v
+
+
+def _tp_qkv(ap, x, cfg):
+    """The q/k/v projections of one TP rank (flattened heads).  Each weight
+    whose output dim shards is column-parallel (``tp_copy`` of x in front).
+    With heads sharded (``attn_heads_sharded``) q is the rank's ``H / tp``
+    heads and k/v the heads they read: its own ``KV / tp`` when those
+    shard, else every K/V head (gathered), each repeated
+    ``kv_repeat_factor`` times (the reference's ``jnp.repeat``), then the
+    rank's chunk.  Otherwise every head, gathered where its projection was
+    column-parallel, and every rank runs the whole attention."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Hl, _, rep = shd.attn_heads(cfg)
+    heads = Hl != H
+    xf = shd.tp_copy(x)
+
+    def proj(w, b, width):
+        local = shd.tp_dim(width)
+        y = (xf if local else x) @ ap[w]
+        if cfg.qkv_bias:
+            y = y + ap[b]
+        return y, local
+
+    q, q_local = proj("wq", "bq", H * hd)
+    if q_local and not heads:
+        q = shd.tp_gather(q, -1)
+    out = [q]
+    for w, b in (("wk", "bk"), ("wv", "bv")):
+        y, local = proj(w, b, KV * hd)
+        if local and heads and rep == 1:
+            out.append(y)  # the rank's own K/V heads
+            continue
+        if local:
+            y = shd.tp_gather(y, -1)
+        if heads:
+            y = y.unflatten(-1, (KV, hd)).repeat_interleave(rep, dim=-2)
+            y = shd.tp_split(y, -2).flatten(-2)
+        out.append(y)
+    return tuple(out)
+
+
+def out_project(o, wo, cfg):
+    """The attention output [B, S, heads * hd] through ``wo``: under TP
+    row-parallel (the rank's heads, or its chunk of every head) and the sum
+    over ``"model"``."""
+    if not shd.tp_dim(cfg.n_heads * cfg.head_dim):
+        return o @ wo
+    if o.shape[-1] == cfg.n_heads * cfg.head_dim:  # every head: this rank's chunk
+        o = shd.tp_split(o, -1)
+    return shd.tp_reduce(o @ wo)

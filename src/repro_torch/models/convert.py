@@ -206,19 +206,28 @@ def train_state_from_reference(state: Mapping[str, Any], cfg: ModelConfig,
                "opt": {k: f32(v) if layout == "zero1" else _map(f32, port_tree(v))
                        for k, v in state["opt"].items()}}
     out["step"] = int(_numpy(state["step"]))
-    mon = state.get("monitor")
-    if mon is not None:
-        nb = mon["nb"]
-        out["monitor"] = {
-            # the reference keeps the counters per rank; they agree
-            "nb": {"stage": int(_numpy(nb["stage"])[0]), "buf": f32(nb["buf"]),
-                   "result": f32(nb["result"]), "flag": bool(_numpy(nb["flag"])[0]),
-                   "cycles": int(_numpy(nb["cycles"])[0])},
-            "m": {k: f32(v) for k, v in mon.get("m", {}).items()},
-            "value": f32(mon["value"]),
-            "done": torch.as_tensor(_numpy(mon["done"]), dtype=torch.bool).to(device),
-        }
+    if state.get("monitor") is not None:
+        out["monitor"] = monitor_from_reference(state["monitor"], device)
     return out
+
+
+def monitor_from_reference(mon: Mapping[str, Any], device="cuda") -> dict[str, Any]:
+    """A reference monitor state (its ``[dp]`` rows) -> the port's."""
+    device = resolve_device(device)
+    nb = mon["nb"]
+
+    def f32(x):
+        return _tensor(x, torch.float32, device)
+
+    return {
+        # the reference keeps the counters per rank; they agree
+        "nb": {"stage": int(_numpy(nb["stage"])[0]), "buf": f32(nb["buf"]),
+               "result": f32(nb["result"]), "flag": bool(_numpy(nb["flag"])[0]),
+               "cycles": int(_numpy(nb["cycles"])[0])},
+        "m": {k: f32(v) for k, v in mon.get("m", {}).items()},
+        "value": f32(mon["value"]),
+        "done": torch.as_tensor(_numpy(mon["done"]), dtype=torch.bool).to(device),
+    }
 
 
 def train_state_to_reference(state: Mapping[str, Any]) -> dict[str, Any]:

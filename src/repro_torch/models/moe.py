@@ -37,22 +37,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.layers import keep
 
 LEAVES = ("router", "w1", "w3", "w2")
 FP32_LEAVES = ("router",)  # kept in fp32 whatever the param dtype
 IMPLS = ("scatter", "dense")
 
 
-def moe_init(gen: torch.Generator, lead: tuple, cfg, dtype) -> dict[str, torch.Tensor]:
+def moe_init(gen: torch.Generator, lead: tuple, cfg, dtype,
+             place=keep) -> dict[str, torch.Tensor]:
     """One layer's parameters (stacked on ``lead`` axes) with the
-    reference's distributions, drawn from ``gen`` on its device."""
+    reference's distributions, drawn from ``gen`` on its device; each kept
+    by ``place(name, leaf)`` as soon as it is drawn."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "router": dense_init(gen, lead + (d, E), torch.float32),
-        "w1": dense_init(gen, lead + (E, d, f), dtype, fan_in=d),
-        "w3": dense_init(gen, lead + (E, d, f), dtype, fan_in=d),
-        "w2": dense_init(gen, lead + (E, f, d), dtype, fan_in=f),
+        "router": place.dense("router", gen, lead + (d, E), torch.float32),
+        "w1": place.dense("w1", gen, lead + (E, d, f), dtype, fan_in=d),
+        "w3": place.dense("w3", gen, lead + (E, d, f), dtype, fan_in=d),
+        "w2": place.dense("w2", gen, lead + (E, f, d), dtype, fan_in=f),
     }
 
 
@@ -67,10 +70,17 @@ def routing(p, x, cfg):
 
 def aux_loss(idx, probs, cfg):
     """Switch load-balance loss over every token: E * sum_e (share of the
-    assignments routed to e) * (mean router probability of e)."""
+    assignments routed to e) * (mean router probability of e).  In a world
+    with data ranks both shares are the global batch's (``data_sum``)."""
     E = cfg.n_experts
-    frac_tokens = torch.bincount(idx.reshape(-1), minlength=E).float() / idx.numel()
-    return E * (frac_tokens * probs.reshape(-1, E).mean(0)).sum()
+    if shd.data_axis() is None:
+        frac_tokens = torch.bincount(idx.reshape(-1), minlength=E).float() / idx.numel()
+        return E * (frac_tokens * probs.reshape(-1, E).mean(0)).sum()
+    n = shd.data_sum(idx.new_tensor(idx.numel()).float())
+    counts = shd.data_sum(torch.bincount(idx.reshape(-1), minlength=E).float())
+    p = probs.reshape(-1, E)
+    mean_p = shd.data_sum(p.sum(0)) / shd.data_sum(p.new_tensor(float(p.shape[0])))
+    return E * (counts / n * mean_p).sum()
 
 
 def capacity(cfg, group_tokens: int) -> int:
@@ -107,15 +117,38 @@ def _dispatch(p, x, cfg, stats):
     vals = torch.where(keep[..., None], x[g_ix, tok], 0)
     buf = x.new_zeros((G, E, capacity(cfg, Tg), d))
     buf.index_put_((g_ix, flat_e, safe), vals, accumulate=True)
-    h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w1"])) * torch.einsum(
-        "gecd,edf->gecf", buf, p["w3"])
-    out = torch.einsum("gecf,efd->gecd", h, p["w2"])
+    ep = _expert_parallel()
+    if ep:  # groups over DP -> experts over DP (the reference's expert_buf ->
+        # expert_buf_ep constraints): the token all_to_all
+        buf = shd.data_all_to_all(buf, 1, 0)
+    out = _experts(p, buf, cfg)
+    if ep:
+        out = shd.data_all_to_all(out, 0, 1)
     gathered = torch.where(keep[..., None], out[g_ix, flat_e, safe], 0)
     y = x.new_zeros((G, Tg, d))
     y.index_put_((g_ix, tok), gathered * gates.reshape(G, Tg * k)[..., None], accumulate=True)
     _count(stats, "routed", keep.numel())
     _count(stats, "dropped", (~keep).sum())
     return y
+
+
+def _expert_parallel() -> bool:
+    """Are the experts sharded over the data ranks of the active world
+    (``rules.ep``)?"""
+    ctx = shd.active()
+    return ctx is not None and ctx.rules.ep and shd.data_axis() is not None
+
+
+def _experts(p, buf, cfg):
+    """Every expert's SwiGLU on its rows of ``buf`` [G, E, C, d]; under TP
+    with ``d_ff`` sharded, column- then row-parallel and the sum over
+    ``"model"``."""
+    tp = shd.tp_dim(cfg.d_ff)
+    b = shd.tp_copy(buf) if tp else buf
+    h = F.silu(torch.einsum("gecd,edf->gecf", b, p["w1"])) * torch.einsum(
+        "gecd,edf->gecf", b, p["w3"])
+    out = torch.einsum("gecf,efd->gecd", h, p["w2"])
+    return shd.tp_reduce(out) if tp else out
 
 
 def moe_apply(p, x, cfg, *, impl: str = "scatter", stats=None):
@@ -127,9 +160,15 @@ def moe_apply(p, x, cfg, *, impl: str = "scatter", stats=None):
     idx, gates, probs = routing(p, x, cfg)
     aux = aux_loss(idx, probs, cfg)
     if impl == "dense":
-        h = F.silu(torch.einsum("bsd,edf->bsef", x, p["w1"])) * torch.einsum(
-            "bsd,edf->bsef", x, p["w3"])
+        if _expert_parallel():
+            raise NotImplementedError("the dense oracle runs every expert on every token: "
+                                      "not with the experts sharded over the data ranks")
+        tp = shd.tp_dim(cfg.d_ff)
+        xt = shd.tp_copy(x) if tp else x
+        h = F.silu(torch.einsum("bsd,edf->bsef", xt, p["w1"])) * torch.einsum(
+            "bsd,edf->bsef", xt, p["w3"])
         y_all = torch.einsum("bsef,efd->bsed", h, p["w2"])
+        y_all = shd.tp_reduce(y_all) if tp else y_all
         mix = torch.einsum("bske,bsk->bse", F.one_hot(idx, cfg.n_experts).to(x.dtype), gates)
         return torch.einsum("bsed,bse->bsd", y_all, mix), aux
     sub = min(cfg.moe_seq_chunk, S)
@@ -148,9 +187,14 @@ def moe_tokens(p, x, cfg, stats=None):
     accumulated in x's type in the order of j, as the reference's one-token
     dispatch adds them."""
     shape, d, k = x.shape, x.shape[-1], cfg.top_k
+    if _expert_parallel():
+        raise NotImplementedError("serving's token groups with the experts sharded over data "
+                                  "ranks (a static batch over dp > 1 with FSDP weights)")
+    tp = shd.tp_dim(cfg.d_ff)
     xf = x.reshape(-1, d)
     T = xf.shape[0]
     idx, gates, _ = routing(p, xf, cfg)
+    xin = shd.tp_copy(xf) if tp else xf
     flat = idx.reshape(-1)  # assignment a = t * k + j
     order = torch.argsort(flat, stable=True)
     counts = torch.bincount(flat, minlength=cfg.n_experts).tolist()  # waits for the card
@@ -160,7 +204,7 @@ def moe_tokens(p, x, cfg, stats=None):
         if not n:
             continue
         sel = order[start:start + n]
-        rows = xf[sel // k]
+        rows = xin[sel // k]
         h = F.silu(rows @ p["w1"][e]) * (rows @ p["w3"][e])
         out[sel] = h @ p["w2"][e]
         start += n
@@ -168,6 +212,8 @@ def moe_tokens(p, x, cfg, stats=None):
     y = xf.new_zeros((T, d))
     for j in range(k):
         y += out[:, j] * gates[:, j, None]
+    if tp:  # each rank's partial expert outputs, summed over "model"
+        y = shd.tp_reduce(y)
     _count(stats, "routed", T * k)
     _count(stats, "dropped", 0)
     return y.reshape(shape)

@@ -24,6 +24,23 @@ di], in_x [d, di], in_bc [d, 2 N], in_dt [d, nh], conv_w [K, di + 2 N],
 conv_b [di + 2 N], A_log, D and dt_bias [nh] fp32, norm_w [di] (the gated
 norm's ``(1 + w)``), out_proj [di, d]; nh = di / ssm_headdim heads of
 ssm_headdim channels share one decay each.
+
+Under TP (``distributed.sharding``) a layer runs on the rank's channels
+when ``d_inner`` shards over ``"model"`` (mamba2: and its heads do), as
+the reference's specs place the leaves: the input projections are
+column-parallel (mamba1's ``in_proj`` [d, 2 di] splits at di, so its
+output is gathered and each half split again, and each rank holds
+matching x and z channels), ``x_proj`` and ``out_proj`` are row-parallel
+with the sum over ``"model"``, the replicated conv weights, ``dt_bias``,
+mamba2's ``A_log``/``D`` and its norm weight are split to the rank's
+channels, and B, C (and mamba1's dt rank input) enter the local scan
+through ``tp_copy``.  Each channel's scan is independent, so the
+selective-scan kernel runs on the rank's channels.  mamba2's gated norm
+reduces over the whole ``d_inner``: its input is gathered, normed (the
+rmsnorm kernel on the card) and split again.  A rank's state holds its
+channels (mamba2's conv state: its x channels, then B and C whole).
+Otherwise every rank runs the whole layer, its column-parallel
+projections gathered.
 """
 
 from __future__ import annotations
@@ -31,9 +48,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import needs_grad
 from repro_torch.kernels.selective_scan.ops import selective_scan_fused
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import dense_init, keep, rmsnorm
 
 FP32_LEAVES = ("A_log", "D")  # mamba1: kept in fp32 whatever the param dtype
 MAMBA2_FP32_LEAVES = ("A_log", "D", "dt_bias")  # mamba2: the same
@@ -60,23 +78,65 @@ def conv1d_step(x_tok, conv_state, w, b):
     return y, window[:, 1:]
 
 
-def mamba1_init(gen: torch.Generator, lead: tuple, cfg, dtype) -> dict[str, torch.Tensor]:
+def mamba1_init(gen: torch.Generator, lead: tuple, cfg, dtype,
+                place=keep) -> dict[str, torch.Tensor]:
     """One layer's parameters (stacked on ``lead`` axes) with the
-    reference's distributions, drawn from ``gen`` on its device."""
+    reference's distributions, drawn from ``gen`` on its device; each kept
+    by ``place(name, leaf)`` as soon as it is drawn."""
     d, di, st, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
     dev = gen.device
     A = torch.arange(1, st + 1, dtype=torch.float32, device=dev).expand(lead + (di, st))
     return {
-        "in_proj": dense_init(gen, lead + (d, 2 * di), dtype),
-        "conv_w": dense_init(gen, lead + (cfg.ssm_conv, di), dtype, fan_in=cfg.ssm_conv),
-        "conv_b": torch.zeros(lead + (di,), dtype=dtype, device=dev),
-        "x_proj": dense_init(gen, lead + (di, dtr + 2 * st), dtype, fan_in=di),
-        "dt_proj": dense_init(gen, lead + (dtr, di), dtype, fan_in=dtr),
-        "dt_bias": torch.full(lead + (di,), -4.6, dtype=dtype, device=dev),  # softplus^-1(0.01)
-        "A_log": torch.log(A).contiguous(),
-        "D": torch.ones(lead + (di,), dtype=torch.float32, device=dev),
-        "out_proj": dense_init(gen, lead + (di, d), dtype, fan_in=di),
+        "in_proj": place.dense("in_proj", gen, lead + (d, 2 * di), dtype),
+        "conv_w": place.dense("conv_w", gen, lead + (cfg.ssm_conv, di), dtype,
+                              fan_in=cfg.ssm_conv),
+        "conv_b": place("conv_b", torch.zeros(lead + (di,), dtype=dtype, device=dev)),
+        "x_proj": place.dense("x_proj", gen, lead + (di, dtr + 2 * st), dtype, fan_in=di),
+        "dt_proj": place.dense("dt_proj", gen, lead + (dtr, di), dtype, fan_in=dtr),
+        # softplus^-1(0.01)
+        "dt_bias": place("dt_bias", torch.full(lead + (di,), -4.6, dtype=dtype, device=dev)),
+        "A_log": place("A_log", torch.log(A).contiguous()),
+        "D": place("D", torch.ones(lead + (di,), dtype=torch.float32, device=dev)),
+        "out_proj": place.dense("out_proj", gen, lead + (di, d), dtype, fan_in=di),
     }
+
+
+def mamba1_local(cfg) -> bool:
+    """Does a mamba1 layer run on this rank's channels (TP with
+    ``d_inner`` sharded)?"""
+    return shd.tp_dim(cfg.d_inner)
+
+
+def mamba2_local(cfg) -> bool:
+    """Does a mamba2 layer run on this rank's channels and heads?"""
+    return shd.tp_dim(cfg.d_inner) and cfg.ssm_nheads % shd.tp_axis().size == 0
+
+
+def _col(x, w, width: int, local: bool):
+    """``x @ w`` for a weight whose ``width`` output columns may shard over
+    ``"model"``: the rank's columns when ``local``, else the whole width
+    (gathered when the weight is column-parallel)."""
+    if not shd.tp_dim(width):
+        y = x @ w
+        return shd.tp_split(y, -1) if local else y
+    y = shd.tp_copy(x) @ w
+    return y if local else shd.tp_gather(y, -1)
+
+
+def _mamba1_in(p, x, cfg):
+    """(x1, z) of ``in_proj``: [.., di] each, or the rank's channels."""
+    if shd.tp_axis() is None:
+        return (x @ p["in_proj"]).chunk(2, dim=-1)
+    x1, z = _col(x, p["in_proj"], 2 * cfg.d_inner, False).chunk(2, dim=-1)
+    if mamba1_local(cfg):
+        x1, z = shd.tp_split(x1, -1), shd.tp_split(z, -1)
+    return x1, z
+
+
+def _channels(w, cfg):
+    """A replicated per-channel leaf ([..., di]) cut to this rank's
+    channels when the layer runs on them."""
+    return shd.tp_split(w, -1) if mamba1_local(cfg) else w
 
 
 def _ssm_inputs(p, x1, cfg):
@@ -84,16 +144,24 @@ def _ssm_inputs(p, x1, cfg):
     fp32 (after softplus), A [di, N] fp32, Bs and Cs [B, S, N] in x1's
     type, each contiguous (the kernel's layout)."""
     st, dtr = cfg.ssm_state, cfg.dt_rank
-    dt_r, Bs, Cs = torch.split(x1 @ p["x_proj"], [dtr, st, st], dim=-1)
-    dt = F.softplus((dt_r @ p["dt_proj"]).float() + p["dt_bias"].float())
+    local = shd.tp_axis() is not None and mamba1_local(cfg)
+    proj = x1 @ p["x_proj"]
+    if local:  # row-parallel x_proj
+        proj = shd.tp_reduce(proj)
+    dt_r, Bs, Cs = torch.split(proj, [dtr, st, st], dim=-1)
+    if local:
+        dt_r, Bs, Cs = shd.tp_copy(dt_r), shd.tp_copy(Bs), shd.tp_copy(Cs)
+    dt = F.softplus((dt_r @ p["dt_proj"]).float() + _channels(p["dt_bias"], cfg).float())
     A = -torch.exp(p["A_log"])
     return dt.contiguous(), A, Bs.contiguous(), Cs.contiguous()
 
 
-def _gate_out(p, y, x1, z, dtype):
-    """The ``D * x`` skip, the ``silu(z)`` gate and the output projection."""
+def _gate_out(p, y, x1, z, dtype, cfg=None):
+    """The ``D * x`` skip, the ``silu(z)`` gate and the output projection
+    (row-parallel under TP on the rank's channels)."""
     y = y + p["D"] * x1.float()
-    return (y.to(dtype) * F.silu(z)) @ p["out_proj"]
+    out = (y.to(dtype) * F.silu(z)) @ p["out_proj"]
+    return shd.tp_reduce(out) if cfg is not None and mamba1_local(cfg) else out
 
 
 def _linear_scan(a, b, h0=None, reverse: bool = False):
@@ -169,23 +237,24 @@ def mamba1_apply(p, x, cfg):
     chunked scan in chunks of min(cfg.ssm_chunk, S), as the reference's
     stack passes it."""
     K, S = cfg.ssm_conv, x.shape[1]
-    x1, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    x1, z = _mamba1_in(p, x, cfg)
     conv = F.pad(x1, (0, 0, max(0, K - 1 - S), 0))[:, -(K - 1):]
-    x1 = F.silu(causal_conv1d(x1, p["conv_w"], p["conv_b"]))
+    x1 = F.silu(causal_conv1d(x1, _channels(p["conv_w"], cfg), _channels(p["conv_b"], cfg)))
     dt, A, Bs, Cs = _ssm_inputs(p, x1, cfg)
     if needs_grad(dt, x1, A, Bs, Cs):
-        h0 = x1.new_zeros((x1.shape[0], cfg.d_inner, cfg.ssm_state), dtype=torch.float32)
+        h0 = x1.new_zeros((x1.shape[0], x1.shape[-1], cfg.ssm_state), dtype=torch.float32)
         y, h = chunk_scan(dt, x1, A, Bs, Cs, h0, min(cfg.ssm_chunk, S))
     else:
         y, h = selective_scan_fused(dt, x1, A, Bs, Cs)
-    return _gate_out(p, y, x1, z, x.dtype), {"h": h, "conv": conv.contiguous()}
+    return _gate_out(p, y, x1, z, x.dtype, cfg), {"h": h, "conv": conv.contiguous()}
 
 
 def mamba1_init_state(cfg, batch: int, dtype, device) -> dict[str, torch.Tensor]:
+    """The state of ``batch`` sequences (this rank's channels under TP)."""
+    di = cfg.d_inner // (shd.tp_axis().size if mamba1_local(cfg) else 1)
     return {
-        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
-                         device=device),
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype, device=device),
+        "h": torch.zeros((batch, di, cfg.ssm_state), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=dtype, device=device),
     }
 
 
@@ -193,8 +262,9 @@ def mamba1_decode(p, x_tok, state, cfg, write_ok=None):
     """One decode step: x_tok [B, d] -> y [B, d].  The state's tensors are
     updated in place (the scan kernel writes ``h`` over itself), except in
     the rows where ``write_ok`` [B] bool is False."""
-    x1, z = (x_tok @ p["in_proj"]).chunk(2, dim=-1)
-    x1, conv = conv1d_step(x1, state["conv"], p["conv_w"], p["conv_b"])
+    x1, z = _mamba1_in(p, x_tok, cfg)
+    x1, conv = conv1d_step(x1, state["conv"], _channels(p["conv_w"], cfg),
+                           _channels(p["conv_b"], cfg))
     # [B, 1, di]; on the card the einsum may leave x1 transposed
     x1 = F.silu(x1)[:, None].contiguous()
     dt, A, Bs, Cs = _ssm_inputs(p, x1, cfg)
@@ -204,7 +274,7 @@ def mamba1_decode(p, x_tok, state, cfg, write_ok=None):
         state["conv"].copy_(conv)
     else:
         torch.where(write_ok[:, None, None], conv, state["conv"], out=state["conv"])
-    return _gate_out(p, y[:, 0], x1[:, 0], z, x_tok.dtype)
+    return _gate_out(p, y[:, 0], x1[:, 0], z, x_tok.dtype, cfg)
 
 
 
@@ -213,34 +283,79 @@ def mamba1_decode(p, x_tok, state, cfg, write_ok=None):
 # ---------------------------------------------------------------------------
 
 
-def mamba2_init(gen: torch.Generator, lead: tuple, cfg, dtype) -> dict[str, torch.Tensor]:
+def mamba2_init(gen: torch.Generator, lead: tuple, cfg, dtype,
+                place=keep) -> dict[str, torch.Tensor]:
     """One layer's parameters (stacked on ``lead`` axes) with the
     reference's distributions, drawn from ``gen`` on its device; A_log, D
-    and dt_bias fp32 constants as the reference initialises them."""
+    and dt_bias fp32 constants as the reference initialises them; each
+    kept by ``place(name, leaf)`` as soon as it is drawn."""
     d, di, st, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
     conv_dim = di + 2 * st
     dev = gen.device
     return {
-        "in_z": dense_init(gen, lead + (d, di), dtype),
-        "in_x": dense_init(gen, lead + (d, di), dtype),
-        "in_bc": dense_init(gen, lead + (d, 2 * st), dtype),
-        "in_dt": dense_init(gen, lead + (d, nh), dtype),
-        "conv_w": dense_init(gen, lead + (cfg.ssm_conv, conv_dim), dtype, fan_in=cfg.ssm_conv),
-        "conv_b": torch.zeros(lead + (conv_dim,), dtype=dtype, device=dev),
-        "A_log": torch.zeros(lead + (nh,), dtype=torch.float32, device=dev),
-        "D": torch.ones(lead + (nh,), dtype=torch.float32, device=dev),
-        "dt_bias": torch.zeros(lead + (nh,), dtype=torch.float32, device=dev),
-        "norm_w": torch.zeros(lead + (di,), dtype=dtype, device=dev),
-        "out_proj": dense_init(gen, lead + (di, d), dtype, fan_in=di),
+        "in_z": place.dense("in_z", gen, lead + (d, di), dtype),
+        "in_x": place.dense("in_x", gen, lead + (d, di), dtype),
+        "in_bc": place.dense("in_bc", gen, lead + (d, 2 * st), dtype),
+        "in_dt": place.dense("in_dt", gen, lead + (d, nh), dtype),
+        "conv_w": place.dense("conv_w", gen, lead + (cfg.ssm_conv, conv_dim), dtype,
+                              fan_in=cfg.ssm_conv),
+        "conv_b": place("conv_b", torch.zeros(lead + (conv_dim,), dtype=dtype, device=dev)),
+        "A_log": place("A_log", torch.zeros(lead + (nh,), dtype=torch.float32, device=dev)),
+        "D": place("D", torch.ones(lead + (nh,), dtype=torch.float32, device=dev)),
+        "dt_bias": place("dt_bias", torch.zeros(lead + (nh,), dtype=torch.float32, device=dev)),
+        "norm_w": place("norm_w", torch.zeros(lead + (di,), dtype=dtype, device=dev)),
+        "out_proj": place.dense("out_proj", gen, lead + (di, d), dtype, fan_in=di),
     }
 
 
-def _mamba2_split(p, x):
+def _mamba2_split(p, x, cfg=None):
     """x [..., d] -> (z [..., di], xbc [..., di + 2 N], dt [..., nh]), before
-    the conv and the softplus."""
-    z = x @ p["in_z"]
-    xbc = torch.cat([x @ p["in_x"], x @ p["in_bc"]], dim=-1)
-    return z, xbc, x @ p["in_dt"]
+    the conv and the softplus (under TP on the rank's channels and heads:
+    z, x and dt the rank's, B and C whole)."""
+    if cfg is None or shd.tp_axis() is None:
+        z = x @ p["in_z"]
+        xbc = torch.cat([x @ p["in_x"], x @ p["in_bc"]], dim=-1)
+        return z, xbc, x @ p["in_dt"]
+    local = mamba2_local(cfg)
+    z = _col(x, p["in_z"], cfg.d_inner, local)
+    xbc = torch.cat([_col(x, p["in_x"], cfg.d_inner, local), x @ p["in_bc"]], dim=-1)
+    dt = x @ p["in_dt"]
+    return z, xbc, shd.tp_split(dt, -1) if local else dt
+
+
+def _mamba2_leaves(p, cfg):
+    """(conv_w, conv_b, A_log, D, dt_bias) as this rank's layer uses them:
+    under TP on its channels, the conv's x columns and the per-head leaves
+    cut to the rank's, the conv's B and C columns whole."""
+    names = ("conv_w", "conv_b", "A_log", "D", "dt_bias")
+    if shd.tp_axis() is None or not mamba2_local(cfg):
+        return tuple(p[n] for n in names)
+    di = cfg.d_inner
+
+    def conv(w):
+        return torch.cat([shd.tp_split(w[..., :di], -1), w[..., di:]], dim=-1)
+
+    return (conv(p["conv_w"]), conv(p["conv_b"]),
+            *(shd.tp_split(p[n], -1) for n in names[2:]))
+
+
+def _mamba2_norm_out(p, y, z, cfg):
+    """The gated norm over the whole ``d_inner`` and the output
+    projection; under TP on the rank's channels the norm's input is
+    gathered, normed and split again, and ``out_proj`` is row-parallel."""
+    if shd.tp_axis() is None or not mamba2_local(cfg):
+        y = rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+        return _col_out(y, p["out_proj"], cfg)
+    y = rmsnorm(shd.tp_gather(y * F.silu(z), -1), p["norm_w"], cfg.norm_eps)
+    return shd.tp_reduce(shd.tp_split(y, -1) @ p["out_proj"])
+
+
+def _col_out(y, w, cfg):
+    """``y @ w`` for every channel: row-parallel over ``"model"`` when the
+    weight's rows shard."""
+    if not shd.tp_dim(cfg.d_inner):
+        return y @ w
+    return shd.tp_reduce(shd.tp_split(y, -1) @ w)
 
 
 def _ssd_scan(xh, Bs, Cs, dt, A, h0, chunk: int):
@@ -303,25 +418,31 @@ def mamba2_apply(p, x, cfg):
     The SSD scan runs in chunks of min(cfg.ssm_chunk, S), as the
     reference's stack passes it."""
     B, S, _ = x.shape
-    di, st, nh, hp, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_conv
-    z, xbc, dt = _mamba2_split(p, x)
+    st, hp, K = cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_conv
+    z, xbc, dt = _mamba2_split(p, x, cfg)
+    conv_w, conv_b, A_log, D, dt_bias = _mamba2_leaves(p, cfg)
+    di, nh = z.shape[-1], dt.shape[-1]  # the rank's under TP
     conv = F.pad(xbc, (0, 0, max(0, K - 1 - S), 0))[:, -(K - 1):]
-    xbc = F.silu(causal_conv1d(xbc, p["conv_w"], p["conv_b"]))
+    xbc = F.silu(causal_conv1d(xbc, conv_w, conv_b))
     x1, Bs, Cs = torch.split(xbc, [di, st, st], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"])
+    if di != cfg.d_inner:  # B and C into the rank's heads
+        Bs, Cs = shd.tp_copy(Bs), shd.tp_copy(Cs)
+    dt = F.softplus(dt.float() + dt_bias)
     xh = x1.reshape(B, S, nh, hp)
     h0 = torch.zeros((B, nh, hp, st), dtype=torch.float32, device=x.device)
-    y, h = _ssd_scan(xh, Bs, Cs, dt, -torch.exp(p["A_log"]), h0, min(cfg.ssm_chunk, S))
-    y = (y + p["D"][:, None] * xh.float()).reshape(B, S, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"], {"h": h, "conv": conv.contiguous()}
+    y, h = _ssd_scan(xh, Bs, Cs, dt, -torch.exp(A_log), h0, min(cfg.ssm_chunk, S))
+    y = (y + D[:, None] * xh.float()).reshape(B, S, di).to(x.dtype)
+    return _mamba2_norm_out(p, y, z, cfg), {"h": h, "conv": conv.contiguous()}
 
 
 def mamba2_init_state(cfg, batch: int, dtype, device) -> dict[str, torch.Tensor]:
-    nh, hp, st = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    """The state of ``batch`` sequences (this rank's heads and channels
+    under TP)."""
+    n = shd.tp_axis().size if shd.tp_axis() is not None and mamba2_local(cfg) else 1
+    nh, hp, st = cfg.ssm_nheads // n, cfg.ssm_headdim, cfg.ssm_state
     return {
         "h": torch.zeros((batch, nh, hp, st), dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * st), dtype=dtype,
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner // n + 2 * st), dtype=dtype,
                             device=device),
     }
 
@@ -331,21 +452,23 @@ def mamba2_decode(p, x_tok, state, cfg, write_ok=None):
     updated in place, except in the rows where ``write_ok`` [B] bool is
     False."""
     B = x_tok.shape[0]
-    di, st, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    z, xbc, dt = _mamba2_split(p, x_tok)
-    xbc, conv = conv1d_step(xbc, state["conv"], p["conv_w"], p["conv_b"])
+    st, hp = cfg.ssm_state, cfg.ssm_headdim
+    z, xbc, dt = _mamba2_split(p, x_tok, cfg)
+    conv_w, conv_b, A_log, D, dt_bias = _mamba2_leaves(p, cfg)
+    di, nh = z.shape[-1], dt.shape[-1]  # the rank's under TP
+    xbc, conv = conv1d_step(xbc, state["conv"], conv_w, conv_b)
     x1, Bs, Cs = torch.split(F.silu(xbc), [di, st, st], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"])  # [B, nh]
+    dt = F.softplus(dt.float() + dt_bias)  # [B, nh]
     xh = x1.reshape(B, nh, hp).float()
-    decay = torch.exp(dt * -torch.exp(p["A_log"]))
+    decay = torch.exp(dt * -torch.exp(A_log))
     h = (decay[:, :, None, None] * state["h"]
          + (xh * dt[:, :, None])[..., None] * Bs.float()[:, None, None, :])
-    y = torch.einsum("bhps,bs->bhp", h, Cs.float()) + p["D"][:, None] * xh
-    y = rmsnorm(y.reshape(B, di).to(x_tok.dtype) * F.silu(z), p["norm_w"], cfg.norm_eps)
+    y = torch.einsum("bhps,bs->bhp", h, Cs.float()) + D[:, None] * xh
+    y = y.reshape(B, di).to(x_tok.dtype)
     if write_ok is None:
         state["h"].copy_(h)
         state["conv"].copy_(conv)
     else:
         torch.where(write_ok[:, None, None, None], h, state["h"], out=state["h"])
         torch.where(write_ok[:, None, None], conv, state["conv"], out=state["conv"])
-    return y @ p["out_proj"]
+    return _mamba2_norm_out(p, y, z, cfg)

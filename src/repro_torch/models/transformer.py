@@ -74,15 +74,17 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import moe, ssm
-from repro_torch.models.attention import attention, decode_attention, qkv_project
+from repro_torch.models.attention import attention, decode_attention, out_project, qkv_project
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontends import AUDIO_FEAT_DIM, VISION_EMBED_DIM
 from repro_torch.models.layers import (
     dense_init,
     dtype_of,
     embed_init,
+    keep,
     mlp_apply,
     mlp_init,
     rmsnorm,
@@ -126,15 +128,18 @@ def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
 def layer_params(params, cfg: ModelConfig) -> list[dict[str, torch.Tensor]]:
     """Each layer's parameters in forward order (the hybrid stack: its
     mamba2 layers, group by group).  Every stacked leaf is unbound once
-    (views), so autograd stacks its gradient in one pass."""
+    (views), so autograd stacks its gradient in one pass.  In a ``gspmd``
+    world a layer's FSDP blocks are all-gathered as the layer reads them
+    (``sharding.layer_leaves``)."""
     views = {
         stack: {k: v.flatten(0, STACKS[stack] - 1).unbind(0) for k, v in params[stack].items()}
         for stack in STACKS if stack in params
     }
     if cfg.family == "hybrid":
-        return [{k: leaves[i] for k, leaves in views["mamba_groups"].items()}
+        return [shd.layer_leaves("mamba_groups",
+                                 {k: leaves[i] for k, leaves in views["mamba_groups"].items()})
                 for i in range(cfg.n_layers)]
-    return [{k: leaves[s.flat] for k, leaves in views[s.stack].items()}
+    return [shd.layer_leaves(s.stack, {k: leaves[s.flat] for k, leaves in views[s.stack].items()})
             for s in layer_specs(cfg)]
 
 
@@ -149,63 +154,84 @@ def shared_spec(cfg: ModelConfig, g: int) -> LayerSpec:
 # ---------------------------------------------------------------------------
 
 
-def _layer_stack(gen, lead: tuple, cfg: ModelConfig, dtype, device) -> dict[str, torch.Tensor]:
+def _layer_stack(gen, lead: tuple, cfg: ModelConfig, dtype, device,
+                 place=keep) -> dict[str, torch.Tensor]:
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     zeros = torch.zeros(lead + (d,), dtype=dtype, device=device)
     p = {
-        "wq": dense_init(gen, lead + (d, cfg.n_heads * hd), dtype),
-        "wk": dense_init(gen, lead + (d, cfg.n_kv_heads * hd), dtype),
-        "wv": dense_init(gen, lead + (d, cfg.n_kv_heads * hd), dtype),
-        "wo": dense_init(gen, lead + (cfg.n_heads * hd, d), dtype, fan_in=cfg.n_heads * hd),
-        "ln1": zeros.clone(),
-        "ln2": zeros.clone(),
+        "wq": place.dense("wq", gen, lead + (d, cfg.n_heads * hd), dtype),
+        "wk": place.dense("wk", gen, lead + (d, cfg.n_kv_heads * hd), dtype),
+        "wv": place.dense("wv", gen, lead + (d, cfg.n_kv_heads * hd), dtype),
+        "wo": place.dense("wo", gen, lead + (cfg.n_heads * hd, d), dtype,
+                          fan_in=cfg.n_heads * hd),
+        "ln1": place("ln1", zeros.clone()),
+        "ln2": place("ln2", zeros.clone()),
     }
     if cfg.qkv_bias:  # zeros, as the reference initialises them
         for n, width in (("bq", cfg.qk_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
-            p[n] = torch.zeros(lead + (width,), dtype=dtype, device=device)
+            p[n] = place(n, torch.zeros(lead + (width,), dtype=dtype, device=device))
     if cfg.family == "moe":
-        p.update(moe.moe_init(gen, lead, cfg, dtype))
+        p.update(moe.moe_init(gen, lead, cfg, dtype, place))
         return p
-    p.update(mlp_init(gen, lead, d, f, dtype, cfg.act))
+    p.update(mlp_init(gen, lead, d, f, dtype, cfg.act, place))
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict[str, Any]:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
+                place=keep) -> dict[str, Any]:
     """Random weights with the reference's distributions, drawn from
-    ``generator`` on ``device`` (the generator must live on that device)."""
+    ``generator`` on ``device`` (the generator must live on that device).
+    ``place`` keeps each leaf as it is made (``place(name, leaf)``, or
+    ``place.dense`` for a random matrix stack): a world rank's block of it
+    (``sharding.Placer``: a stacked leaf is drawn a matrix at a time and
+    only the rank's block of each kept), so no rank holds a whole leaf."""
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, params on {device}")
     dtype = dtype_of(cfg.param_dtype)
     params: dict[str, Any] = {
-        "embed": embed_init(generator, (cfg.vocab, cfg.d_model), dtype),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "embed": place("embed", embed_init(generator, (cfg.vocab, cfg.d_model), dtype)),
+        "final_norm": place("final_norm",
+                            torch.zeros((cfg.d_model,), dtype=dtype, device=device)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
+        params["lm_head"] = place.dense("lm_head", generator, (cfg.d_model, cfg.vocab), dtype)
     if cfg.family == "ssm":
-        layers = ssm.mamba1_init(generator, (cfg.n_layers,), cfg, dtype)
-        layers["ln"] = torch.zeros((cfg.n_layers, cfg.d_model), dtype=dtype, device=device)
+        layers = ssm.mamba1_init(generator, (cfg.n_layers,), cfg, dtype, place)
+        layers["ln"] = place("ln", torch.zeros((cfg.n_layers, cfg.d_model), dtype=dtype,
+                                               device=device))
         params["layers"] = layers
     elif cfg.family == "hybrid":
         lead = (cfg.n_groups, cfg.attn_every)
-        groups = ssm.mamba2_init(generator, lead, cfg, dtype)
-        groups["ln"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype, device=device)
+        groups = ssm.mamba2_init(generator, lead, cfg, dtype, place)
+        groups["ln"] = place("ln", torch.zeros(lead + (cfg.d_model,), dtype=dtype,
+                                               device=device))
         params["mamba_groups"] = groups
         params["shared_attn"] = {k: v[0] for k, v in _layer_stack(generator, (1,), cfg, dtype,
-                                                                     device).items()}
+                                                                     device, place).items()}
     elif cfg.pattern_local:
         G = cfg.n_groups
         params["local_layers"] = _layer_stack(generator, (G, cfg.pattern_local), cfg, dtype,
-                                              device)
-        params["global_layers"] = _layer_stack(generator, (G,), cfg, dtype, device)
+                                              device, place)
+        params["global_layers"] = _layer_stack(generator, (G,), cfg, dtype, device, place)
     else:
-        params["layers"] = _layer_stack(generator, (cfg.n_layers,), cfg, dtype, device)
+        params["layers"] = _layer_stack(generator, (cfg.n_layers,), cfg, dtype, device, place)
     if cfg.frontend == "vision":
-        params["patch_proj"] = dense_init(generator, (VISION_EMBED_DIM, cfg.d_model), dtype)
+        params["patch_proj"] = place.dense("patch_proj", generator,
+                                           (VISION_EMBED_DIM, cfg.d_model), dtype)
     elif cfg.frontend == "audio":
-        params["frame_proj"] = dense_init(generator, (AUDIO_FEAT_DIM, cfg.d_model), dtype)
+        params["frame_proj"] = place.dense("frame_proj", generator,
+                                           (AUDIO_FEAT_DIM, cfg.d_model), dtype)
     return params
+
+
+def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
+    """:func:`init_params`'s dict with fake leaves: the shapes and types,
+    no memory (for the sharding specs of a full-width config)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return init_params(cfg, torch.Generator(), "cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +239,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
 # ---------------------------------------------------------------------------
 
 
+def _lookup(table, tokens, cfg):
+    """``table[tokens]``; under TP with the vocabulary sharded, each rank's
+    masked lookup in its own rows, summed over ``"model"``."""
+    if not shd.tp_dim(cfg.vocab):
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens - shd.tp_axis().rank * rows
+    hit = (local >= 0) & (local < rows)
+    return shd.tp_reduce(table[local.clamp(0, rows - 1)] * hit[..., None].to(table.dtype))
+
+
 def _embed(params, tokens, cfg):
-    return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    return _lookup(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
 
 
 def _embed_inputs(params, tokens, cfg, patches=None):
@@ -227,7 +264,7 @@ def _embed_inputs(params, tokens, cfg, patches=None):
     if cfg.frontend != "vision":
         raise ValueError(f"{cfg.name}: patches need the vision frontend")
     proj = params["patch_proj"]
-    x = torch.cat([patches.to(proj.dtype) @ proj, params["embed"][tokens]], dim=1)
+    x = torch.cat([patches.to(proj.dtype) @ proj, _lookup(params["embed"], tokens, cfg)], dim=1)
     return x.to(dtype_of(cfg.compute_dtype)), patches.shape[1]
 
 
@@ -243,9 +280,21 @@ def _train_inputs(params, batch, cfg):
     return _embed_inputs(params, batch["tokens"], cfg, batch.get("patches"))
 
 
-def _logits(params, x, cfg):
+def _local_logits(params, x, cfg):
+    """(fp32 logits over this rank's vocabulary, its first id): the whole
+    vocabulary and 0, or under TP with the vocabulary sharded the head's
+    column-parallel part."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head).float()
+    if not shd.tp_dim(cfg.vocab):
+        return (x @ head).float(), 0
+    return (shd.tp_copy(x) @ head).float(), shd.tp_axis().rank * head.shape[-1]
+
+
+def _logits(params, x, cfg):
+    """fp32 logits over the whole vocabulary (gathered over ``"model"``
+    under TP, so every rank takes the same greedy token)."""
+    logits, _ = _local_logits(params, x, cfg)
+    return shd.tp_gather(logits, -1) if shd.tp_dim(cfg.vocab) else logits
 
 
 MOE_GROUPS = ("token", "sequence")
@@ -287,7 +336,7 @@ def _decoder_layer(lp, x, cfg, positions, spec: LayerSpec, kv_int8: bool = False
         k_at, v_at = k, v
     o = attention(q, k_at, v_at, causal=cfg.causal, window=spec.window, impl=cfg.attn_impl,
                   chunk=min(cfg.attn_chunk, S))
-    x = x + o.reshape(B, S, -1) @ lp["wo"]
+    x = x + out_project(o.reshape(B, S, -1), lp["wo"], cfg)
     return _mlp_block(lp, x, cfg, moe_groups=moe_groups, stats=stats), k, v
 
 
@@ -452,21 +501,36 @@ def _train_head(params, x, batch, cfg: ModelConfig, label_offset: int = 0):
     """Final norm + tied/untied logits + token cross-entropy on the stack
     output ``x`` (past its first ``label_offset`` positions: the vision
     patches); labels < 0 are masked.  Returns (loss, metrics) with the
-    per-sequence mean loss ``per_example`` [B]."""
+    per-sequence mean loss ``per_example`` [B].
+
+    Under TP with the vocabulary sharded the cross-entropy is
+    vocabulary-parallel: each rank's logits stay local, and the max, the
+    sum of exponentials and the label's logit cross ``"model"``.  In a
+    world with data ranks the token count is the global batch's, so the
+    returned loss is this rank's share of the global mean (the data ranks'
+    gradients sum to the global batch's) and ``metrics["loss"]`` the
+    global mean."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if label_offset:
         x = x[:, label_offset:]
-    logits = _logits(params, x, cfg)
+    logits, lo = _local_logits(params, x, cfg)
     labels = batch["labels"]
     mask = (labels >= 0).float()
-    m = logits.detach().amax(dim=-1, keepdim=True)
+    m = shd.tp_max(logits.detach().amax(dim=-1, keepdim=True))
     shifted = logits - m
-    lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    ll = shifted.gather(-1, labels.clamp(min=0)[..., None])[..., 0] - lse
-    ntok = mask.sum().clamp(min=1.0)
+    lse = torch.log(shd.tp_reduce(torch.exp(shifted).sum(dim=-1)))
+    if shd.tp_dim(cfg.vocab):
+        idx = labels.clamp(min=0) - lo
+        hit = (idx >= 0) & (idx < logits.shape[-1])
+        picked = shifted.gather(-1, idx.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+        ll = shd.tp_reduce(picked * hit) - lse
+    else:
+        ll = shifted.gather(-1, labels.clamp(min=0)[..., None])[..., 0] - lse
+    ntok = shd.data_sum(mask.sum()).clamp(min=1.0)
     loss = -(ll * mask).sum() / ntok
     per_example = -(ll * mask).sum(-1) / mask.sum(-1).clamp(min=1.0)
-    return loss, {"loss": loss, "ntok": ntok, "per_example": per_example}
+    total = loss if shd.data_axis() is None else shd.data_sum(loss.detach())
+    return loss, {"loss": total, "ntok": ntok, "per_example": per_example}
 
 
 def forward_train(params, batch, cfg: ModelConfig, remat: str = "none"):
@@ -512,7 +576,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     device = resolve_device(device)
     if cfg.family == "ssm":
         return init_state(cfg, batch, device)
-    tail = (cfg.n_kv_heads, cfg.head_dim)
+    tail = (shd.attn_heads(cfg)[1], cfg.head_dim)  # this rank's K/V heads under TP
     if cfg.family == "hybrid":
         shape = (cfg.n_groups, batch, max_len) + tail
         dtype = dtype_of(cfg.compute_dtype)
@@ -654,7 +718,7 @@ def _decode_attn_layer(lp, x, kc, vc, rows, lengths, cfg, spec: LayerSpec, write
         _write_rows(vc, rows, idx, v[:, 0], write_ok)
         k_at, v_at = kc, vc
     o = decode_attention(q, k_at, v_at, (lengths + 1).clamp(max=W))
-    return _mlp_block(lp, x + o.reshape(B, -1) @ lp["wo"], cfg)
+    return _mlp_block(lp, x + out_project(o.reshape(B, -1), lp["wo"], cfg), cfg)
 
 
 def forward_decode(params, tokens, cache, lengths, cfg: ModelConfig, write_ok=None):
@@ -729,7 +793,7 @@ def _paged_attn_layer(lp, x_tok, kp, vp, tables, positions, valid, pb, off, cfg,
     kp[pb, off] = k[:, 0]
     vp[pb, off] = v[:, 0]
     o = paged_attention(q[:, 0].contiguous(), kp, vp, tables, valid)
-    x = x_tok + o.reshape(S, -1) @ lp["wo"]
+    x = x_tok + out_project(o.reshape(S, -1), lp["wo"], cfg)
     return _mlp_block(lp, x, cfg)
 
 

@@ -162,7 +162,7 @@ class PagedDecodePool:
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int, max_prompt_len: int,
                  block_size: int = 8, num_blocks: Optional[int] = None,
-                 share_prefixes: bool = True, attn: str = "kernel", device="cuda"):
+                 share_prefixes: bool = True, attn: str = "kernel", device="cuda", mesh=None):
         if max_prompt_len >= max_len:
             raise ValueError("max_prompt_len must leave room to decode")
         if max_len % block_size:
@@ -178,9 +178,11 @@ class PagedDecodePool:
         self.num_blocks = num_blocks
         self.share_prefixes = share_prefixes
         self.attn = attn
-        self._pool_step = dserve.make_paged_pool_decode_step(cfg, block_size, attn=attn)
+        self.mesh = mesh  # a TP world: the pages hold this rank's K/V heads
+        self._pool_step = dserve.make_paged_pool_decode_step(cfg, block_size, attn=attn,
+                                                             mesh=mesh)
         self._slot_prefill = dserve.make_paged_slot_prefill_step(
-            cfg, max_prompt_len, max_len, block_size
+            cfg, max_prompt_len, max_len, block_size, mesh=mesh
         )
         self.reset()
 
@@ -188,10 +190,11 @@ class PagedDecodePool:
         self.allocator = BlockAllocator(self.num_blocks, self.block_size)
         self.slot_blocks: List[List[int]] = [[] for _ in range(self.slots)]
         self.prefix_saved_blocks = 0  # running count of share hits
-        self.pages = dserve.init_paged_pool(
-            self.cfg, self.max_len, self.num_blocks, self.block_size, self.device
-        )
-        self.slot_state = transformer.init_state(self.cfg, self.slots, self.device)
+        with dserve.serving_ctx(self.cfg, self.mesh):
+            self.pages = dserve.init_paged_pool(
+                self.cfg, self.max_len, self.num_blocks, self.block_size, self.device
+            )
+            self.slot_state = transformer.init_state(self.cfg, self.slots, self.device)
         dev = self.device
         self.tables = torch.zeros((self.slots, self.blocks_per_slot), dtype=torch.int32, device=dev)
         self.tokens = torch.zeros((self.slots,), dtype=torch.long, device=dev)

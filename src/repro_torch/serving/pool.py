@@ -35,18 +35,20 @@ class DecodePool:
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int, max_prompt_len: int,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if max_prompt_len >= max_len:
             raise ValueError("max_prompt_len must leave room to decode")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh  # a TP world: the cache holds this rank's heads/channels
         self.slots, self.max_len, self.max_prompt_len = slots, max_len, max_prompt_len
-        self._pool_step = dserve.make_pool_decode_step(cfg)
-        self._slot_prefill = dserve.make_slot_prefill_step(cfg, max_prompt_len)
+        self._pool_step = dserve.make_pool_decode_step(cfg, mesh)
+        self._slot_prefill = dserve.make_slot_prefill_step(cfg, max_prompt_len, mesh)
         self.reset()
 
     def reset(self):
-        self.cache = transformer.init_cache(self.cfg, self.slots, self.max_len, self.device)
+        with dserve.serving_ctx(self.cfg, self.mesh):
+            self.cache = transformer.init_cache(self.cfg, self.slots, self.max_len, self.device)
         self.tokens = torch.zeros((self.slots,), dtype=torch.long, device=self.device)
         self.lengths = np.zeros((self.slots,), np.int32)
 

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.asynchrony.solvers import make_solver, random_dd_system
 from repro_torch.device import resolve_device
+from repro_torch.distributed import serve as dserve
 from repro_torch.models import transformer
 from repro_torch.serving.engine import Request
 from repro_torch.serving.paged import PagedDecodePool
@@ -75,15 +76,18 @@ class LLMDecodeWorkload:
     prefill_tokens = 1  # admission's prefill emits the first token
 
     def __init__(self, *, cfg, slots: int = 8, max_len: int = 64, max_prompt_len: int = 16,
-                 params=None, seed: int = 0, device="cuda", **pool_kwargs):
+                 params=None, seed: int = 0, device="cuda", mesh=None, **pool_kwargs):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.pool = self._make_pool(cfg, slots=slots, max_len=max_len,
                                     max_prompt_len=max_prompt_len, device=self.device,
-                                    **pool_kwargs)
+                                    mesh=mesh, **pool_kwargs)
+        # in a TP world (``mesh``) each rank keeps its blocks of the weights;
+        # every rank's engine then makes the same decisions
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = transformer.init_params(cfg, gen, self.device)
+            params = transformer.init_params(cfg, gen, self.device,
+                                             place=dserve.param_placer(cfg, mesh))
         self.params = params
         self.slots = slots
         self._out = [[] for _ in range(slots)]

@@ -1,7 +1,9 @@
 """Rules the port keeps: no reference imports, no silent CPU fallback.
 
-- No file of ``src/repro_torch/``, nor ``chip_smoke.py``, imports ``jax``
-  or the reference package ``repro`` (``repro_torch`` itself is fine).
+- No file of ``src/repro_torch/``, nor ``chip_smoke.py``, nor
+  ``scripts/tp_tick_profile.py``, ``scripts/tp_widen_ab.py`` or a Python
+  program of ``scripts/tp_cards.sh``, imports ``jax`` or the reference package
+  ``repro`` (``repro_torch`` itself is fine).
 - Entry points (the serving CLI and workloads, fixed-point serving
   included, the training CLI, the asynchronous engine, its benchmarks and
   example) default to ``device="cuda"`` and raise when torch sees no card,
@@ -36,6 +38,34 @@ def test_port_imports_neither_jax_nor_the_reference(path):
     assert path.exists(), path
     bad = [(ln, mod) for ln, mod in _imported_roots(path) if mod in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _shell_python(path: Path) -> list:
+    """The Python programs a shell script feeds ``python -`` (its quoted
+    ``<<'EOF'`` here-documents)."""
+    out, lines, body = [], path.read_text().splitlines(), None
+    for line in lines:
+        if body is not None:
+            if line == "EOF":
+                out.append("\n".join(body))
+                body = None
+            else:
+                body.append(line)
+        elif "<<'EOF'" in line:
+            body = []
+    return out
+
+
+@pytest.mark.parametrize("name", ["tp_cards.sh", "tp_tick_profile.py", "tp_widen_ab.py"])
+def test_the_four_card_scripts_import_neither_jax_nor_the_reference(name, tmp_path):
+    path = ROOT / "scripts" / name
+    programs = [path.read_text()] if name.endswith(".py") else _shell_python(path)
+    assert programs
+    for i, text in enumerate(programs):
+        f = tmp_path / f"{i}.py"
+        f.write_text(text)
+        bad = [(ln, mod) for ln, mod in _imported_roots(f) if mod in FORBIDDEN]
+        assert not bad, f"{name} program {i} imports {bad}"
 
 
 def test_the_import_scan_sees_forbidden_imports(tmp_path):

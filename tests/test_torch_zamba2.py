@@ -41,7 +41,7 @@ from repro.serving import make_workload as ref_make_workload  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.distributed import serve  # noqa: E402
 from repro_torch.launch import serve as cli  # noqa: E402
-from repro_torch.models import ssm, transformer  # noqa: E402
+from repro_torch.models import layers, ssm, transformer  # noqa: E402
 from repro_torch.models.convert import params_from_reference, reference_tree  # noqa: E402
 from repro_torch.serving import PagedDecodePool, Request, ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.serving import make_workload  # noqa: E402
@@ -112,7 +112,7 @@ def _meta_params(cfg):
         return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
     with pytest.MonkeyPatch.context() as mp:
-        for mod in (ssm, transformer):
+        for mod in (ssm, transformer, layers):
             mp.setattr(mod, "dense_init", meta)
         mp.setattr(transformer, "embed_init", meta)
         return transformer.init_params(cfg, torch.Generator(), device="cpu")

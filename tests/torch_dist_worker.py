@@ -72,7 +72,7 @@ def row(tree, r: int):
 def to(tree, device):
     if isinstance(tree, dict):
         return {k: to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
+    if not isinstance(tree, torch.Tensor):
         return tree
     return tree.to(device)
 
@@ -389,8 +389,223 @@ def train_forced(mesh, rank, device, *, dp: int, runs: dict) -> dict:
     return out
 
 
+def gspmd_forced(mesh, rank, device, *, runs: dict, ckpt: dict = None) -> dict:
+    """Teacher-forced ``gspmd`` world steps over a ``("data",)`` or
+    ``("data", "model")`` mesh: ``runs`` maps a tag to (arch, its
+    TrainConfig, [(the stacked-layout state before the step, global
+    leaves, the step's global batch), ...]).  Each step starts from this
+    rank's blocks of the state (``GspmdStep.rank_state``) and runs its
+    ``"data"`` shard of the batch; rank 0 records the state after it,
+    gathered to global leaves and nested as the reference nests it, and
+    every rank the step's metrics.  With ``ckpt`` the world also runs
+    :func:`gspmd_checkpoint`."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.distributed.gradsync.common import rank_shards
+
+    dp = mesh.size(mesh.mesh_dim_names.index("data"))
+    out = {}
+    for tag, (arch, tcfg, steps) in runs.items():
+        cfg = registry.get_smoke_config(arch)
+        step = step_lib.make_train_step(cfg, tcfg, dp=dp, device=device, mesh=mesh)
+        r = mesh.get_local_rank("data")
+        for i, (state, batch) in enumerate(steps):
+            new, m = step(step.rank_state(to(state, device)),
+                          to(rank_shards(batch, dp)[r], device))
+            _record_global(out, f"{tag}step{i + 1}", step, new, m)
+    if ckpt:
+        out.update(gspmd_checkpoint(mesh, device, **ckpt))
+    return out
+
+
+def _record_global(out: dict, prefix: str, step, state, metrics) -> None:
+    from repro_torch.models import convert
+
+    g = step.global_state(state, "cpu")
+    if g is not None:
+        tree = convert.train_state_to_reference(g)
+        out.update({k: v.detach().clone() for k, v in flat(tree, f"{prefix}/state").items()})
+    for k in ("loss", "grad_norm", "converged", "monitor_value", "aux_loss"):
+        if k in metrics:
+            out[f"{prefix}/metrics/{k}"] = metrics[k].detach().clone()
+
+
+def gspmd_checkpoint(mesh, device, *, arch: str, tcfg, batches: list, directory: str) -> dict:
+    """A ``gspmd`` world trains ``arch`` from seed 0 on ``batches`` (global),
+    saves after step 1 through the trainer's own path
+    (``launch.train.save_global``: global leaves, written by rank 0 one at
+    a time), resumes from it (``restore_global``, with ``np.load`` barred:
+    each rank reads its blocks through ``np.memmap``) and runs the steps
+    after again; rank 0 records both runs' states (global leaves) and
+    metrics under ``ckpt/run`` and ``ckpt/resumed``, and the save's bytes
+    and largest leaf (``ckpt/save``); every rank the bytes its restore
+    copied out of the file beside those of its own param and optimizer
+    blocks (``ckpt/read``)."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import registry
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.distributed.gradsync.common import rank_shards
+    from repro_torch.launch import train as train_cli
+
+    cfg = registry.get_smoke_config(arch)
+    dp = mesh.size(mesh.mesh_dim_names.index("data"))
+    tp = mesh.size(mesh.mesh_dim_names.index("model")) if "model" in mesh.mesh_dim_names else 1
+    step = step_lib.make_train_step(cfg, tcfg, dp=dp, device=device, mesh=mesh)
+    r = mesh.get_local_rank("data")
+    shards = [to(rank_shards(b, dp)[r], device) for b in batches]
+    ck = Checkpointer(directory)
+    state = step.init_state(torch.Generator(device=device).manual_seed(0))
+    out = {}
+    for i, b in enumerate(shards):
+        state, m = step(state, b)
+        _record_global(out, f"ckpt/run/step{i + 1}", step, state, m)
+        if i == 0:
+            train_cli.save_global(ck, state, step, {"dp": dp, "tp": tp})
+            dist.barrier()
+            # the bytes of the rank's own blocks of the params and optimizer
+            mine = sum(t.numel() * t.element_size()
+                       for t in flat({"p": state["params"], "o": state["opt"]}, "").values())
+    if ck.saves:  # rank 0, the writer
+        out["ckpt/save"] = torch.tensor([ck.saves[0]["bytes"], ck.saves[0]["peak_bytes"]])
+    # the restore reads the rank's blocks through np.memmap, never the archive whole
+    with mock.patch.object(np, "load", side_effect=AssertionError("np.load of the archive")):
+        state = train_cli.restore_global(ck, 1, step, cfg, device)
+    out["ckpt/read"] = torch.tensor([ck.restores[0]["bytes"], mine])
+    for i in range(1, len(shards)):
+        state, m = step(state, shards[i])
+        _record_global(out, f"ckpt/resumed/step{i + 1}", step, state, m)
+    return out
+
+
+def serve_cli(mesh, rank, device, *, runs: dict) -> dict:
+    """The serving CLI's run (``launch.serve.run``, the entry a
+    ``torch.distributed.run`` rank takes after joining its world) for
+    every ``runs`` entry whose world is this one: ``runs`` maps a tag to
+    (argv, the whole weights as a port param dict, the static path's
+    prompt or None).  Each rank serves with its blocks of the weights;
+    every rank records each request's output tokens, admission and
+    retirement ticks (the static path: its tokens [batch, gen])."""
+    import functools
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed import serve as dserve
+    from repro_torch.launch import serve as cli
+    from repro_torch.serving import make_workload
+
+    out = {}
+    for tag, (argv, params, prompt) in runs.items():
+        args = cli.build_parser().parse_args(list(argv) + ["--device", str(device)])
+        cfg = registry.get_smoke_config(args.arch)
+        mine = dserve.shard_params(to(params, device), cfg, mesh)
+        saved = cli.make_workload, cli.static_serve
+        cli.make_workload = functools.partial(make_workload, params=mine)
+        cli.static_serve = functools.partial(cli.static_serve, params=mine, prompt=prompt)
+        try:
+            got = cli.run(args, mesh)
+        finally:
+            cli.make_workload, cli.static_serve = saved
+        if not args.continuous:
+            out[f"{tag}tokens"] = torch.from_numpy(got["tokens"])
+            continue
+        for i, r in got.results.items():
+            out[f"{tag}{i}/output"] = torch.as_tensor(np.asarray(r.output))
+            out[f"{tag}{i}/ticks"] = torch.tensor([r.admit_tick, r.retire_tick, r.n_tokens])
+    return out
+
+
+# the gspmd world cases of test_torch_gspmd_world.py (and on NCCL,
+# test_torch_tp_nccl.py): tag -> (arch, (dp, tp), TrainConfig fields,
+# global batch or None for 2 dp)
+GSPMD_CASES = {
+    "llama-tp4/": ("llama3.2-1b", (1, 4), {}, None),
+    "minicpm-tp4/": ("minicpm-2b", (1, 4), {}, None),
+    "qwen-tp2/": ("qwen2.5-32b", (1, 2), {}, None),
+    "falcon-tp2/": ("falcon-mamba-7b", (1, 2), {}, None),
+    "zamba2-tp2/": ("zamba2-2.7b", (1, 2), {}, None),
+    "mixtral-dp2/": ("mixtral-8x7b", (2, 1), {}, None),
+    "internvl2-dp2/": ("internvl2-1b", (2, 1), {"remat": "dots"}, None),
+    "llama-dp2tp2/": ("llama3.2-1b", (2, 2), {"remat": "full", "microbatches": 2}, 8),
+    "gemma3-dp2tp2/": ("gemma3-12b", (2, 2), {"remat": "dots"}, None),
+    "hubert-dp2tp2/": ("hubert-xlarge", (2, 2), {}, None),
+}
+GSPMD_LR = 1e-2
+# the TP serving cases of test_torch_serving_tp.py: tag -> (tp, argv)
+SERVE_COMMON = ["--smoke", "--continuous", "--dp", "3", "--slots", "3", "--requests", "6"]
+SERVE_CASES = {
+    "llama-tp2/": (2, ["--arch", "llama3.2-1b", "--workload", "llm_decode_paged"]),
+    "llama-tp4/": (4, ["--arch", "llama3.2-1b", "--workload", "llm_decode_paged"]),
+    "qwen-tp2/": (2, ["--arch", "qwen2.5-32b", "--workload", "llm_decode_paged"]),
+    "qwen-tp4/": (4, ["--arch", "qwen2.5-32b", "--workload", "llm_decode_paged"]),
+    "mixtral-tp2/": (2, ["--arch", "mixtral-8x7b", "--workload", "llm_decode",
+                         "--prompt-len", "40", "--gen", "20"]),
+    "falcon-tp2/": (2, ["--arch", "falcon-mamba-7b", "--workload", "llm_decode",
+                        "--prompt-len", "24", "--gen", "20"]),
+    "zamba2-tp2/": (2, ["--arch", "zamba2-2.7b", "--workload", "llm_decode_paged"]),
+}
+SERVE_STATIC = {"arch": "llama3.2-1b", "batch": 4, "prompt_len": 8, "gen": 6, "dp": 2, "tp": 2}
+
+
+def mesh_shape(mesh):
+    """(shape, dimension names) of a (dp, tp) world."""
+    return (mesh, ("data", "model")) if mesh[1] > 1 else (mesh[:1], ("data",))
+
+
+def gspmd_tcfg(**kw):
+    """The TrainConfig of the gspmd world cases (the recordings')."""
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.optim.optimizer import OptimizerConfig
+
+    base = dict(microbatches=1, remat="none")
+    base.update(kw)
+    return step_lib.TrainConfig(
+        grad_sync="gspmd", monitor=True, monitor_mode="inexact", monitor_threshold=6.0,
+        bucket_bytes=1 << 15, optimizer=OptimizerConfig(
+            lr=GSPMD_LR, schedule="const", warmup_steps=0, grad_clip=1.0), **base)
+
+
+NOISE = 1e-7  # a gradient coordinate this close to zero takes its sign from summation order
+
+
+def close_states(got: dict, want: dict, before: dict, what, lr: float = GSPMD_LR) -> None:
+    """Two flat train states (``flat`` of the reference nesting, keys
+    ``state/params/...``, ``state/opt/mu/...``) after the same AdamW step
+    from the same state ``before``, summed in other orders, held as
+    ``test_torch_train_families``' exact-sync rule holds them: params and
+    masters within 5e-4 but for the coordinates whose gradient (from the
+    first moment, ``(mu' - beta1 mu) / (1 - beta1)``) is within ``NOISE``
+    of zero, which AdamW moves by up to 2 x lr either way; the moments
+    within 1e-5; the monitor's integers exactly, its floats within 1e-6
+    relative."""
+    b1 = 0.9
+    assert sorted(got) == sorted(want), what
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, k)
+        if not g.is_floating_point():
+            assert torch.equal(g, w), (what, k)
+            continue
+        if "/monitor/" in k:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0, msg=f"{what} {k}")
+            continue
+        d = (g.float() - w.float()).abs()
+        if "/opt/mu/" in k or "/opt/nu/" in k:
+            assert float(d.max()) <= 1e-5, (what, k, float(d.max()))
+            continue
+        leaf = k.split("/params/", 1)[1] if "/params/" in k else k.split("/opt/master/", 1)[1]
+        mu = want[f"state/opt/mu/{leaf}"]
+        noise = ((mu - b1 * before[f"state/opt/mu/{leaf}"]) / (1 - b1)).abs() <= NOISE
+        assert float(d.max()) <= 2 * lr, (what, k, float(d.max()))
+        worst = float(d[~noise].max()) if bool((~noise).any()) else 0.0
+        assert worst <= 5e-4, (what, k, worst)
+
+
 SCENARIOS = {"one_axis": one_axis, "two_axis": two_axis, "monitor": monitor,
-             "mismatched": mismatched, "train": train_world, "train_forced": train_forced}
+             "mismatched": mismatched, "train": train_world, "train_forced": train_forced,
+             "gspmd_forced": gspmd_forced, "serve_cli": serve_cli}
 
 
 # ---------------------------------------------------------------------------

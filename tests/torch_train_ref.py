@@ -113,7 +113,9 @@ def tree(z: dict, prefix: str) -> dict:
 # the reference's train-step recorder: MODES, ARCHS (arch -> [modes]),
 # STEPS, LR, DPS, TCFG_KW and EXTRA are prepended by the caller; each EXTRA
 # entry is one more run (tag, arch, mode, dp, steps, its own TrainConfig
-# and OptimizerConfig fields), recorded under its tag
+# and OptimizerConfig fields, and optionally tp: a ("data", "model") mesh
+# of dp x tp, and batch: the global batch, default 2 dp), recorded under
+# its tag
 RECORD = """
 import sys
 import jax, numpy as np
@@ -131,9 +133,10 @@ def save(prefix, tree):
         key = "/".join(str(getattr(k, "key", k)) for k in path)
         out[prefix + key] = np.asarray(jax.device_get(leaf))
 
-def record(tag, arch, mode, dp, steps, tcfg_kw, opt_kw):
-    mesh = compat.make_mesh((dp,), ("data",), devices=jax.devices()[:dp],
-                            axis_types=compat.default_axis_types(1))
+def record(tag, arch, mode, dp, steps, tcfg_kw, opt_kw, tp=1, batch=None):
+    shape, names = ((dp, tp), ("data", "model")) if tp > 1 else ((dp,), ("data",))
+    mesh = compat.make_mesh(shape, names, devices=jax.devices()[:dp * tp],
+                            axis_types=compat.default_axis_types(len(shape)))
     cfg = registry.get_smoke_config(arch)
     kw = dict(microbatches=1, remat="none")
     kw.update(tcfg_kw)
@@ -150,7 +153,7 @@ def record(tag, arch, mode, dp, steps, tcfg_kw, opt_kw):
         state = jax.device_put(state, jax.tree.map(lambda s: NamedSharding(mesh, s),
                                                    state_specs(state)))
         save(tag + "init/", state)
-        pipe = SyntheticPipeline(cfg, DataConfig(batch=2 * dp, seq_len=16, seed=0), mesh)
+        pipe = SyntheticPipeline(cfg, DataConfig(batch=batch or 2 * dp, seq_len=16, seed=0), mesh)
         jstep = jax.jit(train_step)
         for i in range(steps):
             b = pipe.next_batch()
@@ -165,7 +168,7 @@ for dp in DPS:
             record(f"{arch}/{mode}/{dp}/", arch, mode, dp, STEPS, TCFG_KW, {})
 for x in EXTRA:
     record(x["tag"], x["arch"], x["mode"], x["dp"], x["steps"], x.get("tcfg", {}),
-           x.get("optimizer", {}))
+           x.get("optimizer", {}), x.get("tp", 1), x.get("batch"))
 np.savez(sys.argv[1], **out)
 """
 
