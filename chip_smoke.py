@@ -265,8 +265,8 @@ Phases, in order (any failure ends the run with a non-zero exit):
    card from seed 0: 13a. each family through the train CLI's
    ``main()`` at published widths, 2 x 1024 tokens a rank, ``--remat
    full``, a warm-up step and 2 counted ones, each run counted from 0:
-   hubert-xlarge and internvl2-1b whole, minicpm-2b cut to 18 layers,
-   falcon-mamba-7b to 10, zamba2-2.7b to 24 (4 groups) under
+   internvl2-1b whole, hubert-xlarge cut to 24 of its 48 layers,
+   minicpm-2b to 18, falcon-mamba-7b to 6, zamba2-2.7b to 24 (4 groups) under
    ``compressed`` at dp 3; gemma3-12b cut to one group (5 local + 1
    global) under ``mrd_zero1`` at dp 2 and mixtral-8x7b to 1 layer under
    ``compressed`` at dp 2 (``TRAIN_FAMILIES`` says why): every loss and
@@ -285,14 +285,15 @@ Phases, in order (any failure ends the run with a non-zero exit):
    ``local_sgd`` at llama3.2-1b's full width, dp 3, 4 steps with
    ``local_sync_every`` 2: ms a step, the average's share of a sync step,
    and every replica's params equal bit for bit after each average; 13d.
-   the checkpoint round trip (llama3.2-1b at full width cut to 4 layers,
+   the checkpoint round trip (llama3.2-1b at full width cut to 2 layers,
    ``compressed``, dp 3): 5 steps, ``save(block=False)`` after steps 2
    and 3 (the second into the first's pinned buffers); then a fresh train
    step restored from step 3 through the CLI's resume path runs the same
    2 batches: its losses and final params equal bit for bit; each save's
    hold on the loop, the writer's time, the bytes, the step time with a
-   write in flight; 13e. hubert-xlarge whole at remat ``none``, ``full``
-   and ``dots``: ms a step and the peak, the losses within 1e-4 relative;
+   write in flight; 13e. hubert-xlarge cut to 12 layers at remat
+   ``none``, ``full`` and ``dots``: ms a step and the peak, the losses
+   within 1e-4 relative;
    13f. hubert-xlarge's (remat ``full`` and ``dots``) and the falcon-mamba
    cut's train step profiled (wall, busy, idle share, the costliest
    kernels, device time by class and by launching function);
@@ -323,7 +324,15 @@ Phases, in order (any failure ends the run with a non-zero exit):
    ``mrd_combine`` launched 0 times in the ``gspmd`` runs, and
    ``flash_attention``, ``paged_attention`` and ``rmsnorm`` more than 0
    times in both serving runs;
-16. the kernels line, then the device line as the last line of stdout.
+16. the ready-bucket overlap through the train CLI: llama3.2-1b at full
+   width on stacked rows at dp 3 under ``compressed``, 3 steps of 2 x
+   1024 tokens a rank with ``--no-overlap`` and 3 with ``--overlap`` (the
+   backward in head, stack and embed segments, each gradient bucket
+   entering the reduce-scatter as its segment completes): losses, grad
+   norms and the digest of the final state equal bit for bit,
+   ``mrd_combine`` launched once a reducing stage a bucket a step in both
+   (the sim route), no other kernel; both runs' step times;
+17. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
@@ -2410,16 +2419,18 @@ def hybrid_phases(all_ops, t: float) -> dict:
 # 13a: arch -> (layers kept, or None for the whole model; dp; grad sync).
 # Published widths; a depth cut keeps the peak under ~72 GiB (llama3.2-1b
 # at dp 3 under compressed peaks at ~47 B a parameter): minicpm-2b's 40
-# layers to 18 (1.38 B parameters), falcon-mamba-7b's 64 to 10 (1.32 B),
-# zamba2-2.7b's 54 to 24 (4 groups of 6 and the shared block, 1.23 B),
-# gemma3-12b's 48 to one group of 5 local + 1 global (2.35 B, 1.0 B of it
-# the embedding: dp 2 under mrd_zero1, which holds no EF rows), mixtral-8x7b's
-# 32 to 1 (1.71 B, 1.41 B of it experts: dp 2)
+# layers to 18 (1.38 B parameters), zamba2-2.7b's 54 to 24 (4 groups of 6
+# and the shared block, 1.23 B), gemma3-12b's 48 to one group of 5 local + 1
+# global (2.35 B, 1.0 B of it the embedding: dp 2 under mrd_zero1, which
+# holds no EF rows), mixtral-8x7b's 32 to 1 (1.71 B, 1.41 B of it experts:
+# dp 2).  hubert-xlarge's 48 layers to 24 (0.47 B) and falcon-mamba-7b's 64
+# to 6 (0.90 B), like 13d's and 13e's depths, keep the whole script inside
+# its time limit with phase 16 on a slow host (PERF.md)
 TRAIN_FAMILIES = {
-    "hubert-xlarge": (None, 3, "compressed"),
+    "hubert-xlarge": (24, 3, "compressed"),
     "internvl2-1b": (None, 3, "compressed"),
     "minicpm-2b": (18, 3, "compressed"),
-    "falcon-mamba-7b": (10, 3, "compressed"),
+    "falcon-mamba-7b": (6, 3, "compressed"),
     "zamba2-2.7b": (24, 3, "compressed"),
     "gemma3-12b": (6, 2, "mrd_zero1"),
     "mixtral-8x7b": (1, 2, "compressed"),
@@ -2430,7 +2441,8 @@ TRAIN_STEPS = 3  # one warm-up step, then the counted ones (ms/step, tokens/s)
 TRAIN_SMOKE = ("gemma3-12b", "falcon-mamba-7b", "mixtral-8x7b", "llama4-scout-17b-a16e",
                "internvl2-1b", "zamba2-2.7b", "hubert-xlarge")
 MODE_STEPS, MODE_SYNC_EVERY = 4, 2  # 13c
-CKPT_LAYERS = 4  # 13d: llama3.2-1b at full width, cut to 4 of 16 layers (a 16 GB state)
+CKPT_LAYERS = 2  # 13d: llama3.2-1b at full width, cut to 2 of 16 layers (a 12 GB state)
+REMAT_LAYERS = 12  # 13e: hubert-xlarge cut to 12 of 48 layers
 
 
 def train_argv(arch: str, dp: int, mode: str, steps: int, remat: str = "full") -> list:
@@ -2891,11 +2903,11 @@ def training_phases(all_ops, t: float) -> dict:
     t = phase("train-checkpoint", t)
     remat = {}
     for r in ("none", "full", "dots"):  # 13e
-        fam = train_family(all_ops, "hubert-xlarge", None, 3, "compressed", remat=r)
+        fam = train_family(all_ops, "hubert-xlarge", REMAT_LAYERS, 3, "compressed", remat=r)
         state = fam.pop("state")
         if r == "dots":  # 13f: where dots' step goes, beside 13a's remat full profile
             stats["profiles"]["hubert-xlarge dots"] = train_profile(
-                "hubert-xlarge", None, 3, "compressed", state, remat="dots")
+                "hubert-xlarge", REMAT_LAYERS, 3, "compressed", state, remat="dots")
         del state
         remat[r] = {k: fam[k] for k in ("losses", "ms_per_step_mean", "peak_gib")}
     base = remat["none"]["losses"]
@@ -3178,6 +3190,52 @@ def tp_world_phase(all_ops, t: float) -> dict:
             raise SystemExit(f"15 {name}: a serving kernel never launched: {got}")
     t = phase("tp-world-vs-plain", t)
     return stats
+
+
+OVERLAP_DP, OVERLAP_STEPS = 3, 3
+
+
+def overlap_phase(all_ops, t: float) -> dict:
+    """16. The ready-bucket overlap through the train CLI's ``main()``:
+    llama3.2-1b at full width on stacked rows at dp 3 under ``compressed``,
+    ``--no-overlap`` then ``--overlap`` from the same seed, each counted
+    from 0.  Gates: the same losses and grad norms and the same state
+    digest bit for bit, ``mrd_combine`` launched once a reducing stage a
+    bucket a step in both runs (the sim route), no other kernel."""
+    from repro_torch.launch import train
+
+    runs = {}
+    for flag in ("--no-overlap", "--overlap"):
+        free_device()
+        zero(all_ops)
+        torch.cuda.reset_peak_memory_stats()
+        rec = train.main(train_argv("llama3.2-1b", OVERLAP_DP, "compressed", OVERLAP_STEPS)
+                         + [flag])
+        got = counts(all_ops)
+        want = combine_launches_expected(rec["state"]["params"], OVERLAP_DP, "compressed",
+                                         OVERLAP_STEPS)
+        expect_launches(got, {"mrd_combine": want}, f"16 {flag}", torch.device("cuda"))
+        runs[flag] = {"losses": rec["losses"], "grad_norms": rec["grad_norms"],
+                      "ms_per_step": rec["ms_per_step"], "tokens_per_s": rec["tokens_per_s"],
+                      "peak_gib": rec["peak_bytes"] / 2**30,
+                      "digest": train.state_digest(rec.pop("state")),
+                      "launches": got}
+        del rec
+        log(f"16 llama3.2-1b dp {OVERLAP_DP} compressed {flag}: losses "
+            f"{runs[flag]['losses']}, grad norms {runs[flag]['grad_norms']}, ms/step "
+            f"{[round(m, 1) for m in runs[flag]['ms_per_step']]}, tokens/s "
+            f"{runs[flag]['tokens_per_s']:.1f}, peak {runs[flag]['peak_gib']:.3f} GiB, "
+            f"mrd_combine {got['mrd_combine']} (expected {want}), digest "
+            f"{runs[flag]['digest'][:16]}")
+    free_device()
+    off, on = runs["--no-overlap"], runs["--overlap"]
+    same = all(off[k] == on[k] for k in ("losses", "grad_norms", "digest", "launches"))
+    if not same or not off["launches"]["mrd_combine"]:
+        raise SystemExit(f"16: --overlap differs from --no-overlap: {runs}")
+    phase("overlap", t)
+    return {"dp": OVERLAP_DP, "steps": OVERLAP_STEPS, "bit_for_bit": same,
+            "no_overlap": off, "overlap": on,
+            "launches": {k: off["launches"][k] + on["launches"][k] for k in off["launches"]}}
 
 
 def main() -> int:
@@ -4015,7 +4073,13 @@ def main() -> int:
     tp15 = tp_world_phase(all_ops, time.perf_counter())
     p15 = tp15["launches"]
 
-    # 16. results
+    # 16. the ready-bucket overlap (--overlap against --no-overlap) on
+    # stacked rows
+    free_device()
+    ov16 = overlap_phase(all_ops, time.perf_counter())
+    p16 = ov16["launches"]
+
+    # 17. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -4034,6 +4098,7 @@ def main() -> int:
     log(json.dumps({"training": train13}))
     log(json.dumps({"world_training": train14}))
     log(json.dumps({"tp_world": tp15}))
+    log(json.dumps({"overlap": ov16}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
@@ -4064,10 +4129,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/mrd_combine/csrc/mrd_combine.cu",
         "replaces": "src/repro/kernels/mrd_combine/kernel.py:31",
-        "launches": train_launches + coll_launches + p13 + p14 + p15["mrd_combine"],
+        "launches": (train_launches + coll_launches + p13 + p14 + p15["mrd_combine"]
+                     + p16["mrd_combine"]),
         "launches_by_path": {"train": train_launches, "collectives": coll_launches,
                              "training_families": p13, "world_and_optimizers": p14,
-                             "tp_world_gspmd": p15["mrd_combine"]},
+                             "tp_world_gspmd": p15["mrd_combine"],
+                             "overlap": p16["mrd_combine"]},
         "max_abs_err": errs[(COMBINE_CASES[-1], torch.float32)],
         "ms": mc_ms,
         "plain_ms": mc_plain_ms,

@@ -10,6 +10,11 @@
 #    share of device time in the step's NCCL collectives), remat full:
 #    llama3.2-1b at (dp, tp) = (4, 1), (2, 2) and (1, 4); falcon-mamba-7b
 #    whole (64 layers) at (4, 1); gemma3-12b whole (48 layers) at (2, 2);
+#    then a gspmd checkpoint: llama3.2-1b at (2, 2), 3 steps uninterrupted
+#    against 1 step saved (rank 0 writing the global leaves as the ranks
+#    gather them) and 2 more resumed from it (each rank reading its blocks),
+#    under --schedule const: the resumed steps' losses, grad norms and every
+#    rank's final state digest equal the uninterrupted run's bit for bit;
 # 3. the serving CLI: qwen2.5-32b paged at --tp 4 against the same command
 #    at --tp 1 on one card (tokens compared; at the first differing token
 #    of a request the top-2 logit gap of the --tp 1 model, teacher-forced
@@ -68,6 +73,39 @@ train llama_dp2_tp2 llama3.2-1b 2 2 240
 train llama_tp4 llama3.2-1b 1 4 240
 train falcon_dp4 falcon-mamba-7b 4 1 420
 train gemma3_dp2_tp2 gemma3-12b 2 2 420
+
+ckpt_gspmd() {  # the (2, 2) gspmd world saved after step 1 and resumed
+    local run=(python -m torch.distributed.run --standalone --nproc-per-node 4
+               -m repro_torch.launch.train --arch llama3.2-1b --batch 4 --seq 1024 --dp 2
+               --tp 2 --remat full --schedule const)
+    rm -rf "$out/ckpt_gspmd"
+    timeout -k 10 240 "${run[@]}" --steps 3 --summary-json "$out/ckpt_full_rank{rank}.json" \
+        > "$out/ckpt_full.log" 2>&1 \
+        && timeout -k 10 240 "${run[@]}" --steps 1 --ckpt-dir "$out/ckpt_gspmd" \
+            > "$out/ckpt_first.log" 2>&1 \
+        && timeout -k 10 240 "${run[@]}" --steps 2 --ckpt-dir "$out/ckpt_gspmd" \
+            --summary-json "$out/ckpt_resumed_rank{rank}.json" > "$out/ckpt_resumed.log" 2>&1 \
+        && python - "$out" <<'EOF'
+import json, sys
+out = sys.argv[1]
+same = True
+for r in range(4):
+    full = json.load(open(f"{out}/ckpt_full_rank{r}.json"))
+    res = json.load(open(f"{out}/ckpt_resumed_rank{r}.json"))
+    ok = (res["resumed_from"] == 1 and res["losses"] == full["losses"][1:]
+          and res["grad_norms"] == full["grad_norms"][1:]
+          and res["state_digest"] == full["state_digest"])
+    print(f"rank {r}: resumed from {res['resumed_from']}, losses {res['losses']} against "
+          f"{full['losses'][1:]}, digest equal {res['state_digest'] == full['state_digest']}")
+    same = same and ok
+print("gspmd checkpoint resumed bit for bit:", same)
+sys.exit(0 if same else 1)
+EOF
+}
+ckpt_gspmd > "$out/ckpt_gspmd.log" 2>&1 || { echo "== ckpt_gspmd FAILED"; fail=1; }
+echo "== ckpt_gspmd"; tail -n 6 "$out/ckpt_gspmd.log"
+rm -rf "$out/ckpt_gspmd"  # its archive: not brought back
+echo "# $((SECONDS - start)) s"
 
 QWEN=(--arch qwen2.5-32b --continuous --workload llm_decode_paged --attn kernel --dp 5
       --slots 8 --requests 16 --min-prompt-len 128 --prompt-len 1024 --gen 32

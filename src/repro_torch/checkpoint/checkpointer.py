@@ -710,17 +710,19 @@ class Checkpointer:
             out[key] = _leaf(step, key, flat, shape, dtype, bf16, device)
         return _unflatten(out)
 
-    def restore_rank(self, step: int, template: Any, rows: tuple, device="cpu"):
+    def restore_rank(self, step: int, template: Any, rows: tuple, device="cpu", *,
+                     dp: Optional[int] = None):
         """A world rank's :meth:`restore` (``world=(rank, dp)``): ``template``
         is the rank's own state, whose top-level parts ``rows`` hold its
         rows of the saved ``[dp, ...]`` leaves; each such leaf is read as
         row ``rank`` of the file's through ``np.memmap``, so a rank reads
         its rows and not the others'.  The checkpoint must have this
-        world's dp."""
+        world's dp (``dp``, when the world's rows are more than its data
+        ranks: a rank a ``(data, model)`` coordinate)."""
         full = {k: (((self.dp,) if _in_parts(k, rows) else ()) + shape, dtype)
                 for k, (shape, dtype) in _specs(template).items()}
         return self._read_mapped(step, full, {k: self.rank for k in full if _in_parts(k, rows)},
-                                 device, self.dp)
+                                 device, self.dp if dp is None else dp)
 
     def restore_blocks(self, step: int, template: Any, blocks: dict, device="cpu", *,
                        dp: Optional[int] = None):

@@ -44,21 +44,23 @@ def dtype_name(dtype) -> str:
     return _DTYPE_NAMES[dtype]
 
 
+def _walk(node, path, leaves: list, paths: list) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], path + (k,), leaves, paths)
+    else:
+        leaves.append(node)
+        paths.append(path)
+
+
 def tree_flatten(tree) -> tuple[list, tuple]:
     """(leaves, treedef) of nested dicts, keys sorted at every level as
     ``jax.tree.flatten`` orders a dict; ``treedef`` is the tuple of key
-    paths."""
+    paths.  The walk is a module function: a nested function that calls
+    itself is a reference cycle, which would keep the leaves list (a
+    step's gradients) alive until the cyclic collector ran."""
     leaves, paths = [], []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (k,))
-        else:
-            leaves.append(node)
-            paths.append(path)
-
-    walk(tree, ())
+    _walk(tree, (), leaves, paths)
     return leaves, tuple(paths)
 
 
@@ -114,20 +116,25 @@ class BucketLayout:
 
 
 def build_layout(tree, *, bucket_bytes: Optional[int] = None, quantum: int = 1,
-                 stacked: Optional[int] = None, dtype=None) -> BucketLayout:
+                 stacked: Optional[int] = None, dtype=None,
+                 groups: Optional[Sequence] = None) -> BucketLayout:
     """Plan dtype-homogeneous, size-capped buckets for ``tree`` (only
     shapes and dtypes are read).  ``bucket_bytes=None`` means one
     unbounded bucket per dtype.  ``dtype`` lays the tree out as if every
     leaf had that type (the gradient sync buckets an fp32 view of bf16
-    parameters)."""
+    parameters).  ``groups`` (one label a leaf, in flatten order) keeps
+    leaves of different labels out of one bucket as dtypes are kept
+    apart: under tensor parallelism the leaves replicated over the model
+    ranks get buckets of their own, so no int8 block mixes them with a
+    rank's own part of a sharded leaf."""
     if quantum < 1:
         raise ValueError(f"quantum must be >= 1, got {quantum}")
     leaves, treedef = tree_flatten(tree)
-    open_slots: dict[str, list[LeafSlot]] = {}
-    open_elems: dict[str, int] = {}
-    closed: list[tuple[str, tuple[LeafSlot, ...]]] = []
+    open_slots: dict[Any, list[LeafSlot]] = {}
+    open_elems: dict[Any, int] = {}
+    closed: list[tuple[Any, tuple[LeafSlot, ...]]] = []
 
-    def close(dt: str):
+    def close(dt):
         closed.append((dt, tuple(open_slots.pop(dt))))
         open_elems.pop(dt)
 
@@ -140,22 +147,23 @@ def build_layout(tree, *, bucket_bytes: Optional[int] = None, quantum: int = 1,
                     f"of that size; leaf {i} has shape {shape}"
                 )
             shape = shape[1:]
-        dt = dtype_name(dtype or leaf.dtype)
+        name = dtype_name(dtype or leaf.dtype)
+        dt = name if groups is None else (name, groups[i])
         size = math.prod(shape)
-        itemsize = _DTYPES[dt].itemsize
+        itemsize = _DTYPES[name].itemsize
         if (dt in open_slots and bucket_bytes is not None and open_slots[dt]
                 and (open_elems[dt] + size) * itemsize > bucket_bytes):
             close(dt)
         if dt not in open_slots:
             open_slots[dt], open_elems[dt] = [], 0
-        open_slots[dt].append(LeafSlot(index=i, shape=shape, dtype=dt,
+        open_slots[dt].append(LeafSlot(index=i, shape=shape, dtype=name,
                                        offset=open_elems[dt], size=size))
         open_elems[dt] += size
     for dt in list(open_slots):
         close(dt)
     closed.sort(key=lambda b: b[1][0].index)  # stable: first-leaf tree order
     buckets = tuple(
-        Bucket(dtype=dt, slots=slots,
+        Bucket(dtype=slots[0].dtype, slots=slots,
                length=max(quantum, -(-sum(s.size for s in slots) // quantum) * quantum))
         for dt, slots in closed
     )

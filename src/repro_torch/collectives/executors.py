@@ -64,7 +64,10 @@ class Backend(Protocol):
 
     def size(self) -> int: ...
 
-    def permute(self, x, pairs): ...
+    def permute(self, x, pairs):
+        """The received buffer, or an :class:`InFlight` that
+        :func:`landed` waits on."""
+        ...
 
     def where(self, mask, a, b, out=None): ...
 
@@ -97,6 +100,34 @@ def _peers(rank: int, pairs) -> tuple[tuple[int, ...], Optional[int]]:
     return to, (frm[0] if frm else None)
 
 
+class InFlight:
+    """A permute's messages in flight: :meth:`wait` waits on them (on NCCL:
+    the current stream waits for them) and returns the received buffer.
+    The sent buffer is held until then."""
+
+    __slots__ = ("recv", "works", "send")
+
+    def __init__(self, recv, works, send):
+        self.recv, self.works, self.send = recv, works, send
+
+    def wait(self):
+        for work in self.works:
+            work.wait()
+        self.works, self.send = (), None
+        return self.recv
+
+
+def landed(x):
+    """``x`` with every :class:`InFlight` in it (one, or a tuple of them)
+    waited on and replaced by its received buffer; anything else as it
+    is."""
+    if isinstance(x, InFlight):
+        return x.wait()
+    if isinstance(x, tuple):
+        return tuple(landed(v) for v in x)
+    return x
+
+
 class DeviceBackend:
     """Executes stages on rank-local 1-D buffers across processes, within
     the group of one named dimension of ``mesh``."""
@@ -115,10 +146,13 @@ class DeviceBackend:
     def size(self) -> int:
         return self._size
 
-    def permute(self, x, pairs):
+    def permute(self, x, pairs) -> InFlight:
         """Send ``x`` to every ``d`` of a pair ``(me, d)`` and receive from
         ``s`` of the pair ``(s, me)``; a rank that receives nothing gets
-        zeros, as ``ppermute`` gives.  A rank with no op issues none."""
+        zeros, as ``ppermute`` gives.  A rank with no op issues none.  The
+        messages are issued and not waited on: a stage waits at its finish
+        (:func:`landed`), so on NCCL the compute stream runs on (the next
+        backward segment) while they are in flight."""
         to, frm = _peers(self._rank, tuple(pairs))
         fmt = torch.contiguous_format
         recv = (torch.empty_like(x, memory_format=fmt) if frm is not None
@@ -127,10 +161,7 @@ class DeviceBackend:
         ops = [dist.P2POp(dist.isend, send, self._global[d], self.group) for d in to]
         if frm is not None:
             ops.append(dist.P2POp(dist.irecv, recv, self._global[frm], self.group))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        return recv
+        return InFlight(recv, dist.batch_isend_irecv(ops) if ops else (), send)
 
     def where(self, mask, a, b, out=None):
         """``a`` where the host-known ``mask`` holds, else ``b``: picks a

@@ -46,7 +46,7 @@ from torch.profiler import record_function
 
 from repro_torch.collectives import buckets as B
 from repro_torch.collectives import transforms as T
-from repro_torch.collectives.executors import make_backend, resolve_op
+from repro_torch.collectives.executors import landed, make_backend, resolve_op
 from repro_torch.collectives.schedules import Phase, Stage, get_schedule, pivot
 
 # ---------------------------------------------------------------------------
@@ -60,7 +60,8 @@ from repro_torch.collectives.schedules import Phase, Stage, get_schedule, pivot
 def _stage_start(x, st: Stage, be, tf):
     """Issue the stage's communication; returns the in-flight context.
     Reducing stages send ``tf.encode``-ed payloads; copy stages
-    (``fshift``/``ag``) move raw buffers."""
+    (``fshift``/``ag``) move raw buffers.  A device backend's messages are
+    waited on at the stage's finish (:func:`executors.landed`), not here."""
     if st.kind in ("bshift", "butterfly"):
         return x, tuple(be.permute(leaf, st.pairs) for leaf in tf.encode(x, be))
     if st.kind in ("fshift", "ag"):
@@ -82,6 +83,7 @@ def _stage_finish(ctx, st: Stage, be, p: int, op: Callable, tf):
     reducing stage keeps its buffer and computes nothing."""
     p0, _, extra = pivot(p)
     x, recv = ctx
+    recv = landed(recv)
     r = be.rank(x.device)
     if st.kind in ("bshift", "butterfly", "rs"):
         pred = (r < extra) if st.kind == "bshift" else (r < p0)
@@ -454,6 +456,9 @@ class BucketPipeline:
     - :meth:`admit` enters a bucket and issues its first stage;
     - :meth:`advance` moves every in-flight bucket forward one stage
       (finish the received payload, issue the next stage);
+      a stage's messages are waited on only at its finish, so on a
+      device what runs between two calls (a backward segment) runs while
+      they are in flight;
     - :meth:`drain` runs all remaining stages stage-major and returns the
       finished buffers.
 
@@ -494,12 +499,17 @@ class BucketPipeline:
         """Advance every in-flight bucket by one stage (admission order)."""
         for key in list(self._inflight):
             i, ctx = self._inflight[key]
+            # the finished stage's context is released before the next
+            # stage starts, as run_buffers releases it
+            self._inflight[key] = None
             buf = self._finish(ctx, i)
+            del ctx
             if i + 1 < len(self.table):
                 self._inflight[key] = (i + 1, self._start(buf, i + 1))
             else:
                 del self._inflight[key]
                 self._done[key] = buf
+            del buf
 
     def drain(self) -> dict:
         """Run all remaining stages stage-major; returns {key: buffer} and

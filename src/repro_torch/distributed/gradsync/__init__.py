@@ -23,12 +23,15 @@ batch) -> (state, metrics)`` and ``train_step.init_state(generator)``.
 
 Every family trains under every mode, in either layout of the ranks
 (``gradsync.common``): stacked rows on one device (``mesh=None``, the
-``sim`` executor), or a world of one process a rank over the ``"data"``
-dimension of a ``torch.distributed`` :class:`DeviceMesh` (the ``device``
-and ``device_fused`` executors); ``gspmd`` also over a ``("data",
-"model")`` mesh.  The MRD modes at ``tp > 1`` (ROADMAP 6.3b), the
-overlap path and the elastic resize hooks are not ported yet (ROADMAP
-queue 1, items 6.4 and 7).
+``sim`` executor), or a world of one process a rank over a
+``torch.distributed`` :class:`DeviceMesh` (the ``device`` and
+``device_fused`` executors): ``("data",)``, or ``("data", "model")``
+with tensor parallelism, where an MRD mode's rank holds its TP blocks,
+buckets its local gradients and runs its plans over its ``"data"``
+column (``common.ModelRanks``).  ``tcfg.overlap`` sends each gradient
+bucket through its plan as its backward segment completes
+(``gradsync.overlap``).  The elastic resize hooks are not ported yet
+(ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations

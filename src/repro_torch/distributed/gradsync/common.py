@@ -28,6 +28,7 @@ of it bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional
 
@@ -63,9 +64,138 @@ class TrainConfig:
     collective_executor: Optional[str] = None
     # cap on each dtype-homogeneous gradient bucket; None = one bucket
     bucket_bytes: Optional[int] = 32 * 2**20
+    # ready-bucket overlap (gradsync.overlap): issue each gradient bucket's
+    # MRD stages as its backward segment completes instead of after the
+    # whole backward; the same buffers bit for bit.  Honored by the
+    # gradient-scale modes (mrd_paper, mrd_zero1, compressed, mrd_leaf);
+    # gspmd and local_sgd have no bucketed gradient path and ignore it.
+    overlap: bool = False
 
 
 DATA = "data"  # the mesh dimension of the data-parallel ranks
+
+
+@dataclasses.dataclass
+class ModelRanks:
+    """The ``"model"`` side of an MRD world at ``tp`` > 1 (a ``("data",
+    "model")`` mesh, one process a coordinate): every process holds its
+    TP-local block of every leaf, the blocks a ``gspmd`` step's
+    :class:`~repro_torch.distributed.sharding.Placer` gives it under
+    ``make_rules(cfg, mesh, fsdp=False)`` (the reference's
+    ``make_zero1``: no FSDP, experts replicated over ``"data"``), runs
+    the model under the rules' :meth:`manual_region` (TP live, every
+    batch statistic its own) and its gradient plans over its ``"data"``
+    column.  A leaf replicated over ``"model"`` has the same values and
+    the same gradient on every model rank; a sharded one a block a
+    rank."""
+
+    cfg: Any
+    mesh: Any
+
+    def __post_init__(self):
+        from repro_torch.distributed import sharding as shd
+
+        self.rules = shd.make_rules(self.cfg, self.mesh, fsdp=False)
+        self.coords = shd.mesh_coords(self.mesh)
+        self.sizes = dict(self.rules.sizes)
+        self.axis = shd.ShardingContext(self.cfg, self.rules, self.mesh).axis(shd.MODEL)
+        self.rank = self.axis.rank
+        self.specs = shd.param_specs(self.cfg, self.rules, transformer.param_shapes(self.cfg))
+        self.replicated = replicated_leaves(self.specs)
+
+    def region(self):
+        """The model's sharding context of a step: TP over ``"model"``,
+        no DP axes."""
+        from repro_torch.distributed import sharding as shd
+
+        return shd.sharding_ctx(self.cfg, self.rules.manual_region(), self.mesh)
+
+    def placer(self):
+        """``init_params``'s ``place``: this coordinate's blocks."""
+        from repro_torch.distributed import sharding as shd
+
+        return shd.Placer(self.cfg, self.rules, self.coords)
+
+    def blocks(self, tree: dict) -> dict:
+        """This coordinate's blocks (contiguous copies) of a tree of whole
+        leaves in the params' nesting."""
+        from repro_torch.distributed import sharding as shd
+
+        def walk(node, spec):
+            return {k: walk(v, spec[k]) if isinstance(v, dict) else
+                    shd.local_shard(v, spec[k], self.coords, self.sizes).contiguous().clone()
+                    for k, v in node.items()}
+
+        return walk(tree, self.specs)
+
+    def weight(self, replicated: bool) -> bool:
+        """Does this rank count a leaf's elements in a global sum (a
+        replicated leaf's on model rank 0 only)?"""
+        return not replicated or self.rank == 0
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The model ranks' sum of the 0-d fp32 ``x``, the same bits on
+        every rank: the values are all-gathered and added in rank order."""
+        from repro_torch.distributed import sharding as shd
+
+        out = shd._all_gather(x.reshape(1), 0, self.axis)
+        total = out[0]
+        for i in range(1, self.axis.size):
+            total = total + out[i]
+        return total
+
+    def sum_squares(self, squares: list) -> torch.Tensor:
+        """``clip_by_global_norm_``'s ``sum_squares`` over this rank's
+        leaves (the reference's flatten order): each global element's
+        square counted once, in the leaves' order, then over the model
+        ranks."""
+        sq = squares[0].new_zeros(())
+        for s, rep in zip(squares, self.replicated):
+            if self.weight(rep):
+                sq = sq + s
+        return self.sum(sq)
+
+
+def replicated_leaves(specs: dict) -> list:
+    """For each leaf of a param spec tree (the port's nesting), in the
+    reference's flatten order: is it replicated over ``"model"``?"""
+    from repro_torch.distributed.sharding import MODEL, sharded_axes
+
+    return [MODEL not in sharded_axes(s) for s in reference_leaves(specs)]
+
+
+def model_ranks(cfg, mesh) -> Optional[ModelRanks]:
+    """:class:`ModelRanks` of a world whose mesh has a ``"model"``
+    dimension of more than one rank, else None (stacked rows, a
+    ``("data",)`` world)."""
+    from repro_torch.distributed.sharding import MODEL
+
+    if mesh is None or MODEL not in (mesh.mesh_dim_names or ()):
+        return None
+    if mesh.size(mesh.mesh_dim_names.index(MODEL)) == 1:
+        return None
+    return ModelRanks(cfg, mesh)
+
+
+def monitor_row(monitor, rank: int):
+    """Row ``rank`` of a stacked monitor state's ``[dp]`` rows (a world
+    rank's own state)."""
+    if isinstance(monitor, dict):
+        return {k: monitor_row(v, rank) for k, v in monitor.items()}
+    return monitor[rank].clone() if isinstance(monitor, torch.Tensor) else monitor
+
+
+def model_region(tp: Optional[ModelRanks]):
+    """The model's sharding context of a step (:meth:`ModelRanks.region`),
+    or none without TP."""
+    return contextlib.nullcontext() if tp is None else tp.region()
+
+
+def init_params(cfg, generator, device, tp: Optional[ModelRanks]):
+    """Random params from ``generator``: whole, or at ``tp`` > 1 this
+    coordinate's blocks (the same numbers as the whole init's)."""
+    place = {} if tp is None else {"place": tp.placer()}
+    return transformer.init_params(cfg, generator, device, **place)
 
 
 def resolve_executor(tcfg: TrainConfig, *, compressed: bool = False, mesh=None,
@@ -133,11 +263,7 @@ def microbatched_grads(params, batch, cfg, remat: str, microbatches: int):
     p_req = tree_unflatten(treedef, req)
 
     def one(mb):
-        with torch.enable_grad():
-            loss, metrics = transformer.forward_train(p_req, mb, cfg, remat)
-            grads = torch.autograd.grad(loss, req, allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, req)]
-        return grads, loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        return one_microbatch(p_req, req, mb, cfg, remat)
 
     if microbatches == 1:
         grads, loss, metrics = one(batch)
@@ -158,6 +284,17 @@ def microbatched_grads(params, batch, cfg, remat: str, microbatches: int):
     div = acc[0].new_full((), float(microbatches))  # true division on the card too
     acc = [a / div for a in acc]
     return tree_unflatten(treedef, acc), loss_sum / div, metrics
+
+
+def one_microbatch(p_req, req: list, mb, cfg, remat: str):
+    """(gradients of ``req`` in its order, loss, metrics) of one
+    microbatch ``mb`` on the params ``p_req`` whose leaves ``req`` require
+    grad; a leaf the loss does not read gets zeros."""
+    with torch.enable_grad():
+        loss, metrics = transformer.forward_train(p_req, mb, cfg, remat)
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, req)]
+    return grads, loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
 
 def batch_size(batch) -> int:

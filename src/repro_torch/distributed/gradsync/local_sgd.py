@@ -22,7 +22,12 @@ In a world (one process a rank over a mesh) each rank holds its own
 replica, its params and optimizer trees unstacked; the average runs the
 same ``rabenseifner`` allreduce over the mesh in the same pieces, and the
 logged loss and grad norm, the replicas' means, are gathered by the
-paper's MRD allreduce.
+paper's MRD allreduce.  At ``tp`` > 1 (a ``("data", "model")`` mesh) a
+replica is sharded over its model column (``common.ModelRanks``): each
+coordinate holds its blocks, its replica's grad norm counts each global
+element once, and the average runs over its ``"data"`` column.
+``tcfg.overlap`` is a no-op here, as in the reference: no gradient
+crosses the ranks.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ class LocalSGDStep:
     def __post_init__(self):
         self.every = max(self.tcfg.local_sync_every, 1)
         self.rank = common.check_world(self.dp, self.mesh)
+        self.tp = common.model_ranks(self.cfg, self.mesh)
         self.executor = common.resolve_executor(self.tcfg, mesh=self.mesh, device=self.device)
         bind = common.plan_binding(self.dp, self.mesh)
         self.avg_plan = plans.allreduce_plan(schedule="rabenseifner", executor=self.executor,
@@ -77,7 +83,7 @@ class LocalSGDStep:
         world rank: its replica), and the optimizer trees of the
         replicas."""
         if self.rank is not None:
-            params = transformer.init_params(self.cfg, generator, self.device)
+            params = common.init_params(self.cfg, generator, self.device, self.tp)
             return {"params": params, "opt": opt_lib.init_opt_state(params), "step": 0}
 
         def rep(tree):
@@ -105,13 +111,17 @@ class LocalSGDStep:
         losses, gnorms, auxes = [], [], []
         for i, local in enumerate(common.local_shards(batch, self.dp, self.rank)):
             p_i = _replica(params, i, self.rank)
-            grads, loss, met = common.microbatched_grads(p_i, local, self.cfg, self.tcfg.remat,
-                                                         self.tcfg.microbatches)
+            with common.model_region(self.tp):
+                grads, loss, met = common.microbatched_grads(p_i, local, self.cfg,
+                                                             self.tcfg.remat,
+                                                             self.tcfg.microbatches)
             if "aux_loss" in met:
                 auxes.append(met["aux_loss"])
             g = [t.float() for t in common.reference_leaves(grads)]
             del grads
-            gnorms.append(common.clip_by_global_norm_(g, self.tcfg.optimizer.grad_clip))
+            gnorms.append(common.clip_by_global_norm_(
+                g, self.tcfg.optimizer.grad_clip,
+                sum_squares=None if self.tp is None else self.tp.sum_squares))
             leaves = {k: common.reference_leaves(_replica(v, i, self.rank))
                       for k, v in opt.items()}
             new = opt_lib.apply_update_tree_(g, leaves, self.tcfg.optimizer, step, pdt)
@@ -128,6 +138,15 @@ class LocalSGDStep:
                                       {k: torch.stack(v) for k, v in means.items()},
                                       {"converged": zero.bool(), "monitor_value": zero})
         return {"params": params, "opt": opt, "step": step + 1}, metrics
+
+
+    def rank_state(self, state) -> dict:
+        """A coordinate's state from a stacked-layout one (``[dp, ...]``
+        replica rows of whole leaves): its blocks of its data rank's
+        replica."""
+        return {k: self.tp.blocks(_replica(v, self.rank, None)) if k == "params" else
+                {n: self.tp.blocks(_replica(t, self.rank, None)) for n, t in v.items()}
+                if k == "opt" else v for k, v in state.items()}
 
 
 @register("local_sgd")

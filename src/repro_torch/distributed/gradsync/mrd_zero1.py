@@ -31,6 +31,25 @@ were, and it still takes part in every stage of the scalar allreduce and
 the all-gather, whose forward shift hands it the params; the sim, as the
 reference, runs the update on that row's stale values, which nothing
 reads.  Each rank keeps its own gathered buffers.
+
+At ``tp`` > 1 (a ``("data", "model")`` mesh, ``common.ModelRanks``) a
+rank holds its TP blocks of every leaf (``make_rules(fsdp=False)``, the
+reference's ``make_zero1``), runs the model in the rules' manual region,
+and packs its *local* gradients into buckets: 1/tp of the bytes a rank
+moves.  Its plans run over its ``"data"`` column, and its rows are its
+owned segments of its local layout: 1/(p0 tp) of the whole.  The leaves
+replicated over ``"model"`` (norms, biases, unsharded heads) get buckets
+of their own (``zero1_layout``'s ``groups``), so no int8 block mixes them
+with a sharded leaf: every model column quantizes them alike, and they
+stay bit-equal across the model ranks.  The grad norm counts each global
+element once (a replicated bucket on model rank 0 only), summed over the
+column by the plan, then over the model ranks in rank order.
+:meth:`Zero1Step.rank_state` maps the reference's rows over the flat
+layout of the whole params onto a coordinate's (:func:`global_leaves`).
+
+With ``tcfg.overlap`` the backward runs in segments and each bucket
+enters the gradient plan's pipeline as its segment completes
+(``gradsync.overlap``): the same buffers bit for bit.
 """
 
 from __future__ import annotations
@@ -45,6 +64,7 @@ from repro_torch.collectives import transforms as tf_lib
 from repro_torch.collectives.schedules import pivot
 from repro_torch.device import resolve_device
 from repro_torch.distributed.gradsync import common, register
+from repro_torch.distributed.gradsync import overlap as overlap_lib
 from repro_torch.distributed.gradsync.common import TrainConfig
 from repro_torch.models import convert, transformer
 from repro_torch.models.config import ModelConfig
@@ -60,16 +80,18 @@ def zero1_prod_p0(dp: int) -> int:
 
 
 def zero1_layout(params, dp: int, *, bucket_bytes: Optional[int] = buckets.DEFAULT_BUCKET_BYTES,
-                 block: int = BLOCK) -> tuple[buckets.BucketLayout, int]:
+                 block: int = BLOCK, groups=None) -> tuple[buckets.BucketLayout, int]:
     """(bucket layout, prod_p0) of the bucketed reduce-scatter over ``dp``
     ranks: the fp32 view of ``params`` in the reference's leaf order, every
     bucket padded to ``prod_p0 * block`` so the halving divides evenly and
     int8 blocks stay aligned.  Master/moment rows concatenate each
     bucket's owned segment: shard length ``layout.total_padded /
-    prod_p0``."""
+    prod_p0``.  ``groups`` (a label a leaf: at ``tp`` > 1 whether it is
+    replicated over ``"model"``) keeps leaves of different labels in
+    different buckets (``buckets.build_layout``)."""
     prod_p0 = zero1_prod_p0(dp)
     layout = buckets.build_layout(convert.reference_tree(params), bucket_bytes=bucket_bytes,
-                                  quantum=prod_p0 * block, dtype=torch.float32)
+                                  quantum=prod_p0 * block, dtype=torch.float32, groups=groups)
     return layout, prod_p0
 
 
@@ -82,10 +104,11 @@ def zero1_owner_segments(dp: int) -> list:
 
 def zero1_master_row(params, dp: int, rank: int, *,
                      bucket_bytes: Optional[int] = buckets.DEFAULT_BUCKET_BYTES,
-                     paper_mode: bool = False) -> torch.Tensor:
+                     paper_mode: bool = False, groups=None) -> torch.Tensor:
     """Row ``rank`` of :func:`zero1_masters_from_params`, without the other
-    rows."""
-    layout, prod_p0 = zero1_layout(params, dp, bucket_bytes=bucket_bytes)
+    rows (``paper_mode``: the whole padded vector; ``groups``: see
+    :func:`zero1_layout`)."""
+    layout, prod_p0 = zero1_layout(params, dp, bucket_bytes=bucket_bytes, groups=groups)
     bufs = buckets.pack(convert.reference_tree(params), layout)
     if paper_mode:
         return torch.cat(bufs)
@@ -111,6 +134,36 @@ def zero1_masters_from_params(params, dp: int, *,
     return torch.stack(rows)
 
 
+def zero1_gather_buckets(rows: torch.Tensor, layout: buckets.BucketLayout, dp: int) -> list:
+    """The whole per-bucket buffers of owner-sharded ``[dp, m]`` rows (a
+    pivot rank's row concatenates its segment of every bucket): the
+    inverse of the scatter in :func:`zero1_masters_from_params`, the
+    reference's ``zero1_gather_buckets``."""
+    prod_p0 = zero1_prod_p0(dp)
+    rank_of = {seg: r for r, seg in enumerate(zero1_owner_segments(dp)) if seg is not None}
+    bufs, off = [], 0
+    for blen in layout.bucket_lengths:
+        seg = blen // prod_p0
+        bufs.append(torch.cat([rows[rank_of[s], off:off + seg] for s in range(prod_p0)]))
+        off += seg
+    return bufs
+
+
+def global_leaves(cfg: ModelConfig, vec: torch.Tensor, dp: int, *,
+                  bucket_bytes: Optional[int] = buckets.DEFAULT_BUCKET_BYTES,
+                  full: bool = False) -> dict:
+    """The fp32 leaves (the port's tree of the whole params' shapes) that
+    the reference's rows over its flat layout of the whole params hold:
+    ``[dp, m]`` owner rows, or with ``full`` one whole padded vector
+    ``[n]`` (an ``mrd_paper`` row, a rank's EF residual)."""
+    layout, _ = zero1_layout(transformer.param_shapes(cfg), dp, bucket_bytes=bucket_bytes)
+    if full:
+        bufs = list(torch.split(vec, layout.bucket_lengths))
+    else:
+        bufs = zero1_gather_buckets(vec, layout, dp)
+    return convert.port_tree(buckets.unpack(bufs, layout))
+
+
 @dataclasses.dataclass
 class Zero1Step:
     """``(state, batch) -> (state, metrics)`` of one ZeRO-1 train step
@@ -128,6 +181,8 @@ class Zero1Step:
 
     def __post_init__(self):
         self.rank = common.check_world(self.dp, self.mesh)
+        self.tp = common.model_ranks(self.cfg, self.mesh)
+        self.groups = None if self.tp is None else self.tp.replicated
         self.monitor = common.build_monitor(self.tcfg, self.dp, self.mesh)
         self.use_ef = self.tcfg.error_feedback and self.transform != "identity"
         executor = common.resolve_executor(self.tcfg, compressed=self.transform != "identity",
@@ -158,18 +213,20 @@ class Zero1Step:
         self.updates = [self.rank is None or o for o in owners]
 
     def _layout(self, params):
-        return zero1_layout(params, self.dp, bucket_bytes=self.tcfg.bucket_bytes)
+        return zero1_layout(params, self.dp, bucket_bytes=self.tcfg.bucket_bytes,
+                            groups=self.groups)
 
     def init_state(self, generator: torch.Generator):
-        """Random params from ``generator`` (on the step's device), master
-        rows from them, zero moments and EF residuals, a fresh monitor."""
-        params = transformer.init_params(self.cfg, generator, self.device)
+        """Random params from ``generator`` (on the step's device; at ``tp``
+        > 1 this coordinate's blocks), master rows from them, zero moments
+        and EF residuals, a fresh monitor."""
+        params = common.init_params(self.cfg, generator, self.device, self.tp)
         layout, _ = self._layout(params)
         kw = dict(bucket_bytes=self.tcfg.bucket_bytes, paper_mode=self.paper_mode)
         if self.rank is None:
             masters = zero1_masters_from_params(params, self.dp, **kw)
         else:
-            masters = zero1_master_row(params, self.dp, self.rank, **kw)
+            masters = zero1_master_row(params, self.dp, self.rank, groups=self.groups, **kw)
         opt = {"master": masters, "mu": torch.zeros_like(masters), "nu": torch.zeros_like(masters)}
         if self.use_ef:
             rows = () if self.rank is not None else (self.dp,)
@@ -184,30 +241,50 @@ class Zero1Step:
         params, opt, step = state["params"], state["opt"], state["step"]
         layout, _ = self._layout(params)
         aux = {}
-        bufs, loss, metric = common.grad_buckets(params, batch, self.cfg, self.tcfg, self.dp,
-                                                 layout, self.rank, aux)
+        wire = None
         if self.use_ef:
             # EF-SGD: send the grid round trip of (grad + residual) and
             # carry what the quantizer dropped into the next step
-            for i, ef in enumerate(torch.split(opt["ef"], layout.bucket_lengths, dim=-1)):
-                bufs[i] = tf_lib.ef_roundtrip_(bufs[i], ef)
-        # the paper's full-bucket butterfly allreduce (mrd_paper) or the
-        # recursive-halving reduce-scatter: one stage-major pass over all
-        # buckets (run_buffers consumes the list, freeing each bucket early)
-        red = self.grad_plan.run_buffers(bufs)
+            efs = torch.split(opt["ef"], layout.bucket_lengths, dim=-1)
+
+            def wire(i, buf):
+                return tf_lib.ef_roundtrip_(buf, efs[i])
+        with common.model_region(self.tp):
+            if self.tcfg.overlap:
+                # the segmented backward feeding each ready bucket into the
+                # plan's stage pipeline: the same buffers bit for bit
+                red, loss, metric = overlap_lib.reduced_buckets(
+                    params, batch, self.cfg, self.tcfg, self.dp, layout, self.rank,
+                    self.grad_plan, aux, wire)
+            else:
+                bufs, loss, metric = common.grad_buckets(params, batch, self.cfg, self.tcfg,
+                                                         self.dp, layout, self.rank, aux)
+                if wire is not None:  # each bucket's fp32 input freed as it goes
+                    for i in range(len(bufs)):
+                        bufs[i] = wire(i, bufs[i])
+                # the paper's full-bucket butterfly allreduce (mrd_paper) or
+                # the recursive-halving reduce-scatter: one stage-major pass
+                # over all buckets (run_buffers consumes the list, freeing
+                # each bucket early)
+                red = self.grad_plan.run_buffers(bufs)
         seg_lens = [r.shape[-1] for r in red]
         # a tensor divisor: CUDA's division by a Python number multiplies
         # by its reciprocal (not bit-equal to the reference's division)
         gshard = torch.cat(red, dim=-1).div_(torch.tensor(float(self.dp), device=self.device))
         del red
         g_rows = common.rows(gshard, self.rank)
-        sq = torch.stack([torch.dot(g, g) for g in g_rows])
+        if self.tp is None:
+            sq = torch.stack([torch.dot(g, g) for g in g_rows])
+        else:
+            sq = self._squares(gshard, layout, seg_lens)
         if self.paper_mode:
-            gnorm = torch.sqrt(sq)
+            gnorm = torch.sqrt(sq if self.tp is None else self.tp.sum(sq).reshape(1))
         else:
             # global grad norm via the paper's MRD allreduce of the owners'
-            # squared norms (a non-pivot rank holds no segment)
-            gnorm = torch.sqrt(self.scalar_ar.run(torch.where(self.owns, sq, 0.0)))
+            # squared norms (a non-pivot rank holds no segment), then, at
+            # tp > 1, over the model ranks
+            sq = self.scalar_ar.run(torch.where(self.owns, sq, 0.0))
+            gnorm = torch.sqrt(sq if self.tp is None else self.tp.sum(sq).reshape(1))
         ocfg = self.tcfg.optimizer
         if ocfg.grad_clip > 0:
             clip = torch.full_like(gnorm, ocfg.grad_clip)  # true division, as above
@@ -251,6 +328,38 @@ class Zero1Step:
         return new_state, common.step_metrics(
             self.scalar_ar, self.rank, self.dp, {"loss": loss, **aux},
             {"grad_norm": gnorm, "converged": done, "monitor_value": val})
+
+    def _squares(self, g: torch.Tensor, layout, seg_lens: list) -> torch.Tensor:
+        """[1]: this coordinate's sum of squares of its segment ``g`` that
+        counts each global element once: a bucket of leaves replicated over
+        ``"model"`` (at ``tp`` > 1 every bucket holds one kind) on model
+        rank 0 only."""
+        sq, a = g.new_zeros(()), 0
+        for b, n in zip(layout.buckets, seg_lens):
+            if self.tp.weight(self.groups[b.slots[0].index]):
+                sq = sq + torch.dot(g[a:a + n], g[a:a + n])
+            a += n
+        return sq.reshape(1)
+
+    def rank_state(self, state) -> dict:
+        """A coordinate's state from a stacked-layout one whose rows lie over
+        the flat layout of the whole params (the reference's at a ``("data",
+        "model")`` mesh, through ``convert.train_state_from_reference``):
+        its blocks of the params, its rows of the optimizer over its local
+        layout (:func:`global_leaves`, then its blocks' owned segments:
+        zeros where it owns no segment) and its row of the monitor."""
+        kw = dict(bucket_bytes=self.tcfg.bucket_bytes)
+        opt = {}
+        for k, v in state["opt"].items():
+            full = self.paper_mode or k == "ef"
+            tree = global_leaves(self.cfg, v[self.rank] if full else v, self.dp, full=full, **kw)
+            # the coordinate's blocks of the whole leaves, in its local layout
+            opt[k] = zero1_master_row(self.tp.blocks(tree), self.dp, self.rank, paper_mode=full,
+                                      groups=self.groups, **kw)
+        out = {"params": self.tp.blocks(state["params"]), "opt": opt, "step": state["step"]}
+        if "monitor" in state:
+            out["monitor"] = common.monitor_row(state["monitor"], self.rank)
+        return out
 
 
 def make_zero1(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda", mesh=None,

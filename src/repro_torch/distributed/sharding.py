@@ -434,9 +434,13 @@ def tp_axis() -> Optional[Axis]:
 
 
 def data_axis() -> Optional[Axis]:
-    """The ``"data"`` axis of the active world, or None."""
+    """The ``"data"`` axis of the active world, or None: also None where
+    the rules have no DP axes (:meth:`ShardingRules.manual_region`, the
+    MRD grad-sync modes' model region), whose code runs on its own data
+    shard, so the token count and the moe routing shares are the rank's
+    own statistics and no tokens cross the data ranks."""
     ctx = active()
-    return None if ctx is None else ctx.axis(DATA)
+    return None if ctx is None or not ctx.rules.dp_axes else ctx.axis(DATA)
 
 
 def tp_dim(dim: int) -> bool:

@@ -23,8 +23,15 @@ train state and the data cursor, at the same ``--dp`` and ``--tp``), then runs
 ``--steps`` more steps; it snapshots the state whenever ``--ckpt-every``
 steps of this run, or ``--ckpt-every-seconds``, have passed (an async
 save: the loop goes on while the writer writes), and once more, blocking,
-at the end.  The reference's elastic runtime, overlap and telemetry are
-not ported yet.
+at the end.  The reference's elastic runtime and telemetry are not ported
+yet.
+
+``--overlap`` (the gradient-scale modes ``mrd_paper``, ``mrd_zero1``,
+``compressed`` and ``mrd_leaf``) runs the backward in three segments
+(head, layer stack, embeddings) and sends each gradient bucket through
+its plan as soon as its segment is done (``gradsync.overlap``): the same
+buffers, params and optimizer state as ``--no-overlap`` (the default),
+bit for bit; ``gspmd`` and ``local_sgd`` ignore it.
 
 ``--grad-sync`` defaults to ``gspmd``, as the reference's: params and
 optimizer state placed by ``distributed.sharding`` (FSDP over the data
@@ -39,16 +46,22 @@ of ``(--dp, --tp)`` when ``--tp`` > 1, else ``("data",)``; NCCL with card
 must equal the world size.  Each rank holds its own state and the batch
 shard of its ``"data"`` coordinate.  The MRD modes run their gradient
 plans on the ``device`` executor (``device_fused`` for ``compressed`` on
-the card, whose int8 combine is the ``mrd_combine`` kernel) over
-``("data",)`` only: ``--tp`` > 1 with an MRD mode exits (ROADMAP 6.3b).
-Rank 0 logs.  An MRD world's ranks each write their part of a
-checkpoint; a ``gspmd`` world's are gathered leaf by leaf to rank 0,
-which writes the global leaves.
+the card, whose int8 combine is the ``mrd_combine`` kernel) over the
+rank's ``"data"`` column; at ``--tp`` > 1 each rank holds its TP blocks
+of every leaf and runs the model's tensor-parallel collectives over its
+``"model"`` row (``gradsync.common.ModelRanks``).  Rank 0 logs.  An MRD
+world's ranks each write their part of a checkpoint (at ``--tp`` > 1
+every part of a rank's state is its own: its blocks of the params and
+its optimizer rows); a ``gspmd`` world's are gathered leaf by leaf to
+rank 0, which writes the global leaves.
 
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch llama3.2-1b --steps 4 --batch 8 --seq 1024 --dp 4 --grad-sync compressed
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch llama3.2-1b --steps 4 --batch 4 --seq 1024 --dp 2 --tp 2
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch llama3.2-1b --steps 4 --batch 4 --seq 1024 --dp 2 --tp 2 \\
+      --grad-sync compressed --overlap
 """
 
 from __future__ import annotations
@@ -91,8 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="data-parallel ranks: rows of stacked tensors on one device, or under "
                          "torch.distributed.run the world size (one process a rank)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel model ranks of a world (gspmd): the mesh is "
-                         "(--dp, --tp) over ('data', 'model')")
+                    help="tensor-parallel model ranks of a world (any --grad-sync): the mesh "
+                         "is (--dp, --tp) over ('data', 'model')")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "lion", "sgd"])
     ap.add_argument("--grad-sync", default="gspmd", choices=step_lib.available_grad_sync())
@@ -105,6 +118,13 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["inexact", "exact", "interval"])
     ap.add_argument("--no-error-feedback", action="store_true",
                     help="disable the EF-SGD residual carry of the 'compressed' mode")
+    ap.add_argument("--overlap", action="store_true", default=False,
+                    help="ready-bucket grad-sync overlap: issue each gradient bucket's MRD "
+                         "stages as its backward segment completes; bit-identical to the "
+                         "post-backward path (mrd_paper, mrd_zero1, compressed, mrd_leaf; "
+                         "gspmd and local_sgd ignore it)")
+    ap.add_argument("--no-overlap", dest="overlap", action="store_false",
+                    help="post-backward bucketed grad sync (the default)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--bucket-bytes", type=int, default=32 * 2**20,
@@ -195,6 +215,7 @@ def make(args: argparse.Namespace, device=None, mesh=None):
         monitor_mode=args.monitor_mode,
         monitor_threshold=args.monitor_threshold,
         error_feedback=not args.no_error_feedback,
+        overlap=getattr(args, "overlap", False),
         bucket_bytes=args.bucket_bytes or None,
         optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr, schedule=args.schedule,
                                   warmup_steps=min(20, args.steps // 10),
@@ -208,11 +229,17 @@ def make(args: argparse.Namespace, device=None, mesh=None):
     return device, cfg, train_step, pipe
 
 
-def to_reference(state, ck: Checkpointer, grad_sync: str) -> tuple:
+def to_reference(state, ck: Checkpointer, grad_sync: str, tp: int = 1) -> tuple:
     """(the state as the reference nests it, the parts of it that are this
-    rank's rows): a world rank's own part, or the stacked rows whole."""
+    rank's rows): a world rank's own part, or the stacked rows whole.  At
+    ``tp`` > 1 every part but the step is the rank's own (its blocks of
+    the params and its optimizer rows over its local layout), saved as
+    its row of ``[dp x tp, ...]`` leaves."""
     if ck.world:
-        return convert.rank_state_to_reference(state, replica=grad_sync == "local_sgd")
+        tree, rows = convert.rank_state_to_reference(state, replica=grad_sync == "local_sgd")
+        if tp > 1:
+            rows = tuple(k for k in tree if k != "step")
+        return tree, rows
     return convert.train_state_to_reference(state), ()
 
 
@@ -326,9 +353,9 @@ def resume(ck: Checkpointer, state, cfg, pipe, dp: int, device, grad_sync: str,
         state = restore_global(ck, step0, train_step, cfg, device)
         pipe.load_state_dict(ck.manifest(step0)["extra"]["data"])
         return state, step0
-    template, rows = to_reference(state, ck, grad_sync)
+    template, rows = to_reference(state, ck, grad_sync, tp)
     if ck.world:
-        restored = ck.restore_rank(step0, template, rows, "cpu")
+        restored = ck.restore_rank(step0, template, rows, "cpu", dp=dp)
         del template, state
         state = convert.rank_state_from_reference(restored, cfg, device)
     else:
@@ -347,8 +374,10 @@ def profile_step(run, device) -> dict:
     included), the device ms of the kernels launched inside the plans,
     the device ms of every NCCL kernel (the step's collectives: a
     ``gspmd`` step's DP and TP reductions, gathers and all-to-alls) and
-    its share of the busy time, and ``mrd_combine``'s device ms and
-    launches."""
+    its share of the busy time, the ms in which an NCCL kernel ran
+    while another kernel did (``collective_concurrent_ms``: the
+    collectives hidden behind compute, what ``--overlap`` is for), and
+    ``mrd_combine``'s device ms and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -369,11 +398,40 @@ def profile_step(run, device) -> dict:
         busy = sum(e.device_time_total for e in kernels) / 1e3
         plan_ms = sum(e.device_time_total for e in ranges) / 1e3
         nccl_ms = sum(e.device_time_total for e in kernels if "nccl" in e.name.lower()) / 1e3
+        nccl = [e for e in kernels if "nccl" in e.name.lower()]
+        other = [e for e in kernels if "nccl" not in e.name.lower()]
         out.update(busy_ms=busy, plan_ms=plan_ms, plan_share=plan_ms / busy if busy else None,
                    collective_ms=nccl_ms, collective_share=nccl_ms / busy if busy else None,
+                   collective_concurrent_ms=_overlap_us(nccl, other) / 1e3,
                    mrd_combine_ms=sum(e.device_time_total for e in combine) / 1e3,
                    mrd_combine_launches=len(combine))
     return out
+
+
+def _merged(events) -> list:
+    """The union of the events' device time ranges, as sorted disjoint
+    (start, end) pairs in us."""
+    out: list = []
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap_us(xs, ys) -> float:
+    """The us in which an event of ``xs`` and one of ``ys`` both ran."""
+    a, b = _merged(xs), _merged(ys)
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
 
 
 DIGEST_PIECE = 1 << 24  # 32-bit words a piece of the digest
@@ -415,10 +473,6 @@ def main(argv=None) -> dict:
     (``ckpt_saves``: step, wait_s, hold_s, write_s, bytes) and the final
     ``state``."""
     args = build_parser().parse_args(argv)
-    if args.tp > 1 and args.grad_sync != "gspmd":
-        raise SystemExit(f"--tp {args.tp} with --grad-sync {args.grad_sync}: the MRD modes run "
-                         f"over the data ranks alone for now (ROADMAP 6.3b); use --grad-sync "
-                         f"gspmd")
     env = world_env()
     if env is None:
         if args.tp > 1:
@@ -465,7 +519,7 @@ def train(args, device=None, mesh=None) -> dict:
                  "grad_sync": args.grad_sync}
         if global_leaves:
             return save_global(ck, state, train_step, extra)
-        tree, rows = to_reference(state, ck, args.grad_sync)
+        tree, rows = to_reference(state, ck, args.grad_sync, tp)
         ck.save(state["step"], tree, extra=extra, block=block, rows=rows)
 
     launches0 = mrd_combine.launches

@@ -40,7 +40,7 @@ prompt, routes them (``moe.moe_tokens``: nothing is dropped).
 
 Interfaces:
   init_params(cfg, generator, device)                         -> params
-  forward_train(params, batch, cfg, remat)                    -> (loss, metrics)
+  forward_train(params, batch, cfg, remat, boundary)          -> (loss, metrics)
                                       (remat: "none", "full" or "dots")
   init_cache(cfg, batch, max_len, device)                     -> cache
   forward_prefill(params, tokens, cfg)                        -> (logits, cache)
@@ -533,7 +533,7 @@ def _train_head(params, x, batch, cfg: ModelConfig, label_offset: int = 0):
     return loss, {"loss": total, "ntok": ntok, "per_example": per_example}
 
 
-def forward_train(params, batch, cfg: ModelConfig, remat: str = "none"):
+def forward_train(params, batch, cfg: ModelConfig, remat: str = "none", boundary=None):
     """Token loss of ``batch``: ``tokens``/``labels`` [B, S] (and
     ``patches`` [B, P, 1024] with the vision frontend: the labels are those
     of the tokens after the patches), or, for the audio encoder, ``frames``
@@ -544,17 +544,23 @@ def forward_train(params, batch, cfg: ModelConfig, remat: str = "none"):
     ``"dots"`` keeps only its weight products.  Returns (loss, metrics);
     for the moe family the loss is the token loss + 0.01 x the layers'
     summed aux loss (``metrics["loss"]`` the token loss,
-    ``metrics["aux_loss"]`` the aux), as the reference's."""
+    ``metrics["aux_loss"]`` the aux), as the reference's.
+
+    ``boundary(name, t) -> t``, where given, sees the stack's input
+    (``"x0"``), its output (``"x1"``) and the moe aux loss (``"aux"``), and
+    returns what the rest of the forward reads: the segmented backward
+    (``gradsync.overlap``) cuts the graph there."""
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r} not in {REMAT}")
+    bound = boundary or (lambda _, t: t)
     x, off = _train_inputs(params, batch, cfg)
     stats = {} if cfg.family == "moe" else None
-    x = _run_stack(params, x, cfg, remat=remat, stats=stats)
-    loss, metrics = _train_head(params, x, batch, cfg, off)
+    x = _run_stack(params, bound("x0", x), cfg, remat=remat, stats=stats)
+    loss, metrics = _train_head(params, bound("x1", x), batch, cfg, off)
     if stats is None:
         return loss, metrics
-    metrics["aux_loss"] = stats["aux"]
-    return loss + 0.01 * stats["aux"], metrics
+    metrics["aux_loss"] = aux = bound("aux", stats["aux"])
+    return loss + 0.01 * aux, metrics
 
 
 # ---------------------------------------------------------------------------

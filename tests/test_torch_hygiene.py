@@ -56,7 +56,8 @@ def _shell_python(path: Path) -> list:
     return out
 
 
-@pytest.mark.parametrize("name", ["tp_cards.sh", "tp_tick_profile.py", "tp_widen_ab.py"])
+@pytest.mark.parametrize("name", ["tp_cards.sh", "tp_tick_profile.py", "tp_widen_ab.py",
+                                  "mrd_tp_cards.sh"])
 def test_the_four_card_scripts_import_neither_jax_nor_the_reference(name, tmp_path):
     path = ROOT / "scripts" / name
     programs = [path.read_text()] if name.endswith(".py") else _shell_python(path)

@@ -21,6 +21,7 @@ the port alone.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import multiprocessing
 import time
@@ -201,7 +202,7 @@ def mismatched(mesh, rank: int, device) -> dict:
 
     be = executors.DeviceBackend("r", mesh)
     pairs = ((1 - rank, rank),)
-    return {"x": be.permute(torch.ones(4, device=device), pairs)}
+    return {"x": executors.landed(be.permute(torch.ones(4, device=device), pairs))}
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +482,174 @@ def gspmd_checkpoint(mesh, device, *, arch: str, tcfg, batches: list, directory:
     return out
 
 
+def mrd_tp_forced(mesh, rank, device, *, runs: dict, free: dict = None,
+                  ckpt: dict = None) -> dict:
+    """Teacher-forced MRD world steps over a ``("data", "model")`` mesh:
+    ``runs`` maps a tag to (arch, its TrainConfig, [(the stacked-layout
+    state before the step, the reference's state after it, both over the
+    whole params; the step's global batch), ...]).  Each step starts from
+    this coordinate's part of the state before (the step's
+    ``rank_state``) and runs its ``"data"`` shard of the batch; every rank
+    records under ``<tag>step<i>/`` its part of the state before
+    (``before``), the reference's state after mapped onto its part
+    (``want``), its own state after (``got``), the metrics, and under
+    ``compressed`` its fp32 gradient buckets at the state before
+    (``grad``, whole padded vector) and which buckets hold leaves
+    replicated over ``"model"`` (``<tag>replicated``).  ``free`` ({tag:
+    (arch, TrainConfig, [global batches])}) runs from the seed-0 init
+    and records, after the last step, the leaves replicated over
+    ``"model"`` and their EF residual (``<tag>free/``).  With ``ckpt``
+    the world also runs :func:`mrd_tp_checkpoint`."""
+    from repro_torch.collectives import buckets
+    from repro_torch.configs import registry
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.distributed.gradsync import common
+    from repro_torch.distributed.gradsync.common import rank_shards
+    from repro_torch.models import convert
+
+    dp = mesh.size(mesh.mesh_dim_names.index("data"))
+    r = mesh.get_local_rank("data")
+    out = {}
+
+    def record(prefix, state, replica):
+        tree, _ = convert.rank_state_to_reference(state, replica=replica)
+        out.update({k: v.detach().clone() for k, v in flat(tree, prefix).items()})
+
+    for tag, (arch, tcfg, steps) in runs.items():
+        cfg = registry.get_smoke_config(arch)
+        step = step_lib.make_train_step(cfg, tcfg, dp=dp, device=device, mesh=mesh)
+        replica = tcfg.grad_sync == "local_sgd"
+        for i, (before, after, batch) in enumerate(steps):
+            prefix = f"{tag}step{i + 1}"
+            mine = step.rank_state(to(before, device))
+            record(f"{prefix}/before", mine, replica)
+            record(f"{prefix}/want", step.rank_state(to(after, device)), replica)
+            shard = to(rank_shards(batch, dp)[r], device)
+            if tcfg.grad_sync == "compressed":
+                layout, _ = step._layout(mine["params"])
+                with common.model_region(step.tp):
+                    bufs, _, _ = common.rank_grad_buckets(mine["params"], shard, cfg, tcfg,
+                                                          layout)
+                out[f"{prefix}/grad"] = torch.cat(bufs)
+                out[f"{tag}replicated"] = torch.tensor(
+                    [step.groups[b.slots[0].index] for b in layout.buckets])
+                out[f"{tag}bucket_lengths"] = torch.tensor(layout.bucket_lengths)
+            new, m = step(mine, shard)
+            record(f"{prefix}/got", new, replica)
+            for k in ("loss", "grad_norm", "converged", "monitor_value", "aux_loss"):
+                if k in m:
+                    out[f"{prefix}/metrics/{k}"] = m[k].detach().clone()
+    for tag, (arch, tcfg, batches) in (free or {}).items():
+        cfg = registry.get_smoke_config(arch)
+        step = step_lib.make_train_step(cfg, tcfg, dp=dp, device=device, mesh=mesh)
+        state = step.init_state(torch.Generator(device=device).manual_seed(0))
+        for b in batches:
+            state, _ = step(state, to(rank_shards(b, dp)[r], device))
+        leaves, paths = buckets.tree_flatten(convert.reference_tree(state["params"]))
+        for leaf, path, rep in zip(leaves, paths, step.groups):
+            if rep:
+                out[f"{tag}free/params/" + "/".join(path)] = leaf.detach().clone()
+        layout, _ = step._layout(state["params"])
+        efs = torch.split(state["opt"]["ef"], layout.bucket_lengths)
+        out[f"{tag}free/ef"] = torch.cat([e for e, b in zip(efs, layout.buckets)
+                                          if step.groups[b.slots[0].index]])
+    if ckpt:
+        out.update(mrd_tp_checkpoint(mesh, device, **ckpt))
+    return out
+
+
+def mrd_tp_checkpoint(mesh, device, *, arch: str, tcfg, batches: list, directory: str) -> dict:
+    """An MRD world at ``tp`` > 1 trains ``arch`` from seed 0 on ``batches``
+    (global), saves after step 1 through the trainer's path (every rank
+    its blocks and rows, ``launch.train.to_reference``), resumes from it
+    (``launch.train.resume``) and runs the steps after again; every rank
+    records both runs' states under ``ckpt/run`` and ``ckpt/resumed``, and
+    whether a resume at another ``tp`` was refused (``ckpt/refused``)."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import registry
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.distributed.gradsync.common import rank_shards
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import convert
+
+    class Cursor:  # the data pipeline's part of a resume
+        def load_state_dict(self, d):
+            self.loaded = d
+
+    cfg = registry.get_smoke_config(arch)
+    dp = mesh.size(mesh.mesh_dim_names.index("data"))
+    tp = mesh.size(mesh.mesh_dim_names.index("model"))
+    step = step_lib.make_train_step(cfg, tcfg, dp=dp, device=device, mesh=mesh)
+    r = mesh.get_local_rank("data")
+    shards = [to(rank_shards(b, dp)[r], device) for b in batches]
+    ck = Checkpointer(directory, world=(dist.get_rank(), dist.get_world_size()))
+    state = step.init_state(torch.Generator(device=device).manual_seed(0))
+    out = {}
+
+    def record(prefix, st):
+        tree, _ = convert.rank_state_to_reference(st)
+        out.update({k: v.detach().clone() for k, v in flat(tree, prefix).items()})
+
+    for i, b in enumerate(shards):
+        state, _ = step(state, b)
+        record(f"ckpt/run/step{i + 1}", state)
+        if i == 0:
+            tree, rows = train_cli.to_reference(state, ck, tcfg.grad_sync, tp)
+            ck.save(1, tree, extra={"data": {}, "dp": dp, "tp": tp}, block=True, rows=rows)
+            dist.barrier()
+    try:
+        train_cli.resume(ck, state, cfg, Cursor(), dp, device, tcfg.grad_sync, step, mesh, 1)
+        out["ckpt/refused"] = torch.tensor(False)
+    except ValueError as e:
+        out["ckpt/refused"] = torch.tensor("tp=" in str(e))
+    state, step0 = train_cli.resume(ck, state, cfg, Cursor(), dp, device, tcfg.grad_sync, step,
+                                    mesh, tp)
+    assert step0 == 1
+    for i in range(1, len(shards)):
+        state, _ = step(state, shards[i])
+        record(f"ckpt/resumed/step{i + 1}", state)
+    return out
+
+
+OVERLAP_MODES = ("mrd_zero1", "compressed", "mrd_paper", "mrd_leaf")
+
+
+def overlap_world(mesh, rank, device, *, arch: str, steps: int, batch: int,
+                  microbatches: int = 1) -> dict:
+    """Every gradient-scale mode of :data:`OVERLAP_MODES` trains ``arch``
+    from seed 0 for ``steps`` steps with ``overlap`` off and on, as this
+    rank of a ``("data",)`` or ``("data", "model")`` world; every rank
+    records its state after each step (``<mode>/<off|on>/step<i>/``) and
+    the metrics."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.models import convert
+
+    cfg = registry.get_smoke_config(arch)
+    dp = mesh.size(mesh.mesh_dim_names.index("data"))
+    pipe = SyntheticPipeline(cfg, DataConfig(batch=batch, seq_len=TRAIN_SEQ, seed=0), device,
+                             rank=mesh.get_local_rank("data"), dp=dp)
+    batches = [pipe.next_batch() for _ in range(steps)]
+    out = {}
+    for mode in OVERLAP_MODES:
+        for on in (False, True):
+            tcfg = dataclasses.replace(train_tcfg({"mode": mode, "microbatches": microbatches}),
+                                       overlap=on)
+            step = step_lib.make_train_step(cfg, tcfg, dp=dp, device=device, mesh=mesh)
+            state = step.init_state(torch.Generator(device=device).manual_seed(0))
+            for i, b in enumerate(batches):
+                state, m = step(state, b)
+                prefix = f"{mode}/{'on' if on else 'off'}/step{i + 1}"
+                tree, _ = convert.rank_state_to_reference(state)
+                out.update({k: v.detach().clone() for k, v in flat(tree, prefix).items()})
+                for k in ("loss", "grad_norm", "monitor_value"):
+                    out[f"{prefix}/metrics/{k}"] = m[k].detach().clone()
+    return out
+
+
 def serve_cli(mesh, rank, device, *, runs: dict) -> dict:
     """The serving CLI's run (``launch.serve.run``, the entry a
     ``torch.distributed.run`` rank takes after joining its world) for
@@ -533,6 +702,22 @@ GSPMD_CASES = {
     "hubert-dp2tp2/": ("hubert-xlarge", (2, 2), {}, None),
 }
 GSPMD_LR = 1e-2
+# the MRD modes at tp > 1 of test_torch_mrd_tp.py (and on NCCL,
+# test_torch_mrd_tp_nccl.py): tag -> (arch, grad-sync mode, (dp, tp),
+# TrainConfig fields); the bucket cap of the recordings (32 KiB) splits
+# the smoke models into several buckets
+MRD_TP_CASES = {}
+for _mesh in ((2, 2), (3, 2)):
+    _m = f"{_mesh[0]}x{_mesh[1]}"
+    for _mode in ("mrd_zero1", "compressed", "mrd_paper", "mrd_leaf", "local_sgd"):
+        MRD_TP_CASES[f"llama-{_mode}-{_m}/"] = (
+            "llama3.2-1b", _mode, _mesh, {"local_sync_every": 2} if _mode == "local_sgd" else {})
+MRD_TP_CASES.update({
+    "mixtral-mrd_zero1-2x2/": ("mixtral-8x7b", "mrd_zero1", (2, 2), {}),
+    "mixtral-mrd_leaf-2x2/": ("mixtral-8x7b", "mrd_leaf", (2, 2), {}),
+    "falcon-compressed-2x2/": ("falcon-mamba-7b", "compressed", (2, 2), {}),
+    "falcon-mrd_zero1-2x2/": ("falcon-mamba-7b", "mrd_zero1", (2, 2), {}),
+})
 # the TP serving cases of test_torch_serving_tp.py: tag -> (tp, argv)
 SERVE_COMMON = ["--smoke", "--continuous", "--dp", "3", "--slots", "3", "--requests", "6"]
 SERVE_CASES = {
@@ -603,9 +788,242 @@ def close_states(got: dict, want: dict, before: dict, what, lr: float = GSPMD_LR
         assert worst <= 5e-4, (what, k, worst)
 
 
+# ---------------------------------------------------------------------------
+# Checks of the MRD worlds at tp > 1 (test_torch_mrd_tp.py against the
+# reference, test_torch_mrd_tp_nccl.py against the stacked-rows step)
+# ---------------------------------------------------------------------------
+
+MRD_LR, MRD_BUCKET_BYTES = 1e-2, 1 << 15
+MRD_MONITOR_MODES = {"mrd_zero1": "exact", "compressed": "inexact"}
+# the exact run whose step-1 gradient each compressed case is held to
+MRD_EXACT_OF = {"llama-compressed-2x2/": "llama-mrd_zero1-2x2/",
+                "llama-compressed-3x2/": "llama-mrd_zero1-3x2/",
+                "falcon-compressed-2x2/": "falcon-mrd_zero1-2x2/"}
+B1 = 0.9
+
+
+def mrd_tcfg(mode: str, **kw):
+    """The TrainConfig of the MRD cases (``test_torch_train_families``'
+    ``train_tcfg``, the recordings')."""
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.optim.optimizer import OptimizerConfig
+
+    base = dict(microbatches=1, remat="none")
+    base.update(kw)
+    return step_lib.TrainConfig(
+        grad_sync=mode, monitor=mode != "local_sgd",
+        monitor_mode=MRD_MONITOR_MODES.get(mode, "inexact"), monitor_threshold=6.0,
+        bucket_bytes=MRD_BUCKET_BYTES, optimizer=OptimizerConfig(
+            lr=MRD_LR, schedule="const", warmup_steps=0, grad_clip=1.0), **base)
+
+
+def part(rec: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in rec.items() if k.startswith(prefix)}
+
+
+def ranks_of(mesh):
+    """(world rank, data rank, model rank) of every coordinate of a (dp,
+    tp) mesh."""
+    return [(d * mesh[1] + m, d, m) for d in range(mesh[0]) for m in range(mesh[1])]
+
+
+def replicated(cfg, mesh) -> list:
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.gradsync import common
+    from repro_torch.models import transformer
+
+    rules = shd.make_rules(cfg, {"data": mesh[0], "model": mesh[1]}, fsdp=False)
+    return common.replicated_leaves(shd.param_specs(cfg, rules, transformer.param_shapes(cfg)))
+
+
+def _noise(mu, mu0):
+    return ((mu - B1 * mu0) / (1 - B1)).abs() <= NOISE
+
+
+def _check_masked(d, mask, what):
+    assert float(d.max()) <= 2 * MRD_LR, (what, float(d.max()))
+    worst = float(d[~mask].max()) if bool((~mask).any()) else 0.0
+    assert worst <= 5e-4, (what, worst)
+
+
+def check_mrd_metrics(m: dict, want: dict, mode: str, what) -> None:
+    """A step's metrics against the reference's (``test_torch_train_families``'
+    rule): loss atol 1e-5, grad norm rtol 1e-4 (5e-4 compressed),
+    ``converged`` exact, the published value rtol 1e-6."""
+    assert abs(float(m["loss"]) - float(want["loss"])) <= 1e-5, (what, float(m["loss"]))
+    rtol = 5e-4 if mode == "compressed" else 1e-4
+    np.testing.assert_allclose(float(m["grad_norm"]), float(want["grad_norm"]), rtol=rtol,
+                               err_msg=str(what))
+    assert bool(m["converged"]) == bool(want["converged"]), what
+    np.testing.assert_allclose(float(m["monitor_value"]), float(want["monitor_value"]),
+                               rtol=1e-6, err_msg=str(what))
+
+
+def _check_common(got, want, what):
+    assert sorted(got) == sorted(want), what
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, k, g.dtype, w.dtype)
+        if k.startswith("monitor/"):
+            if g.is_floating_point():
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=0, msg=f"{what} {k}")
+            else:
+                assert torch.equal(g, w), (what, k)
+
+
+def _unflat(d: dict) -> dict:
+    out: dict = {}
+    for k, v in d.items():
+        node = out
+        *path, last = k.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = v
+    return out
+
+
+def check_mrd_exact(cfg, mesh, mode, recs, r, d, prefix, what) -> None:
+    """An exact mode's state after a teacher-forced step against the
+    reference's mapped onto the coordinate: masters and params within 5e-4
+    but for the coordinates whose gradient (from the first moment) is
+    within ``NOISE`` of zero, which may move up to 2 x lr; moments within
+    1e-5; the monitor as :func:`close_states` holds it."""
+    from repro_torch.distributed.gradsync.mrd_zero1 import zero1_master_row
+    from repro_torch.models import convert
+
+    got, want, before = (part(recs[r], f"{prefix}/{p}") for p in ("got/", "want/", "before/"))
+    _check_common(got, want, what)
+    for k in want:
+        if k.startswith("opt/mu") or k.startswith("opt/nu"):
+            assert float((got[k] - want[k]).abs().max()) <= 1e-5, (what, k)
+    if mode in ("mrd_zero1", "mrd_paper"):
+        mask = _noise(want["opt/mu"], before["opt/mu"])
+        _check_masked((got["opt/master"] - want["opt/master"]).abs(), mask, (what, "master"))
+        dpar = convert.port_tree(_unflat({k[len("params/"):]: (got[k].float() - v.float()).abs()
+                                          for k, v in want.items() if k.startswith("params/")}))
+        row = zero1_master_row(dpar, mesh[0], d, bucket_bytes=MRD_BUCKET_BYTES,
+                               paper_mode=mode == "mrd_paper", groups=replicated(cfg, mesh))
+        _check_masked(row, mask, (what, "params"))
+        return
+    # tree-shaped optimizers: a mask a leaf; a local_sgd replica's params
+    # after an average carry the noise of every replica of its model column
+    column = [rr for rr, _, m in ranks_of(mesh) if m == r % mesh[1]]
+    for k in want:
+        if not k.startswith("opt/master/"):
+            continue
+        leaf = k[len("opt/master/"):]
+        mask = _noise(want[f"opt/mu/{leaf}"], before[f"opt/mu/{leaf}"])
+        _check_masked((got[k] - want[k]).abs(), mask, (what, k))
+        pmask = mask
+        if mode == "local_sgd":
+            for rr in column:
+                o_want, o_before = (part(recs[rr], f"{prefix}/{p}") for p in ("want/", "before/"))
+                pmask = pmask | _noise(o_want[f"opt/mu/{leaf}"], o_before[f"opt/mu/{leaf}"])
+        p = f"params/{leaf}"
+        _check_masked((got[p].float() - want[p].float()).abs(), pmask, (what, p))
+
+
+def _owned(vec, lengths, dp: int, d: int):
+    from repro_torch.distributed.gradsync.mrd_zero1 import zero1_owner_segments, zero1_prod_p0
+
+    own, p0 = zero1_owner_segments(dp)[d], zero1_prod_p0(dp)
+    return torch.cat([b.reshape(p0, -1)[own] for b in torch.split(vec, lengths)])
+
+
+def check_mrd_compressed(recs, mesh, tag, i, exact_grad_norm) -> None:
+    """A ``compressed`` step at ``tp`` > 1 on every coordinate: the EF
+    invariant bit for bit (``dequant(quant(grad + old residual)) + new
+    residual == grad + old residual``), params and masters within 2 x lr
+    of the reference's; at step 1 (``i`` 0, the exact run's init) the
+    decoded mean gradient, from the first moment, within the int8 bound of
+    the exact run's (``exact_grad_norm``: its step-1 grad norm): half a
+    quantum of the block's scale for each rank's own EF round trip and for
+    each reducing stage, whose block scale is at most the block's largest
+    sum of the column's absolute gradients over 127."""
+    from repro_torch.collectives import transforms as tf_lib
+    from repro_torch.distributed.gradsync.mrd_zero1 import zero1_owner_segments, zero1_prod_p0
+
+    prefix = f"{tag}step{i + 1}"
+    lengths = recs[0][f"{tag}bucket_lengths"].tolist()
+    dp = mesh[0]
+    for r, d, m in ranks_of(mesh):
+        what = (tag, i + 1, r)
+        got, want, before = (part(recs[r], f"{prefix}/{p}") for p in ("got/", "want/", "before/"))
+        _check_common(got, want, what)
+        grad, old, new = recs[r][f"{prefix}/grad"], before["opt/ef"], got["opt/ef"]
+        sent = grad.clone().add_(old)
+        wire = tf_lib.dequantize(*tf_lib.quantize(sent, tf_lib.BLOCK), tf_lib.BLOCK)
+        assert torch.equal(wire + new, sent), what
+        assert bool((new != 0).any()), what
+        for k in want:
+            if k == "opt/master" or k.startswith("params/"):
+                d_max = float((got[k].float() - want[k].float()).abs().max())
+                assert d_max <= 2 * MRD_LR, (what, k, d_max)
+        if i or zero1_owner_segments(dp)[d] is None:
+            continue
+        exact_tag = MRD_EXACT_OF[tag]
+        scale = min(1.0, 1.0 / float(recs[r][f"{prefix}/metrics/grad_norm"]))
+        g = got["opt/mu"] / (1 - B1) / scale
+        # the exact run's first moment after step 1, as this coordinate's
+        # row (the worker mapped it: that case's want)
+        g_ref = part(recs[r], f"{exact_tag}step1/want/")["opt/mu"] / (1 - B1) / min(
+            1.0, 1.0 / exact_grad_norm)
+        column = [rr for rr, _, mm in ranks_of(mesh) if mm == m]
+
+        def block_max(x):
+            return x.reshape(-1, tf_lib.BLOCK).amax(1).repeat_interleave(tf_lib.BLOCK)
+
+        grads = [recs[rr][f"{prefix}/grad"].abs() for rr in column]
+        stages = int(dp & (dp - 1) != 0) + int(np.log2(zero1_prod_p0(dp)))
+        quanta = sum(block_max(x) for x in grads) + stages * block_max(sum(grads))
+        bound = _owned(quanta, lengths, dp, d) / 254 / dp
+        err = (g - g_ref).abs()
+        assert bool((err <= bound + 1e-5 * g_ref.abs() + 1e-8).all()), (
+            what, float((err - bound).max()))
+        assert float(err.max()) > 0, what  # the int8 wire is lossy here
+
+
+def check_mrd_case(recs, mesh, tag, mode, cfg, metrics_of, exact_grad_norm=None,
+                   steps: int = 2) -> None:
+    """Every teacher-forced step of an MRD case at ``tp`` > 1 on every
+    coordinate: metrics against ``metrics_of(i)`` (the reference's of step
+    ``i``), the state as :func:`check_mrd_exact` or
+    :func:`check_mrd_compressed` holds it."""
+    for i in range(steps):
+        prefix = f"{tag}step{i + 1}"
+        for r, d, _ in ranks_of(mesh):
+            m = part(recs[r], f"{prefix}/metrics/")
+            check_mrd_metrics(m, metrics_of(i), mode, (tag, i, r))
+            if mode != "compressed":
+                check_mrd_exact(cfg, mesh, mode, recs, r, d, prefix, (tag, i + 1, r))
+        if mode == "compressed":
+            check_mrd_compressed(recs, mesh, tag, i, exact_grad_norm)
+
+
+def check_mrd_free_and_ckpt(recs, free_tag: str, ckpt_steps: int) -> None:
+    """After free-running ``compressed`` steps the leaves replicated over
+    ``"model"`` and their EF residual are bit-equal on the model ranks of
+    each data rank of a (dp, 2) world; its checkpoint resumes bit for bit
+    and refuses another ``tp``."""
+    for d in range(len(recs) // 2):
+        a, b = (part(recs[d * 2 + m], f"{free_tag}free/") for m in range(2))
+        assert sorted(a) == sorted(b) and any(k.startswith("params/") for k in a)
+        for k in a:
+            assert torch.equal(a[k], b[k]), (d, k)
+        assert bool((a["ef"] != 0).any())
+    for rec in recs:
+        assert bool(rec["ckpt/refused"])
+        for i in range(2, ckpt_steps + 1):
+            run, resumed = part(rec, f"ckpt/run/step{i}/"), part(rec, f"ckpt/resumed/step{i}/")
+            assert sorted(run) == sorted(resumed) and run
+            for k, v in run.items():
+                assert torch.equal(v, resumed[k]), (i, k)
+
+
 SCENARIOS = {"one_axis": one_axis, "two_axis": two_axis, "monitor": monitor,
              "mismatched": mismatched, "train": train_world, "train_forced": train_forced,
-             "gspmd_forced": gspmd_forced, "serve_cli": serve_cli}
+             "gspmd_forced": gspmd_forced, "serve_cli": serve_cli,
+             "mrd_tp_forced": mrd_tp_forced, "overlap_world": overlap_world}
 
 
 # ---------------------------------------------------------------------------
