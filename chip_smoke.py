@@ -6,7 +6,9 @@
 The run uses one card: it makes only the first visible card visible to
 itself, so the device line's ``count`` is the one card that did the work.
 
-Phases, in order (any failure ends the run with a non-zero exit):
+Phases, in order (any failure ends the run with a non-zero exit), except
+that 7 and 8, which launch none of the port's kernels, run on the card
+while 2's compilers run:
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build every CUDA kernel of the serving and training paths from
@@ -208,8 +210,9 @@ Phases, in order (any failure ends the run with a non-zero exit):
    blocks saved and the peak in use), then on int8 pages through the gather
    path (every request done, no ``paged_attention`` launch); 10d.
    ``bench_serve``'s rows on a cut grid (static baseline, a burst and a
-   Poisson row, the sysprefix pair, the fixed-point row at ``d_iteration``
-   n = 32,760, dp 5) under its ``--check`` gates
+   Poisson row, the sysprefix pair, the two kill/join rows (4 -> 3 -> 5 ->
+   4), the fixed-point row at ``d_iteration`` n = 32,760, dp 5) under its
+   ``--check`` gates
    (``chiprun_out/bench_serve_full_width.json``);
 11. the remaining decoder families through the CLI's ``serve()``, random
    bf16 weights drawn on the card from seed 0, every run counted from 0:
@@ -265,8 +268,8 @@ Phases, in order (any failure ends the run with a non-zero exit):
    card from seed 0: 13a. each family through the train CLI's
    ``main()`` at published widths, 2 x 1024 tokens a rank, ``--remat
    full``, a warm-up step and 2 counted ones, each run counted from 0:
-   internvl2-1b whole, hubert-xlarge cut to 24 of its 48 layers,
-   minicpm-2b to 18, falcon-mamba-7b to 6, zamba2-2.7b to 24 (4 groups) under
+   internvl2-1b whole, hubert-xlarge cut to 12 of its 48 layers,
+   minicpm-2b to 18, falcon-mamba-7b to 4, zamba2-2.7b to 24 (4 groups) under
    ``compressed`` at dp 3; gemma3-12b cut to one group (5 local + 1
    global) under ``mrd_zero1`` at dp 2 and mixtral-8x7b to 1 layer under
    ``compressed`` at dp 2 (``TRAIN_FAMILIES`` says why): every loss and
@@ -285,13 +288,13 @@ Phases, in order (any failure ends the run with a non-zero exit):
    ``local_sgd`` at llama3.2-1b's full width, dp 3, 4 steps with
    ``local_sync_every`` 2: ms a step, the average's share of a sync step,
    and every replica's params equal bit for bit after each average; 13d.
-   the checkpoint round trip (llama3.2-1b at full width cut to 2 layers,
-   ``compressed``, dp 3): 5 steps, ``save(block=False)`` after steps 2
+   the checkpoint round trip (llama3.2-1b at full width cut to 1 layer,
+   ``compressed``, dp 2): 5 steps, ``save(block=False)`` after steps 2
    and 3 (the second into the first's pinned buffers); then a fresh train
    step restored from step 3 through the CLI's resume path runs the same
    2 batches: its losses and final params equal bit for bit; each save's
    hold on the loop, the writer's time, the bytes, the step time with a
-   write in flight; 13e. hubert-xlarge cut to 12 layers at remat
+   write in flight; 13e. hubert-xlarge cut to 6 layers at remat
    ``none``, ``full`` and ``dots``: ms a step and the peak, the losses
    within 1e-4 relative;
    13f. hubert-xlarge's (remat ``full`` and ``dots``) and the falcon-mamba
@@ -311,8 +314,8 @@ Phases, in order (any failure ends the run with a non-zero exit):
    ``compressed`` and never under ``mrd_leaf``, no other kernel; and the
    smoke config under ``compressed`` at dp 3 with each optimizer, each
    card step from the CPU's state held to the CPU's as in 13b;
-15. the sharded entry points as one-rank NCCL worlds (one
-   ``torch.distributed.run`` subprocess, :data:`TP_RUNNER`): the train
+15. the sharded entry points as one-rank NCCL worlds (14a's
+   ``torch.distributed.run`` subprocess, :data:`WORLD_RUNNER`): the train
    CLI under its default ``gspmd`` (a ``("data",)`` mesh of 1, the
    params, optimizer trees and the step placed by ``sharding``), 3 steps
    of 2 x 1024 tokens of llama3.2-1b at full width, against the
@@ -332,14 +335,31 @@ Phases, in order (any failure ends the run with a non-zero exit):
    norms and the digest of the final state equal bit for bit,
    ``mrd_combine`` launched once a reducing stage a bucket a step in both
    (the sim route), no other kernel; both runs' step times;
-17. the kernels line, then the device line as the last line of stdout.
+17. elastic serving through the serving CLI's ``main()`` under the
+   reference CLI's script from dp 4 (kill 6:2, a 10x stall of replica 1 at
+   tick 10, join 16:(4, 5), unstall 22:1, kill 26:0; ``grow_on_join``, 4
+   ticks a dispatch): 17a. llama3.2-1b at full width on the paged kernel
+   path, 24 Poisson requests on 8 slots, first uninterrupted at dp 4, then
+   under the script, each counted from 0: the trajectory 4 -> 3 -> 5 -> 4,
+   every request retired and prefilled once, its tokens those of the
+   uninterrupted run, the allocator empty, ``flash_attention`` 16 an
+   admission, ``paged_attention`` 16 a decode tick (and launched after the
+   grow, on the pages and tables the joiner received), ``rmsnorm`` 33 a
+   forward, the grow's params equal the source's leaf by leaf, its peak
+   within the resident bytes + 5 x the largest leaf + 1 GiB; each resize's
+   wall time and TTFT/TPOT p50 around it; 17b. ``d_iteration`` at n =
+   32,760 under the same script: the same trajectory, every request
+   certified with its true residual below eps 1e-10, no kernel launched;
+18. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import os
 import re
@@ -556,37 +576,28 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def device_profile(fn, reps: int):
+def device_profile(fn, reps: int, targets: dict | None = None):
     """Run ``fn`` ``reps`` times under ``torch.profiler`` (CUPTI kernel
-    records): (device-busy ms per rep, {kernel name: (ms per rep,
-    launches per rep)})."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    records): (device-busy ms per rep, {kernel name: (ms per rep, launches
+    per rep)}, {label: device ms per rep}).  Each target function
+    (``{label: (module, attribute)}``) is wrapped in a ``record_function``
+    range of its label for the run, and the last dict holds the device time
+    of the kernels launched inside each range on its thread: kernels of the
+    generic elementwise and copy families carry no model name, so this
+    attributes them to the function that launched them.  One profiled run
+    gives both.
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
-    if not by_name:
-        raise SystemExit("the profiler recorded no device time")
-    busy_ms = sum(ms for ms, _ in by_name.values()) / reps
-    return busy_ms, {k: (ms / reps, n / reps) for k, (ms, n) in by_name.items()}
-
-
-def annotated_device_ms(fn, reps: int, targets: dict) -> dict:
-    """Run ``fn`` ``reps`` times under ``torch.profiler`` with each target
-    function (``{label: (module, attribute)}``) wrapped in a
-    ``record_function`` range of its label: {label: device ms of the
-    kernels launched inside it, per rep}.  Kernels of the generic
-    elementwise and copy families carry no model name; this attributes
-    them to the function that launched them."""
+    The profiler's raw records are read directly (a kernel's
+    ``linked_correlation_id`` names the host op that launched it), not
+    through ``prof.events()``, whose event tree costs ~60 us of host time a
+    record (tens of seconds for a 32k-token prefill).  The spans the
+    profiler draws on the device timeline for ``record_function`` ranges
+    (the plans' ``collective_plan``, the targets' labels) are not kernels
+    and are not counted in the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    targets = targets or {}
 
     def wrap(label, f):
         def annotated(*a, **kw):
@@ -601,20 +612,54 @@ def annotated_device_ms(fn, reps: int, targets: dict) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-    return {label: sum(e.device_time_total for e in prof.events()
-                       if e.name == label and e.device_type == DeviceType.CPU) / 1e3 / reps
-            for label in targets}
+    by_name: dict = {}
+    host_ops: dict = {}  # a host op's correlation id -> (start ns, thread)
+    ranges: dict = {}  # (label, thread) -> [(start ns, end ns)]
+    launched = []  # (kernel ms, the correlation id of the op that launched it)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if e.is_user_annotation():
+                continue
+            ms = e.duration_ns() / 1e6
+            t_ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (t_ms + ms, n + 1)
+            launched.append((ms, e.linked_correlation_id()))
+        elif e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0:
+            host_ops[e.correlation_id()] = (e.start_ns(), e.start_thread_id())
+            if e.name() in targets:
+                ranges.setdefault((e.name(), e.start_thread_id()), []).append(
+                    (e.start_ns(), e.end_ns()))
+    if not by_name:
+        raise SystemExit("the profiler recorded no device time")
+    parts = dict.fromkeys(targets, 0.0)
+    starts = {}
+    for key, spans in ranges.items():  # a label's ranges on a thread do not overlap
+        spans.sort()
+        starts[key] = [a for a, _ in spans]
+    for ms, corr in launched:
+        if corr not in host_ops:
+            continue
+        t0, thread = host_ops[corr]
+        for label in targets:
+            spans = ranges.get((label, thread))
+            i = bisect.bisect_right(starts[(label, thread)], t0) - 1 if spans else -1
+            if i >= 0 and t0 <= spans[i][1]:
+                parts[label] += ms
+    busy_ms = sum(ms for ms, _ in by_name.values()) / reps
+    return (busy_ms, {k: (ms / reps, n / reps) for k, (ms, n) in by_name.items()},
+            {k: v / reps for k, v in parts.items()})
 
 
 def top_kernels(per_rep: dict, top: int = 8):
     return sorted(per_rep.items(), key=lambda kv: -kv[1][0])[:top]
 
 
-def profile_decode(wl, reqs, ticks: int = 8):
+def profile_decode(wl, reqs, ticks: int = 4, targets: dict | None = None):
     """Admit ``reqs`` into every slot of ``wl`` and run steady decode ticks:
     (host wall ms per tick, device-busy ms per tick, every kernel's entry
-    by name).  The wall time is taken without the profiler; the device
-    time with it."""
+    by name, device ms per tick of each of ``targets`` as
+    :func:`device_profile` gives them).  The wall time is taken without the
+    profiler; the device time with it."""
     wl.reset()
     for slot, req in enumerate(reqs[: wl.slots]):
         wl.admit(req, slot, 0)
@@ -627,8 +672,7 @@ def profile_decode(wl, reqs, ticks: int = 8):
         wl.step(active)  # ends in a device-to-host copy of the tokens
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3 / ticks
-    busy_ms, per_tick = device_profile(lambda: wl.step(active), ticks)
-    return wall_ms, busy_ms, per_tick
+    return (wall_ms, *device_profile(lambda: wl.step(active), ticks, targets))
 
 
 def to_device(tree, device):
@@ -871,7 +915,7 @@ def async_phases(all_ops, t: float) -> dict:
         t1 = time.perf_counter()
         one(PROFILE_TICKS + 1)
         part_ms = (time.perf_counter() - t1) * 1e3
-        busy_ms, per_rep = device_profile(lambda: one(PROFILE_TICKS + 1), 1)
+        busy_ms, per_rep, _ = device_profile(lambda: one(PROFILE_TICKS + 1), 1)
         launches = sum(n for _, n in per_rep.values()) / PROFILE_TICKS
         log(f"  its first {PROFILE_TICKS} ticks: wall {part_ms / PROFILE_TICKS:.3f} ms a tick, "
             f"device busy {busy_ms / PROFILE_TICKS:.3f} ms a tick, idle share "
@@ -946,7 +990,7 @@ def fixedpoint_steady(wl, dp: int, termination: str, payloads) -> dict:
     ticks()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t1) * 1e3 / PROFILE_TICKS
-    busy_ms, per_rep = device_profile(ticks, 1)
+    busy_ms, per_rep, _ = device_profile(ticks, 1)
     if eng.results:
         raise SystemExit(f"fixed-point steady window: {len(eng.results)} requests retired")
     busy_ms /= PROFILE_TICKS
@@ -1402,16 +1446,21 @@ TENANT_QUOTA = 4  # the batch tenant's
 SYS_PREFIX, SYS_SUFFIX, SYS_REQUESTS = 1024, 64, 16  # 10c: a shared system prompt
 SYS_MAX_LEN = 1136  # prefix + suffix + the largest budget (32) + 4, in whole 16-token blocks
 # 10d: bench_serve's rows at full width, on a grid cut to fit the run: one
-# burst and one Poisson row, the static baseline, the sysprefix pair, and
-# the fixed-point row at phase 8's d_iteration n and dp.  Fewer than 12
+# burst and one Poisson row, the static baseline, the sysprefix pair, the
+# two kill/join rows, and the fixed-point row at phase 8's d_iteration n
+# and dp.  Fewer than 12
 # requests shrink the continuous-vs-static margin (8 gave 0.86-0.89x
-# against the 0.7x gate; 12 gave 1.14-1.17x)
+# against the 0.7x gate; 12 gave 1.14-1.17x).  The kill/join rows take 24
+# requests, not the reference's 3 x 12: the LLM row runs its traffic
+# five times, and 24 still leave 132 of 161 ticks after the last resize
+# (36: 192 of 221).  Each timed row is the best of 2 runs, not the
+# reference's 3 (the kill/join rows: 2 pairs in turns)
 BENCH_GRID = {"slots": 4, "n_req": 12, "prompt_len": 64, "gen_max": 32,
               "schedulers": ("fcfs",), "arrivals": ("burst", "1.0"),
               "sysprefix": {"sys_len": 256, "user_len": 16, "gen_lo": 8, "gen_hi": 16,
                             "block_size": 16},
               "fixedpoint": {"n": FP_DITER_N, "dp": 5, "eps": 1e-10},
-              "fp_slots": FP_SLOTS, "fp_requests": 32}
+              "fp_slots": FP_SLOTS, "fp_requests": 32, "elastic_requests": 24, "repeats": 2}
 
 
 def counts(all_ops) -> dict:
@@ -1468,7 +1517,7 @@ def static_phase(all_ops, cfg, params, p10: dict, device) -> dict:
         step = step_lib.make_serve_step(c)
         toks, pos = torch.argmax(logits, -1), torch.tensor(STATIC_PROMPT, device=device)
         step(params, toks, cache, pos)
-        st["decode_busy_ms"], per = (device_profile(lambda: step(params, toks, cache, pos), 4)
+        st["decode_busy_ms"], per = (device_profile(lambda: step(params, toks, cache, pos), 4)[:2]
                                      if device.type == "cuda" else (float("nan"), {}))
         log(f"10a static {name}: cache {r['cache_bytes']} B | prefill {pre_tok} tokens in "
             f"{st['prefill_ms']:.2f} ms ({st['prefill_tok_s']:.0f} tok/s) | decode "
@@ -1657,20 +1706,36 @@ def serving_rest_phases(all_ops, t: float, *, cfg, device, tenant_argv=TENANT_AR
     return stats
 
 
-def build_kernels(t: float) -> dict:
-    """2. Build every kernel (one ``nvcc`` per source, all started together),
+KERNEL_SOURCES = ("paged_attention", "mrd_combine", "flash_attention", "rmsnorm",
+                  "selective_scan")
+
+
+def start_build():
+    """2. Start building every kernel: one ``nvcc`` per source, all started
+    together, each in a thread of its own -> (pool, {source name: future of
+    (the ``.so`` path, seconds)}).  :func:`finish_build` waits for them."""
+    from repro_torch.kernels import build
+
+    def timed(src, name):
+        t = time.perf_counter()
+        return build.build_shared_library(src, name), time.perf_counter() - t
+
+    pool = ThreadPoolExecutor(len(KERNEL_SOURCES))
+    return pool, {name: pool.submit(
+        timed, importlib.import_module(f"repro_torch.kernels.{name}.ops").SOURCE, name)
+        for name in KERNEL_SOURCES}
+
+
+def finish_build(pool, futs: dict, t: float) -> dict:
+    """2. Wait for :func:`start_build`'s compilers, load every library,
     print the ptxas figures of the instances the paths serve, and gate the
     spills.  Returns {source name: ptxas_report}."""
-    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mrd_combine import ops as mc_ops
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.selective_scan import ops as ss_ops
 
-    sources = {"paged_attention": ops.SOURCE, "mrd_combine": mc_ops.SOURCE,
-               "flash_attention": fa_ops.SOURCE, "rmsnorm": rn_ops.SOURCE,
-               "selective_scan": ss_ops.SOURCE}
     # the instances whose -Xptxas=-v figures are printed (any of the mark
     # tuples, every mark of it in the mangled name): flash_attention's bf16
     # hd 256 (gemma3's), hd 128 at rep 5 (qwen2.5-32b's, llama4-scout's) and
@@ -1693,10 +1758,10 @@ def build_kernels(t: float) -> dict:
              + [(f"paged_attention_kernelIfLi{hd}ELi{r}ELi16E",)
                 for hd, r in ((80, 1), (8, 7), (12, 1))]
              + [("paged_attention_combine_kernel",)]}
-    with ThreadPoolExecutor(len(sources)) as pool:
-        futs = {name: pool.submit(build.build_shared_library, src, name)
-                for name, src in sources.items()}
+    with pool:
         built = {name: f.result() for name, f in futs.items()}
+    log("nvcc a source: " + ", ".join(f"{name} {s:.1f} s" for name, (_, s) in built.items()))
+    built = {name: so for name, (so, _) in built.items()}
     for lib_ops in (ops, mc_ops, fa_ops, rn_ops, ss_ops):
         lib_ops.library()
     ptxas = {}
@@ -1721,7 +1786,7 @@ def build_kernels(t: float) -> dict:
         f"{len(spills)}")
     if spills or not n_paged or not n_wgmma:
         raise SystemExit(f"kernel instances spill: {spills}")
-    log(f"build of {len(built)} kernels: {time.perf_counter() - t:.1f} s")
+    log(f"build of {len(built)} kernels: {time.perf_counter() - t:.1f} s after phases 7-8")
     return ptxas
 
 
@@ -2148,8 +2213,8 @@ def families_phases(all_ops, t: float) -> dict:
     add(got)
     t = phase("qwen-serve-full-width", t)
     wl = eng.workload
-    wall_ms, busy_ms, per_tick = profile_decode(
-        wl, serve.make_requests(wl.cfg, 8, 1024, 32, seed=1, min_prompt_len=128), ticks=4)
+    wall_ms, busy_ms, per_tick, _ = profile_decode(
+        wl, serve.make_requests(wl.cfg, 8, 1024, 32, seed=1, min_prompt_len=128))
     log(f"11a qwen2.5-32b steady decode tick, 8 slots: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
     for name, (ms_tick, n_tick) in top_kernels(per_tick):
@@ -2311,8 +2376,7 @@ def zamba_prefill_32k(all_ops, cfg, params) -> dict:
                     "12d zamba2 32k prefill", torch.device("cuda"))
     if not (logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()):
         raise SystemExit(f"zamba2 32k prefill logits {tuple(logits.shape)} are not finite")
-    busy, per_pf = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
-    parts = annotated_device_ms(lambda: prefill(params, {"tokens": tokens}), 1, {
+    busy, per_pf, parts = device_profile(lambda: prefill(params, {"tokens": tokens}), 1, {
         "ssd_scan": (ssm, "_ssd_scan"), "mamba2_apply": (ssm, "mamba2_apply")})
     log(f"12d zamba2-2.7b prefill of {PREFILL_LEN} tokens, batch 1 (reference prefill_32k: batch "
         f"32, cut to 1 for one card): {wall * 1e3:.1f} ms wall, {PREFILL_LEN / wall:.1f} tokens/s, "
@@ -2359,8 +2423,10 @@ def hybrid_phases(all_ops, t: float) -> dict:
         f"{pages_gb:.3f} GB, mamba2 state {state_gb:.3f} GB ({len(wl.pool.slot_state)} leaves)")
     stats["paged"].update(pages_gb=pages_gb, state_gb=state_gb)
     t = phase("zamba2-paged-full-width", t)
-    wall_ms, busy_ms, per_tick = profile_decode(
-        wl, serve.make_requests(wl.cfg, 8, 4096, 64, seed=1, min_prompt_len=1024), ticks=4)
+    wall_ms, busy_ms, per_tick, parts = profile_decode(
+        wl, serve.make_requests(wl.cfg, 8, 4096, 64, seed=1, min_prompt_len=1024), targets={
+            "mamba2_decode": (ssm, "mamba2_decode"),
+            "shared attention layer": (transformer, "_paged_attn_layer")})
     log(f"12a zamba2-2.7b steady decode tick, 8 slots: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
     for name, (ms_tick, n_tick) in top_kernels(per_tick, 12):
@@ -2368,10 +2434,6 @@ def hybrid_phases(all_ops, t: float) -> dict:
     launches_tick = sum(n for _, n in per_tick.values())
     log(f"  {launches_tick:.0f} kernel launches a tick")
     classes = kernel_classes(per_tick, busy_ms)
-    active = np.ones(wl.slots, bool)
-    parts = annotated_device_ms(lambda: wl.step(active), 4, {
-        "mamba2_decode": (ssm, "mamba2_decode"),
-        "shared attention layer": (transformer, "_paged_attn_layer")})
     log("  device time a tick by the function that launched it: " + ", ".join(
         f"{k} {v:.3f} ms ({v / busy_ms:.3f})" for k, v in parts.items()))
     stats["paged"].update(tick_wall_ms=wall_ms, tick_busy_ms=busy_ms,
@@ -2423,14 +2485,14 @@ def hybrid_phases(all_ops, t: float) -> dict:
 # and the shared block, 1.23 B), gemma3-12b's 48 to one group of 5 local + 1
 # global (2.35 B, 1.0 B of it the embedding: dp 2 under mrd_zero1, which
 # holds no EF rows), mixtral-8x7b's 32 to 1 (1.71 B, 1.41 B of it experts:
-# dp 2).  hubert-xlarge's 48 layers to 24 (0.47 B) and falcon-mamba-7b's 64
-# to 6 (0.90 B), like 13d's and 13e's depths, keep the whole script inside
+# dp 2).  hubert-xlarge's 48 layers to 12 (0.24 B) and falcon-mamba-7b's 64
+# to 4 (0.69 B), like 13d's and 13e's depths, keep the whole script inside
 # its time limit with phase 16 on a slow host (PERF.md)
 TRAIN_FAMILIES = {
-    "hubert-xlarge": (24, 3, "compressed"),
+    "hubert-xlarge": (12, 3, "compressed"),
     "internvl2-1b": (None, 3, "compressed"),
     "minicpm-2b": (18, 3, "compressed"),
-    "falcon-mamba-7b": (6, 3, "compressed"),
+    "falcon-mamba-7b": (4, 3, "compressed"),
     "zamba2-2.7b": (24, 3, "compressed"),
     "gemma3-12b": (6, 2, "mrd_zero1"),
     "mixtral-8x7b": (1, 2, "compressed"),
@@ -2441,8 +2503,10 @@ TRAIN_STEPS = 3  # one warm-up step, then the counted ones (ms/step, tokens/s)
 TRAIN_SMOKE = ("gemma3-12b", "falcon-mamba-7b", "mixtral-8x7b", "llama4-scout-17b-a16e",
                "internvl2-1b", "zamba2-2.7b", "hubert-xlarge")
 MODE_STEPS, MODE_SYNC_EVERY = 4, 2  # 13c
-CKPT_LAYERS = 2  # 13d: llama3.2-1b at full width, cut to 2 of 16 layers (a 12 GB state)
-REMAT_LAYERS = 12  # 13e: hubert-xlarge cut to 12 of 48 layers
+# 13d: llama3.2-1b at full width, cut to 1 of 16 layers, at dp 2 (a 7.1 GB
+# save: the EF rows make a parameter's state ~10 B larger at dp 3 than at 2)
+CKPT_LAYERS, CKPT_DP = 1, 2
+REMAT_LAYERS = 6  # 13e: hubert-xlarge cut to 6 of 48 layers
 
 
 def train_argv(arch: str, dp: int, mode: str, steps: int, remat: str = "full") -> list:
@@ -2750,7 +2814,7 @@ def train_modes_phase() -> dict:
 
 def checkpoint_phase() -> dict:
     """13d. The checkpoint round trip at full width (llama3.2-1b cut to
-    CKPT_LAYERS layers, compressed, dp 3) with the CLI's pieces: run A
+    CKPT_LAYERS layers, compressed, dp CKPT_DP) with the CLI's pieces: run A
     trains 5 steps and snapshots with ``save(block=False)`` after step 2
     (the first save, which allocates the pinned host buffers) and after
     step 3 (which joins step 2's writer, then stages into the same
@@ -2766,7 +2830,7 @@ def checkpoint_phase() -> dict:
     from repro_torch.launch import train
     from repro_torch.models import convert
 
-    argv = train_argv("llama3.2-1b", 3, "compressed", 5) + ["--schedule", "const"]
+    argv = train_argv("llama3.2-1b", CKPT_DP, "compressed", 5) + ["--schedule", "const"]
     args = train.build_parser().parse_args(argv)
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -2810,7 +2874,7 @@ def checkpoint_phase() -> dict:
             del state, train_step, pipe
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    stats = {"layers": CKPT_LAYERS, "bytes": save["bytes"], "hold_ms": save["hold_s"] * 1e3,
+    stats = {"layers": CKPT_LAYERS, "dp": CKPT_DP, "bytes": save["bytes"], "hold_ms": save["hold_s"] * 1e3,
              "first_hold_ms": first["hold_s"] * 1e3, "first_write_s": first["write_s"],
              "wait_ms": save["wait_s"] * 1e3,
              "write_s": save["write_s"], "restore_s": restore_s, "ms_per_step": ms,
@@ -2818,7 +2882,8 @@ def checkpoint_phase() -> dict:
              "write_in_flight_through_step_4": in_flight, "losses_a": losses_a,
              "losses_b": losses_b, "resumed_from": step0, "bitwise": same}
     log(f"13d checkpoint round trip, llama3.2-1b full width cut to {CKPT_LAYERS} layers, "
-        f"compressed dp 3: {save['bytes'] / 2**30:.3f} GiB a save; the first save(block=False), "
+        f"compressed dp {CKPT_DP}: {save['bytes'] / 2**30:.3f} GiB a save; the first "
+        f"save(block=False), "
         f"after step 2, held the loop {stats['first_hold_ms']:.1f} ms (the pinned buffers "
         f"allocated), its writer took {first['write_s']:.2f} s; the second, after step 3, joined "
         f"that writer for {stats['wait_ms']:.1f} ms, then held the loop {stats['hold_ms']:.1f} ms "
@@ -2857,14 +2922,13 @@ def train_profile(arch: str, layers, dp: int, mode: str, state, remat: str = "fu
         t1 = time.perf_counter()
         float(one_step()["loss"])
         wall = (time.perf_counter() - t1) * 1e3
-        busy, per_step = device_profile(one_step, 1)
         targets = {"attention": (transformer, "attention"), "mlp": (transformer, "mlp_apply"),
                    "chunk_scan": (ssm, "chunk_scan"),
                    "grad_sync": (plans.CollectivePlan, "run_buffers"),
                    "adamw": (opt_lib, "apply_update_vector")}
         names = (("chunk_scan", "grad_sync", "adamw") if cfg.family == "ssm"
                  else ("attention", "mlp", "grad_sync", "adamw"))
-        parts = annotated_device_ms(one_step, 1, {k: targets[k] for k in names})
+        busy, per_step, parts = device_profile(one_step, 1, {k: targets[k] for k in names})
     log(f"13f {arch} train step ({TRAIN_PER_RANK * dp} x {TRAIN_SEQ} tokens, dp {dp}, {mode}, "
         f"remat {remat}): wall {wall:.1f} ms, device busy {busy:.1f} ms, device idle share "
         f"{1 - busy / wall:.3f}")
@@ -2933,60 +2997,108 @@ OPTIMIZER_RUNS = tuple((name, mode) for name in ("lion", "sgd")
                        for mode in ("compressed", "mrd_leaf"))  # 14b, at dp 3
 
 
-# 14a's one-rank world: the train CLI's world entry (``main()``'s
-# ``init_world``, ``train``, ``destroy_process_group``) with one process
-# group for every argument list of its JSON argument, so that the three
-# modes pay the process start and the card's cold first step once
+# 14a's and 15's one-rank world, in one subprocess and one process group (one
+# process start and one cold card): the train CLI's world entry
+# (``main()``'s ``init_world``, ``train``, ``destroy_process_group``) for
+# every argument list of 14a's, each writing its record; then 15's
+# ``gspmd`` train run and the serving CLI's world entry on the same
+# ``("data",)`` mesh of 1, each counted from 0, their records in one JSON
 WORLD_RUNNER = """
 import json, sys
 import torch
 import torch.distributed as dist
-from repro_torch.launch import train
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.mrd_combine import ops as mc
+from repro_torch.kernels.paged_attention import ops as pa
+from repro_torch.kernels.rmsnorm import ops as rn
+from repro_torch.kernels.selective_scan import ops as ss
+from repro_torch.launch import serve, train
 
-runs = [train.build_parser().parse_args(argv) for argv in json.loads(sys.argv[1])]
+ops = (pa.paged_attention, mc.mrd_combine, fa.flash_attention, rn.rmsnorm, ss.selective_scan)
+job = json.loads(sys.argv[1])
+runs = [train.build_parser().parse_args(argv) for argv in job["modes"]]
 device, mesh = train.init_world(runs[0], train.world_env())
+out = {}
 try:
     for args in runs:
         torch.cuda.reset_peak_memory_stats(device)
         train.train(args, device, mesh)
         torch.cuda.empty_cache()
+    targs = train.build_parser().parse_args(job["train"])
+    torch.cuda.reset_peak_memory_stats(device)
+    for op in ops:
+        op.launches = 0
+    rec = train.train(targs, device, mesh)
+    out["train"] = {"losses": rec["losses"], "grad_norms": rec["grad_norms"],
+                    "ms_per_step": rec["ms_per_step"], "peak_bytes": rec["peak_bytes"],
+                    "digest": train.state_digest(rec["state"]),
+                    "launches": {op.__name__: op.launches for op in ops}}
+    del rec
+    torch.cuda.empty_cache()
+    sargs = serve.build_parser().parse_args(job["serve"])
+    sargs.device = str(device)
+    for op in ops:
+        op.launches = 0
+    eng = serve.run(sargs, mesh)
+    out["serve"] = {"results": {str(i): [r.output.tolist(), r.admit_tick, r.retire_tick]
+                                for i, r in eng.results.items()},
+                    "summary": {k: eng.summary()[k] for k in (
+                        "completed", "ticks", "throughput_tok_s", "ttft_p50_ms",
+                        "tpot_p50_ms")},
+                    "launches": {op.__name__: op.launches for op in ops}}
 finally:
     dist.destroy_process_group()
+with open(job["out"], "w") as f:
+    json.dump(out, f)
 """
+TP_SERVE_ARGV = [
+    "--arch", "llama3.2-1b", "--continuous", "--workload", "llm_decode_paged",
+    "--attn", "kernel", "--dp", "3", "--slots", "8", "--requests", "8",
+    "--prompt-len", "64", "--gen", "16", "--block-size", "16",
+]
 
 
-def world_vs_sim(all_ops) -> dict:
-    """14a. llama3.2-1b at full width, 3 steps at dp 1 under each of
-    ``WORLD_MODES``: the train CLI as a one-rank NCCL world (one
-    ``torch.distributed.run`` subprocess for the three modes, each writing
-    its record and the digest of its final state) against the
-    stacked-rows trainer in this process, on the same card: the losses,
-    grad norms and digests equal bit for bit, and no kernel launched (at
-    dp 1 no plan has a stage)."""
-    from repro_torch.launch import train
-
+def one_rank_world() -> dict:
+    """14a's and 15's one-rank NCCL world: :data:`WORLD_RUNNER` under
+    ``torch.distributed.run --nproc-per-node 1`` in a subprocess ->
+    {"wall_s", "modes": {mode: 14a's record}, "tp": 15's records}."""
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     summary = {mode: out / f"p14_world_{mode}.json" for mode in WORLD_MODES}
-    argvs = [train_argv("llama3.2-1b", 1, mode, WORLD_STEPS)
-             + ["--summary-json", str(summary[mode])] for mode in WORLD_MODES]
+    job = {"modes": [train_argv("llama3.2-1b", 1, mode, WORLD_STEPS)
+                     + ["--summary-json", str(summary[mode])] for mode in WORLD_MODES],
+           "train": train_argv("llama3.2-1b", 1, "gspmd", WORLD_STEPS),
+           "serve": TP_SERVE_ARGV + ["--device", "cuda"], "out": str(out / "p15_tp_world.json")}
     free_device()
     t = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
-         "--no-python", sys.executable, "-c", WORLD_RUNNER, json.dumps(argvs)],
+         "--no-python", sys.executable, "-c", WORLD_RUNNER, json.dumps(job)],
         capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
-    world_s = time.perf_counter() - t
+    wall_s = time.perf_counter() - t
     if proc.returncode != 0:
-        raise SystemExit(f"14a: the one-rank world failed ({proc.returncode}):\n"
+        raise SystemExit(f"14a/15: the one-rank world failed ({proc.returncode}):\n"
                          f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
-    log(f"14a the one-rank NCCL world ran {', '.join(WORLD_MODES)} in {world_s:.1f} s with "
-        f"its start")
-    stats = {"world_wall_s": world_s}
+    log(f"14a/15 the one-rank NCCL world ran {', '.join(WORLD_MODES)}, then gspmd and the "
+        f"serving entry, in {wall_s:.1f} s with its start")
+    return {"wall_s": wall_s, "tp": json.loads(Path(job["out"]).read_text()),
+            "modes": {mode: json.loads(summary[mode].read_text()) for mode in WORLD_MODES}}
+
+
+def world_vs_sim(all_ops, worlds: dict) -> dict:
+    """14a. llama3.2-1b at full width, 3 steps at dp 1 under each of
+    ``WORLD_MODES``: the train CLI as a one-rank NCCL world
+    (:func:`one_rank_world`'s records, each with the digest of its final
+    state) against the stacked-rows trainer in this process, on the same
+    card: the losses, grad norms and digests equal bit for bit, and no
+    kernel launched (at dp 1 no plan has a stage)."""
+    from repro_torch.launch import train
+
+    stats = {"world_wall_s": worlds["wall_s"]}
     for mode in WORLD_MODES:
-        world = json.loads(summary[mode].read_text())
+        world = worlds["modes"][mode]
         free_device()
         zero(all_ops)
         torch.cuda.reset_peak_memory_stats()
@@ -3046,11 +3158,11 @@ def optimizer_run(all_ops, name: str, mode: str) -> dict:
     return stats
 
 
-def world_phases(all_ops, t: float) -> dict:
+def world_phases(all_ops, t: float, worlds: dict) -> dict:
     """14. 14a the one-rank NCCL world against the stacked rows, 14b Lion
     and SGD at full width and on the smoke config card against CPU."""
     stats: dict = {"world": {}, "optimizers": {}, "smoke_card_vs_cpu": {}}
-    stats["world"] = world_vs_sim(all_ops)
+    stats["world"] = world_vs_sim(all_ops, worlds)
     t = phase("world-vs-sim", t)
     launches = 0
     for name, mode in OPTIMIZER_RUNS:
@@ -3067,84 +3179,15 @@ def world_phases(all_ops, t: float) -> dict:
     return stats
 
 
-# 15's one-rank world: the train CLI's gspmd world, then the serving CLI's
-# world entry, in one process group (one process start and one cold card)
-TP_RUNNER = """
-import json, sys
-import torch
-import torch.distributed as dist
-from repro_torch.kernels.flash_attention import ops as fa
-from repro_torch.kernels.mrd_combine import ops as mc
-from repro_torch.kernels.paged_attention import ops as pa
-from repro_torch.kernels.rmsnorm import ops as rn
-from repro_torch.kernels.selective_scan import ops as ss
-from repro_torch.launch import serve, train
-
-ops = (pa.paged_attention, mc.mrd_combine, fa.flash_attention, rn.rmsnorm, ss.selective_scan)
-job = json.loads(sys.argv[1])
-targs = train.build_parser().parse_args(job["train"])
-device = train.start_world(train.world_env(), targs.device)
-out = {}
-try:
-    mesh = train.build_mesh(1, 1, device.type)
-    for op in ops:
-        op.launches = 0
-    rec = train.train(targs, device, mesh)
-    out["train"] = {"losses": rec["losses"], "grad_norms": rec["grad_norms"],
-                    "ms_per_step": rec["ms_per_step"], "peak_bytes": rec["peak_bytes"],
-                    "digest": train.state_digest(rec["state"]),
-                    "launches": {op.__name__: op.launches for op in ops}}
-    del rec
-    torch.cuda.empty_cache()
-    sargs = serve.build_parser().parse_args(job["serve"])
-    sargs.device = str(device)
-    for op in ops:
-        op.launches = 0
-    eng = serve.run(sargs, mesh)
-    out["serve"] = {"results": {str(i): [r.output.tolist(), r.admit_tick, r.retire_tick]
-                                for i, r in eng.results.items()},
-                    "summary": {k: eng.summary()[k] for k in (
-                        "completed", "ticks", "throughput_tok_s", "ttft_p50_ms",
-                        "tpot_p50_ms")},
-                    "launches": {op.__name__: op.launches for op in ops}}
-finally:
-    dist.destroy_process_group()
-with open(job["out"], "w") as f:
-    json.dump(out, f)
-"""
-TP_SERVE_ARGV = [
-    "--arch", "llama3.2-1b", "--continuous", "--workload", "llm_decode_paged",
-    "--attn", "kernel", "--dp", "3", "--slots", "8", "--requests", "8",
-    "--prompt-len", "64", "--gen", "16", "--block-size", "16",
-]
-
-
-def tp_world_phase(all_ops, t: float) -> dict:
+def tp_world_phase(all_ops, t: float, worlds: dict) -> dict:
     """15. The train CLI's ``gspmd`` world and the serving CLI's world
-    entry as one-rank NCCL worlds (one subprocess) against the stacked-rows
-    ``gspmd`` trainer and the plain serving CLI in this process, on the
-    same card; this process's runs counted from 0."""
+    entry as one-rank NCCL worlds (:func:`one_rank_world`'s records)
+    against the stacked-rows ``gspmd`` trainer and the plain serving CLI in
+    this process, on the same card; this process's runs counted from 0."""
     from repro_torch.launch import serve, train
 
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
     targv = train_argv("llama3.2-1b", 1, "gspmd", WORLD_STEPS)
-    job = {"train": targv, "serve": TP_SERVE_ARGV + ["--device", "cuda"],
-           "out": str(out / "p15_tp_world.json")}
-    free_device()
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
-         "--no-python", sys.executable, "-c", TP_RUNNER, json.dumps(job)],
-        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
-    world_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise SystemExit(f"15: the one-rank world failed ({proc.returncode}):\n"
-                         f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
-    world = json.loads(Path(job["out"]).read_text())
-    t = phase("tp-world-subprocess", t)
+    world, world_s = worlds["tp"], worlds["wall_s"]
     free_device()
     zero(all_ops)
     torch.cuda.reset_peak_memory_stats()
@@ -3238,6 +3281,215 @@ def overlap_phase(all_ops, t: float) -> dict:
             "launches": {k: off["launches"][k] + on["launches"][k] for k in off["launches"]}}
 
 
+# 17. elastic serving: the reference CLI's script from dp 4 (kill 6:2, a
+# 10x stall of replica 1 at 10, join 16:(4, 5), unstall 22:1, kill 26:0)
+ELASTIC_SCRIPT = ["--elastic-policy", "grow_on_join", "--steps-per-dispatch", "4",
+                  "--kill", "6:2", "--stall", "10:1:10", "--join", "16:4,5",
+                  "--unstall", "22:1", "--kill", "26:0"]
+ELASTIC_TRAJECTORY = [("shrink", 4, 3), ("grow", 3, 5), ("shrink", 5, 4)]
+ELASTIC_REQUESTS = 24
+ELASTIC_LLM_ARGV = [
+    "--arch", "llama3.2-1b", "--continuous", "--workload", "llm_decode_paged",
+    "--attn", "kernel", "--dp", "4", "--slots", "8", "--requests", str(ELASTIC_REQUESTS),
+    "--prompt-len", "64", "--gen", "32", "--block-size", "16", "--arrival", "poisson:0.5",
+    "--device", "cuda",
+]
+ELASTIC_FP_ARGV = [
+    "--continuous", "--workload", "fixedpoint_solve", "--solver", "d_iteration",
+    "--n", str(FP_DITER_N), "--dp", "4", "--slots", str(FP_SLOTS),
+    "--requests", str(ELASTIC_REQUESTS), "--termination", "residual_interval", "--eps", "1e-10",
+    "--arrival", "poisson:0.5", "--device", "cuda",
+]
+
+
+def _p50_ms(xs) -> float:
+    xs = [x for x in xs if np.isfinite(x)]
+    return float(np.percentile(xs, 50) * 1e3) if xs else float("nan")
+
+
+@contextlib.contextmanager
+def timed_resizes(records: list, watch=()):
+    """Wrap ``ServeEngine.resize``: each resize's wall time (synchronized),
+    and around a grow the allocated bytes before it, its peak, the largest
+    leaf it broadcasts, each ``watch`` kernel's launches so far, and the
+    params after it against a host copy taken before it (``torch.equal``,
+    leaf by leaf)."""
+    from repro_torch.serving import ServeEngine
+
+    real = ServeEngine.resize
+
+    def resize(self, new_dp, keep, *, reason=""):
+        grow = any(k is None for k in keep)
+        rec = {"tick": self.tick, "old_dp": self.dp, "new_dp": new_dp, "grow": grow,
+               "check_ms": 0.0}
+        params = list(_leaves(getattr(self.workload, "params", {})))
+        if grow:
+            t0 = time.perf_counter()
+            host = [leaf.cpu() for leaf in params]
+            rec["largest_leaf"] = max((t.numel() * t.element_size() for t in
+                                       params + list(_leaves(self.workload.wstate))
+                                       if isinstance(t, torch.Tensor)), default=0)
+            rec["launches"] = {op.__name__: op.launches for op in watch}
+            torch.cuda.synchronize()
+            rec["resident"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            rec["check_ms"] += (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        ev = real(self, new_dp, keep, reason=reason)
+        torch.cuda.synchronize()
+        rec["wall_ms"] = (time.perf_counter() - t1) * 1e3
+        if grow:
+            t0 = time.perf_counter()
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            after = list(_leaves(getattr(self.workload, "params", {})))
+            rec["params_equal"] = len(after) == len(host) and all(
+                torch.equal(a, h.to(a.device)) for a, h in zip(after, host))
+            del host
+            rec["check_ms"] += (time.perf_counter() - t0) * 1e3
+        records.append(rec)
+        return ev
+
+    with mock.patch.object(ServeEngine, "resize", resize):
+        yield
+
+
+def elastic_around(eng, records) -> list:
+    """TTFT and TPOT p50 (ms) of the requests retired before each resize
+    and of those admitted at or after it."""
+    res = list(eng.results.values())
+    out = []
+    for rec in records:
+        before = [r for r in res if r.retire_tick < rec["tick"]]
+        after = [r for r in res if r.admit_tick >= rec["tick"]]
+        out.append({"ttft_p50_ms_before": _p50_ms([r.ttft_s for r in before]),
+                    "tpot_p50_ms_before": _p50_ms([r.tpot_s for r in before]),
+                    "ttft_p50_ms_after": _p50_ms([r.ttft_s for r in after]),
+                    "tpot_p50_ms_after": _p50_ms([r.tpot_s for r in after])})
+    return out
+
+
+def elastic_phase(all_ops, t: float, smi: str) -> dict:
+    """17. Elastic serving through the serving CLI's ``main()``, the
+    reference CLI's script from dp 4 (4 -> 3 -> 5 -> 4 at live traffic).
+    17a. llama3.2-1b at full width (bf16, seed 0's weights, phase 4's) on
+    the paged kernel path: 24 Poisson requests, 8 slots, blocks of 16,
+    ``grow_on_join``, 4 ticks a dispatch; first uninterrupted at dp 4, then
+    under the script, each counted from 0.  Gates: the trajectory, every
+    request retired and prefilled once, every request's tokens those of
+    the uninterrupted run, the allocator empty and consistent,
+    ``flash_attention`` 16 an admission, ``paged_attention`` 16 a decode
+    tick and launched after the grow, ``rmsnorm`` 33 a forward, the grow's
+    params equal the source's, and its peak within the resident bytes +
+    5 x the largest leaf + 1 GiB.  17b. ``d_iteration`` at n = 32,760, 16
+    slots, ``residual_interval`` at eps 1e-10, the same script: the
+    trajectory, every request certified with its true residual below eps,
+    no kernel launched."""
+    from repro_torch.launch import serve
+
+    pa, fa, rn = (next(op for op in all_ops if op.__name__ == n)
+                  for n in ("paged_attention", "flash_attention", "rmsnorm"))
+    n_layers = 16
+    stats: dict = {"gpu": smi}
+
+    # 17a. the uninterrupted run, then the script
+    free_device()
+    zero(all_ops)
+    steady = serve.main(ELASTIC_LLM_ARGV + ["--steps-per-dispatch", "4"])
+    steady_counts, ss = counts(all_ops), steady.summary()
+    steady_out = {i: r.output for i, r in steady.results.items()}
+    del steady
+    free_device()
+    records: list = []
+    zero(all_ops)
+    with timed_resizes(records, watch=(pa,)):
+        eng = serve.main(ELASTIC_LLM_ARGV + ELASTIC_SCRIPT)
+    got = counts(all_ops)
+    s, wl = eng.summary(), eng.workload
+    traj = [(e.kind, e.old_dp, e.new_dp) for e in eng.resizes]
+    same = sorted(eng.results) == sorted(steady_out) and all(
+        np.array_equal(r.output, steady_out[i]) for i, r in eng.results.items())
+    grow = next(r for r in records if r["grow"])
+    bound = grow["resident"] + 5 * grow["largest_leaf"] + 2**30
+    after_grow = got["paged_attention"] - grow["launches"]["paged_attention"]
+    around = elastic_around(eng, records)
+    for rec, ar in zip(records, around):
+        rec.update(ar)
+        log(f"17a resize {rec['old_dp']} -> {rec['new_dp']} @tick {rec['tick']}: "
+            f"{rec['wall_ms']:.3f} ms wall; TTFT p50 {ar['ttft_p50_ms_before']:.2f} -> "
+            f"{ar['ttft_p50_ms_after']:.2f} ms, TPOT p50 {ar['tpot_p50_ms_before']:.3f} -> "
+            f"{ar['tpot_p50_ms_after']:.3f} ms (retired before / admitted after) [{smi}]")
+    log(f"17a grow: params equal the source's {grow['params_equal']}; peak "
+        f"{(grow['peak'] - grow['resident']) / 2**30:.3f} GiB above the resident "
+        f"{grow['resident'] / 2**30:.3f} GiB (bound {(bound - grow['resident']) / 2**30:.3f} GiB: "
+        f"5 x the largest leaf {grow['largest_leaf']} B + 1 GiB)")
+    check_s = sum(r["check_ms"] for r in records) / 1e3
+    tok_s = s["tokens_out"] / (s["wall_s"] - check_s)
+    log(f"17a llama3.2-1b elastic: trajectory {traj}, {s['completed']}/{ELASTIC_REQUESTS} "
+        f"retired, {wl.prefills} prefills, {s['decode_ticks']} decode ticks, tokens equal the "
+        f"uninterrupted run's {same}; tok/s {tok_s:.1f} without the grow check's "
+        f"{check_s:.3f} s of host copies ({s['throughput_tok_s']:.1f} with them) against "
+        f"{ss['throughput_tok_s']:.1f} uninterrupted; TTFT p50 {s['ttft_p50_ms']:.2f} / "
+        f"{ss['ttft_p50_ms']:.2f} ms, TPOT p50 {s['tpot_p50_ms']:.3f} / {ss['tpot_p50_ms']:.3f} "
+        f"ms; paged_attention after the grow {after_grow} [{smi}]")
+    expect_launches(got, {"paged_attention": n_layers * s["decode_ticks"],
+                          "flash_attention": n_layers * ELASTIC_REQUESTS,
+                          "rmsnorm": (2 * n_layers + 1) * (ELASTIC_REQUESTS + s["decode_ticks"])},
+                    "17a elastic", torch.device("cuda"))
+    if traj != ELASTIC_TRAJECTORY or s["completed"] != ELASTIC_REQUESTS:
+        raise SystemExit(f"17a: trajectory {traj}, {s['completed']} retired")
+    if wl.prefills != ELASTIC_REQUESTS or not same:
+        raise SystemExit(f"17a: {wl.prefills} prefills, tokens equal {same}")
+    wl.pool.allocator.check()
+    if wl.pool.allocator.used_blocks or not after_grow:
+        raise SystemExit(f"17a: {wl.pool.allocator.used_blocks} blocks left in use, "
+                         f"{after_grow} paged_attention launches after the grow")
+    if not grow["params_equal"] or grow["peak"] > bound:
+        raise SystemExit(f"17a: the grow's params equal {grow['params_equal']}, peak "
+                         f"{grow['peak']} > {bound}")
+    stats["llm"] = {"trajectory": traj, "resizes": records, "launches": got,
+                    "steady_launches": steady_counts, "check_s": check_s,
+                    "tok_s_without_check": tok_s,
+                    **{k: s[k] for k in ("completed", "decode_ticks", "ticks", "tokens_out",
+                                         "throughput_tok_s", "ttft_p50_ms", "tpot_p50_ms",
+                                         "wall_s")},
+                    "steady": {k: ss[k] for k in ("decode_ticks", "ticks", "throughput_tok_s",
+                                                  "ttft_p50_ms", "tpot_p50_ms", "wall_s")}}
+    del eng, wl
+    free_device()
+    t = phase("elastic-llm", t)
+
+    # 17b. fixed-point solves under the same script
+    records = []
+    zero(all_ops)
+    args = serve.build_parser().parse_args(ELASTIC_FP_ARGV + ELASTIC_SCRIPT)
+    with timed_resizes(records):
+        eng, wl, res = serve.serve(args)
+    got = counts(all_ops)
+    payloads = {r.id: r.payload for r in serve.make_fixedpoint_requests(
+        args.requests, args.n, args.gen, args.seed)}
+    true_res = fixedpoint_true_residuals(wl, res, payloads)
+    traj = [(e.kind, e.old_dp, e.new_dp) for e in eng.resizes]
+    st = fixedpoint_run_stats(eng, res)
+    log(f"17b d_iteration n {args.n} elastic: trajectory {traj}, {len(res)} requests, converged "
+        f"{sum(r.converged for r in res.values())}, true residual up to {true_res.max():.3e} "
+        f"(eps {args.eps}), {st['ticks']} ticks, {st['ms_per_tick']:.3f} ms a tick, "
+        f"{st['solves_per_s']:.2f} solves/s; resizes "
+        + ", ".join(f"{r['old_dp']} -> {r['new_dp']} {r['wall_ms']:.3f} ms" for r in records)
+        + f" [{smi}]")
+    expect_launches(got, {}, "17b elastic fixed point", torch.device("cuda"))
+    if traj != ELASTIC_TRAJECTORY or len(res) != args.requests:
+        raise SystemExit(f"17b: trajectory {traj}, {len(res)} retired")
+    if not all(r.converged for r in res.values()) or not (true_res < args.eps).all():
+        raise SystemExit(f"17b: a request is not certified (true residual {true_res.max():.3e})")
+    stats["fixedpoint"] = {"trajectory": traj, "resizes": records, **st,
+                           "max_true_residual": float(true_res.max())}
+    del eng, wl, res
+    free_device()
+    phase("elastic-fixedpoint", t)
+    stats["launches"] = stats["llm"]["launches"]
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3286,12 +3538,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t = phase("device", t0)
-
-    # 2. build: one nvcc per source, all started together
-    build_kernels(t)
-    t = phase("build", t)
     all_ops = (ops.paged_attention, mc_ops.mrd_combine, fa_ops.flash_attention, rn_ops.rmsnorm,
                ss_ops.selective_scan)
+
+    # 2. build: one nvcc per source, all started together; phases 7 and 8,
+    # which launch none of the port's kernels, run on the card meanwhile
+    building = start_build()
+    async_stats = async_phases(all_ops, t)
+    fixedpoint_stats = fixedpoint_phases(all_ops, time.perf_counter())
+    t = time.perf_counter()
+    finish_build(*building, t)
+    t = phase("build", t)
 
     # 3. kernel vs plain on the card
     errs = {}
@@ -3384,7 +3641,7 @@ def main() -> int:
     t = phase("serve-full-width", t)
 
     # 4b. where a steady decode tick's time goes (8 busy slots, bf16)
-    wall_ms, busy_ms, per_tick = profile_decode(
+    wall_ms, busy_ms, per_tick, _ = profile_decode(
         eng.workload, serve.make_requests(eng.workload.cfg, 8, 64, 32, seed=1))
     log(f"steady decode tick, 8 slots: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
         f"device idle share {1 - busy_ms / wall_ms:.3f}")
@@ -3445,7 +3702,7 @@ def main() -> int:
     t1 = time.perf_counter()
     float(one_step()["loss"])
     step_wall_ms = (time.perf_counter() - t1) * 1e3
-    step_busy_ms, per_step = device_profile(one_step, 1)
+    step_busy_ms, per_step, _ = device_profile(one_step, 1)
     log(f"train step (6 x 1024 tokens, dp 3, compressed): wall {step_wall_ms:.1f} ms, device "
         f"busy {step_busy_ms:.1f} ms, device idle share {1 - step_busy_ms / step_wall_ms:.3f}")
     for name, (ms_s, n_s) in top_kernels(per_step, 12):
@@ -3504,8 +3761,8 @@ def main() -> int:
     gemma_stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     t = phase("gemma3-serve-full-width", t)
 
-    wall_ms, busy_ms, per_tick = profile_decode(
-        gwl, serve.make_requests(gcfg, 4, 8192, 32, seed=1, min_prompt_len=1024), ticks=4)
+    wall_ms, busy_ms, per_tick, _ = profile_decode(
+        gwl, serve.make_requests(gcfg, 4, 8192, 32, seed=1, min_prompt_len=1024))
     log(f"gemma3 steady decode tick, 4 slots: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
     for name, (ms_tick, n_tick) in top_kernels(per_tick):
@@ -3539,7 +3796,7 @@ def main() -> int:
     if (fa_ops.flash_attention.launches, rn_ops.rmsnorm.launches) != (
             gcfg.n_layers, 2 * gcfg.n_layers + 1):
         raise SystemExit("the 32k prefill did not run every layer through both kernels")
-    pf_busy, per_pf = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
+    pf_busy, per_pf, _ = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
     log(f"  profiled prefill: device busy {pf_busy:.1f} ms ({pf_busy / (pf_wall * 1e3):.3f} of "
         f"the unprofiled wall time)")
     for name, (ms_p, n_p) in top_kernels(per_pf, 10):
@@ -3636,7 +3893,7 @@ def main() -> int:
     falcon_stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     t = phase("falcon-serve-full-width", t)
 
-    wall_ms, busy_ms, per_tick = profile_decode(
+    wall_ms, busy_ms, per_tick, _ = profile_decode(
         fwl, serve.make_requests(fcfg, 8, 8192, 64, seed=1, min_prompt_len=1024))
     log(f"falcon-mamba steady decode tick, 8 slots: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
@@ -3675,7 +3932,7 @@ def main() -> int:
     if counts != (0, 0, 0, fcfg.n_layers + 1, fcfg.n_layers):
         raise SystemExit(f"the falcon-mamba 32k prefill's launches {counts} != 65 rmsnorm and "
                          "64 selective_scan")
-    pf_busy, per_pf = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
+    pf_busy, per_pf, _ = device_profile(lambda: prefill(params, {"tokens": tokens}), 1)
     log(f"  profiled prefill: device busy {pf_busy:.1f} ms ({pf_busy / (pf_wall * 1e3):.3f} of "
         f"the unprofiled wall time)")
     for name, (ms_p, n_p) in top_kernels(per_pf, 10):
@@ -4015,9 +4272,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     t = phase("timings", t)
 
-    async_stats = async_phases(all_ops, t)
-    fixedpoint_stats = fixedpoint_phases(all_ops, time.perf_counter())
-
     # 9. the collectives layer (device_fused's routing, tree_allreduce at full
     # width, BucketPipeline), counted from 0 through 9a-9d
     torch.cuda.empty_cache()
@@ -4025,7 +4279,7 @@ def main() -> int:
     coll_stats = collectives_phases(
         all_ops, time.perf_counter(), cfg=llama,
         cut_cfg=registry.override(llama, n_layers=COLL_CUT_LAYERS), device=torch.device("cuda"),
-        busy=lambda fn: device_profile(fn, 1))
+        busy=lambda fn: device_profile(fn, 1)[:2])
     coll_launches = coll_stats["launches"]
     t = time.perf_counter()
     # 9e. bench_mrd --quick on the card (its rows in chiprun_out/bench_mrd.json)
@@ -4062,15 +4316,19 @@ def main() -> int:
     train13 = training_phases(all_ops, time.perf_counter())
     p13 = train13["launches"]["mrd_combine"]
 
-    # 14. the multi-process trainer as a one-rank NCCL world; Lion and SGD
+    # 14. the multi-process trainer as a one-rank NCCL world (the world of
+    # 14a and 15, one subprocess); Lion and SGD
     free_device()
-    train14 = world_phases(all_ops, time.perf_counter())
+    t = time.perf_counter()
+    worlds = one_rank_world()
+    t = phase("one-rank-world-subprocess", t)
+    train14 = world_phases(all_ops, t, worlds)
     p14 = train14["launches"]["mrd_combine"]
 
     # 15. the sharded entry points (gspmd trainer, TP serving CLI) as
     # one-rank NCCL worlds
     free_device()
-    tp15 = tp_world_phase(all_ops, time.perf_counter())
+    tp15 = tp_world_phase(all_ops, time.perf_counter(), worlds)
     p15 = tp15["launches"]
 
     # 16. the ready-bucket overlap (--overlap against --no-overlap) on
@@ -4079,7 +4337,12 @@ def main() -> int:
     ov16 = overlap_phase(all_ops, time.perf_counter())
     p16 = ov16["launches"]
 
-    # 17. results
+    # 17. elastic serving (4 -> 3 -> 5 -> 4 under live traffic)
+    free_device()
+    el17 = elastic_phase(all_ops, time.perf_counter(), smi)
+    p17 = el17["launches"]
+
+    # 18. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -4099,6 +4362,7 @@ def main() -> int:
     log(json.dumps({"world_training": train14}))
     log(json.dumps({"tp_world": tp15}))
     log(json.dumps({"overlap": ov16}))
+    log(json.dumps({"elastic": el17}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
@@ -4106,11 +4370,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/paged_kernel.py:78",
         "launches": (launches + p10["paged_attention"] + p11["paged_attention"]
-                     + p12["paged_attention"] + p15["paged_attention"]),
+                     + p12["paged_attention"] + p15["paged_attention"]
+                     + p17["paged_attention"]),
         "launches_by_path": {"llama_serve": launches, "serving_rest": p10["paged_attention"],
                              "families": p11["paged_attention"],
                              "hybrid": p12["paged_attention"],
-                             "tp_world": p15["paged_attention"]},
+                             "tp_world": p15["paged_attention"],
+                             "elastic_serve": p17["paged_attention"]},
         "max_abs_err": errs[(KERNEL_CASES[0], torch.bfloat16)],
         **pa_t[KERNEL_CASES[0]],
         "long_context": {"shape": list(KERNEL_CASES[3]),
@@ -4151,11 +4417,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
         "launches": (fa_launches + p10["flash_attention"] + p11["flash_attention"]
-                     + p12["flash_attention"] + p15["flash_attention"]),
+                     + p12["flash_attention"] + p15["flash_attention"]
+                     + p17["flash_attention"]),
         "launches_by_path": {"gemma3_serve": fa_launches, "serving_rest": p10["flash_attention"],
                              "families": p11["flash_attention"],
                              "hybrid": p12["flash_attention"],
-                             "tp_world": p15["flash_attention"]},
+                             "tp_world": p15["flash_attention"],
+                             "elastic_serve": p17["flash_attention"]},
         "max_abs_err": errs[(FLASH_CASES[0], torch.bfloat16)],
         **fa_t[(PREFILL_LEN, None)],
         "widened": [{**v, "max_abs_err": max(  # over phase 3's bf16 cases of these heads
@@ -4169,10 +4437,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
         "launches": (rn_launches + p10["rmsnorm"] + p11["rmsnorm"] + p12["rmsnorm"]
-                     + p15["rmsnorm"]),
+                     + p15["rmsnorm"] + p17["rmsnorm"]),
         "launches_by_path": {"gemma3_serve": rn_launches, "serving_rest": p10["rmsnorm"],
                              "families": p11["rmsnorm"], "hybrid": p12["rmsnorm"],
-                             "tp_world": p15["rmsnorm"]},
+                             "tp_world": p15["rmsnorm"], "elastic_serve": p17["rmsnorm"]},
         "max_abs_err": errs[(RMSNORM_CASES[0], torch.bfloat16)],
         "ms": rn_ms,
         "plain_ms": rn_plain_ms,

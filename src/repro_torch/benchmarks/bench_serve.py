@@ -17,18 +17,26 @@ Rows (CSV on stdout: name,value,derived):
   slots in the contiguous pool's cache blocks (the system prompt's blocks
   stored once, no worst-case reservation a slot), token for token the
   contiguous pool's (``attn="gather"``, the reference pool's default);
+- ``serve_llm_elastic_killjoin`` / ``serve_fixedpoint_elastic_killjoin``:
+  three times the traffic (or a grid's ``elastic_requests``) at Poisson
+  arrivals through an ``ElasticServeController`` that kills two replicas
+  and joins two
+  (agreement extent 4 -> 3 -> 5 -> 4), against the same traffic served
+  uninterrupted at dp 4; the ``*_post_vs_steady`` ratios time the work
+  retired after the last resize;
 - ``serve_fixedpoint_<sched>``: per-request D-iteration solves (requests/s)
   against the barrier baseline (each wave iterates until its slowest
   request's true residual is below eps).
 
-The reference's elastic kill/join rows are not ported (the elastic runtime
-is not).  The rows go to ``--json`` (default ``chiprun_out/bench_serve.json``,
+The rows go to ``--json`` (default ``chiprun_out/bench_serve.json``,
 never the repo's ``BENCH_serve.json``).  ``--quick`` shrinks the grid;
 ``--check`` asserts the reference's gates: every latency percentile finite,
 continuous at least 0.7x static at peak arrival, every fixed-point request
-converged, and the paged pool token for token the contiguous one at
->= 1.5x the concurrency a cache byte and >= 0.8x its tok/s.  Timed runs
-are the best of three identical runs.
+converged, the paged pool token for token the contiguous one at >= 1.5x
+the concurrency a cache byte and >= 0.8x its tok/s, and under kill/join
+no request lost, three resizes, no slot prefilled again and the rate
+after the resizes >= 0.8x the steady run's.  Timed runs are the best of
+three identical runs.
 
     python -m repro_torch.benchmarks.bench_serve [--quick] [--check] [--device cuda]
 """
@@ -36,6 +44,7 @@ are the best of three identical runs.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import time
@@ -46,8 +55,15 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import static_serve
+from repro_torch.launch.serve import _CliChaosScript, static_serve
+from repro_torch.runtime import ElasticServeController
 from repro_torch.serving import Request, ServeConfig, ServeEngine, make_arrival_ticks, make_workload
+
+# the elastic rows' script: kill 6:2, join 16:(4, 5), kill 26:0 from dp 4
+ELASTIC_DP, ELASTIC_SPD = 4, 4
+ELASTIC_EVENTS = ((6, "kill", (2,), {"silent": False}), (16, "join", ((4, 5),), {}),
+                  (26, "kill", (0,), {}))
+ELASTIC_FP_N = 60  # divisible by every visited extent (3, 4, 5)
 
 QUICK = {"slots": 2, "n_req": 6, "prompt_len": 6, "gen_max": 24, "schedulers": ("fcfs",),
          "arrivals": ("burst",), "fixedpoint": {"n": 48, "dp": 2, "eps": 1e-6},
@@ -129,6 +145,23 @@ def best_of(run, key, n=3):
     return best
 
 
+def best_of_pairs(run_a, key_a, run_b, key_b, n=3):
+    """The fastest of ``n`` runs of each of two deterministic runs, taken in
+    turns (a, b, a, b, ...) after a full garbage collection, so that both
+    bests sample the host over the same window."""
+    best_a = best_b = None
+    for _ in range(n):
+        gc.collect()
+        a = run_a()
+        if best_a is None or key_a(a) > key_a(best_a):
+            best_a = a
+        gc.collect()
+        b = run_b()
+        if best_b is None or key_b(b) > key_b(best_b):
+            best_b = b
+    return best_a, best_b
+
+
 def mem_fields(workload, summary):
     """Cache-memory accounting of an LLM row."""
     cb = workload.cache_bytes
@@ -137,7 +170,7 @@ def mem_fields(workload, summary):
 
 
 def run_sysprefix(cfg, params, slots, n_req, seed, device, *, sys_len, user_len, gen_lo,
-                  gen_hi, block_size):
+                  gen_hi, block_size, repeats=3):
     """The contiguous pool at ``slots`` and the paged pool at twice the slots
     in the same cache blocks (plus the trash block) on shared-system-prompt
     burst traffic -> (contiguous row, paged row)."""
@@ -151,7 +184,7 @@ def run_sysprefix(cfg, params, slots, n_req, seed, device, *, sys_len, user_len,
     wl_contig = make_workload("llm_decode", slots=slots, **common)
     run_continuous_llm(wl_contig, prompts[:w], budgets[:w], [0] * w, "fcfs")  # warm
     sc, res_c = best_of(lambda: run_continuous_llm(wl_contig, prompts, budgets, burst, "fcfs"),
-                        lambda t: t[0]["throughput_tok_s"])
+                        lambda t: t[0]["throughput_tok_s"], repeats)
     contig_row = {"name": "serve_llm_contig_sysprefix", "workload": "llm_decode",
                   "slots": slots, "tok_s": round(sc["throughput_tok_s"], 1),
                   "occupancy": round(sc["occupancy"], 3), **mem_fields(wl_contig, sc)}
@@ -160,7 +193,7 @@ def run_sysprefix(cfg, params, slots, n_req, seed, device, *, sys_len, user_len,
                              num_blocks=num_blocks, attn="gather", **common)
     run_continuous_llm(wl_paged, prompts[:w], budgets[:w], [0] * w, "fcfs")  # warm
     sp, res_p = best_of(lambda: run_continuous_llm(wl_paged, prompts, budgets, burst, "fcfs"),
-                        lambda t: t[0]["throughput_tok_s"])
+                        lambda t: t[0]["throughput_tok_s"], repeats)
     pm = mem_fields(wl_paged, sp)
     # the concurrency each pool affords a MiB of cache
     conc = (2 * slots / (pm["cache_mib"] or 1)) / (slots / (contig_row["cache_mib"] or 1))
@@ -220,17 +253,122 @@ def run_fixedpoint(n, dp, slots, n_req, eps, scheduler, seed, device):
             "occupancy": s["occupancy"]}
 
 
+def _run_elastic(eng, reqs, done_of):
+    """The controller loop under the elastic script -> (results, the rate
+    of the work retired after the last resize, a second)."""
+    ctl = ElasticServeController(eng, policy="grow_on_join")
+    script = _CliChaosScript(ELASTIC_EVENTS)
+    for r in reqs:
+        eng.submit(r)
+    t_post = w_post = None
+    while eng.queue or eng.pending or any(s is not None for s in eng.slot_req):
+        ctl.step(script)
+        if t_post is None and len(eng.resizes) == len(ELASTIC_EVENTS):
+            t_post, w_post = time.perf_counter(), done_of(eng)
+    t_end = time.perf_counter()
+    post = None
+    if t_post is not None and t_end > t_post:
+        post = (done_of(eng) - w_post) / (t_end - t_post)
+    return eng.results, post
+
+
+def run_elastic(cfg, workload, el_n, prompt_len, gen_max, slots, seed, device,
+                repeats=3) -> list:
+    """The two kill/join rows: ``el_n`` requests at ``poisson:0.5``
+    through the script, LLM decode on ``workload`` and D-iteration solves
+    at n = 60, each against the same traffic uninterrupted at dp 4 (the
+    best of ``repeats`` of each, in turns); every visited extent is warmed
+    before the timed runs."""
+    prompts, budgets = traffic(el_n, prompt_len, gen_max, cfg.vocab, seed + 21)
+    arr = arrivals("0.5", el_n, seed + 5)
+    scfg = ServeConfig(dp=ELASTIC_DP, steps_per_dispatch=ELASTIC_SPD)
+
+    def llm_reqs():
+        return [Request(id=i, arrival=a, prompt=p, max_new=b)
+                for i, (p, b, a) in enumerate(zip(prompts, budgets, arr))]
+
+    def llm_run():
+        workload.reset()
+        eng = ServeEngine(workload, scfg)
+        res, post = _run_elastic(eng, llm_reqs(),
+                                 lambda e: sum(len(r.output) for r in e.results.values()))
+        return eng, res, post
+
+    llm_run()  # warm
+    w = slots + 1
+    run_continuous_llm(workload, prompts[:w], budgets[:w], [0] * w, "fcfs", dp=ELASTIC_DP,
+                       steps_per_dispatch=ELASTIC_SPD)
+    steady, (eng, res, post) = best_of_pairs(
+        lambda: run_continuous_llm(workload, prompts, budgets, arr, "fcfs", dp=ELASTIC_DP,
+                                   steps_per_dispatch=ELASTIC_SPD)[0],
+        lambda s: s["throughput_tok_s"], llm_run, lambda t: t[2] or 0.0, repeats)
+    se = eng.summary()
+    llm_row = {
+        "name": "serve_llm_elastic_killjoin", "workload": "llm_decode",
+        "trajectory": "4->3->5->4", "resizes": se["resizes"],
+        "tok_s": round(se["throughput_tok_s"], 1), "ttft_p95_ms": round(se["ttft_p95_ms"], 2),
+        "lost_requests": el_n - len(res), "reprefills": workload.prefills - el_n,
+        "tok_s_vs_steady": round(se["throughput_tok_s"] / steady["throughput_tok_s"], 3),
+        "tok_s_post_vs_steady": round((post or 0.0) / steady["throughput_tok_s"], 3),
+    }
+
+    fp_wl = make_workload("fixedpoint_solve", solver="d_iteration", n=ELASTIC_FP_N,
+                          dp=ELASTIC_DP, slots=slots, damping=0.8, seed=seed, device=device)
+    rng = np.random.default_rng(seed + 13)
+    payloads = []
+    for _ in range(el_n):
+        v = rng.random(ELASTIC_FP_N).astype(np.float32)
+        payloads.append(v / v.sum())
+    fp_cfg = ServeConfig(termination="residual_interval", dp=ELASTIC_DP, eps=1e-6,
+                         steps_per_dispatch=ELASTIC_SPD)
+
+    def fp_reqs():
+        return [Request(id=i, arrival=a, payload=p, max_new=5000)
+                for i, (p, a) in enumerate(zip(payloads, arr))]
+
+    def fp_run():
+        fp_wl.reset()
+        eng = ServeEngine(fp_wl, fp_cfg)
+        res, post = _run_elastic(eng, fp_reqs(), lambda e: len(e.results))
+        return eng, res, post
+
+    def fp_steady_run():
+        fp_wl.reset()
+        eng = ServeEngine(fp_wl, fp_cfg)
+        eng.run(fp_reqs())
+        return eng.summary()
+
+    fp_run()  # warm
+    fp_steady_run()
+    fp_steady, (eng, fp_res, fp_post) = best_of_pairs(
+        fp_steady_run, lambda s: -s["wall_s"], fp_run, lambda t: t[2] or 0.0, repeats)
+    fe = eng.summary()
+    steady_req_s = el_n / fp_steady["wall_s"]
+    fp_row = {
+        "name": "serve_fixedpoint_elastic_killjoin", "workload": "fixedpoint_solve",
+        "trajectory": "4->3->5->4", "resizes": fe["resizes"], "requests": el_n,
+        "req_s": round(len(fp_res) / fe["wall_s"], 2), "lost_requests": el_n - len(fp_res),
+        "converged": fe["converged"],
+        "req_s_vs_steady": round((len(fp_res) / fe["wall_s"]) / steady_req_s, 3),
+        "req_s_post_vs_steady": round((fp_post or 0.0) / steady_req_s, 3),
+    }
+    return [llm_row, fp_row]
+
+
 def run_grid(cfg, grid: dict, device, *, params=None, seed: int = 0) -> list:
-    """Every row of ``grid`` (:data:`QUICK`'s keys) for the LLM config
+    """Every row of ``grid`` (:data:`QUICK`'s keys, and optionally
+    ``fp_slots``, ``fp_requests``, ``elastic_requests`` and ``repeats``,
+    the runs a timed row takes the best of, default 3) for the LLM config
     ``cfg`` on ``device``; ``params`` default to the seed's."""
     slots, n_req = grid["slots"], grid["n_req"]
+    repeats = grid.get("repeats", 3)
     prompt_len, gen_max = grid["prompt_len"], grid["gen_max"]
     prompts, budgets = traffic(n_req, prompt_len, gen_max, cfg.vocab, seed)
     workload = make_workload("llm_decode", cfg=cfg, slots=slots, max_len=prompt_len + gen_max + 2,
                              max_prompt_len=prompt_len, seed=seed, params=params, device=device)
     rows = []
     static = best_of(lambda: run_static_llm(cfg, workload.params, prompts, budgets, slots,
-                                            device), lambda s: s["tok_s"])
+                                            device), lambda s: s["tok_s"], repeats)
     rows.append({"name": "serve_static_baseline", "workload": "llm_decode",
                  "tok_s": round(static["tok_s"], 1), "useful_tokens": static["useful_tokens"],
                  "wall_s": round(static["wall_s"], 3)})
@@ -240,7 +378,7 @@ def run_grid(cfg, grid: dict, device, *, params=None, seed: int = 0) -> list:
         for akind in grid["arrivals"]:
             arr = arrivals(akind, n_req, seed + 3)
             s = best_of(lambda: run_continuous_llm(workload, prompts, budgets, arr, sched)[0],
-                        lambda s: s["throughput_tok_s"])
+                        lambda s: s["throughput_tok_s"], repeats)
             rows.append({
                 "name": f"serve_llm_{sched}_{akind}", "workload": "llm_decode",
                 "scheduler": sched, "arrival": akind,
@@ -254,7 +392,10 @@ def run_grid(cfg, grid: dict, device, *, params=None, seed: int = 0) -> list:
                 **mem_fields(workload, s),
             })
     rows.extend(run_sysprefix(cfg, workload.params, slots, n_req, seed + 11, device,
-                              **grid["sysprefix"]))
+                              **grid["sysprefix"], repeats=repeats))
+    el_n = grid.get("elastic_requests", 3 * n_req)  # the reference's 3 x: a settled tail
+    rows.extend(run_elastic(cfg, workload, el_n, prompt_len, gen_max, slots, seed, device,
+                            repeats))
     del workload
     fcfg = grid["fixedpoint"]
     fp = run_fixedpoint(fcfg["n"], fcfg["dp"], grid.get("fp_slots", slots),
@@ -270,8 +411,8 @@ def run_grid(cfg, grid: dict, device, *, params=None, seed: int = 0) -> list:
 
 
 def check_rows(rows) -> None:
-    """The reference's gates (its elastic rows' aside); raises
-    AssertionError on the first that fails."""
+    """The reference's gates; raises AssertionError on the first that
+    fails."""
     by = {r["name"]: r for r in rows}
     for r in rows:  # a NaN percentile (nothing retired) fails, never passes
         for k, v in r.items():
@@ -293,6 +434,15 @@ def check_rows(rows) -> None:
     assert paged["concurrency_per_byte_vs_contig"] >= 1.5, paged
     assert paged["tok_s_vs_contig"] >= 0.8, (
         f"paged throughput {paged['tok_s_vs_contig']:.3f}x of contiguous (gate: >= 0.8x)")
+    llm_el, fp_el = by["serve_llm_elastic_killjoin"], by["serve_fixedpoint_elastic_killjoin"]
+    for r in (llm_el, fp_el):
+        assert r["lost_requests"] == 0, f"elastic serving lost requests: {r}"
+        assert r["resizes"] == len(ELASTIC_EVENTS), f"resize trajectory incomplete: {r}"
+    assert llm_el["reprefills"] == 0, f"an elastic resize prefilled slots again: {llm_el}"
+    assert llm_el["tok_s_post_vs_steady"] >= 0.8, (
+        f"tok/s after the resizes fell below 0.8x steady: {llm_el}")
+    assert fp_el["req_s_post_vs_steady"] >= 0.8, (
+        f"req/s after the resizes fell below 0.8x steady: {fp_el}")
 
 
 def main(argv=None) -> dict:

@@ -39,7 +39,7 @@ read each other's checkpoints.
 - *Restore* loads onto a template's structure, shapes and types, on a
   given device, at the same data-parallel width: resharding onto another
   dp needs the grad-sync resize hooks (``GRAD_SYNC_RESIZE``, ROADMAP queue
-  1, item 7), which are not ported yet.
+  1, item 7b), which are not ported yet.
 - *Worlds* (one process a rank, ``world=(rank, dp)``): a save writes the
   same ``arrays.npz`` as a stacked-rows trainer's, so either trainer
   restores the other's checkpoint.  Each rank stages only what it writes
@@ -60,7 +60,7 @@ read each other's checkpoints.
   (:meth:`Checkpointer.restore_blocks`).
 
 The reference's telemetry spans around the stage, the d2h wait and the
-write wait for the port's ``obs`` (ROADMAP queue 1, item 7); the save's
+write wait for the port's ``obs`` (ROADMAP queue 1, item 7c); the save's
 times and bytes are kept in :attr:`Checkpointer.saves` meanwhile.
 """
 
@@ -90,7 +90,7 @@ from repro_torch.device import resolve_device
 LAYOUT_VERSION = 2
 
 RESIZE_HINT = ("restoring onto another data-parallel width needs the grad-sync resize hooks "
-               "(GRAD_SYNC_RESIZE, migrate_state: ROADMAP queue 1, item 7), not ported yet")
+               "(GRAD_SYNC_RESIZE, migrate_state: ROADMAP queue 1, item 7b), not ported yet")
 
 
 def flatten_with_paths(tree, prefix: str = "") -> Dict[str, Any]:

@@ -31,7 +31,7 @@ buckets its local gradients and runs its plans over its ``"data"``
 column (``common.ModelRanks``).  ``tcfg.overlap`` sends each gradient
 bucket through its plan as its backward segment completes
 (``gradsync.overlap``).  The elastic resize hooks are not ported yet
-(ROADMAP queue 1, item 7).
+(ROADMAP queue 1, item 7b).
 """
 
 from __future__ import annotations

@@ -50,6 +50,10 @@ prompt positions attends over its dequantized cache, its own row included.
 The moe family routes an admission's prompt a token a group, as the
 reference's scan does (``transformer.forward_prefill``); the whole-prompt
 ``make_prefill_step`` routes a sequence a group, as the reference's.
+
+Elastic serving's grow path moves the serving state to joining replicas
+through :func:`mrd_broadcast_stacked`: the MRD sum-allreduce of a tree
+that only the source rank fills, over the stacked replicas.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from __future__ import annotations
 import contextlib
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -378,3 +383,85 @@ def make_paged_slot_prefill_step(cfg: ModelConfig, max_prompt_len: int, max_len:
         return last_logits[0]
 
     return _in_ctx(slot_prefill, cfg, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Elastic serving: the state transfer to joining replicas
+# ---------------------------------------------------------------------------
+
+BROADCAST_CHUNK = 1 << 23  # a leaf's elements reduced at once (16 MiB of bf16 a rank)
+
+
+def _broadcast_tensor(leaf: torch.Tensor, plan, p: int, src: int, dst: int) -> torch.Tensor:
+    if leaf.numel() == 0:
+        return leaf
+    as_bool = leaf.dtype == torch.bool
+    out = leaf if leaf.is_contiguous() else torch.empty(leaf.shape, dtype=leaf.dtype,
+                                                        device=leaf.device)
+    flat = leaf.contiguous().view(-1)
+    out_flat = out.view(-1)
+    if as_bool:  # bools ride as uint8 (same element size: a view)
+        flat, out_flat = flat.view(torch.uint8), out_flat.view(torch.uint8)
+    chunk = BROADCAST_CHUNK
+    for i in range(0, flat.numel(), chunk):
+        piece = flat[i:i + chunk]
+        stacked = piece.new_zeros((p,) + piece.shape)
+        stacked[src] = piece
+        out_flat[i:i + chunk] = plan.run(stacked)[dst]
+    return out
+
+
+def _broadcast_leaf(leaf, plan, p: int, src: int, dst: int):
+    if isinstance(leaf, torch.Tensor):
+        return _broadcast_tensor(leaf, plan, p, src, dst)
+    if isinstance(leaf, np.ndarray):
+        writable = leaf.flags.writeable and leaf.flags.c_contiguous
+        t = torch.from_numpy(leaf if writable else np.array(leaf, copy=True))
+        out = _broadcast_tensor(t, plan, p, src, dst).numpy()
+        return leaf if writable else out
+    if isinstance(leaf, (bool, int, float)):  # host scalars ride as 0-d arrays
+        kind = type(leaf)
+        got = _broadcast_leaf(np.array(leaf), plan, p, src, dst)
+        return kind(got.item())
+    return leaf
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def mrd_broadcast_stacked(tree, p: int, src: int = 0, dst: int = None):
+    """The value of ``tree`` (nested dicts, lists and tuples of tensors,
+    numpy arrays and host scalars) as replica ``dst`` (default ``p - 1``,
+    the newest joiner) receives it from replica ``src`` through the MRD
+    sum-allreduce over ``p`` stacked replicas.
+
+    Rank ``src`` contributes each leaf and every other rank zeros, so every
+    combine adds a zero and the result is the source's value bit for bit
+    (``x + 0`` only turns ``-0.0`` into ``+0.0``; compare with
+    ``torch.equal``).  Bool leaves ride as uint8, zero-size leaves pass
+    through, a tensor stays on its device (a card's leaves are reduced on
+    the card, a host's on the CPU).
+
+    The reference moves the whole tree through one jitted program; here
+    the sum plan of ``repro_torch.collectives`` runs one leaf at a time, in
+    pieces of ``BROADCAST_CHUNK`` elements, so the stacked ``[p, piece]`` buffers are
+    all that is alive beside the tree.  Each contiguous tensor leaf (and
+    writable contiguous numpy array) receives ``dst``'s value in its own
+    storage, so no copy of the tree is made; a non-contiguous leaf or a
+    read-only array comes back as a new one.  A caller that needs the
+    source afterwards clones it first."""
+    from repro_torch.collectives import plans
+
+    if dst is None:
+        dst = p - 1
+    if not (0 <= src < p and 0 <= dst < p):
+        raise ValueError(f"src={src} and dst={dst} must be ranks of p={p}")
+    if p == 1:
+        return tree
+    plan = plans.allreduce_plan(schedule="mrd", op="sum", executor="sim", p=p)
+    return _map_tree(lambda leaf: _broadcast_leaf(leaf, plan, p, src, dst), tree)

@@ -30,6 +30,19 @@ path, or continuous batching with ``--continuous``.
       --workload llm_decode_paged --slots 8 --requests 32 --scheduler sla_edf \\
       --tenants "chat:3:sla=8:prio=2,batch:1:quota=4:gen=24" \\
       --arrival bursty:0.2,2.0
+  # elastic serving: kill and join agreement replicas under live traffic
+  # (extent 4 -> 3 -> 5 -> 4), no request lost, no slot prefilled again
+  python -m repro_torch.launch.serve --arch llama3.2-1b --continuous \\
+      --slots 8 --requests 24 --arrival poisson:0.5 --dp 4 \\
+      --elastic-policy grow_on_join --steps-per-dispatch 4 \\
+      --kill 6:2 --stall 10:1 --join 16:4,5 --unstall 22:1 --kill 26:0
+  # SLA autoscaling: each replica funds --slots-per-replica slots, and the
+  # sla_autoscale policy grows under queue/SLA pressure and shrinks when idle
+  python -m repro_torch.launch.serve --arch llama3.2-1b --continuous \\
+      --slots 8 --requests 32 --scheduler sla_edf \\
+      --tenants "chat:3:sla=8:prio=2,batch:1:quota=4:gen=24" \\
+      --arrival bursty:0.2,2.0 --dp 2 --slots-per-replica 4 \\
+      --autoscale --max-extent 4 --steps-per-dispatch 4
 
 An LLM workload serves the full-width config of ``--arch`` with random
 bf16 weights made from ``--seed`` on the card; ``--smoke`` takes the
@@ -49,10 +62,18 @@ arrive at the ticks ``--arrival`` draws from ``--seed + 7``; with
 ``--tenants`` they are the traffic model's (``serving/tenants.py``) at
 that seed, and tenant quotas bound admission.  ``--device`` defaults to
 ``cuda`` and raises when there is no card; ``--device cpu`` runs on the
-CPU, where every kernel is its plain PyTorch version.  The reference's
-elastic resize (``--elastic-policy``, ``--autoscale``,
-``--kill``/``--join``/``--stall``, ``--slots-per-replica``) and
-``--telemetry`` are not ported yet.
+CPU, where every kernel is its plain PyTorch version.
+
+Elastic serving: ``--elastic-policy`` (an ``ELASTIC_POLICIES`` entry),
+``--autoscale`` (``sla_autoscale`` within ``--min-extent`` ..
+``--max-extent``) or any chaos flag (``--kill TICK:REPLICA[:silent]``,
+``--join TICK:ID[,ID...]``, ``--stall TICK:REPLICA[:FACTOR]``,
+``--unstall TICK:REPLICA``) serves through an
+:class:`~repro_torch.runtime.ElasticServeController`, which resizes the
+``--dp`` agreement extent under live traffic; the events fire at the
+first dispatch boundary at or after their tick, and each resize prints a
+``# resize:`` line.  ``--slots-per-replica`` funds that many slots a
+replica.  ``--telemetry`` is not ported yet.
 
 ``--tp`` runs the model tensor-parallel over a world of one process a
 rank, under ``torch.distributed.run``, with the mesh the reference's
@@ -89,6 +110,7 @@ from repro_torch.distributed import serve as dserve
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import step as step_lib
 from repro_torch.models import transformer
+from repro_torch.runtime import ElasticServeController, SlaAutoscalePolicy
 from repro_torch.serving import (
     SCHEDULERS,
     TERMINATION,
@@ -158,6 +180,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "retirement and never passes the next arrival)")
     ap.add_argument("--max-retries", type=int, default=0,
                     help="requeues granted to a request forced at cache capacity")
+    # elastic serving: resize the agreement extent under live traffic
+    ap.add_argument("--elastic-policy", default=None,
+                    help="serve through an ElasticServeController (an ELASTIC_POLICIES "
+                         "entry, e.g. grow_on_join)")
+    ap.add_argument("--min-extent", type=int, default=1,
+                    help="never shrink below this many replicas")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="the sla_autoscale policy: queue/SLA pressure grows, idle shrinks")
+    ap.add_argument("--max-extent", type=int, default=8,
+                    help="autoscaler: never grow beyond this many replicas")
+    ap.add_argument("--slots-per-replica", type=int, default=0,
+                    help="capacity model: each replica funds this many slots, so a resize "
+                         "changes admission capacity (0 = every slot at any extent)")
+    ap.add_argument("--kill", action="append", metavar="TICK:REPLICA[:silent]",
+                    help="kill a replica at TICK (repeatable); ':silent' waits for the "
+                         "virtual heartbeat timeout")
+    ap.add_argument("--join", action="append", metavar="TICK:ID[,ID...]",
+                    help="replicas ask to join at TICK (repeatable)")
+    ap.add_argument("--stall", action="append", metavar="TICK:REPLICA[:FACTOR]",
+                    help="slow a replica's heartbeat step time (repeatable)")
+    ap.add_argument("--unstall", action="append", metavar="TICK:REPLICA")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--summary-json", default=None, metavar="PATH",
@@ -165,6 +208,42 @@ def build_parser() -> argparse.ArgumentParser:
                          "ticks, the peak device memory, the kernels' launches) to PATH, with "
                          "{rank} replaced by the rank")
     return ap
+
+
+class _CliChaosScript:
+    """The chaos events of ``--kill/--join/--stall/--unstall``, fired at
+    the controller on the engine's tick clock (each event at the first
+    dispatch boundary at or after its tick)."""
+
+    def __init__(self, events):
+        self.events = sorted(events, key=lambda e: e[0])
+        self.fired = 0
+
+    def apply_due(self, ctl, tick: int):
+        while self.fired < len(self.events) and self.events[self.fired][0] <= tick:
+            _, name, a, kw = self.events[self.fired]
+            print(f"# chaos @tick {tick}: {name}{a}")
+            getattr(ctl, name)(*a, **kw)
+            self.fired += 1
+
+
+def _parse_chaos(args) -> _CliChaosScript | None:
+    events = []
+    for spec in args.kill or []:
+        parts = spec.split(":")
+        events.append((int(parts[0]), "kill", (int(parts[1]),),
+                       {"silent": len(parts) > 2 and parts[2] == "silent"}))
+    for spec in args.join or []:
+        tick, _, ids = spec.partition(":")
+        events.append((int(tick), "join", (tuple(int(i) for i in ids.split(",")),), {}))
+    for spec in args.stall or []:
+        parts = spec.split(":")
+        factor = float(parts[2]) if len(parts) > 2 else 10.0
+        events.append((int(parts[0]), "stall", (int(parts[1]), factor), {}))
+    for spec in args.unstall or []:
+        tick, _, rid = spec.partition(":")
+        events.append((int(tick), "unstall", (int(rid),), {}))
+    return _CliChaosScript(events) if events else None
 
 
 def arrival_ticks(spec: str, n: int, seed: int) -> list[int]:
@@ -253,8 +332,19 @@ def serve(args: argparse.Namespace, mesh=None):
         scheduler=args.scheduler, termination=args.termination or wl.default_termination,
         dp=args.dp, eps=args.eps, max_retries=args.max_retries,
         steps_per_dispatch=args.steps_per_dispatch, quotas=quotas,
+        slots_per_replica=args.slots_per_replica or None,
     ))
-    return eng, wl, eng.run(reqs)
+    script = _parse_chaos(args)
+    if not (args.autoscale or args.elastic_policy or script is not None):
+        return eng, wl, eng.run(reqs)
+    policy = args.elastic_policy or "grow_on_join"
+    if args.autoscale:
+        policy = SlaAutoscalePolicy(min_extent=args.min_extent, max_extent=args.max_extent)
+    ctl = ElasticServeController(eng, policy=policy, min_extent=args.min_extent)
+    res = ctl.run(reqs, events=script)
+    for ev in ctl.resizes:
+        print(f"# resize: {ev.kind} {ev.old_dp} -> {ev.new_dp} @tick {ev.step} ({ev.reason})")
+    return eng, wl, res
 
 
 def _llm_config(args):
@@ -372,15 +462,15 @@ def _static_main(args, mesh=None) -> dict:
 
 
 def _print_sla(eng, s) -> None:
-    """The SLA, per-tenant and capacity-retry lines (the reference CLI's)."""
+    """The SLA, per-tenant, resize and capacity-retry lines (the reference CLI's)."""
     if s["sla_total"]:
         print(f"  SLA {s['sla_met']}/{s['sla_total']} met | goodput {s['goodput_ok']} "
               f"({s['goodput_per_ktick']:.1f}/ktick) | replica-ticks {s['replica_ticks']}")
     for name, t in sorted(s["tenants"].items()):
         print(f"  tenant {name}: {t['completed']} done, {t['tokens_out']} tok | sla "
               f"{t['sla_met']}/{t['sla_total']} | ttft p99 {t['ttft_p99_ticks']:.0f} ticks")
-    if s["retried"]:
-        print(f"  capacity retries {s['retried']} | dp {eng.cfg.dp}")
+    if s["resizes"] or s["retried"]:
+        print(f"  resizes {s['resizes']} | capacity retries {s['retried']} | final dp {eng.dp}")
 
 
 def main(argv=None):

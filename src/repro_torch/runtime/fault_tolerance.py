@@ -1,0 +1,139 @@
+"""Failure detection for the elastic runtime (port of the serving half of
+``repro.runtime.fault_tolerance``).
+
+The paper's non-power-of-two support is what makes losing a worker cheap:
+losing one of four termination-agreement replicas leaves three, and the
+MRD schedule keeps every reduction correct at that extent without waiting
+for a replacement.
+
+- :class:`FailureDetector` tracks heartbeats on an injected clock (a
+  fail-stop crash report marks a worker dead at once; a silent one is
+  reported after ``timeout_s``) and applies the straggler rule (a worker
+  whose recent step times exceed ``straggler_factor`` x the median for
+  ``evict_after_straggler_steps`` consecutive checks).
+- :class:`ReplicaSet` is the ordered set of live replica ids of a
+  simulated extent, producing the keep maps ``ServeEngine.resize`` takes.
+- :class:`StepClock` is the deterministic virtual clock the controller
+  advances once a step, so every detection is a function of the event
+  script.
+
+The mesh half (``shrink_mesh``, ``grow_mesh``, ``RestartReport``,
+``recover``) belongs to the elastic trainer and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class HeartbeatConfig:
+    timeout_s: float = 60.0  # hard failure
+    straggler_factor: float = 3.0  # x median step time => straggler
+    evict_after_straggler_steps: int = 5
+
+
+class FailureDetector:
+    """Per-worker heartbeats on the host, on an injected clock (tests and
+    the controller drive it explicitly)."""
+
+    def __init__(self, workers: list[int], cfg: HeartbeatConfig, now: float = 0.0):
+        self.cfg = cfg
+        self.last: dict[int, float] = {w: now for w in workers}
+        self.step_times: dict[int, list[float]] = {w: [] for w in workers}
+        self.straggler_strikes: dict[int, int] = {w: 0 for w in workers}
+
+    def heartbeat(self, worker: int, now: float, step_time: Optional[float] = None):
+        self.last[worker] = now
+        if step_time is not None:
+            self.step_times[worker].append(step_time)
+            self.step_times[worker] = self.step_times[worker][-32:]
+
+    def mark_dead(self, worker: int):
+        """Fail-stop notification: the worker is known dead now (a crash
+        report), so :meth:`failed` reports it at once instead of after
+        ``timeout_s``."""
+        if worker in self.last:
+            self.last[worker] = float("-inf")
+
+    def add_worker(self, worker: int, now: float):
+        """Start tracking a joining worker (grow)."""
+        self.last.setdefault(worker, now)
+        self.step_times.setdefault(worker, [])
+        self.straggler_strikes.setdefault(worker, 0)
+
+    def remove_worker(self, worker: int):
+        """Stop tracking an evicted worker (shrink)."""
+        self.last.pop(worker, None)
+        self.step_times.pop(worker, None)
+        self.straggler_strikes.pop(worker, None)
+
+    def failed(self, now: float) -> list[int]:
+        return [w for w, t in self.last.items() if now - t > self.cfg.timeout_s]
+
+    def stragglers(self) -> list[int]:
+        med = np.median([np.mean(v) for v in self.step_times.values() if v] or [0.0])
+        out = []
+        for w, v in self.step_times.items():
+            if v and med > 0 and np.mean(v[-5:]) > self.cfg.straggler_factor * med:
+                self.straggler_strikes[w] += 1
+                if self.straggler_strikes[w] >= self.cfg.evict_after_straggler_steps:
+                    out.append(w)
+            else:
+                self.straggler_strikes[w] = 0
+        return out
+
+
+class ReplicaSet:
+    """Ordered live replica ids of a simulated agreement extent.
+
+    The serving engine's termination agreement runs over stacked replicas,
+    so a resize needs a keep map and no device grid: ``keep[i]`` is the old
+    rank now at new rank ``i`` (None: a joiner), the contract of the
+    termination ``migrate`` hooks and ``ServeEngine.resize``."""
+
+    def __init__(self, ids):
+        self.ids = list(ids)
+        if len(set(self.ids)) != len(self.ids):
+            raise ValueError(f"duplicate replica ids: {self.ids}")
+
+    @property
+    def dp(self) -> int:
+        return len(self.ids)
+
+    def remove(self, dead) -> tuple:
+        """Drop ``dead`` ids; survivors keep their order.  Returns
+        ``(new_ids, keep)``."""
+        dead = set(dead)
+        keep = tuple(i for i, r in enumerate(self.ids) if r not in dead)
+        if not keep:
+            raise RuntimeError("no live replicas left")
+        self.ids = [self.ids[i] for i in keep]
+        return tuple(self.ids), keep
+
+    def add(self, joiners) -> tuple:
+        """Append ``joiners`` (those not already live) as new trailing
+        ranks.  Returns ``(new_ids, keep)``, None marking each joiner."""
+        joiners = [j for j in joiners if j not in self.ids]
+        keep = tuple(range(len(self.ids))) + (None,) * len(joiners)
+        self.ids = self.ids + joiners
+        return tuple(self.ids), keep
+
+
+class StepClock:
+    """Deterministic virtual clock: ``dt`` seconds a controller step, so
+    failure detection is a function of the event script alone."""
+
+    def __init__(self, dt: float = 1.0, t0: float = 0.0):
+        self.dt = dt
+        self.t = t0
+
+    def now(self) -> float:
+        return self.t
+
+    def advance(self) -> float:
+        self.t += self.dt
+        return self.t

@@ -18,6 +18,11 @@ the non-blocking MRD reduction of ``repro_torch.collectives.plans``, so at
 (``fixedpoint_solve``) retire when ``residual_interval`` or
 ``residual_inexact`` certifies their agreed update magnitude below their
 eps.
+
+Elastic serving: :meth:`ServeEngine.resize` changes the agreement extent
+under live traffic (the termination state migrates; joiners receive the
+serving state through the MRD sum-broadcast), driven by
+:class:`repro_torch.runtime.ElasticServeController`.
 """
 
 from repro_torch.serving.engine import (  # noqa: F401
@@ -53,6 +58,8 @@ from repro_torch.serving.termination import (  # noqa: F401
 from repro_torch.serving.workloads import (  # noqa: F401
     WORKLOADS,
     FixedPointWorkload,
+    LLMDecodeWorkload,
+    PagedLLMWorkload,
     get_workload,
     make_workload,
     register_workload,

@@ -26,11 +26,21 @@ host loop, and the control plane (termination state, per-slot counters)
 lives on the host: each tick brings the slots' new tokens, or a
 fixed-point pool's ``[dp, S]`` residual, to the host once.
 
+Elastic serving: :meth:`ServeEngine.resize` changes the agreement
+extent under live traffic (driven by
+:class:`repro_torch.runtime.ElasticServeController`).  No request is lost
+and no slot prefills again: the termination state migrates along the keep
+map, a fixed-point workload re-blocks its residual report, and on a grow
+the joiners receive everything the next tick reads through the MRD
+sum-broadcast (:func:`repro_torch.distributed.serve.mrd_broadcast_stacked`).
+With ``slots_per_replica`` each replica funds that many slots, so a
+resize changes how many slots admit (:attr:`ServeEngine.usable_slots`);
+:meth:`ServeEngine.load_snapshot` is the load an autoscaling policy sees.
+
 Metrics: TTFT / TPOT (wall seconds, p50/p95/p99 in :meth:`summary`),
 token throughput, slot occupancy, converged requests, tick-domain
-admission/retirement ticks, SLA goodput, replica-ticks, capacity retries
-and a per-tenant breakdown.  Resize, the ``slots_per_replica`` capacity
-model and telemetry are not ported yet.
+admission/retirement ticks, SLA goodput, replica-ticks, capacity retries,
+resizes and a per-tenant breakdown.  Telemetry is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ import numpy as np
 import torch
 
 from repro_torch.asynchrony.protocols import RES_INIT
+from repro_torch.runtime.elastic import ResizeEvent
+from repro_torch.runtime.policies import LoadSnapshot
 from repro_torch.serving.schedulers import get_scheduler
 from repro_torch.serving.termination import TerminationConfig, get_termination, make_signals
 
@@ -100,6 +112,11 @@ class ServeConfig:
     # {tenant: most slots in flight} (0 or absent: unlimited); a tenant at
     # its quota is passed over and the slot goes to the next request
     quotas: Any = None
+    # capacity model: each agreement replica funds this many slots, so only
+    # min(slots, dp * slots_per_replica) admit and a resize changes serving
+    # capacity (what the autoscaler trades against SLA pressure); None:
+    # every slot admits at any extent
+    slots_per_replica: Optional[int] = None
 
 
 class ServeEngine:
@@ -111,18 +128,18 @@ class ServeEngine:
                 f"termination {cfg.termination!r} needs a residual-reporting "
                 f"workload (got {type(workload).__name__}); use 'eos_maxlen'"
             )
-        if getattr(workload, "dp", cfg.dp) != cfg.dp:
-            raise ValueError(
-                f"the workload reports residuals over dp={workload.dp} blocks but the "
-                f"engine agrees over dp={cfg.dp}: build both at one dp"
-            )
         self.workload = workload
         self.cfg = cfg
         self.slots = workload.slots
+        self.dp = cfg.dp  # the live replica extent (resize() changes it)
+        # a workload that reports over dp blocks (fixed point) and served at
+        # another extent is aligned, as resize() aligns it
+        if getattr(workload, "dp", cfg.dp) != cfg.dp:
+            workload.migrate_dp(cfg.dp)
         self.scheduler = get_scheduler(cfg.scheduler)
         self.term = get_termination(cfg.termination)
         self.certifying = cfg.termination.startswith("residual")
-        self.tcfg = TerminationConfig(dp=cfg.dp, eps=cfg.eps, window=cfg.window)
+        self.tcfg = TerminationConfig(dp=self.dp, eps=cfg.eps, window=cfg.window)
         # the control plane is a few bytes per tick: it lives on the host
         self.tstate = self.term.init(self.tcfg, self.slots, device="cpu")
 
@@ -134,6 +151,7 @@ class ServeEngine:
         self.pending: List[Request] = []  # submitted, not yet arrived
         self.slot_req: List[Optional[Request]] = [None] * self.slots
         self.results: Dict[int, RequestResult] = {}
+        self.resizes: List[ResizeEvent] = []
         self._active = np.zeros((self.slots,), bool)
         self._admit_tick = np.zeros((self.slots,), np.int64)
         self._new_tokens = np.zeros((self.slots,), np.int64)
@@ -164,8 +182,103 @@ class ServeEngine:
         else:
             self.pending.append(req)
 
+    @property
+    def usable_slots(self) -> int:
+        """Slots the replica extent funds (the capacity model): after a
+        shrink the defunded tail slots admit nothing, their requests in
+        flight drain, and a grow funds them again."""
+        spr = self.cfg.slots_per_replica
+        return self.slots if not spr else min(self.slots, self.dp * spr)
+
     def _free_slots(self) -> List[int]:
-        return [s for s in range(self.slots) if self.slot_req[s] is None]
+        return [s for s in range(self.usable_slots) if self.slot_req[s] is None]
+
+    def load_snapshot(self) -> LoadSnapshot:
+        """The tick-domain load an autoscaling policy sees: queue depth, SLA
+        pressure (near: a queued request past half its deadline; overdue:
+        past it) and the free capacity under ``slots_per_replica``."""
+        near = overdue = 0
+        for r in self.queue:
+            if r.sla is None:
+                continue
+            waited = self.tick - r.arrival
+            if waited > r.sla:
+                overdue += 1
+            elif 2 * waited >= r.sla:
+                near += 1
+        return LoadSnapshot(tick=self.tick, queue_depth=len(self.queue), sla_near=near,
+                            sla_overdue=overdue, free_slots=len(self._free_slots()),
+                            usable_slots=self.usable_slots, dp=self.dp)
+
+    # -- elastic resize -----------------------------------------------------
+
+    def resize(self, new_dp: int, keep, *, reason: str = "") -> Optional[ResizeEvent]:
+        """Change the agreement extent under live traffic: no request is
+        lost and no slot prefills again.
+
+        ``keep[i]`` is the old replica now at new rank ``i`` (None: a
+        joiner).  The termination state migrates (certified latches and
+        the survivors' windows kept, the staged reduction restarted at the
+        new, typically non-power-of-two, extent), a fixed-point workload
+        re-blocks its residual report, and on a grow the joiners receive
+        the serving state through :meth:`_broadcast_to_joiners`.  Returns
+        the recorded :class:`ResizeEvent`, or None for the identity."""
+        keep = tuple(keep)
+        if new_dp < 1 or len(keep) != new_dp:
+            raise ValueError(f"keep map {keep} does not cover dp={new_dp}")
+        old_dp = self.dp
+        for k in keep:
+            if k is not None and not 0 <= k < old_dp:
+                raise ValueError(f"keep entry {k} outside old extent {old_dp}")
+        if new_dp == old_dp and keep == tuple(range(old_dp)):
+            return None
+        kind = "grow" if any(k is None for k in keep) else "shrink"
+        mig = getattr(self.workload, "migrate_dp", None)
+        if mig is not None:
+            mig(new_dp)
+        self.dp = new_dp
+        self.tcfg = TerminationConfig(dp=new_dp, eps=self.cfg.eps, window=self.cfg.window)
+        self.tstate = self.term.migrate(self.tstate, keep, self.tcfg, self.slots)
+        if kind == "grow":
+            self._broadcast_to_joiners()
+        ev = ResizeEvent(kind=kind, step=self.tick, old_dp=old_dp, new_dp=new_dp, keep=keep,
+                         device_ids=(), reason=reason)
+        self.resizes.append(ev)
+        return ev
+
+    def _broadcast_to_joiners(self) -> None:
+        """Route everything the next tick reads through the MRD
+        sum-broadcast at the new extent and install the newest joiner's
+        copy: the params, the workload's state, the termination state, the
+        per-slot control arrays and (paged pools) the host's block tables,
+        allocator and lengths.  The broadcast is exact (the other ranks
+        contribute zeros), so the joiner decodes the tokens the source
+        would.  It runs a leaf at a time into each leaf's own storage, so
+        no second copy of the params is ever alive."""
+        from repro_torch.distributed import serve as dserve
+
+        tree = {
+            "params": getattr(self.workload, "params", {}),
+            "wstate": self.workload.wstate,
+            "tstate": self.tstate,
+            "ctrl": {"active": self._active, "new_tokens": self._new_tokens,
+                     "admit_tick": self._admit_tick, "eos": self._eos,
+                     "max_new": self._max_new, "eps": self._eps},
+        }
+        exp = getattr(self.workload, "export_state", None)
+        if exp is not None:
+            tree["host"] = exp()
+        tree = dserve.mrd_broadcast_stacked(tree, self.dp, src=0)
+        if hasattr(self.workload, "params"):
+            self.workload.params = tree["params"]
+        self.workload.wstate = tree["wstate"]
+        self.tstate = tree["tstate"]
+        ctrl = tree["ctrl"]
+        self._active, self._new_tokens = ctrl["active"], ctrl["new_tokens"]
+        self._admit_tick, self._eos = ctrl["admit_tick"], ctrl["eos"]
+        self._max_new, self._eps = ctrl["max_new"], ctrl["eps"]
+        if "host" in tree:
+            self.workload.import_state(tree["host"])
 
     # -- one step -----------------------------------------------------------
 
@@ -219,7 +332,7 @@ class ServeEngine:
         self._occupancy_sum += float(act.sum()) / self.slots
         self._occupancy_ticks += 1
         if residual is None:
-            residual = np.zeros((self.cfg.dp, self.slots), np.float32)
+            residual = np.zeros((self.dp, self.slots), np.float32)
         sig = make_signals(
             tokens=torch.from_numpy(tokens.astype(np.int64)),
             new_tokens=torch.from_numpy(self._new_tokens.copy()),
@@ -275,7 +388,7 @@ class ServeEngine:
         if not self._active.any():
             # nothing in flight: fast-forward the clock to the next arrival
             self.tick = min(r.arrival for r in self.pending) if self.pending else now + 1
-            self._replica_ticks += (self.tick - now) * self.cfg.dp
+            self._replica_ticks += (self.tick - now) * self.dp
             self._t_last = time.perf_counter()
             return np.zeros((self.slots,), bool)
 
@@ -294,7 +407,7 @@ class ServeEngine:
                 self._collect(int(slot), now + k, certified, bool(forced[slot]),
                               bool(at_cap[slot]), t_done)
         self.tick = now + k + 1
-        self._replica_ticks += (k + 1) * self.cfg.dp
+        self._replica_ticks += (k + 1) * self.dp
         self._t_last = time.perf_counter()
         return out_mask
 
@@ -383,6 +496,7 @@ class ServeEngine:
             "converged": int(sum(r.converged for r in res)),
             "forced_at_capacity": self._forced_at_capacity,
             "retried": self._retried,
+            "resizes": len(self.resizes),
         }
 
 

@@ -25,6 +25,13 @@ slot's state with the prompt's, a decode tick advances it in place.
 Unlike the reference, a block may carry several registry keys (a set per
 block): the reference keeps one key per block, so registering a second
 key on a block overwrote the first and left it dangling.
+
+Elastic resize: :meth:`BlockAllocator.export_arrays` /
+:meth:`BlockAllocator.from_arrays` and :meth:`PagedDecodePool.export_state`
+/ :meth:`PagedDecodePool.import_state` put the host's pool state in flat
+int32 arrays that the grow's broadcast carries to a joining replica (the
+reference's layout; every key of a block rides as its own entry, so the
+sets come back whole).
 """
 
 from __future__ import annotations
@@ -132,6 +139,40 @@ class BlockAllocator:
         self.release(bid)
         return nb, True
 
+    # -- elastic resize -----------------------------------------------------
+
+    def export_arrays(self) -> Dict[str, np.ndarray]:
+        """The allocator as flat int32 arrays a joining replica adopts: the
+        refcounts, the free list in pop order (it decides later layouts, so
+        a joiner replays it exactly), and the registry as concatenated key
+        bytes, key lengths and key blocks, sorted by key."""
+        keys = sorted(self._block_of.items())
+        return {
+            "ref": self.ref.astype(np.int32),
+            "free": np.asarray(self._free, np.int32),
+            "key_bytes": np.frombuffer(b"".join(k for k, _ in keys), np.uint8).copy(),
+            "key_lens": np.asarray([len(k) for k, _ in keys], np.int32),
+            "key_blocks": np.asarray([b for _, b in keys], np.int32),
+        }
+
+    @classmethod
+    def from_arrays(cls, arrays: Dict[str, np.ndarray], num_blocks: int,
+                    block_size: int) -> "BlockAllocator":
+        """Rebuild an allocator from :meth:`export_arrays`' output, each
+        block's key set whole."""
+        a = cls(num_blocks, block_size)
+        a.ref = np.asarray(arrays["ref"]).astype(np.int64)
+        a._free = [int(b) for b in np.asarray(arrays["free"])]
+        packed = np.asarray(arrays["key_bytes"], np.uint8).tobytes()
+        off = 0
+        for ln, bid in zip(np.asarray(arrays["key_lens"]), np.asarray(arrays["key_blocks"])):
+            key = packed[off: off + int(ln)]
+            off += int(ln)
+            a._block_of[key] = int(bid)
+            a._keys_of.setdefault(int(bid), set()).add(key)
+        a.check()
+        return a
+
     def check(self) -> None:
         """Raise AssertionError unless the allocator invariants hold."""
         free = set(self._free)
@@ -153,11 +194,11 @@ class BlockAllocator:
 class PagedDecodePool:
     """Block-paged continuous-batching pool over one device.
 
-    Device state: the page pools, the per-slot recurrent state (hybrid
-    stack), the block tables ``[slots, nb]`` and the last token of each
-    slot.  Host state: the allocator, each slot's block
-    list, and the per-slot ``lengths`` and ``slot_cap`` (the host advances
-    them, so reading them never waits on the device).
+    Device state (:attr:`state`): the page pools, the per-slot recurrent
+    state (hybrid stack), the block tables ``[slots, nb]`` and the last
+    token of each slot.  Host state (:meth:`export_state`): the allocator,
+    each slot's block list, and the per-slot ``lengths`` and ``slot_cap``
+    (the host advances them, so reading them never waits on the device).
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int, max_prompt_len: int,
@@ -200,6 +241,18 @@ class PagedDecodePool:
         self.tokens = torch.zeros((self.slots,), dtype=torch.long, device=dev)
         self.lengths = np.zeros((self.slots,), np.int32)
         self.slot_cap = np.zeros((self.slots,), np.int32)
+
+    @property
+    def state(self) -> dict:
+        """What a decode tick reads on the device: pages, tables, the
+        per-slot recurrent state and the last tokens."""
+        return {"pages": self.pages, "tables": self.tables, "slot": self.slot_state,
+                "tokens": self.tokens}
+
+    @state.setter
+    def state(self, value: dict) -> None:
+        self.pages, self.tables = value["pages"], value["tables"]
+        self.slot_state, self.tokens = value["slot"], value["tokens"]
 
     # -- decode --------------------------------------------------------------
 
@@ -315,6 +368,37 @@ class PagedDecodePool:
         for b in self.slot_blocks[slot]:
             self.allocator.release(b)
         self.slot_blocks[slot] = []
+
+    # -- elastic resize -----------------------------------------------------
+
+    def export_state(self) -> Dict[str, np.ndarray]:
+        """The host's pool state as flat arrays (a grow broadcasts them
+        beside :attr:`state`): the allocator, the per-slot block lists as
+        flat ids and lengths, the share count, and the per-slot ``lengths``
+        and ``slot_cap`` (which the reference keeps on the device)."""
+        return {
+            "allocator": self.allocator.export_arrays(),
+            "slot_blocks": np.asarray([b for bl in self.slot_blocks for b in bl], np.int32),
+            "slot_lens": np.asarray([len(bl) for bl in self.slot_blocks], np.int32),
+            "prefix_saved": np.asarray(self.prefix_saved_blocks, np.int32),
+            "lengths": self.lengths.copy(),
+            "slot_cap": self.slot_cap.copy(),
+        }
+
+    def import_state(self, st: Dict[str, np.ndarray]) -> None:
+        """Adopt a broadcast :meth:`export_state` tree (the joiner's half of
+        a grow; :attr:`state` arrives beside it)."""
+        self.allocator = BlockAllocator.from_arrays(st["allocator"], self.num_blocks,
+                                                    self.block_size)
+        flat = [int(b) for b in np.asarray(st["slot_blocks"])]
+        out, off = [], 0
+        for ln in np.asarray(st["slot_lens"]):
+            out.append(flat[off: off + int(ln)])
+            off += int(ln)
+        self.slot_blocks = out
+        self.prefix_saved_blocks = int(st["prefix_saved"])
+        self.lengths = np.asarray(st["lengths"], np.int32).copy()
+        self.slot_cap = np.asarray(st["slot_cap"], np.int32).copy()
 
     @property
     def cache_bytes(self) -> int:

@@ -52,6 +52,16 @@ class DecodePool:
         self.tokens = torch.zeros((self.slots,), dtype=torch.long, device=self.device)
         self.lengths = np.zeros((self.slots,), np.int32)
 
+    @property
+    def state(self) -> dict:
+        """What a decode tick reads: the cache, the last tokens and the
+        host's lengths (the tree a grow broadcasts to a joiner)."""
+        return {"cache": self.cache, "tokens": self.tokens, "lengths": self.lengths}
+
+    @state.setter
+    def state(self, value: dict) -> None:
+        self.cache, self.tokens, self.lengths = value["cache"], value["tokens"], value["lengths"]
+
     def step(self, params, active: np.ndarray) -> torch.Tensor:
         """Advance every active slot one token; returns the tokens [S] (on
         the device; inactive slots keep their last token and their cache)."""
@@ -117,6 +127,15 @@ class FixedPointPool:
         """``f(x, v)`` for ``x, v [..., n]``."""
         return self.base.full_map(x) + self.gain * (v - self.v0)
 
+    @property
+    def state(self) -> dict:
+        """The iterates and payloads (the tree a grow broadcasts)."""
+        return {"x": self.x, "payload": self.payload}
+
+    @state.setter
+    def state(self, value: dict) -> None:
+        self.x, self.payload = value["x"], value["payload"]
+
     def reset(self):
         self.x = torch.zeros((self.slots, self.n), device=self.device)
         self.payload = torch.zeros((self.slots, self.n), device=self.device)
@@ -135,6 +154,14 @@ class FixedPointPool:
         upd = (xnew - self.x).abs().reshape(self.slots, self.dp, self.n // self.dp).amax(dim=2)
         self.x = torch.where(act, xnew, self.x)
         return torch.where(act, upd, RES_INIT).t()
+
+    def migrate_dp(self, new_dp: int) -> None:
+        """Elastic resize: report the residual over ``new_dp`` blocks.  The
+        iterates and payloads are the same on every replica, so requests go
+        on iterating where they were; only the report's blocks change."""
+        if self.n % new_dp:
+            raise ValueError(f"n={self.n} must divide into dp={new_dp} blocks")
+        self.dp = new_dp
 
     def admit(self, payload, slot: int) -> None:
         v = np.asarray(payload, np.float32)

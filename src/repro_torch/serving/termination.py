@@ -31,7 +31,13 @@ loop's :class:`~repro_torch.asynchrony.protocols.ConvergenceMonitor` runs.
 
 The state lives on the device of the signals the caller passes (the
 engine keeps this control plane on the host: it is a few bytes per tick).
-The reference's elastic ``migrate`` is not ported yet.
+
+Elastic resize: :meth:`_TerminationBase.migrate` carries the state to a
+new replica extent along a keep map (``keep[i]``: the old replica now at
+new rank ``i``, None for a joiner).  The staged reduction restarts at
+stage 0 at the new extent, the certified latch survives, and the residual
+protocols' per-replica monitor rows follow the keep map (a joiner starts
+from a fresh ``RES_INIT`` row).
 """
 
 from __future__ import annotations
@@ -115,6 +121,40 @@ class _TerminationBase:
         """Only requests admitted at or before the cycle's latch may retire."""
         return sig["active"] & (sig["admit_tick"] <= t_latch)
 
+    # -- elastic resize -----------------------------------------------------
+
+    def migrate(self, st, keep, cfg: TerminationConfig, slots: int):
+        """The state after the replica extent changes (``cfg`` is the
+        config at the new extent).  The staged reduction is abandoned: its
+        stage and partial combines mean nothing at the new extent, whose
+        cycle length differs.  It restarts at stage 0, so the next tick
+        latches ``t_latch`` to the current tick and every admission before
+        the resize stays retirable without a new prefill.  What was
+        certified survives; a retirement needs a whole new cycle of
+        agreement among the new replicas."""
+        new = self.init(cfg, slots, device=st["certified"].device)
+        new["certified"] = st["certified"]
+        return new
+
+
+def _migrate_replica_rows(old_leaf, fresh_leaf, keep):
+    """Per-replica monitor rows (dim 0) along the keep map.  A joiner takes
+    the fresh (``RES_INIT``) row, so it cannot help certify a slot before
+    it has observed a whole window.  Where a row's shape changes with the
+    extent (``window=0`` derives the window from the cycle length), a
+    survivor's new window is filled with its running max: its contribution
+    can only be at least what it was, never lower."""
+    parts = []
+    for k in keep:
+        if k is None:
+            parts.append(fresh_leaf[0])
+        elif old_leaf.shape[1:] == fresh_leaf.shape[1:]:
+            parts.append(old_leaf[k])
+        else:
+            row_max = old_leaf[k].amax(dim=-1, keepdim=True)
+            parts.append(row_max.expand(fresh_leaf.shape[1:]).to(fresh_leaf.dtype))
+    return torch.stack(parts)
+
 
 @register_termination("eos_maxlen")
 class EosMaxlenTermination(_TerminationBase):
@@ -182,6 +222,11 @@ class _ResidualTermination(_TerminationBase):
         retire = (agreed < sig["eps"]) & self._guard(sig, t_latch) & flag
         certified = torch.where(retire, agreed, st["certified"])
         return {"nb": nb, "m": m, "t_latch": t_latch, "certified": certified}, retire
+
+    def migrate(self, st, keep, cfg: TerminationConfig, slots: int):
+        new = super().migrate(st, keep, cfg, slots)
+        new["m"] = {k: _migrate_replica_rows(st["m"][k], v, keep) for k, v in new["m"].items()}
+        return new
 
 
 @register_termination("residual_inexact")

@@ -5,7 +5,11 @@ surface: ``admit(request, slot, now)``, ``step(active) -> (tokens,
 residual)``, ``collect_tick``, ``output(slot)``, plus the paged hooks
 ``can_admit`` and ``release``; ``sample_request(tenant, rng, id=,
 arrival=)`` draws one request of a tenant of the traffic model
-(``serving/tenants.py``).  Registered:
+(``serving/tenants.py``).  For elastic resize, ``wstate`` is the pool's
+state that a grow broadcasts to a joiner and installs again (the paged
+pool's host state rides as ``export_state``/``import_state``), and a
+fixed-point workload's ``migrate_dp`` re-blocks its residual report at a
+new extent.  Registered:
 
 - ``llm_decode`` — greedy LLM decode over the contiguous
   :class:`~repro_torch.serving.pool.DecodePool`; serves every ported
@@ -100,6 +104,16 @@ class LLMDecodeWorkload:
         return self.pool.admit(self.params, req.prompt, slot)
 
     @property
+    def wstate(self) -> dict:
+        """The pool's state a decode tick reads (the contiguous cache or the
+        pages and tables, the slot state, the last tokens)."""
+        return self.pool.state
+
+    @wstate.setter
+    def wstate(self, value: dict) -> None:
+        self.pool.state = value
+
+    @property
     def cache_bytes(self) -> int:
         return self.pool.cache_bytes
 
@@ -172,6 +186,14 @@ class PagedLLMWorkload(LLMDecodeWorkload):
     def prefix_saved_blocks(self) -> int:
         return self.pool.prefix_saved_blocks
 
+    # the block tables' host side, the allocator and the per-slot lengths
+    # ride a grow's broadcast beside the params and the pages
+    def export_state(self):
+        return self.pool.export_state()
+
+    def import_state(self, st) -> None:
+        self.pool.import_state(st)
+
 
 class FixedPointWorkload:
     """Per-request fixed-point solves over a :class:`FixedPointPool`."""
@@ -188,6 +210,20 @@ class FixedPointWorkload:
         self.payload0 = np.asarray(payload0, np.float32)
         self.slots, self.dp = slots, dp
         self._tokens = np.zeros((slots,), np.int64)
+
+    @property
+    def wstate(self) -> dict:
+        return self.pool.state
+
+    @wstate.setter
+    def wstate(self, value: dict) -> None:
+        self.pool.state = value
+
+    def migrate_dp(self, new_dp: int) -> None:
+        """Elastic resize: the iterates stay as they are; only the pool's
+        residual report is re-blocked at the new extent."""
+        self.pool.migrate_dp(new_dp)
+        self.dp = new_dp
 
     def clamp_max_new(self, req) -> int:
         return int(req.max_new)

@@ -334,8 +334,14 @@ def test_engine_rejects_residual_termination_for_llm():
 
 
 def test_engine_and_workload_must_agree_on_dp():
+    """The engine aligns a workload built at another extent, as a resize
+    does (the reference's rule); an extent the problem does not divide
+    into is refused."""
+    wl = _diter(30, 3, 2)
+    eng = ServeEngine(wl, ServeConfig(termination="residual_interval", dp=2))
+    assert eng.dp == wl.dp == wl.pool.dp == 2
     with pytest.raises(ValueError, match="dp"):
-        ServeEngine(_diter(30, 3, 2), ServeConfig(termination="residual_interval", dp=2))
+        ServeEngine(_diter(30, 3, 2), ServeConfig(termination="residual_interval", dp=4))
 
 
 def test_summary_metrics_present():

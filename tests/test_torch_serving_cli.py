@@ -10,7 +10,9 @@
   paged pool rounds up to whole blocks), and the port's run prints the
   SLA and per-tenant lines.
 - ``bench_serve --quick --device cpu`` writes its rows; the sysprefix
-  pair's tokens are identical.  No timing gate runs here.
+  pair's tokens are identical; the kill/join rows lose no request,
+  resize three times and (LLM) prefill no slot again.  No timing gate
+  runs here.
 - Every new entry point raises without a card unless asked for the CPU.
 """
 
@@ -115,13 +117,27 @@ def test_static_path_prints_its_three_lines(capsys):
 def test_bench_serve_quick_writes_rows(tmp_path, capsys):
     from repro_torch.benchmarks import bench_serve
 
-    out = tmp_path / "bench_serve.json"
-    payload = bench_serve.main(["--quick", "--device", "cpu", "--json", str(out)])
+    # one intra-op thread: beside the other test workers, torch's thread pool
+    # on these tiny ops oversubscribes the cores (25x the test's solo time)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = tmp_path / "bench_serve.json"
+        payload = bench_serve.main(["--quick", "--device", "cpu", "--json", str(out)])
+    finally:
+        torch.set_num_threads(n)
     rows = {r["name"]: r for r in json.loads(out.read_text())["sweep"]}
     assert payload["sweep"] == list(rows.values())
     assert set(rows) == {"serve_static_baseline", "serve_llm_fcfs_burst",
                          "serve_llm_contig_sysprefix", "serve_llm_paged_sysprefix",
+                         "serve_llm_elastic_killjoin", "serve_fixedpoint_elastic_killjoin",
                          "serve_fixedpoint_fcfs"}
+    for name in ("serve_llm_elastic_killjoin", "serve_fixedpoint_elastic_killjoin"):
+        el = rows[name]
+        assert (el["trajectory"], el["resizes"], el["lost_requests"]) == ("4->3->5->4", 3, 0)
+    assert rows["serve_llm_elastic_killjoin"]["reprefills"] == 0
+    el = rows["serve_fixedpoint_elastic_killjoin"]
+    assert el["converged"] == el["requests"] == 18
     paged = rows["serve_llm_paged_sysprefix"]
     assert paged["bit_exact_vs_contig"] and paged["prefix_saved_blocks"] > 0
     assert paged["concurrency_per_byte_vs_contig"] >= 1.5
@@ -154,3 +170,13 @@ def test_new_entry_points_raise_without_a_card():
         bench_serve.main(["--quick"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_decode.main([])
+    # the elastic flags: the controller serves on the default device too
+    elastic = ["--arch", "llama3.2-1b", "--smoke", "--continuous", "--dp", "4"]
+    for extra in (["--elastic-policy", "grow_on_join", "--kill", "6:2", "--join", "16:4,5"],
+                  ["--autoscale", "--slots-per-replica", "2", "--max-extent", "6"],
+                  ["--stall", "4:1:5", "--unstall", "8:1", "--kill", "9:3:silent"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(elastic + extra)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--continuous", "--workload", "fixedpoint_solve", "--n", "60", "--dp", "4",
+                  "--elastic-policy", "shrink_on_failure", "--kill", "3:1"])
