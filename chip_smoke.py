@@ -350,7 +350,23 @@ while 2's compilers run:
    wall time and TTFT/TPOT p50 around it; 17b. ``d_iteration`` at n =
    32,760 under the same script: the same trajectory, every request
    certified with its true residual below eps 1e-10, no kernel launched;
-18. the kernels line, then the device line as the last line of stdout.
+18. the elastic trainer on stacked rows (``runtime.ElasticTrainer`` over
+   replica ids 0-3, ``grow_on_join``): llama3.2-1b at full width cut to 4
+   layers (random bf16 weights from seed 0) under ``compressed`` with the
+   reference chaos suite's settings (remat none, the interval monitor at
+   1e-6), 60 x 64 tokens a step, 10 steps of its headline script (kill 2
+   at step 2, join 2 and 4 at 4, kill 1 at 7: 4 -> 3 -> 5 -> 4), counted
+   from 0; then the oracle replay of the recorded resizes (the plain train
+   step at each extent, joined by ``gradsync.migrate_state``) with the
+   plain combine in the kernel's place.  Gates: the trajectory and its
+   steps, no checkpoint restore, the losses and the digests of the params,
+   master/moment rows, EF rows and monitor rows equal to the replay's, the
+   joiners' params after the grow equal to the source's, ``mrd_combine``
+   once a reducing stage a bucket a step at each step's extent (reckoned
+   from the plans), no other kernel, the grow's peak within its bound;
+   ms a step at each extent, each resize's migrate and broadcast times,
+   tokens/s and the peak;
+19. the kernels line, then the device line as the last line of stdout.
 """
 
 from __future__ import annotations
@@ -3490,6 +3506,176 @@ def elastic_phase(all_ops, t: float, smi: str) -> dict:
     return stats
 
 
+# 18. the elastic trainer on stacked rows: llama3.2-1b at full width cut to
+# 4 layers (one fp32 vector of its params is 2.0 GB: at dp 5 the EF rows take
+# 10.1 GB, the ZeRO-1 rows 7.6 GB, the stacked gradient 10.1 GB; all 16
+# layers would need ~70 GB before activations), compressed, the reference
+# chaos suite's make_tcfg (remat none, the interval monitor at 1e-6, AdamW at
+# 5e-3 const), 60 x 64 tokens a step (60 splits over 3, 4 and 5), and its
+# headline script from replicas 0-3 (runtime.chaos.kill_join_script): kill 2
+# at step 2, join 2 and 4 at 4, kill 1 at 7 (4 -> 3 -> 5 -> 4)
+ELASTIC_TRAIN_LAYERS = 4
+ELASTIC_TRAIN_STEPS = 10
+ELASTIC_TRAIN_BATCH, ELASTIC_TRAIN_SEQ = 60, 64
+ELASTIC_TRAIN_TRAJECTORY = [("shrink", 4, 3, 2), ("grow", 3, 5, 4), ("shrink", 5, 4, 7)]
+
+
+def elastic_train_configs():
+    from repro_torch.configs import registry
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.optim.optimizer import OptimizerConfig
+
+    cfg = registry.override(registry.get_config("llama3.2-1b"), n_layers=ELASTIC_TRAIN_LAYERS)
+    tcfg = step_lib.TrainConfig(
+        microbatches=1, remat="none", grad_sync="compressed", monitor=True,
+        monitor_mode="interval", monitor_threshold=1e-6,
+        optimizer=OptimizerConfig(lr=5e-3, schedule="const", warmup_steps=0))
+    return cfg, tcfg
+
+
+def part_digests(state) -> dict:
+    """A digest (``train.state_digest``'s sums) of each part of a stacked
+    train state: the params, each optimizer row set (master, mu, nu, EF)
+    and the monitor's rows."""
+    from repro_torch.launch import train
+
+    out = {"params": train.state_digest({"params": state["params"], "opt": {}})}
+    for k, v in state["opt"].items():
+        out[k] = train.state_digest({"params": {}, "opt": {k: v}})
+    mon = state["monitor"]
+    out["monitor"] = train.state_digest({"params": {}, "opt": {
+        "value": mon["value"], "done": mon["done"], **mon["m"]}})
+    return out
+
+
+def elastic_train_phase(all_ops, t: float, smi: str) -> dict:
+    """18. The elastic trainer on stacked rows (``runtime.ElasticTrainer``
+    over replica ids 0-3, the ``grow_on_join`` policy), llama3.2-1b at full
+    width cut to 4 layers under ``compressed``, the headline script, 10
+    steps, counted from 0; then the oracle replay of the recorded resizes
+    with the plain combine patched in (phase 3 held the kernel to it bit
+    for bit, so the equality holds the kernel on this path too).  Gates:
+    the trajectory and its steps, no checkpoint restore, the losses and
+    the digests of the params, master/moment rows, EF rows and monitor
+    rows equal to the replay's, the joiners' params after the grow equal
+    to the source's, ``mrd_combine`` launched once a reducing stage a
+    bucket a step at each step's extent (reckoned from the plans) and no
+    other kernel, and the grow's peak within the resident bytes + the new
+    extent's optimizer rows + 4 x the largest bucket + the broadcast's two
+    stacked pieces + 1 GiB."""
+    from repro_torch.collectives import executors
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.distributed import serve as dserve
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.kernels.mrd_combine.ref import mrd_combine_ref
+    from repro_torch.runtime import ElasticConfig, ElasticTrainer
+    from repro_torch.runtime.chaos import kill_join_script, oracle_replay
+
+    free_device()
+    dev = torch.device("cuda")
+    cfg, tcfg = elastic_train_configs()
+    dcfg = DataConfig(batch=ELASTIC_TRAIN_BATCH, seq_len=ELASTIC_TRAIN_SEQ, seed=0)
+    tr = ElasticTrainer(tuple(range(4)), (cfg, tcfg), lambda m: SyntheticPipeline(cfg, dcfg, dev),
+                        cfg=ElasticConfig(policy="grow_on_join"), device=dev)
+    state = tr.init_or_restore(torch.Generator(device=dev).manual_seed(0))
+    grows: list = []
+    real_resize = ElasticTrainer.resize
+
+    def resize(self, st, decision):
+        if decision.action != "grow":
+            return real_resize(self, st, decision)
+        src = [leaf.clone() for leaf in _leaves(st["params"])]  # rank 0's, the source's
+        new_dp = self.dp() + len(decision.admit)
+        layout, p0 = step_lib.zero1_layout(st["params"], new_dp,
+                                           bucket_bytes=tcfg.bucket_bytes)
+        rows = 3 * new_dp * (layout.total_padded // p0) + new_dp * layout.total_padded
+        largest = max(layout.bucket_lengths)
+        torch.cuda.synchronize()
+        rec = {"resident": torch.cuda.memory_allocated(), "new_rows_bytes": 4 * rows,
+               "largest_bucket_bytes": 4 * largest}
+        rec["bound"] = (rec["resident"] + rec["new_rows_bytes"] + 4 * rec["largest_bucket_bytes"]
+                        + 2 * new_dp * dserve.BROADCAST_CHUNK * 2 + 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        out = real_resize(self, st, decision)
+        torch.cuda.synchronize()
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["params_equal"] = all(torch.equal(a, b) for a, b in zip(src, _leaves(out["params"])))
+        del src
+        grows.append(rec)
+        return out
+
+    script, losses, ms, dps = kill_join_script(), [], [], []
+    zero(all_ops)
+    with mock.patch.object(ElasticTrainer, "resize", resize):
+        for _ in range(ELASTIC_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, got = tr.run(state, 1, events=script)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses += got
+            dps.append(tr.dp())
+    got = counts(all_ops)
+    traj = [(e.kind, e.old_dp, e.new_dp, e.step) for e in tr.resizes]
+    want = sum(combine_launches_expected(state["params"], dp, "compressed", 1) for dp in dps)
+    digests = part_digests(state)
+    resize_steps = {e.step for e in tr.resizes}
+    by_dp: dict = {}
+    for i, (dp, m) in enumerate(zip(dps, ms)):
+        if i and i not in resize_steps:  # the first step's and a resize step's time aside
+            by_dp.setdefault(dp, []).append(m)
+    steady = [m for v in by_dp.values() for m in v]
+    tok_s = ELASTIC_TRAIN_BATCH * ELASTIC_TRAIN_SEQ / (sum(steady) / len(steady)) * 1e3
+    grow = grows[0]
+    log(f"18 elastic trainer, llama3.2-1b at {ELASTIC_TRAIN_LAYERS} layers, compressed: "
+        f"trajectory {traj}, restores {tr.restores}, losses {losses} [{smi}]")
+    log(f"18 ms a step at dp {dps}: {[round(m, 1) for m in ms]}; steady ms a step by extent "
+        + ", ".join(f"dp {dp}: {[round(m, 1) for m in v]}" for dp, v in sorted(by_dp.items()))
+        + f"; tokens/s {tok_s:.1f}")
+    for r in tr.resize_times:
+        log(f"18 resize {r['kind']} {r['old_dp']} -> {r['new_dp']} at step {r['step']}: "
+            f"migrate {r['migrate_s'] * 1e3:.1f} ms, broadcast {r['broadcast_s'] * 1e3:.1f} ms, "
+            f"wall {r['wall_s'] * 1e3:.1f} ms")
+    log(f"18 grow: params equal the source's {grow['params_equal']}; peak "
+        f"{(grow['peak'] - grow['resident']) / 2**30:.3f} GiB above the resident "
+        f"{grow['resident'] / 2**30:.3f} GiB (bound {(grow['bound'] - grow['resident']) / 2**30:.3f}"
+        f" GiB: the new rows {grow['new_rows_bytes'] / 2**30:.3f} GiB + 4 x the largest bucket "
+        f"{grow['largest_bucket_bytes']} B + the broadcast's pieces + 1 GiB)")
+    log(f"18 mrd_combine {got['mrd_combine']} (reckoned from the plans: {want}); launches {got}")
+    expect_launches(got, {"mrd_combine": want}, "18 elastic trainer", dev)
+    if traj != ELASTIC_TRAIN_TRAJECTORY or tr.restores or len(losses) != ELASTIC_TRAIN_STEPS:
+        raise SystemExit(f"18: trajectory {traj}, restores {tr.restores}, {len(losses)} losses")
+    if not grow["params_equal"] or grow["peak"] > grow["bound"] or not want:
+        raise SystemExit(f"18: the grow's params equal {grow['params_equal']}, peak "
+                         f"{grow['peak']} > {grow['bound']}, {want} launches reckoned")
+    resizes, resize_times = list(tr.resizes), list(tr.resize_times)
+    del state, tr
+    free_device()
+    t = phase("elastic-train", t)
+
+    # the oracle replay, the plain combine in the kernel's place
+    def plain(x, q, s):
+        return mrd_combine_ref(x, q, s)
+
+    zero(all_ops)
+    with mock.patch.object(executors, "mrd_combine", plain):
+        r_state, r_losses = oracle_replay(cfg, tcfg, dcfg, range(4), resizes,
+                                          ELASTIC_TRAIN_STEPS, device=dev)
+    r_digests = part_digests(r_state)
+    del r_state
+    free_device()
+    same = {k: digests[k] == r_digests.get(k) for k in digests}
+    log(f"18 oracle replay (rule: the plain combine, phase 3 held the kernel to it bit for bit): "
+        f"losses equal {r_losses == losses}, digests equal {same}; its launches {counts(all_ops)}")
+    if r_losses != losses or not all(same.values()) or any(counts(all_ops).values()):
+        raise SystemExit(f"18: the replay differs: losses {r_losses} against {losses}, {same}")
+    phase("elastic-train-replay", t)
+    return {"trajectory": traj, "restores": 0, "losses": losses, "ms_per_step": ms, "dps": dps,
+            "steady_ms_by_dp": {str(k): v for k, v in by_dp.items()}, "tokens_per_s": tok_s,
+            "resize_times": resize_times, "grow": grow,
+            "digests_equal": same, "combine_reckoned": want, "launches": got, "gpu": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4342,7 +4528,13 @@ def main() -> int:
     el17 = elastic_phase(all_ops, time.perf_counter(), smi)
     p17 = el17["launches"]
 
-    # 18. results
+    # 18. the elastic trainer on stacked rows (4 -> 3 -> 5 -> 4) and its
+    # oracle replay
+    free_device()
+    el18 = elastic_train_phase(all_ops, time.perf_counter(), smi)
+    p18 = el18["launches"]
+
+    # 19. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
         "tpot_p50_ms", "wall_s")}}))
@@ -4363,6 +4555,7 @@ def main() -> int:
     log(json.dumps({"tp_world": tp15}))
     log(json.dumps({"overlap": ov16}))
     log(json.dumps({"elastic": el17}))
+    log(json.dumps({"elastic_train": el18}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
@@ -4396,11 +4589,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/mrd_combine/csrc/mrd_combine.cu",
         "replaces": "src/repro/kernels/mrd_combine/kernel.py:31",
         "launches": (train_launches + coll_launches + p13 + p14 + p15["mrd_combine"]
-                     + p16["mrd_combine"]),
+                     + p16["mrd_combine"] + p18["mrd_combine"]),
         "launches_by_path": {"train": train_launches, "collectives": coll_launches,
                              "training_families": p13, "world_and_optimizers": p14,
                              "tp_world_gspmd": p15["mrd_combine"],
-                             "overlap": p16["mrd_combine"]},
+                             "overlap": p16["mrd_combine"],
+                             "elastic_train": p18["mrd_combine"]},
         "max_abs_err": errs[(COMBINE_CASES[-1], torch.float32)],
         "ms": mc_ms,
         "plain_ms": mc_plain_ms,

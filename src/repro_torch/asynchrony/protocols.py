@@ -33,7 +33,14 @@ value falls below the threshold.  The policies take any leading
 dimensions (``metric [...]``): serving's residual terminations run them
 over ``[dp, slots]``.
 
-The reference's elastic ``migrate`` is not ported yet.
+**Elastic resize.**  Each protocol's ``migrate(state, keep, new_p, m,
+cfg)`` carries the engine's state to a new worker count along a keep map
+(``keep[i]``: the old worker now at new rank ``i``, None for a joiner):
+what was certified (``res_norm``, ``detected``) and the survivors'
+per-worker latches and windows follow their workers, a joiner starts at
+:data:`RES_INIT`, and the staged reduction restarts at stage 0.
+:meth:`ConvergenceMonitor.migrate_rows` does the same for the training
+loop's monitor rows.
 """
 
 from __future__ import annotations
@@ -80,6 +87,16 @@ def where_lanes(mask, new, old):
 @functools.lru_cache(maxsize=64)
 def _sim_plan(p: int) -> plans.CollectivePlan:
     return plans.allreduce_plan(schedule="mrd", p=p, op="max")
+
+
+def _take_ranks(arr, keep, fill, axis: int = -1):
+    """The worker entries of ``arr`` along ``axis`` after a resize:
+    ``keep[i]`` is the old rank now at new rank ``i`` (None: a joiner,
+    which gets ``fill``).  Any rank axis: ``res_loc [B, p]``, ``win [B,
+    W, p]``, stacked monitor rows ``[dp, ...]`` (``axis=0``)."""
+    parts = [torch.full_like(arr.select(axis, 0), fill) if k is None else arr.select(axis, int(k))
+             for k in keep]
+    return torch.stack(parts, dim=axis)
 
 
 def _stage_msgs(msg_table, stage):
@@ -136,6 +153,22 @@ class _ProtocolBase:
     def monitor_init(self, metric0):
         raise ValueError(f"protocol {type(self).__name__} has no training-loop policy")
 
+    # -- elastic resize -------------------------------------------------------
+
+    def migrate(self, state, keep, new_p: int, m: int, cfg):
+        """The state after the worker set changes (``keep[i]``: the old
+        rank now at new rank ``i``, None for a joiner).  The reduction in
+        flight is dropped: its stage and partial combines mean nothing at
+        the new extent, whose cycle differs.  What was certified
+        (``res_norm``, ``detected``) survives; subclasses carry their
+        per-worker state."""
+        lanes, device = state["res_norm"].shape[0], state["res_norm"].device
+        new = self.init(new_p, m, cfg, lanes, device)
+        for k in ("res_norm", "detected"):
+            if k in new and k in state:
+                new[k] = state[k]
+        return new
+
 
 @register_protocol("inexact")
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +192,13 @@ class InexactProtocol(_ProtocolBase):
             "res_norm": res_norm,
             "detected": st["detected"] | (flag & (res_norm < obs.eps)),
         }, msgs
+
+    def migrate(self, state, keep, new_p, m, cfg):
+        new = super().migrate(state, keep, new_p, m, cfg)
+        # a survivor re-latches its last contribution at the next cycle's
+        # start; a joiner starts at the RES_INIT sentinel
+        new["res_loc"] = _take_ranks(state["res_loc"], keep, RES_INIT)
+        return new
 
     def monitor_init(self, metric0):
         return {}
@@ -230,6 +270,15 @@ class ExactProtocol(_ProtocolBase):
     def finalize(self, state, x):
         return state["xbar"]
 
+    def migrate(self, state, keep, new_p, m, cfg):
+        new = super().migrate(state, keep, new_p, m, cfg)
+        # a snapshot in progress is a cut of the old worker set: it is
+        # dropped (a new one starts next tick); the last certified x̄ carries
+        # over when the global problem size is unchanged
+        if state["xbar"].shape == new["xbar"].shape:
+            new["xbar"] = state["xbar"]
+        return new
+
     def monitor_init(self, metric0):
         return {"latched": metric0}
 
@@ -273,6 +322,14 @@ class IntervalProtocol(_ProtocolBase):
             "res_norm": res_norm,
             "detected": st["detected"] | (flag & (res_norm < obs.eps)),
         }, msgs
+
+    def migrate(self, state, keep, new_p, m, cfg):
+        new = super().migrate(state, keep, new_p, m, cfg)
+        new["res_loc"] = _take_ranks(state["res_loc"], keep, RES_INIT)
+        # the window columns follow their workers; a joiner's starts
+        # saturated, so it cannot certify before filling a whole window
+        new["win"] = _take_ranks(state["win"], keep, RES_INIT)
+        return new
 
     def monitor_init(self, metric0, window: int = 8):
         return {"win": metric0[..., None].expand(*metric0.shape, window).float().clone()}
@@ -385,6 +442,34 @@ class ConvergenceMonitor:
             "value": metric0.clone(),
             "done": torch.zeros(shape, dtype=torch.bool, device=device),
         }
+
+    def migrate_rows(self, rows, keep):
+        """The monitor state after a resize, this monitor being the one of
+        the new extent.  ``keep[i]`` is the old rank now at new rank ``i``
+        (None: a joiner, which gets a fresh row).  The per-rank policy state
+        (``m``: the exact mode's latch, the interval window), the published
+        ``value`` and the ``done`` latch follow their workers; the staged
+        reduction restarts at stage 0, since the cycle at the new extent
+        differs and a partial combine would mix extents.  Stacked rows:
+        ``rows`` holds every old rank's ``[dp_old]`` rows.  Over a mesh: the
+        rank's own old state (a joiner's, a fresh one, is not read)."""
+        fresh = self.init(device=rows["done"].device)
+        if self.p is None:
+            from repro_torch.collectives.executors import axis_ranks
+
+            names, r = self.mesh.mesh_dim_names, 0
+            for ax in self._axes():  # the rank, flattened over the monitor's axes
+                r = r * self.mesh.size(names.index(ax)) + axis_ranks(self.mesh, ax)[0]
+            if keep[r] is None:
+                return fresh
+            return {**fresh, "m": rows["m"], "value": rows["value"], "done": rows["done"]}
+
+        def sel(old, new):
+            if isinstance(old, dict):
+                return {k: sel(old[k], new[k]) for k in new}
+            return torch.stack([new[i] if k is None else old[k] for i, k in enumerate(keep)])
+
+        return {"nb": fresh["nb"], **{k: sel(rows[k], fresh[k]) for k in ("m", "value", "done")}}
 
     def step(self, state, local_metric, step_idx: int):
         plan = self._plan()

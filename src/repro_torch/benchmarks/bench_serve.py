@@ -55,14 +55,14 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import _CliChaosScript, static_serve
+from repro_torch.launch.serve import static_serve
 from repro_torch.runtime import ElasticServeController
+from repro_torch.runtime.chaos import ChaosScript, Join, Kill
 from repro_torch.serving import Request, ServeConfig, ServeEngine, make_arrival_ticks, make_workload
 
 # the elastic rows' script: kill 6:2, join 16:(4, 5), kill 26:0 from dp 4
 ELASTIC_DP, ELASTIC_SPD = 4, 4
-ELASTIC_EVENTS = ((6, "kill", (2,), {"silent": False}), (16, "join", ((4, 5),), {}),
-                  (26, "kill", (0,), {}))
+ELASTIC_EVENTS = (Kill(6, 2), Join(16, (4, 5)), Kill(26, 0))
 ELASTIC_FP_N = 60  # divisible by every visited extent (3, 4, 5)
 
 QUICK = {"slots": 2, "n_req": 6, "prompt_len": 6, "gen_max": 24, "schedulers": ("fcfs",),
@@ -257,7 +257,7 @@ def _run_elastic(eng, reqs, done_of):
     """The controller loop under the elastic script -> (results, the rate
     of the work retired after the last resize, a second)."""
     ctl = ElasticServeController(eng, policy="grow_on_join")
-    script = _CliChaosScript(ELASTIC_EVENTS)
+    script = ChaosScript(ELASTIC_EVENTS, log=print)
     for r in reqs:
         eng.submit(r)
     t_post = w_post = None

@@ -37,9 +37,11 @@ read each other's checkpoints.
   older layout is migrated on restore (:func:`migrate_layout`), a newer
   one refused.
 - *Restore* loads onto a template's structure, shapes and types, on a
-  given device, at the same data-parallel width: resharding onto another
-  dp needs the grad-sync resize hooks (``GRAD_SYNC_RESIZE``, ROADMAP queue
-  1, item 7b), which are not ported yet.
+  given device, at the same data-parallel width.  Onto another width the
+  elastic trainer restores (``ElasticTrainer.init_or_restore``, the train
+  CLI's ``--elastic-policy``): the params, the step and the data cursor,
+  and the optimizer restarted from the restored params; a plain restore
+  of another width is refused (:data:`RESIZE_HINT`).
 - *Worlds* (one process a rank, ``world=(rank, dp)``): a save writes the
   same ``arrays.npz`` as a stacked-rows trainer's, so either trainer
   restores the other's checkpoint.  Each rank stages only what it writes
@@ -89,8 +91,11 @@ from repro_torch.device import resolve_device
 #      under 'm/' ('monitor/m/latched', 'monitor/m/win')
 LAYOUT_VERSION = 2
 
-RESIZE_HINT = ("restoring onto another data-parallel width needs the grad-sync resize hooks "
-               "(GRAD_SYNC_RESIZE, migrate_state: ROADMAP queue 1, item 7b), not ported yet")
+RESIZE_HINT = ("a plain restore keeps the saved width's optimizer rows; onto another "
+               "data-parallel width the elastic trainer restores the params, step and data "
+               "cursor and restarts the optimizer from them (--elastic-policy, "
+               "ElasticTrainer.init_or_restore: ROADMAP queue 1, item 7b); another --tp is "
+               "refused (item 7b2)")
 
 
 def flatten_with_paths(tree, prefix: str = "") -> Dict[str, Any]:

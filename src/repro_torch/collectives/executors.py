@@ -128,16 +128,28 @@ def landed(x):
     return x
 
 
+def axis_ranks(mesh, axis: str) -> tuple[int, list]:
+    """(this process's coordinate along the dimension ``axis`` of
+    ``mesh``, the global ranks along it in coordinate order).  A mesh over
+    ranks out of order (the elastic trainer's, whose joiners come last)
+    numbers its ranks by place, where its process group numbers them in
+    sorted order."""
+    d = mesh.mesh_dim_names.index(axis)
+    coord = list(mesh.get_coordinate())
+    where = tuple(coord[:d]) + (slice(None),) + tuple(coord[d + 1:])
+    return coord[d], [int(r) for r in mesh.mesh[where].tolist()]
+
+
 class DeviceBackend:
     """Executes stages on rank-local 1-D buffers across processes, within
-    the group of one named dimension of ``mesh``."""
+    the group of one named dimension of ``mesh``; a rank is its
+    coordinate along that dimension (:func:`axis_ranks`)."""
 
     def __init__(self, axis: str, mesh):
         self.axis = axis
         self.group = mesh.get_group(axis)
-        self._rank = dist.get_rank(self.group)
-        self._size = dist.get_world_size(self.group)
-        self._global = [dist.get_global_rank(self.group, r) for r in range(self._size)]
+        self._rank, self._global = axis_ranks(mesh, axis)
+        self._size = len(self._global)
         dist.barrier(group=self.group)  # the group's first operation: every rank
 
     def rank(self, device=None) -> int:

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import weakref
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -136,6 +137,53 @@ def profiled():
     return contextlib.nullcontext()
 
 
+# ---------------------------------------------------------------------------
+# Live plans, which the elastic runtime invalidates at a resize
+#
+# A plan memoizes what it derives (backends, bound stage tables) per
+# instance.  A resize changes the extent under long-lived plans, so the
+# elastic runtime calls invalidate_all_plans() at each ResizeEvent and every
+# live plan derives again on its next use.  A list of weakrefs (not a
+# WeakSet: equal frozen plans would collapse into one) tracks them without
+# keeping them alive.
+# ---------------------------------------------------------------------------
+
+_LIVE_PLANS: list = []
+_PRUNE_THRESHOLD = 256
+
+
+def _track_plan(plan) -> None:
+    global _PRUNE_THRESHOLD
+    _LIVE_PLANS.append(weakref.ref(plan))
+    # amortized prune: a workload that builds plans without ever resizing
+    # must not accumulate dead references without bound
+    if len(_LIVE_PLANS) >= _PRUNE_THRESHOLD:
+        _LIVE_PLANS[:] = [r for r in _LIVE_PLANS if r() is not None]
+        _PRUNE_THRESHOLD = max(256, 2 * len(_LIVE_PLANS))
+
+
+def live_plans() -> list:
+    """The :class:`CollectivePlan` instances alive now (dead references
+    are pruned)."""
+    alive, kept = [], []
+    for ref in _LIVE_PLANS:
+        plan = ref()
+        if plan is not None:
+            alive.append(plan)
+            kept.append(ref)
+    _LIVE_PLANS[:] = kept
+    return alive
+
+
+def invalidate_all_plans() -> int:
+    """Drop every live plan's memoized derivations (the resize hook);
+    returns how many plans were invalidated."""
+    alive = live_plans()
+    for plan in alive:
+        plan.invalidate()
+    return len(alive)
+
+
 @dataclasses.dataclass(frozen=True)
 class CollectivePlan:
     """schedule x executor x transform x op, bound to the named dimensions
@@ -179,6 +227,7 @@ class CollectivePlan:
                     f"its axes {self.axes}; missing {missing} in {tuple(names)}"
                 )
         self._transform().validate_op(self.op)
+        _track_plan(self)
 
     # -- layer resolution (memoized per instance, outside eq/hash) ----------
 
@@ -187,6 +236,12 @@ class CollectivePlan:
         if key not in memo:
             memo[key] = build()
         return memo[key]
+
+    def invalidate(self) -> None:
+        """Drop every memoized derivation (backends, bound stage tables),
+        so the next use derives them again: the elastic runtime calls
+        :func:`invalidate_all_plans` after a resize."""
+        self.__dict__.pop("_memo_cache", None)
 
     def _n_axes(self) -> int:
         return len(self.axes) if self.axes is not None else 1

@@ -30,15 +30,35 @@ with tensor parallelism, where an MRD mode's rank holds its TP blocks,
 buckets its local gradients and runs its plans over its ``"data"``
 column (``common.ModelRanks``).  ``tcfg.overlap`` sends each gradient
 bucket through its plan as its backward segment completes
-(``gradsync.overlap``).  The elastic resize hooks are not ported yet
-(ROADMAP queue 1, item 7b).
+(``gradsync.overlap``).
+
+Elastic resize: each strategy registers a hook in ``GRAD_SYNC_RESIZE``
+that carries a live train state to a new data-parallel extent in place,
+without a checkpoint (:func:`migrate_state`).  In a ``("data",)`` world
+the hooks run on every process of the union of the old and the new
+ranks; ``gspmd`` worlds and resizes at ``tp`` > 1 are refused
+(:data:`NOT_ELASTIC`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Sequence
 
 GRAD_SYNC: Dict[str, Callable] = {}
+
+# Elastic resize hooks: ``hook(cfg, tcfg, old_mesh, new_mesh, state, keep)
+# -> new_state``, where a mesh is a stacked-rows tuple of replica ids or a
+# world's ``("data",)`` DeviceMesh, and ``keep[i]`` is the old rank now at
+# new rank ``i`` (None: a joiner).  Each hook re-lays-out what its strategy
+# holds a rank (the ZeRO-1 master/moment segments, the EF residuals, the
+# monitor rows, local SGD's replicas) and leaves replicated leaves as they
+# are: the elastic trainer sends the params (and a replicated optimizer) to
+# the joiners itself.  In a world ``state`` is the process's own (a joiner's
+# is a fresh one of the new extent) and a removed rank gets None back.
+GRAD_SYNC_RESIZE: Dict[str, Callable] = {}
+
+NOT_ELASTIC = ("elastic worlds of gspmd and resizes at tp > 1 are not ported yet "
+               "(ROADMAP queue 1, item 7b2)")
 
 
 def register(name: str):
@@ -46,6 +66,16 @@ def register(name: str):
 
     def deco(fn: Callable) -> Callable:
         GRAD_SYNC[name] = fn
+        return fn
+
+    return deco
+
+
+def register_resize(name: str):
+    """Decorator: register a strategy's elastic resize hook under ``name``."""
+
+    def deco(fn: Callable) -> Callable:
+        GRAD_SYNC_RESIZE[name] = fn
         return fn
 
     return deco
@@ -67,6 +97,33 @@ def make_train_step(cfg, tcfg, *, dp: int, device="cuda", mesh=None):
     on ``device``, or with ``mesh`` this process's rank of a world of
     ``dp`` (its step takes the rank's batch shard)."""
     return get(tcfg.grad_sync)(cfg, tcfg, dp=dp, device=device, mesh=mesh)
+
+
+def make_step_factory(cfg, tcfg, *, device="cuda") -> Callable:
+    """``mesh -> train step``, what the elastic trainer rebuilds at every
+    resize: ``mesh`` a stacked-rows tuple of replica ids (the step over
+    that many rows on ``device``) or a world's ``("data",)`` DeviceMesh
+    (this process's rank of it)."""
+    from repro_torch.distributed.gradsync import common
+
+    def factory(mesh):
+        world = common.is_world(mesh)
+        return make_train_step(cfg, tcfg, dp=common.mesh_dp(mesh), device=device,
+                               mesh=mesh if world else None)
+
+    return factory
+
+
+def migrate_state(cfg, tcfg, old_mesh, new_mesh, state, keep: Sequence[Optional[int]]):
+    """Carry a live train state across a resize in place, with no
+    checkpoint, through ``tcfg.grad_sync``'s registered hook (see
+    :data:`GRAD_SYNC_RESIZE`).  ``keep`` maps new ranks to old ones (None:
+    a joiner)."""
+    name = tcfg.grad_sync
+    if name not in GRAD_SYNC_RESIZE:
+        raise ValueError(f"grad_sync {name!r} has no registered resize hook; "
+                         f"registered: {sorted(GRAD_SYNC_RESIZE)}")
+    return GRAD_SYNC_RESIZE[name](cfg, tcfg, old_mesh, new_mesh, state, tuple(keep))
 
 
 # populate the registry (import order = doc order)

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.asynchrony import ConvergenceMonitor
 from repro_torch.collectives.buckets import pack_bucket, tree_flatten, tree_unflatten
+from repro_torch.collectives.executors import axis_ranks
 from repro_torch.models import convert, transformer
 from repro_torch.optim.optimizer import OptimizerConfig
 
@@ -216,10 +217,34 @@ def resolve_executor(tcfg: TrainConfig, *, compressed: bool = False, mesh=None,
     return "device"
 
 
+def is_world(mesh) -> bool:
+    """Is ``mesh`` a world's :class:`DeviceMesh` (not a stacked-rows extent:
+    ``None``, or the elastic trainer's tuple of replica ids)?"""
+    return mesh is not None and hasattr(mesh, "mesh_dim_names")
+
+
+def mesh_dp(mesh) -> int:
+    """The data-parallel extent of a world's mesh (its ``"data"``
+    dimension) or of a stacked-rows tuple of replica ids."""
+    if is_world(mesh):
+        return mesh.size(mesh.mesh_dim_names.index(DATA))
+    return len(mesh)
+
+
+def mesh_rank(mesh) -> Optional[int]:
+    """This process's ``"data"`` rank in a world's mesh, or None when the
+    process lies outside it (a spare, or a worker the elastic trainer
+    removed)."""
+    if mesh.get_coordinate() is None:
+        return None
+    return axis_ranks(mesh, DATA)[0]
+
+
 def world_rank(mesh) -> tuple[int, int]:
     """(this process's rank, the rank count) along ``mesh``'s ``"data"``
-    dimension."""
-    return mesh.get_local_rank(DATA), mesh.size(mesh.mesh_dim_names.index(DATA))
+    dimension (its coordinate: the elastic trainer's meshes list their
+    ranks out of order)."""
+    return axis_ranks(mesh, DATA)[0], mesh.size(mesh.mesh_dim_names.index(DATA))
 
 
 def plan_binding(dp: int, mesh) -> dict:
@@ -448,6 +473,18 @@ def build_monitor(tcfg: TrainConfig, dp: int, mesh=None) -> Optional[Convergence
         return None
     where: dict[str, Any] = {"p": dp} if mesh is None else {"axis_name": DATA, "mesh": mesh}
     return ConvergenceMonitor(threshold=tcfg.monitor_threshold, mode=tcfg.monitor_mode, **where)
+
+
+def monitor_rows_migrate(tcfg: TrainConfig, dp: int, rows, keep, mesh=None):
+    """The ``state["monitor"]`` rows after a resize to ``dp`` ranks (None
+    passes through): the survivors' rows follow their workers, a joiner
+    gets a fresh row, and the staged reduction restarts
+    (:meth:`ConvergenceMonitor.migrate_rows`).  In a world (``mesh``, the
+    new one) ``rows`` is the rank's own old state."""
+    monitor = build_monitor(tcfg, dp, mesh if is_world(mesh) else None)
+    if monitor is None or rows is None:
+        return rows
+    return monitor.migrate_rows(rows, keep)
 
 
 def monitor_rows_init(monitor: Optional[ConvergenceMonitor], *, device):

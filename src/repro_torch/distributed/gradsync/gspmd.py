@@ -36,6 +36,11 @@ The ranks run in one of two layouts:
 ``tcfg.overlap`` is a no-op here, as in the reference: there is no
 bucketed gradient path to reorder.  No MRD collective runs in this mode
 (``mrd_combine`` launches no kernel).
+
+Elastic resize on stacked rows moves only the monitor rows (the params
+and optimizer trees do not depend on the extent), as the reference's
+hook; an elastic ``gspmd`` world, whose FSDP blocks would be re-sharded
+over ``"data"``, is refused (``gradsync.NOT_ELASTIC``).
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ import torch.distributed as dist
 from repro_torch.collectives.buckets import tree_flatten, tree_unflatten
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.gradsync import common, register
+from repro_torch.distributed.gradsync import NOT_ELASTIC, common, register, register_resize
 from repro_torch.distributed.gradsync.common import TrainConfig
 from repro_torch.models import convert, transformer
 from repro_torch.models.config import ModelConfig
@@ -226,10 +231,15 @@ class GspmdStep:
         place = ({} if self.mesh is None else
                  {"place": shd.Placer(self.cfg, self.rules, self.coords)})
         params = transformer.init_params(self.cfg, generator, self.device, **place)
-        state = {"params": params, "opt": opt_lib.init_opt_state(params), "step": 0}
+        state = {"params": params, "opt": self.opt_from_params(params), "step": 0}
         if self.monitor is not None:
             state["monitor"] = common.monitor_rows_init(self.monitor, device=self.device)
         return state
+
+    def opt_from_params(self, params) -> dict:
+        """A fresh optimizer for ``params`` (a world rank's blocks): fp32
+        masters and zero moments."""
+        return opt_lib.init_opt_state(params)
 
     # ----------------------------------------------------------------- step
     def __call__(self, state, batch):
@@ -358,6 +368,17 @@ def _map_tensors(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tensors(fn, v) for k, v in tree.items()}
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+@register_resize("gspmd")
+def resize(cfg, tcfg, old_mesh, new_mesh, state, keep):
+    """Stacked rows: only the monitor's ``[dp]`` rows move.  A world's
+    FSDP blocks would have to be re-sharded: refused."""
+    from repro_torch.distributed.gradsync.mrd_leaf import monitor_only_resize
+
+    if common.is_world(new_mesh):
+        raise NotImplementedError(NOT_ELASTIC)
+    return monitor_only_resize(cfg, tcfg, old_mesh, new_mesh, state, keep)
 
 
 @register("gspmd")

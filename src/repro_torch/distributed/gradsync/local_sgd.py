@@ -28,6 +28,10 @@ coordinate holds its blocks, its replica's grad norm counts each global
 element once, and the average runs over its ``"data"`` column.
 ``tcfg.overlap`` is a no-op here, as in the reference: no gradient
 crosses the ranks.
+
+Elastic resize (:func:`resize`): the replicas follow their workers, and
+a joiner takes the first survivor's replica (its params and optimizer
+trees): it has no history of its own, and the next average folds it in.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 
 from repro_torch.collectives import plans
 from repro_torch.device import resolve_device
-from repro_torch.distributed.gradsync import common, register
+from repro_torch.distributed.gradsync import common, register, register_resize
 from repro_torch.distributed.gradsync.common import TrainConfig
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
@@ -92,6 +96,11 @@ class LocalSGDStep:
 
         params = rep(transformer.init_params(self.cfg, generator, self.device))
         return {"params": params, "opt": opt_lib.init_opt_state(params), "step": 0}
+
+    def opt_from_params(self, params) -> dict:
+        """A fresh optimizer of the replicas ``params``: fp32 masters of
+        them and zero moments."""
+        return opt_lib.init_opt_state(params)
 
     def average_(self, params) -> None:
         """Replace every replica by the replicas' mean, in place."""
@@ -147,6 +156,25 @@ class LocalSGDStep:
         return {k: self.tp.blocks(_replica(v, self.rank, None)) if k == "params" else
                 {n: self.tp.blocks(_replica(t, self.rank, None)) for n, t in v.items()}
                 if k == "opt" else v for k, v in state.items()}
+
+
+@register_resize("local_sgd")
+def resize(cfg, tcfg, old_mesh, new_mesh, state, keep):
+    """The replicas after a resize: the stacked ``[dp, ...]`` rows of
+    params and optimizer trees follow their workers, and a joiner's row is
+    a copy of the first survivor's.  In a world a rank keeps its own
+    replica and a joiner's (its fresh state) is filled by the elastic
+    trainer's broadcast from the first survivor, new rank 0."""
+    if common.is_world(new_mesh):
+        return state if common.mesh_rank(new_mesh) is not None else None
+    src = next(k for k in keep if k is not None)
+
+    def sel(node):
+        if isinstance(node, dict):
+            return {k: sel(v) for k, v in node.items()}
+        return torch.stack([node[src if k is None else k] for k in keep])
+
+    return {**state, "params": sel(state["params"]), "opt": sel(state["opt"])}
 
 
 @register("local_sgd")

@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.collectives import buckets, plans
 from repro_torch.device import resolve_device
-from repro_torch.distributed.gradsync import common, register
+from repro_torch.distributed.gradsync import common, register, register_resize
 from repro_torch.distributed.gradsync import overlap as overlap_lib
 from repro_torch.distributed.gradsync.common import TrainConfig
 from repro_torch.models import convert
@@ -65,10 +65,14 @@ class LeafStep:
 
     def init_state(self, generator: torch.Generator):
         params = common.init_params(self.cfg, generator, self.device, self.tp)
-        state = {"params": params, "opt": opt_lib.init_opt_state(params), "step": 0}
+        state = {"params": params, "opt": self.opt_from_params(params), "step": 0}
         if self.monitor is not None:
             state["monitor"] = common.monitor_rows_init(self.monitor, device=self.device)
         return state
+
+    def opt_from_params(self, params) -> dict:
+        """A fresh optimizer for ``params``: fp32 masters and zero moments."""
+        return opt_lib.init_opt_state(params)
 
     def __call__(self, state, batch):
         params, opt, step = state["params"], state["opt"], state["step"]
@@ -122,6 +126,24 @@ class LeafStep:
         if "monitor" in state:
             out["monitor"] = common.monitor_row(state["monitor"], self.rank)
         return out
+
+
+def monitor_only_resize(cfg, tcfg, old_mesh, new_mesh, state, keep):
+    """A resize that moves only the monitor rows (the rest of the state is
+    replicated): ``mrd_leaf``'s, and ``gspmd``'s on stacked rows.  In a
+    world a removed rank gets None."""
+    world = common.is_world(new_mesh)
+    if world and common.mesh_rank(new_mesh) is None:
+        return None
+    out = dict(state)
+    if "monitor" in state:
+        out["monitor"] = common.monitor_rows_migrate(tcfg, common.mesh_dp(new_mesh),
+                                                     state["monitor"], keep,
+                                                     new_mesh if world else None)
+    return out
+
+
+register_resize("mrd_leaf")(monitor_only_resize)
 
 
 @register("mrd_leaf")

@@ -50,6 +50,20 @@ layout of the whole params onto a coordinate's (:func:`global_leaves`).
 With ``tcfg.overlap`` the backward runs in segments and each bucket
 enters the gradient plan's pipeline as its segment completes
 (``gradsync.overlap``): the same buffers bit for bit.
+
+Elastic resize (:func:`resize_zero1`, the hook of all three modes): the
+master/moment rows are owner segments over the old pivot count, so the
+whole buckets are gathered from the old owners, re-padded to the new
+extent's quantum (the padding holds exact zeros throughout training, so
+this is bit-exact) and scattered onto the new owners, one bucket at a
+time.  The EF residual is a worker's own: it follows its worker,
+re-padded, and a joiner starts from zeros.  In a world every old owner
+writes its segment into zeros and an MRD sum over the union of the old
+and new ranks gathers the bucket (exact: one term a slot is nonzero).  A
+rank the resize removes still hands over its segments, as the
+reference's simulated kill leaves a removed device's shard readable: its
+process lives through the resize, then idles.  A real crash loses that
+segment, and only a checkpoint restore recovers from it.
 """
 
 from __future__ import annotations
@@ -63,7 +77,7 @@ from repro_torch.collectives import buckets, plans
 from repro_torch.collectives import transforms as tf_lib
 from repro_torch.collectives.schedules import pivot
 from repro_torch.device import resolve_device
-from repro_torch.distributed.gradsync import common, register
+from repro_torch.distributed.gradsync import common, register, register_resize
 from repro_torch.distributed.gradsync import overlap as overlap_lib
 from repro_torch.distributed.gradsync.common import TrainConfig
 from repro_torch.models import convert, transformer
@@ -221,6 +235,15 @@ class Zero1Step:
         > 1 this coordinate's blocks), master rows from them, zero moments
         and EF residuals, a fresh monitor."""
         params = common.init_params(self.cfg, generator, self.device, self.tp)
+        state = {"params": params, "opt": self.opt_from_params(params), "step": 0}
+        if self.monitor is not None:
+            state["monitor"] = common.monitor_rows_init(self.monitor, device=self.device)
+        return state
+
+    def opt_from_params(self, params) -> dict:
+        """A fresh optimizer for ``params``: master rows from them in the
+        step's shard layout (a world rank's own row), zero moments and zero
+        EF residuals."""
         layout, _ = self._layout(params)
         kw = dict(bucket_bytes=self.tcfg.bucket_bytes, paper_mode=self.paper_mode)
         if self.rank is None:
@@ -232,10 +255,7 @@ class Zero1Step:
             rows = () if self.rank is not None else (self.dp,)
             opt["ef"] = torch.zeros(rows + (layout.total_padded,), dtype=torch.float32,
                                     device=self.device)
-        state = {"params": params, "opt": opt, "step": 0}
-        if self.monitor is not None:
-            state["monitor"] = common.monitor_rows_init(self.monitor, device=self.device)
-        return state
+        return opt
 
     def __call__(self, state, batch):
         params, opt, step = state["params"], state["opt"], state["step"]
@@ -372,3 +392,170 @@ def make_zero1(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda", m
 @register("mrd_zero1")
 def make(cfg: ModelConfig, tcfg: TrainConfig, *, dp: int, device="cuda", mesh=None):
     return make_zero1(cfg, tcfg, dp=dp, device=device, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# Elastic resize: the ZeRO-1 rows re-laid-out in place
+# ---------------------------------------------------------------------------
+
+
+def _used(bucket: buckets.Bucket) -> int:
+    """Elements of a bucket that hold leaves (the rest is padding)."""
+    return sum(s.size for s in bucket.slots)
+
+
+def _bucket_pairs(layout_o: buckets.BucketLayout, layout_n: buckets.BucketLayout):
+    """(old bucket, new bucket) pairs of two extents' layouts.  Bucket
+    membership depends on the leaves and the byte cap, not on the padding
+    quantum, so only the lengths differ."""
+    for bo, bn in zip(layout_o.buckets, layout_n.buckets, strict=True):
+        if [s.index for s in bo.slots] != [s.index for s in bn.slots]:
+            raise ValueError("the two extents' bucket layouts hold different leaves")
+        yield bo, bn
+
+
+def _segments(dp: int, paper_mode: bool) -> tuple[int, list]:
+    """(segments a bucket, the segment each rank owns or None): under
+    ``paper_mode`` every rank holds the whole bucket."""
+    if paper_mode:
+        return 1, [0] * dp
+    return zero1_prod_p0(dp), zero1_owner_segments(dp)
+
+
+def relayout_rows(rows: torch.Tensor, layout_o, layout_n, dp_o: int, dp_n: int, *,
+                  paper_mode: bool = False) -> torch.Tensor:
+    """Stacked ``[dp_o, m_o]`` optimizer rows over the old extent's owner
+    segments -> ``[dp_n, m_n]`` rows over the new one's, one bucket at a
+    time: the whole bucket from the old owners' segments (``paper_mode``:
+    row 0, as the reference re-buckets one replica's copy), its leaves
+    re-padded to the new quantum, each new owner's segment of it (a rank
+    that owns none gets zeros).  The reference's ``zero1_gather_buckets``,
+    ``zero1_regrid`` and ``zero1_scatter_buckets``."""
+    p0_o, own_o = _segments(dp_o, paper_mode)
+    p0_n, own_n = _segments(dp_n, paper_mode)
+    rank_of: dict = {}
+    for r, seg in enumerate(own_o):  # under paper_mode every rank holds seg 0: row 0's
+        if seg is not None:
+            rank_of.setdefault(seg, r)
+    out = rows.new_zeros((dp_n, layout_n.total_padded // p0_n))
+    off_o = off_n = 0
+    for bo, bn in _bucket_pairs(layout_o, layout_n):
+        seg_o, seg_n = bo.length // p0_o, bn.length // p0_n
+        whole = torch.cat([rows[rank_of[s], off_o:off_o + seg_o] for s in range(p0_o)])
+        new = whole.new_zeros((bn.length,))
+        new[:_used(bo)] = whole[:_used(bo)]
+        for r, s in enumerate(own_n):
+            if s is not None:
+                out[r, off_n:off_n + seg_n] = new[s * seg_n:(s + 1) * seg_n]
+        off_o, off_n = off_o + seg_o, off_n + seg_n
+    return out
+
+
+def regrid_row(row: torch.Tensor, layout_o, layout_n, out=None) -> torch.Tensor:
+    """A whole padded vector (a rank's EF residual) of the old layout
+    re-padded to the new one (into ``out``, zeros of the new length, when
+    given)."""
+    out = row.new_zeros((layout_n.total_padded,)) if out is None else out
+    off_o = off_n = 0
+    for bo, bn in _bucket_pairs(layout_o, layout_n):
+        out[off_n:off_n + _used(bo)] = row[off_o:off_o + _used(bo)]
+        off_o, off_n = off_o + bo.length, off_n + bn.length
+    return out
+
+
+def relayout_rank_row(row: Optional[torch.Tensor], layout_o, layout_n, dp_o: int, dp_n: int,
+                      rank_o: Optional[int], rank_n: Optional[int], plan, device, *,
+                      paper_mode: bool = False) -> Optional[torch.Tensor]:
+    """:func:`relayout_rows` for a world process of the union of the old
+    and new ranks: ``row`` is its old row (None for a joiner), ``rank_o`` /
+    ``rank_n`` its old and new ranks (None outside that extent), ``plan``
+    an MRD sum over the union.  Bucket by bucket each old owner writes its
+    segment into zeros (``paper_mode``: old rank 0 its whole bucket, the
+    row the reference re-buckets), the sum gathers the bucket on every
+    process (one nonzero term a slot: exact), and each new owner keeps its
+    segment.  Returns the new row, or None for a rank the resize removed."""
+    p0_o, own_o = _segments(dp_o, paper_mode)
+    p0_n, own_n = _segments(dp_n, paper_mode)
+    s_o = None if rank_o is None or (paper_mode and rank_o) else own_o[rank_o]
+    s_n = None if rank_n is None else own_n[rank_n]
+    out = (None if rank_n is None else
+           torch.zeros((layout_n.total_padded // p0_n,), dtype=torch.float32, device=device))
+    off_o = off_n = 0
+    for bo, bn in _bucket_pairs(layout_o, layout_n):
+        seg_o, seg_n = bo.length // p0_o, bn.length // p0_n
+        buf = torch.zeros((bo.length,), dtype=torch.float32, device=device)
+        if s_o is not None:
+            buf[s_o * seg_o:(s_o + 1) * seg_o] = row[off_o:off_o + seg_o]
+        whole = plan.run(buf)
+        if s_n is not None:
+            new = whole.new_zeros((bn.length,))
+            new[:_used(bo)] = whole[:_used(bo)]
+            out[off_n:off_n + seg_n] = new[s_n * seg_n:(s_n + 1) * seg_n]
+        off_o, off_n = off_o + seg_o, off_n + seg_n
+    return out
+
+
+def resize_zero1(cfg: ModelConfig, tcfg: TrainConfig, old_mesh, new_mesh, state, keep, *,
+                 paper_mode: bool = False):
+    """The ``mrd_zero1`` / ``mrd_paper`` / ``compressed`` state after a
+    resize, with no checkpoint (the reference's ``resize_zero1``).  The
+    params are replicated and pass through (the elastic trainer sends them
+    to the joiners); the master/moment rows are re-laid-out
+    (:func:`relayout_rows`; in a world :func:`relayout_rank_row` over the
+    union of the old and new ranks); the EF residual follows its worker
+    (:func:`regrid_row`; a joiner's is zeros); the monitor rows migrate
+    through the detection layer."""
+    dp_o, dp_n = common.mesh_dp(old_mesh), common.mesh_dp(new_mesh)
+    kw = dict(bucket_bytes=tcfg.bucket_bytes)
+    layout_o, _ = zero1_layout(state["params"], dp_o, **kw)
+    layout_n, _ = zero1_layout(state["params"], dp_n, **kw)
+    opt = state["opt"]
+    if not common.is_world(new_mesh):
+        new_opt = {name: relayout_rows(opt[name], layout_o, layout_n, dp_o, dp_n,
+                                       paper_mode=paper_mode) for name in ("master", "mu", "nu")}
+        if "ef" in opt:  # written row by row into the new rows: one copy of them
+            new_opt["ef"] = opt["ef"].new_zeros((dp_n, layout_n.total_padded))
+            for i, k in enumerate(keep):
+                if k is not None:
+                    regrid_row(opt["ef"][k], layout_o, layout_n, out=new_opt["ef"][i])
+        out = {**state, "opt": new_opt}
+        if "monitor" in state:
+            out["monitor"] = common.monitor_rows_migrate(tcfg, dp_n, state["monitor"], keep)
+        return out
+    # a world: this process is a rank of the union (the old mesh for a
+    # shrink, the new one for a grow); a joiner's state is a fresh one
+    rank_o, rank_n = common.mesh_rank(old_mesh), common.mesh_rank(new_mesh)
+    union = new_mesh if any(k is None for k in keep) else old_mesh
+    device = opt["master"].device
+    plan = plans.allreduce_plan(schedule="mrd", op="sum", executor="device",
+                                **common.plan_binding(common.mesh_dp(union), union))
+    joiner = rank_n is not None and keep[rank_n] is None
+    new_opt = {name: relayout_rank_row(None if joiner else opt[name], layout_o, layout_n,
+                                       dp_o, dp_n, None if joiner else rank_o, rank_n, plan,
+                                       device, paper_mode=paper_mode)
+               for name in ("master", "mu", "nu")}
+    if rank_n is None:
+        return None
+    if "ef" in opt:
+        new_opt["ef"] = (opt["ef"].new_zeros((layout_n.total_padded,)) if joiner else
+                         regrid_row(opt["ef"], layout_o, layout_n))
+    out = {**state, "opt": new_opt}
+    if "monitor" in state:
+        out["monitor"] = common.monitor_rows_migrate(tcfg, dp_n, state["monitor"], keep,
+                                                     new_mesh)
+    return out
+
+
+@register_resize("mrd_zero1")
+def _resize(cfg, tcfg, old_mesh, new_mesh, state, keep):
+    return resize_zero1(cfg, tcfg, old_mesh, new_mesh, state, keep)
+
+
+@register_resize("mrd_paper")
+def _resize_paper(cfg, tcfg, old_mesh, new_mesh, state, keep):
+    return resize_zero1(cfg, tcfg, old_mesh, new_mesh, state, keep, paper_mode=True)
+
+
+@register_resize("compressed")
+def _resize_compressed(cfg, tcfg, old_mesh, new_mesh, state, keep):
+    return resize_zero1(cfg, tcfg, old_mesh, new_mesh, state, keep)

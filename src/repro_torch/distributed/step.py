@@ -14,8 +14,12 @@ from __future__ import annotations
 
 from repro_torch.distributed.gradsync import (  # noqa: F401
     GRAD_SYNC,
+    GRAD_SYNC_RESIZE,
+    NOT_ELASTIC,
     available as available_grad_sync,
+    make_step_factory,
     make_train_step,
+    migrate_state,
 )
 from repro_torch.distributed.gradsync.common import (  # noqa: F401
     DATA,

@@ -111,6 +111,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import step as step_lib
 from repro_torch.models import transformer
 from repro_torch.runtime import ElasticServeController, SlaAutoscalePolicy
+from repro_torch.runtime.chaos import parse_chaos
 from repro_torch.serving import (
     SCHEDULERS,
     TERMINATION,
@@ -210,42 +211,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-class _CliChaosScript:
-    """The chaos events of ``--kill/--join/--stall/--unstall``, fired at
-    the controller on the engine's tick clock (each event at the first
-    dispatch boundary at or after its tick)."""
-
-    def __init__(self, events):
-        self.events = sorted(events, key=lambda e: e[0])
-        self.fired = 0
-
-    def apply_due(self, ctl, tick: int):
-        while self.fired < len(self.events) and self.events[self.fired][0] <= tick:
-            _, name, a, kw = self.events[self.fired]
-            print(f"# chaos @tick {tick}: {name}{a}")
-            getattr(ctl, name)(*a, **kw)
-            self.fired += 1
-
-
-def _parse_chaos(args) -> _CliChaosScript | None:
-    events = []
-    for spec in args.kill or []:
-        parts = spec.split(":")
-        events.append((int(parts[0]), "kill", (int(parts[1]),),
-                       {"silent": len(parts) > 2 and parts[2] == "silent"}))
-    for spec in args.join or []:
-        tick, _, ids = spec.partition(":")
-        events.append((int(tick), "join", (tuple(int(i) for i in ids.split(",")),), {}))
-    for spec in args.stall or []:
-        parts = spec.split(":")
-        factor = float(parts[2]) if len(parts) > 2 else 10.0
-        events.append((int(parts[0]), "stall", (int(parts[1]), factor), {}))
-    for spec in args.unstall or []:
-        tick, _, rid = spec.partition(":")
-        events.append((int(tick), "unstall", (int(rid),), {}))
-    return _CliChaosScript(events) if events else None
-
-
 def arrival_ticks(spec: str, n: int, seed: int) -> list[int]:
     """``make_arrival_ticks`` with a spec error as a CLI exit."""
     try:
@@ -334,7 +299,7 @@ def serve(args: argparse.Namespace, mesh=None):
         steps_per_dispatch=args.steps_per_dispatch, quotas=quotas,
         slots_per_replica=args.slots_per_replica or None,
     ))
-    script = _parse_chaos(args)
+    script = parse_chaos(args.kill, args.join, args.stall, args.unstall, log=print)
     if not (args.autoscale or args.elastic_policy or script is not None):
         return eng, wl, eng.run(reqs)
     policy = args.elastic_policy or "grow_on_join"

@@ -23,8 +23,20 @@ train state and the data cursor, at the same ``--dp`` and ``--tp``), then runs
 ``--steps`` more steps; it snapshots the state whenever ``--ckpt-every``
 steps of this run, or ``--ckpt-every-seconds``, have passed (an async
 save: the loop goes on while the writer writes), and once more, blocking,
-at the end.  The reference's elastic runtime and telemetry are not ported
-yet.
+at the end.  The reference's telemetry is not ported yet.
+
+``--elastic-policy NAME`` (any ``ELASTIC_POLICIES`` entry: ``static``,
+``shrink_on_failure``, ``grow_on_join``, ``drain_straggler``, ...) drives
+the run through ``runtime.ElasticTrainer`` instead of the plain loop: a
+reported failure shrinks the data-parallel extent in place, a joiner grows
+it, and the MRD plans keep every extent, non-power-of-two included,
+correct.  Like the reference's, the CLI takes no kill or join flags, so it
+resizes only when a worker is reported; with ``--ckpt-dir`` the run starts
+from the latest checkpoint at any ``--dp`` (params, step and data cursor;
+the optimizer restarts from the restored params).  Under
+``torch.distributed.run`` the world may be larger than ``--dp``: ranks
+``0..dp-1`` train and the rest wait as spares (no checkpointer there, and
+no ``gspmd`` or ``--tp`` > 1 world: ``gradsync.NOT_ELASTIC``).
 
 ``--overlap`` (the gradient-scale modes ``mrd_paper``, ``mrd_zero1``,
 ``compressed`` and ``mrd_leaf``) runs the backward in three segments
@@ -129,6 +141,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--bucket-bytes", type=int, default=32 * 2**20,
                     help="cap per gradient bucket (0 = one bucket per dtype)")
+    ap.add_argument("--elastic-policy", default=None,
+                    help="drive training through the elastic runtime with this resize policy "
+                         "(any ELASTIC_POLICIES entry: static | shrink_on_failure | "
+                         "grow_on_join | drain_straggler); default: the plain train loop")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--ckpt-every-seconds", type=float, default=None,
@@ -201,11 +217,8 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def make(args: argparse.Namespace, device=None, mesh=None):
-    """(device, cfg, train step, data pipeline) for parsed ``args``; the
-    train state is ``step.init_state(generator)``.  In a world (``mesh``)
-    the step is this rank's and the pipeline yields its batch shard."""
-    device = resolve_device(args.device if device is None else device)
+def configs(args: argparse.Namespace) -> tuple:
+    """(model config, TrainConfig) of parsed ``args``."""
     cfg = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
     tcfg = step_lib.TrainConfig(
         microbatches=args.microbatches,
@@ -221,6 +234,15 @@ def make(args: argparse.Namespace, device=None, mesh=None):
                                   warmup_steps=min(20, args.steps // 10),
                                   total_steps=args.steps),
     )
+    return cfg, tcfg
+
+
+def make(args: argparse.Namespace, device=None, mesh=None):
+    """(device, cfg, train step, data pipeline) for parsed ``args``; the
+    train state is ``step.init_state(generator)``.  In a world (``mesh``)
+    the step is this rank's and the pipeline yields its batch shard."""
+    device = resolve_device(args.device if device is None else device)
+    cfg, tcfg = configs(args)
     train_step = step_lib.make_train_step(cfg, tcfg, dp=args.dp, device=device, mesh=mesh)
     rank = 0 if mesh is None else step_lib.world_rank(mesh)[0]
     pipe = SyntheticPipeline(cfg, DataConfig(batch=args.batch, seq_len=args.seq,
@@ -338,9 +360,11 @@ def resume(ck: Checkpointer, state, cfg, pipe, dp: int, device, grad_sync: str,
            train_step=None, mesh=None, tp: int = 1):
     """The state of ``ck``'s latest step in place of ``state`` (which the
     restore reads as its template, then lets go), and ``pipe``'s cursor;
-    returns (state, the step or None when the directory holds none).  A
-    checkpoint of another ``--tp`` is refused, as one of another ``--dp``
-    is."""
+    returns (state, the step or None when the directory holds none).  The
+    plain loop resumes the whole state, so a checkpoint of another ``--dp``
+    or ``--tp`` is refused; ``--elastic-policy`` restores one of another
+    ``--dp`` (``ElasticTrainer.init_or_restore``: params, step and cursor,
+    the optimizer restarted from the params)."""
     step0 = ck.latest_step()
     if step0 is None:
         return state, None
@@ -474,6 +498,8 @@ def main(argv=None) -> dict:
     ``state``."""
     args = build_parser().parse_args(argv)
     env = world_env()
+    if args.elastic_policy is not None:
+        return elastic_main(args, env)
     if env is None:
         if args.tp > 1:
             raise SystemExit(f"--tp {args.tp} needs a world of --dp x --tp = {args.dp * args.tp} "
@@ -485,6 +511,70 @@ def main(argv=None) -> dict:
         return train(args, device, mesh)
     finally:
         dist.destroy_process_group()
+
+
+def elastic_main(args, env) -> dict:
+    """``--elastic-policy``: :func:`elastic_train` on stacked rows, or in
+    the world of ``env`` over the initial ranks ``0..dp-1`` (the rest of
+    the world spares)."""
+    from repro_torch.runtime import get_policy
+
+    get_policy(args.elastic_policy)  # fail fast on an unknown name
+    if args.tp > 1:
+        raise SystemExit(f"--elastic-policy with --tp {args.tp}: {step_lib.NOT_ELASTIC}")
+    if env is None:
+        return elastic_train(args)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device = start_world(env, args.device)
+    try:
+        if args.dp > dist.get_world_size():
+            raise SystemExit(f"--dp {args.dp} but the world has {dist.get_world_size()} ranks")
+        mesh = DeviceMesh(device.type, list(range(args.dp)), mesh_dim_names=(step_lib.DATA,))
+        return elastic_train(args, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def elastic_train(args, device=None, mesh=None) -> dict:
+    """The run of :func:`main` through ``runtime.ElasticTrainer`` (the
+    reference CLI's ``--elastic-policy`` path): stacked rows of replica ids
+    ``0..dp-1`` on one device, or this process of a world whose initial
+    mesh is ``mesh``.  Returns ``losses`` (None for a step a world process
+    sat out), the ``resizes``, the checkpoint ``restores``, the ``rank``
+    and ``world_size`` and the final ``state``."""
+    from repro_torch.distributed.gradsync import common
+    from repro_torch.runtime import ElasticConfig, ElasticTrainer
+
+    device = resolve_device(args.device if device is None else device)
+    cfg, tcfg = configs(args)
+    dcfg = DataConfig(batch=args.batch, seq_len=args.seq, seed=args.seed)
+    rank, world = (0, 1) if mesh is None else (dist.get_rank(), dist.get_world_size())
+    say = print if rank == 0 else (lambda *a, **k: None)
+
+    def pipe(m):
+        if not common.is_world(m):
+            return SyntheticPipeline(cfg, dcfg, device)
+        return SyntheticPipeline(cfg, dcfg, device, rank=common.mesh_rank(m), dp=common.mesh_dp(m))
+
+    ck = (Checkpointer(args.ckpt_dir, save_every_steps=args.ckpt_every,
+                       save_every_seconds=args.ckpt_every_seconds) if args.ckpt_dir else None)
+    trainer = ElasticTrainer(tuple(range(args.dp)) if mesh is None else mesh, (cfg, tcfg), pipe,
+                             checkpointer=ck, device=device,
+                             cfg=ElasticConfig(ckpt_every=args.ckpt_every,
+                                               policy=args.elastic_policy))
+    state = trainer.init_or_restore(torch.Generator(device=device).manual_seed(args.seed))
+    say(f"train {cfg.name}{' smoke' if args.smoke else ''} x {args.grad_sync} elastic "
+        f"({args.elastic_policy}, dp={args.dp}"
+        + ("" if mesh is None else f" of a world of {world}")
+        + f", batch {args.batch} x seq {args.seq}, {device}) from step {trainer.step}")
+    state, losses = trainer.run(state, args.steps)
+    last = losses[-1] if losses else None
+    say(f"done ({len(trainer.resizes)} resizes, {trainer.restores} checkpoint restores). "
+        f"final loss: {'n/a' if last is None else f'{last:.4f}'}")
+    return {"losses": losses, "resizes": trainer.resizes, "restores": trainer.restores,
+            "resize_times": trainer.resize_times, "rank": rank, "world_size": world,
+            "state": state}
 
 
 def train(args, device=None, mesh=None) -> dict:

@@ -1,21 +1,28 @@
 """The elastic runtime (port of ``repro.runtime``): failure detection,
-resize policies and the elastic serving controller.  ``ELASTIC_POLICIES``
-resolves by name, extended with ``@register_policy``.  The elastic
-trainer's half (``ElasticTrainer``, ``mrd_broadcast`` over a device mesh,
-``shrink_mesh``/``grow_mesh``/``recover``) is not ported yet."""
+resize policies, the elastic trainer and the elastic serving controller;
+chaos scripts and the oracle replay are in ``runtime.chaos``.
+``ELASTIC_POLICIES`` resolves by name, extended with
+``@register_policy``."""
 
 from repro_torch.runtime.elastic import (  # noqa: F401
     ElasticConfig,
     ElasticServeController,
+    ElasticTrainer,
     ResizeEvent,
     flat_keep_for_grow,
     flat_keep_for_shrink,
+    mrd_broadcast,
 )
 from repro_torch.runtime.fault_tolerance import (  # noqa: F401
     FailureDetector,
     HeartbeatConfig,
     ReplicaSet,
+    RestartReport,
     StepClock,
+    grow_mesh,
+    mesh_ids,
+    recover,
+    shrink_mesh,
 )
 from repro_torch.runtime.policies import (  # noqa: F401
     ELASTIC_POLICIES,

@@ -1,5 +1,5 @@
-"""The elastic serving runtime (port of the serving half of
-``repro.runtime.elastic``).
+"""The elastic runtime (port of ``repro.runtime.elastic``): training and
+serving across topology changes.
 
 The paper's modified recursive doubling is correct at any process count,
 which is what makes live elasticity cheap: losing or admitting a replica
@@ -20,24 +20,58 @@ turns that into a runtime for the serving engine:
   :class:`~repro_torch.runtime.fault_tolerance.StepClock`, so every resize
   is a function of the event script (kill, stall, unstall, join).
 
-The training half (``mrd_broadcast`` over a device mesh and
-``ElasticTrainer``) is not ported yet.
+- :class:`ElasticTrainer` does the same for training: a decision
+  rebuilds the mesh (:func:`~repro_torch.runtime.fault_tolerance.shrink_mesh`,
+  :func:`~repro_torch.runtime.fault_tolerance.grow_mesh`), invalidates
+  the live plans, carries the state to the new extent in place through
+  the grad-sync strategy's resize hook (``gradsync.migrate_state``: the
+  ZeRO-1 segments, the EF residuals, the monitor rows, local SGD's
+  replicas) and, on a grow, sends the joiners the params through the MRD
+  sum at the new extent (:func:`mrd_broadcast` in a world,
+  ``distributed.serve.mrd_broadcast_stacked`` on stacked rows), bit for
+  bit the source's.  The checkpointer stays the path for a step factory
+  the trainer cannot migrate (``restores`` counts its use) and for cold
+  starts.
+
+The trainer runs in either layout of the ranks.  On stacked rows (one
+device) the mesh is the tuple of live replica ids.  In a ``("data",)``
+world (one process a rank) it is a ``DeviceMesh`` over the live global
+ranks: the world is launched at the largest extent the script reaches
+(the initial ranks and the spares), every process runs the same
+controller on the same clock and script and so reaches the same
+decisions without communicating, and a process outside the mesh skips
+the step.  A kill is simulated, as in the reference: the removed rank's
+process lives through the resize and hands over its ZeRO-1 segments,
+then idles; a rank that joins again drops its old state and is sent
+the current one.  ``gspmd`` worlds and resizes at ``tp`` > 1 are refused
+(``gradsync.NOT_ELASTIC``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+import time
+from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.runtime.fault_tolerance import (
     FailureDetector,
     HeartbeatConfig,
     ReplicaSet,
     StepClock,
+    grow_mesh,
+    mesh_ids,
+    recover,
+    shrink_mesh,
 )
-from repro_torch.runtime.policies import LoadSnapshot, clamp_min_extent, get_policy
+from repro_torch.runtime.policies import (
+    LoadSnapshot,
+    ResizeDecision,
+    clamp_min_extent,
+    get_policy,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,3 +273,481 @@ class ElasticServeController:
             self.step(events)
             steps += 1
         return eng.results
+
+
+# ---------------------------------------------------------------------------
+# The elastic trainer
+# ---------------------------------------------------------------------------
+
+
+def _host_tensor(leaf, device) -> torch.Tensor:
+    """A host scalar or numpy array as a tensor on ``device`` (bools as
+    uint8, floats as float64, ints as int64)."""
+    arr = np.asarray(leaf)
+    if arr.dtype == bool:
+        arr = arr.astype(np.uint8)
+    elif arr.dtype.kind == "f":
+        arr = arr.astype(np.float64)
+    elif arr.dtype.kind in "iu":
+        arr = arr.astype(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def mrd_broadcast(tree, mesh, dp_axes: Sequence[str] = ("data",), src: int = 0,
+                  executor: str = "device", *, receive: bool = True):
+    """Broadcast ``tree`` (nested dicts of tensors, numpy arrays and host
+    scalars) from rank ``src`` of a world's ``mesh`` (its ``dp_axes``,
+    flattened) to every rank through the paper's MRD sum-allreduce at the
+    mesh's extent, non-power-of-two included: every other rank contributes
+    zeros, so every combine adds a zero and the result is the source's
+    value bit for bit (``x + 0`` only turns ``-0.0`` into ``+0.0``).  The
+    grow's parameter transfer, in place of a checkpoint restore.
+
+    It runs one leaf at a time, in pieces of
+    ``distributed.serve.BROADCAST_CHUNK`` elements, and writes each piece
+    into the leaf's own storage, so a joiner never holds a second copy of
+    the params.  Every rank of the mesh takes part; a rank with ``receive``
+    False contributes (zeros, or the source's leaves) and keeps its own
+    leaves.  Host leaves come back as new values of their own type."""
+    from repro_torch.collectives import plans
+    from repro_torch.collectives.executors import axis_ranks
+    from repro_torch.distributed.serve import BROADCAST_CHUNK, _map_tree
+
+    names = mesh.mesh_dim_names
+    plan = plans.allreduce_plan(schedule="mrd", op="sum", executor=executor,
+                                axes=tuple(dp_axes), mesh=mesh)
+    rank = 0
+    for ax in dp_axes:
+        rank = rank * mesh.size(names.index(ax)) + axis_ranks(mesh, ax)[0]
+    host_device = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device("cpu")
+
+    def tensor(leaf: torch.Tensor) -> torch.Tensor:
+        if leaf.numel() == 0:
+            return leaf
+        out = leaf if leaf.is_contiguous() else leaf.contiguous()
+        flat = out.view(-1)
+        if flat.dtype == torch.bool:  # bools ride as uint8 (a view)
+            flat = flat.view(torch.uint8)
+        for i in range(0, flat.numel(), BROADCAST_CHUNK):
+            piece = flat[i:i + BROADCAST_CHUNK]
+            got = plan.run(piece.clone() if rank == src else torch.zeros_like(piece))
+            if receive:
+                piece.copy_(got)
+        return out if receive else leaf
+
+    def leaf_fn(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return tensor(leaf)
+        if isinstance(leaf, (np.ndarray, bool, int, float, np.generic)):
+            got = tensor(_host_tensor(leaf, host_device)).cpu().numpy()
+            if not receive:
+                return leaf
+            if isinstance(leaf, np.ndarray):
+                return got.astype(leaf.dtype)
+            return type(leaf)(got.item())
+        return leaf
+
+    return _map_tree(leaf_fn, tree)
+
+
+def _rows_of(tree, i: int):
+    """Row ``i`` (views) of every ``[dp, ...]`` leaf of a nested dict."""
+    return {k: _rows_of(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ElasticTrainer:
+    """Drive training across topology changes.
+
+    ``step_fn_factory(mesh) -> train step`` (a step object with
+    ``init_state`` and ``opt_from_params``; ``gradsync.make_step_factory``
+    builds one), or ``(model_cfg, tcfg)``: then the factory is built from
+    the ``GRAD_SYNC`` registry on ``device`` and a resize migrates the
+    state in place through the strategy's resize hook.  With an opaque
+    factory every resize restores the latest checkpoint instead
+    (``restores`` counts them).  ``mesh`` is the tuple of replica ids of
+    stacked rows, or a world's ``("data",)`` ``DeviceMesh`` over the
+    initial ranks (a world takes ``(model_cfg, tcfg)`` and no
+    checkpointer).
+
+    ``pipe_factory(mesh)`` builds the data pipeline (in a world, the
+    rank's); its state is the step, so the stream goes on where it stopped
+    at any extent.  Each resize's wall time, and its migrate and broadcast
+    parts, are kept in :attr:`resize_times`."""
+
+    def __init__(self, mesh, step_fn_factory, pipe_factory: Callable, checkpointer=None,
+                 cfg: Optional[ElasticConfig] = None, clock: Optional[StepClock] = None, *,
+                 device="cuda"):
+        from repro_torch.device import resolve_device
+        from repro_torch.distributed import gradsync
+        from repro_torch.distributed.gradsync import common
+
+        cfg = cfg or ElasticConfig()
+        self.device = resolve_device(device)
+        self.world = common.is_world(mesh)
+        self.train_cfgs = None
+        if isinstance(step_fn_factory, tuple):
+            self.train_cfgs = step_fn_factory
+            step_fn_factory = gradsync.make_step_factory(*self.train_cfgs, device=self.device)
+        if self.world:
+            if self.train_cfgs is None or checkpointer is not None:
+                raise ValueError("an elastic world migrates in place: pass (model_cfg, tcfg) "
+                                 "and no checkpointer")
+            if (self.train_cfgs[1].grad_sync == "gspmd"
+                    or tuple(mesh.mesh_dim_names) != (cfg.dp_axis,)):
+                raise NotImplementedError(gradsync.NOT_ELASTIC)
+        self.mesh = mesh
+        self.step_fn_factory = step_fn_factory
+        self.pipe_factory = pipe_factory
+        self.ck = checkpointer
+        self.cfg = cfg
+        self.policy = get_policy(cfg.policy)
+        self.clock = clock or StepClock(dt=cfg.step_dt)
+        self.resizes: list[ResizeEvent] = []
+        self.resize_times: list[dict] = []
+        self.restores = 0  # checkpoint restores a resize needed
+        self.step = 0  # the global step, kept on every process of a world
+        self.health: dict[int, str] = {}  # worker id -> 'ok' | 'dead' | 'stalled'
+        self.stall_factor: dict[int, float] = {}
+        self.pending_joins: list[int] = []
+        self.detector = None
+        self._build()
+
+    # -- wiring ---------------------------------------------------------------
+
+    @property
+    def restarts(self) -> int:
+        """The resize count (the reference's older name)."""
+        return len(self.resizes)
+
+    def device_ids(self) -> tuple:
+        return mesh_ids(self.mesh)
+
+    def dp(self) -> int:
+        from repro_torch.distributed.gradsync import common
+
+        return common.mesh_dp(self.mesh)
+
+    def member(self) -> bool:
+        """Does this process hold a rank of the current mesh (always, on
+        stacked rows)?"""
+        from repro_torch.distributed.gradsync import common
+
+        return not self.world or common.mesh_rank(self.mesh) is not None
+
+    def _build(self):
+        member = self.member()
+        self.train_step = self.step_fn_factory(self.mesh) if member else None
+        self.pipe = self.pipe_factory(self.mesh) if member else None
+        now = self.clock.now()
+        ids = set(self.device_ids())
+        if self.detector is None:
+            self.detector = FailureDetector(list(self.device_ids()), self.cfg.heartbeat, now=now)
+        else:
+            # heartbeat history survives a resize: a partitioned worker's
+            # stale evidence and a straggler's strikes must not restart
+            # with every unrelated topology change
+            for w in list(self.detector.last):
+                if w not in ids:
+                    self.detector.remove_worker(w)
+            for w in ids:
+                self.detector.add_worker(w, now)
+        for d in self.device_ids():
+            self.health.setdefault(d, "ok")
+
+    def init_or_restore(self, generator: torch.Generator):
+        """A fresh state from ``generator``, or with a checkpoint the
+        latest one's params, step and data cursor onto the current extent
+        (another extent than the one that saved it included).  The
+        optimizer restarts from the restored params: fp32 masters of them,
+        zero moments and EF residuals.  (The reference keeps the fresh
+        init's masters there, so its ZeRO-1 and tree optimizers write the
+        fresh params back at the first step.)  None on a world process
+        outside the mesh."""
+        self.step = 0
+        if not self.member():
+            return None
+        state = self.train_step.init_state(generator)
+        if self.ck is not None and self.ck.latest_step() is not None:
+            params, report = self._restore_params(state["params"])
+            state["params"] = params
+            state["step"] = report.restored_step
+            state["opt"] = self.train_step.opt_from_params(params)
+            self.pipe.load_state_dict(self.ck.manifest(report.restored_step)["extra"]["data"])
+            self.step = report.restored_step
+        return state
+
+    def _restore_params(self, params) -> tuple:
+        """(params, RestartReport) of the latest checkpoint through
+        :func:`recover`, in the layout of ``params``: the leaves read whole
+        out of the archive, or under ``local_sgd`` (whose ``[dp, ...]``
+        rows were saved at some extent) the first saved replica, repeated
+        onto every row."""
+        import os
+
+        from repro_torch.checkpoint.checkpointer import _unflatten, flatten_with_paths, npz_members
+        from repro_torch.models import convert
+
+        leaves = flatten_with_paths({"params": convert.reference_tree(params)})
+        replica = self.train_cfgs is not None and self.train_cfgs[1].grad_sync == "local_sgd"
+        latest = self.ck.latest_step()
+        if replica:
+            saved = npz_members(os.path.join(self.ck.dir, f"step_{latest}", "arrays.npz"))
+            leaves = {k: torch.empty(saved[k][0], dtype=v.dtype, device="meta")
+                      for k, v in leaves.items()}
+        got, report = recover(self.ck, _unflatten(leaves), self.device,
+                              old_dp=self.ck.manifest(latest)["extra"].get("dp"),
+                              new_dp=self.dp(), blocks={k: 0 for k in leaves} if replica else None)
+        out = got["params"]
+        if replica:
+            dp = self.dp()
+            out = _unflatten({k: v[None].expand((dp,) + tuple(v.shape)).clone()
+                              for k, v in flatten_with_paths(out).items()})
+        return convert.port_tree(out), report
+
+    # -- what a chaos script pokes --------------------------------------------
+
+    def kill(self, device_id: int, *, silent: bool = False):
+        """Mark a worker dead.  ``silent`` models a network partition
+        (detected when the heartbeat timeout elapses on the injected clock);
+        the default a fail-stop crash report (detected at the next policy
+        pass)."""
+        self.health[device_id] = "dead"
+        if not silent:
+            self.detector.mark_dead(device_id)
+
+    def stall(self, device_id: int, factor: float = 10.0):
+        """Mark a worker a straggler: it keeps heartbeating with ``factor``
+        x the healthy step time."""
+        self.health[device_id] = "stalled"
+        self.stall_factor[device_id] = factor
+
+    def unstall(self, device_id: int):
+        if self.health.get(device_id) == "stalled":
+            self.health[device_id] = "ok"
+        self.stall_factor.pop(device_id, None)
+
+    def join(self, device_ids: Sequence[int]):
+        """Queue workers for admission (a growing policy admits them at its
+        next decision)."""
+        for d in device_ids:
+            if d not in self.pending_joins:
+                self.pending_joins.append(d)
+                self.health[d] = "ok"
+
+    def _heartbeat_all(self, now: float):
+        for d in self.device_ids():
+            status = self.health.get(d, "ok")
+            if status == "dead":
+                continue
+            step_time = self.cfg.base_step_time * (
+                self.stall_factor.get(d, 1.0) if status == "stalled" else 1.0)
+            self.detector.heartbeat(d, now=now, step_time=step_time)
+
+    # -- the ResizeEvent lifecycle --------------------------------------------
+
+    def _clamp_grow(self, decision: ResizeDecision) -> ResizeDecision:
+        """Admit only whole DP slices (with TP a joiner set short of a slice
+        stays pending); every mesh here has one worker a slice."""
+        per_slice = len(self.device_ids()) // self.dp()
+        n = (len(decision.admit) // per_slice) * per_slice
+        if n == 0:
+            return ResizeDecision()
+        if n < len(decision.admit):
+            return dataclasses.replace(decision, admit=decision.admit[:n])
+        return decision
+
+    def resize(self, state, decision: ResizeDecision):
+        """Execute a policy decision: rebuild the mesh, carry the state over
+        in place (or restore a checkpoint where no hook applies), rebuild
+        the step and the pipeline, record the :class:`ResizeEvent`."""
+        t0 = time.perf_counter()
+        times: dict = {"migrate_s": 0.0, "broadcast_s": 0.0}
+        state = self._resize_impl(state, decision, times)
+        _sync(self.device)
+        ev = self.resizes[-1]
+        self.resize_times.append({"step": ev.step, "kind": ev.kind, "old_dp": ev.old_dp,
+                                  "new_dp": ev.new_dp, **times,
+                                  "wall_s": time.perf_counter() - t0})
+        return state
+
+    def _resize_impl(self, state, decision: ResizeDecision, times: dict):
+        from repro_torch.collectives import plans
+
+        if len(self.resizes) >= self.cfg.max_restarts:
+            raise RuntimeError("resize budget exhausted")
+        axis = self.cfg.dp_axis
+        old_mesh, old_dp, step = self.mesh, self.dp(), self.step
+        if decision.action == "shrink":
+            new_mesh, kept = shrink_mesh(old_mesh, set(decision.remove), axis)
+            keep = flat_keep_for_shrink({axis: old_dp}, (axis,), axis, kept)
+            for d in decision.remove:
+                self.detector.remove_worker(d)
+                self.health[d] = "dead"
+        elif decision.action == "grow":
+            new_mesh, n_new = grow_mesh(old_mesh, tuple(decision.admit), axis)
+            keep = flat_keep_for_grow({axis: old_dp}, (axis,), axis, n_new)
+            self.pending_joins = [d for d in self.pending_joins if d not in set(decision.admit)]
+        else:
+            raise ValueError(f"resize cannot execute action {decision.action!r}")
+        # the old extent's memoized stage tables and backends go
+        plans.invalidate_all_plans()
+
+        restored = False
+        if self.train_cfgs is not None:
+            t = time.perf_counter()
+            state = self._migrate(state, old_mesh, new_mesh, keep)
+            _sync(self.device)
+            times["migrate_s"] = time.perf_counter() - t
+            if decision.action == "grow" and self.member():
+                t = time.perf_counter()
+                state = self._send_to_joiners(state, keep)
+                _sync(self.device)
+                times["broadcast_s"] = time.perf_counter() - t
+        else:
+            # an opaque step factory: the checkpoint round trip
+            if self.ck is None:
+                raise RuntimeError("cannot resize: no (model_cfg, tcfg) for in-place migration "
+                                   "and no checkpointer to restore from")
+            self.ck.wait()
+            self.mesh = new_mesh
+            self._build()
+            state = self.init_or_restore(torch.Generator(device=self.device).manual_seed(0))
+            self.restores += 1
+            restored = True
+        self.resizes.append(ResizeEvent(
+            kind=decision.action, step=step, old_dp=old_dp, new_dp=self.dp(), keep=tuple(keep),
+            device_ids=self.device_ids(), reason=decision.reason,
+            restored_from_checkpoint=restored))
+        return state
+
+    def _migrate(self, state, old_mesh, new_mesh, keep):
+        """The state on the new mesh through ``gradsync.migrate_state``, and
+        the step and pipeline rebuilt.  In a world the process of a joiner
+        starts from a fresh state of the new extent (a rank that was
+        removed before drops what it held), a process of the union of the
+        old and new ranks runs the hook, and one outside it holds None."""
+        from repro_torch.distributed import gradsync
+        from repro_torch.distributed.gradsync import common
+
+        cfg, tcfg = self.train_cfgs
+        pipe_state = self.pipe.state_dict() if self.pipe is not None else None
+        if not self.world:
+            state = gradsync.migrate_state(cfg, tcfg, old_mesh, new_mesh, state, keep)
+            self.mesh = new_mesh
+            self._build()
+            self.pipe.load_state_dict(pipe_state)
+            return state
+        in_old = common.mesh_rank(old_mesh) is not None
+        self.mesh = new_mesh
+        self._build()
+        rank = common.mesh_rank(new_mesh)
+        if rank is not None and keep[rank] is None:  # a joiner: a fresh state
+            state = self.train_step.init_state(torch.Generator(device=self.device).manual_seed(0))
+        if not in_old and rank is None:
+            return None
+        state = gradsync.migrate_state(cfg, tcfg, old_mesh, new_mesh, state, keep)
+        if rank is not None and keep[rank] is not None:
+            self.pipe.load_state_dict(pipe_state)
+        return state
+
+    def _send_to_joiners(self, state, keep):
+        """The grow's parameter transfer, from new rank 0 at the new extent:
+        on stacked rows ``mrd_broadcast_stacked`` into the params (under
+        ``local_sgd`` into each joiner's replica row of params and
+        optimizer, which the hook filled from the first survivor); in a
+        world :func:`mrd_broadcast` of the params (every rank's but under
+        ``local_sgd`` only the joiners'), of the replicated optimizer trees
+        of ``mrd_leaf`` and ``local_sgd`` (the joiners'), and of the step
+        and the data cursor.  All in place."""
+        from repro_torch.distributed import serve as dserve
+        from repro_torch.distributed.gradsync import common
+
+        mode = self.train_cfgs[1].grad_sync
+        replica = mode == "local_sgd"
+        dp = self.dp()
+        if not self.world:
+            if replica:
+                for j, k in enumerate(keep):
+                    if k is None:
+                        dserve.mrd_broadcast_stacked({"params": _rows_of(state["params"], j),
+                                                      "opt": _rows_of(state["opt"], j)},
+                                                     dp, src=0, dst=j)
+            else:
+                dserve.mrd_broadcast_stacked(state["params"], dp, src=0)
+            return state
+        joiner = keep[common.mesh_rank(self.mesh)] is None
+        mrd_broadcast(state["params"], self.mesh, src=0, receive=joiner or not replica)
+        if mode in ("local_sgd", "mrd_leaf"):
+            mrd_broadcast(state["opt"], self.mesh, src=0, receive=joiner)
+        host = mrd_broadcast({"step": state["step"], "data": self.pipe.state_dict()},
+                             self.mesh, src=0, receive=joiner)
+        if joiner:
+            state["step"] = host["step"]
+            self.pipe.load_state_dict(host["data"])
+        return state
+
+    # -- the training loop ----------------------------------------------------
+
+    def handle_failure(self, state, failed_device_ids: set):
+        """An immediate shrink (the reference's older API): the named
+        workers are gone."""
+        for d in failed_device_ids:
+            self.kill(d)
+        return self.resize(state, ResizeDecision("shrink", remove=frozenset(failed_device_ids),
+                                                 reason="handle_failure"))
+
+    def _save(self, state, block) -> None:
+        from repro_torch.models import convert
+
+        extra = {"data": self.pipe.state_dict(), "dp": self.dp(),
+                 "grad_sync": None if self.train_cfgs is None else self.train_cfgs[1].grad_sync}
+        self.ck.save(self.step, convert.train_state_to_reference(state), extra=extra,
+                     block=block)
+
+    def run(self, state, n_steps: int, *, fail_at: Optional[dict] = None, events=None):
+        """Train ``n_steps`` steps; returns ``(state, losses)``.  Before
+        each step, in the reference's order: ``fail_at`` ({step: {ids}})
+        kills, the chaos script's ``events.apply(trainer, step)``, the
+        heartbeats on the injected clock, the policy's decision, the resize.
+        In a world a process outside the mesh skips the step and records
+        None for its loss."""
+        losses: list = []
+        i = self.step
+        target = i + n_steps
+        while i < target:
+            now = self.clock.advance()
+            if fail_at and i in fail_at:
+                for d in fail_at.pop(i):
+                    self.kill(d)
+            if events is not None:
+                events.apply(self, i)
+            self._heartbeat_all(now)
+            decision = self.policy.decide(self.detector, now, self.pending_joins,
+                                          frozenset(self.device_ids()))
+            if decision.action == "abort":
+                raise RuntimeError(f"elastic policy abort: {decision.reason}")
+            if decision.action == "grow":
+                decision = self._clamp_grow(decision)
+            if decision.action in ("shrink", "grow"):
+                state = self.resize(state, decision)
+                i = self.step
+                if i >= target:
+                    break
+            if self.member():
+                state, metrics = self.train_step(state, self.pipe.next_batch())
+                losses.append(float(metrics["loss"]))
+            else:
+                losses.append(None)
+            i += 1
+            self.step = i
+            if self.ck is not None and i % self.cfg.ckpt_every == 0:
+                self._save(state, block=False)
+        if self.ck is not None:
+            self._save(state, block=True)
+        return state, losses

@@ -1,4 +1,4 @@
-"""Failure detection for the elastic runtime (port of the serving half of
+"""Failure detection and mesh rebuilds for the elastic runtime (port of
 ``repro.runtime.fault_tolerance``).
 
 The paper's non-power-of-two support is what makes losing a worker cheap:
@@ -17,13 +17,23 @@ for a replacement.
   advances once a step, so every detection is a function of the event
   script.
 
-The mesh half (``shrink_mesh``, ``grow_mesh``, ``RestartReport``,
-``recover``) belongs to the elastic trainer and is not ported yet.
+- :func:`shrink_mesh` / :func:`grow_mesh` rebuild the elastic trainer's
+  mesh without the failed workers or with the joiners appended.  On
+  stacked rows a mesh is the ordered tuple of replica ids; in a world it
+  is a ``("data",)`` :class:`DeviceMesh` over the live global ranks.
+  Every process of the world builds each new mesh (``new_group`` is
+  collective over the default group); a rank outside it has coordinate
+  None.  Meshes with a ``"model"`` dimension are not resized in this
+  port yet (``gradsync.NOT_ELASTIC``).
+- :func:`recover` restores the latest checkpoint onto a template of the
+  new extent: the trainer's one restore route (``init_or_restore``, and
+  the resize of a step factory it cannot migrate).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -137,3 +147,85 @@ class StepClock:
     def advance(self) -> float:
         self.t += self.dt
         return self.t
+
+
+def mesh_ids(mesh) -> tuple:
+    """The worker ids of an elastic mesh, in rank order: a stacked-rows
+    tuple's replica ids, a world ``DeviceMesh``'s global ranks."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return tuple(int(r) for r in mesh.mesh.reshape(-1).tolist())
+    return tuple(mesh)
+
+
+def _rebuild(mesh, ids: list, dp_axis: str):
+    """A mesh like ``mesh`` over the worker ids ``ids``."""
+    if not hasattr(mesh, "mesh_dim_names"):
+        return tuple(ids)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed.gradsync import NOT_ELASTIC
+
+    if tuple(mesh.mesh_dim_names) != (dp_axis,):
+        raise NotImplementedError(f"mesh {mesh.mesh_dim_names}: {NOT_ELASTIC}")
+    return DeviceMesh(mesh.device_type, ids, mesh_dim_names=(dp_axis,))
+
+
+def shrink_mesh(mesh, failed_device_ids, dp_axis: str = "data"):
+    """The mesh without the failed workers: the survivors keep their order,
+    and the extent may be any count, non-power-of-two included.  Returns
+    ``(new_mesh, kept)``, the old ranks kept."""
+    ids = mesh_ids(mesh)
+    failed = set(failed_device_ids)
+    kept = [i for i, d in enumerate(ids) if d not in failed]
+    if not kept:
+        raise RuntimeError("no healthy DP slices left")
+    return _rebuild(mesh, [ids[i] for i in kept], dp_axis), kept
+
+
+def grow_mesh(mesh, joining_device_ids, dp_axis: str = "data"):
+    """The mesh with the joiners appended as new trailing ranks (the
+    inverse of :func:`shrink_mesh`: the survivors keep their ranks).
+    Returns ``(new_mesh, n_new)``."""
+    ids = mesh_ids(mesh)
+    world = None
+    if hasattr(mesh, "mesh_dim_names"):
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+    joiners = []
+    for d in joining_device_ids:
+        if d in ids:
+            raise ValueError(f"device {d} is already in the mesh")
+        if world is not None and not 0 <= d < world:
+            raise ValueError(f"no such device id {d}: the world has {world} ranks")
+        joiners.append(int(d))
+    if not joiners:
+        raise ValueError("need a positive multiple of 1 joining devices to form whole DP "
+                         "slices, got 0")
+    return _rebuild(mesh, list(ids) + joiners, dp_axis), len(joiners)
+
+
+@dataclasses.dataclass
+class RestartReport:
+    old_dp: int
+    new_dp: int
+    restored_step: int
+    elapsed_s: float
+
+
+def recover(checkpointer, template_state, device="cpu", *, old_dp: int, new_dp: int,
+            blocks: Optional[dict] = None):
+    """Restore the latest checkpoint onto ``template_state`` (the leaves to
+    read, nested as saved: their structure, shapes and types) on
+    ``device``.  ``blocks`` ({leaf key: index}) reads those leaves cut to a
+    block of the saved one (``Checkpointer.restore_blocks``; the template
+    then has the saved shapes).  Returns ``(state, RestartReport)``."""
+    t0 = time.time()
+    step = checkpointer.latest_step()
+    if step is None:
+        raise RuntimeError("no checkpoint to recover from")
+    if blocks is None:
+        state = checkpointer.restore(step, template_state, device)
+    else:
+        state = checkpointer.restore_blocks(step, template_state, blocks, device)
+    return state, RestartReport(old_dp, new_dp, step, time.time() - t0)

@@ -257,28 +257,29 @@ class ServeEngine:
         no second copy of the params is ever alive."""
         from repro_torch.distributed import serve as dserve
 
+        # the pool's one state tree; a paged pool's host side (its
+        # ``"host"`` entry) rides beside the device leaves
+        wstate = dict(self.workload.wstate)
+        host = {"host": wstate.pop("host")} if "host" in wstate else {}
         tree = {
             "params": getattr(self.workload, "params", {}),
-            "wstate": self.workload.wstate,
+            "wstate": wstate,
             "tstate": self.tstate,
             "ctrl": {"active": self._active, "new_tokens": self._new_tokens,
                      "admit_tick": self._admit_tick, "eos": self._eos,
                      "max_new": self._max_new, "eps": self._eps},
+            **host,
         }
-        exp = getattr(self.workload, "export_state", None)
-        if exp is not None:
-            tree["host"] = exp()
         tree = dserve.mrd_broadcast_stacked(tree, self.dp, src=0)
         if hasattr(self.workload, "params"):
             self.workload.params = tree["params"]
-        self.workload.wstate = tree["wstate"]
+        self.workload.wstate = {**tree["wstate"],
+                                **({"host": tree["host"]} if "host" in tree else {})}
         self.tstate = tree["tstate"]
         ctrl = tree["ctrl"]
         self._active, self._new_tokens = ctrl["active"], ctrl["new_tokens"]
         self._admit_tick, self._eos = ctrl["admit_tick"], ctrl["eos"]
         self._max_new, self._eps = ctrl["max_new"], ctrl["eps"]
-        if "host" in tree:
-            self.workload.import_state(tree["host"])
 
     # -- one step -----------------------------------------------------------
 

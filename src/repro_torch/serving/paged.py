@@ -196,9 +196,10 @@ class PagedDecodePool:
 
     Device state (:attr:`state`): the page pools, the per-slot recurrent
     state (hybrid stack), the block tables ``[slots, nb]`` and the last
-    token of each slot.  Host state (:meth:`export_state`): the allocator,
-    each slot's block list, and the per-slot ``lengths`` and ``slot_cap``
-    (the host advances them, so reading them never waits on the device).
+    token of each slot.  Host state (:meth:`export_state`, also under
+    ``state["host"]``): the allocator, each slot's block list, and the
+    per-slot ``lengths`` and ``slot_cap`` (the host advances them, so
+    reading them never waits on the device).
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int, max_prompt_len: int,
@@ -244,15 +245,21 @@ class PagedDecodePool:
 
     @property
     def state(self) -> dict:
-        """What a decode tick reads on the device: pages, tables, the
-        per-slot recurrent state and the last tokens."""
+        """The pool's whole state, the one tree a grow sends a joiner: what
+        a decode tick reads on the device (pages, tables, the per-slot
+        recurrent state and the last tokens) and, under ``host``, the host's
+        side (:meth:`export_state`)."""
         return {"pages": self.pages, "tables": self.tables, "slot": self.slot_state,
-                "tokens": self.tokens}
+                "tokens": self.tokens, "host": self.export_state()}
 
     @state.setter
     def state(self, value: dict) -> None:
+        """Install a :attr:`state` tree: the device leaves, and the host's
+        side when the tree carries it (the allocator rebuilt from it)."""
         self.pages, self.tables = value["pages"], value["tables"]
         self.slot_state, self.tokens = value["slot"], value["tokens"]
+        if "host" in value:
+            self.import_state(value["host"])
 
     # -- decode --------------------------------------------------------------
 

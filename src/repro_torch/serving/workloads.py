@@ -7,7 +7,8 @@ residual)``, ``collect_tick``, ``output(slot)``, plus the paged hooks
 arrival=)`` draws one request of a tenant of the traffic model
 (``serving/tenants.py``).  For elastic resize, ``wstate`` is the pool's
 state that a grow broadcasts to a joiner and installs again (the paged
-pool's host state rides as ``export_state``/``import_state``), and a
+pool's carries its host side, the allocator and the block lists, under
+``host``), and a
 fixed-point workload's ``migrate_dp`` re-blocks its residual report at a
 new extent.  Registered:
 
@@ -186,8 +187,7 @@ class PagedLLMWorkload(LLMDecodeWorkload):
     def prefix_saved_blocks(self) -> int:
         return self.pool.prefix_saved_blocks
 
-    # the block tables' host side, the allocator and the per-slot lengths
-    # ride a grow's broadcast beside the params and the pages
+    # the pool's host side alone (a grow sends it inside ``wstate``)
     def export_state(self):
         return self.pool.export_state()
 
