@@ -365,7 +365,16 @@ while 2's compilers run:
    once a reducing stage a bucket a step at each step's extent (reckoned
    from the plans), no other kernel, the grow's peak within its bound;
    ms a step at each extent, each resize's migrate and broadcast times,
-   tokens/s and the peak;
+   tokens/s and the peak; 18b. ``gspmd.reshard_blocks`` at llama3.2-1b's
+   full width: every leaf of the params and AdamW trees cut into its 4
+   FSDP blocks, re-sharded to dp 3, then to dp 5, each set equal bit for
+   bit to the global leaf cut directly at that extent, its time and peak,
+   no kernel launched; 18c. in 14a's one-rank world subprocess, an
+   elastic ``gspmd`` world of one rank with a checkpointer (llama3.2-1b at
+   full width cut to 2 layers): 2 steps and a save, a fresh trainer's
+   ``recover`` and 2 more steps, the losses equal to the uninterrupted
+   4 steps' bit for bit, the save's and restore's bytes and times,
+   ``mrd_combine`` at 0;
 19. the kernels line, then the device line as the last line of stdout.
 """
 
@@ -3013,16 +3022,18 @@ OPTIMIZER_RUNS = tuple((name, mode) for name in ("lion", "sgd")
                        for mode in ("compressed", "mrd_leaf"))  # 14b, at dp 3
 
 
-# 14a's and 15's one-rank world, in one subprocess and one process group (one
-# process start and one cold card): the train CLI's world entry
+# 14a's, 15's and 18c's one-rank world, in one subprocess and one process
+# group (one process start and one cold card): the train CLI's world entry
 # (``main()``'s ``init_world``, ``train``, ``destroy_process_group``) for
 # every argument list of 14a's, each writing its record; then 15's
 # ``gspmd`` train run and the serving CLI's world entry on the same
-# ``("data",)`` mesh of 1, each counted from 0, their records in one JSON
+# ``("data",)`` mesh of 1, each counted from 0, their records in one JSON;
+# then 18c's elastic gspmd world with a checkpointer (llama3.2-1b at full
+# width cut to ELASTIC_CK_LAYERS layers: its checkpoint is 14 bytes a
+# parameter, written to a temporary directory and removed)
 WORLD_RUNNER = """
-import json, sys
+import json, shutil, sys, tempfile, time
 import torch
-import torch.distributed as dist
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.mrd_combine import ops as mc
 from repro_torch.kernels.paged_attention import ops as pa
@@ -3062,11 +3073,67 @@ try:
                         "completed", "ticks", "throughput_tok_s", "ttft_p50_ms",
                         "tpot_p50_ms")},
                     "launches": {op.__name__: op.launches for op in ops}}
+    del eng
+    torch.cuda.empty_cache()
+    # 18c: an elastic gspmd world of this one rank with a checkpointer:
+    # save_at steps and a save, the rest of the uninterrupted run; then the
+    # checkpoint recovered into a fresh trainer and the rest run again
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.runtime import ElasticConfig, ElasticTrainer
+    ej = job["elastic"]
+    eargs = train.build_parser().parse_args(ej["argv"])
+    cfg, tcfg = train.configs(eargs)
+    cfg = registry.override(cfg, n_layers=ej["layers"])
+    dcfg = DataConfig(batch=eargs.batch, seq_len=eargs.seq, seed=eargs.seed)
+
+    def trainer(ck=None):
+        return ElasticTrainer(mesh, (cfg, tcfg),
+                              lambda m: SyntheticPipeline(cfg, dcfg, device, rank=0, dp=1),
+                              checkpointer=ck, device=device,
+                              cfg=ElasticConfig(policy="grow_on_join", ckpt_every=1 << 30))
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    for op in ops:
+        op.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    n, k = eargs.steps, ej["save_at"]
+    d = tempfile.mkdtemp(prefix="chip_smoke_elastic_ck_")
+    try:
+        ck = Checkpointer(d, world=(0, 1))
+        tr = trainer(ck)
+        st, first = tr.run(tr.init_or_restore(gen(eargs.seed)), k)  # its end: a blocking save
+        tr.ck = None  # the uninterrupted run goes on, unsaved
+        st, rest0 = tr.run(st, n - k)
+        full = first + rest0
+        del st, tr
+        torch.cuda.empty_cache()
+        ck2 = Checkpointer(d, world=(0, 1))
+        tr = trainer(ck2)
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        st = tr.init_or_restore(gen(eargs.seed + 1))
+        torch.cuda.synchronize(device)
+        restore_s = time.perf_counter() - t
+        resumed_at, tr.ck = tr.step, None  # no save at the end of the rest
+        st, rest = tr.run(st, n - k)
+        del st, tr
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out["elastic"] = {"full": full, "first": first, "rest": rest, "resumed_at": resumed_at,
+                      "save": ck.saves[-1], "restore_s": restore_s,
+                      "restore_bytes": ck2.restores[-1]["bytes"],
+                      "peak_bytes": torch.cuda.max_memory_allocated(device),
+                      "launches": {op.__name__: op.launches for op in ops}}
 finally:
-    dist.destroy_process_group()
+    train.end_world()
 with open(job["out"], "w") as f:
     json.dump(out, f)
 """
+ELASTIC_CK_LAYERS, ELASTIC_CK_STEPS, ELASTIC_CK_SAVE_AT = 2, 4, 2  # 18c
 TP_SERVE_ARGV = [
     "--arch", "llama3.2-1b", "--continuous", "--workload", "llm_decode_paged",
     "--attn", "kernel", "--dp", "3", "--slots", "8", "--requests", "8",
@@ -3084,7 +3151,10 @@ def one_rank_world() -> dict:
     job = {"modes": [train_argv("llama3.2-1b", 1, mode, WORLD_STEPS)
                      + ["--summary-json", str(summary[mode])] for mode in WORLD_MODES],
            "train": train_argv("llama3.2-1b", 1, "gspmd", WORLD_STEPS),
-           "serve": TP_SERVE_ARGV + ["--device", "cuda"], "out": str(out / "p15_tp_world.json")}
+           "serve": TP_SERVE_ARGV + ["--device", "cuda"], "out": str(out / "p15_tp_world.json"),
+           "elastic": {"argv": train_argv("llama3.2-1b", 1, "gspmd", ELASTIC_CK_STEPS)
+                       + ["--schedule", "const"],
+                       "layers": ELASTIC_CK_LAYERS, "save_at": ELASTIC_CK_SAVE_AT}}
     free_device()
     t = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -3674,6 +3744,118 @@ def elastic_train_phase(all_ops, t: float, smi: str) -> dict:
             "steady_ms_by_dp": {str(k): v for k, v in by_dp.items()}, "tokens_per_s": tok_s,
             "resize_times": resize_times, "grow": grow,
             "digests_equal": same, "combine_reckoned": want, "launches": got, "gpu": smi}
+
+
+def reshard_phase(all_ops, t: float, smi: str) -> dict:
+    """18b. ``gspmd.reshard_blocks`` at llama3.2-1b's full width on the card:
+    every leaf of the params and of the AdamW trees (fp32 masters of the
+    params, random first and second moments) cut into its 4 FSDP blocks
+    (``sharding.local_shard`` under the specs at dp 4), re-sharded to dp 3,
+    then from those to dp 5, each set of new blocks equal bit for bit to
+    the global leaf cut directly at that extent.  A leaf at a time (its
+    four trees), so the phase holds one leaf's copies beside the params;
+    the re-shards are timed on the card's clock (synchronized), the peak
+    read over the phase; no kernel may launch (counted from 0)."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.gradsync import gspmd
+    from repro_torch.models import transformer
+
+    free_device()
+    zero(all_ops)
+    dev = torch.device("cuda")
+    cfg = registry.get_config("llama3.2-1b")
+    shapes = transformer.param_shapes(cfg)
+    specs = {dp: shd.param_specs(cfg, shd.make_rules(cfg, {shd.DATA: dp}), shapes)
+             for dp in (4, 3, 5)}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = transformer.init_params(cfg, gen, dev)
+    keys = [k for k, _ in _flat_items(params)]
+    times = {"4->3": 0.0, "3->5": 0.0}
+    moved = {"4->3": 0, "3->5": 0}
+    sharded = {dp: 0 for dp in specs}
+    bad = []
+    for key in keys:
+        leaf = _at(params, key)
+        trees = {"params": leaf, "master": leaf.float(),
+                 "mu": torch.randn(leaf.shape, generator=gen, device=dev),
+                 "nu": torch.rand(leaf.shape, generator=gen, device=dev)}
+        sp = {dp: _at(specs[dp], key) for dp in specs}
+        for dp in specs:
+            sharded[dp] += gspmd.data_sharded(sp[dp])
+        for name, whole in trees.items():
+            blocks = [shd.local_shard(whole, sp[4], {shd.DATA: d}, {shd.DATA: 4}).clone()
+                      for d in range(4)]
+            for (a, b), label in (((4, 3), "4->3"), ((3, 5), "3->5")):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                blocks = gspmd.reshard_blocks(blocks, (sp[a], sp[b]), b)
+                torch.cuda.synchronize()
+                times[label] += time.perf_counter() - t1
+                moved[label] += sum(x.numel() * x.element_size() for x in blocks)
+                want = [shd.local_shard(whole, sp[b], {shd.DATA: d}, {shd.DATA: b})
+                        for d in range(b)]
+                if not all(torch.equal(x, y) for x, y in zip(blocks, want)):
+                    bad.append((key, name, label))
+            del blocks
+        del trees
+    peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(x.numel() for _, x in _flat_items(params))
+    del params
+    free_device()
+    stats = {"leaves": len(keys), "params": n_params, "data_sharded_leaves": sharded,
+             "reshard_s": times, "bytes_written": moved, "peak_bytes": peak,
+             "equal": not bad, "gpu": smi}
+    log(f"18b reshard_blocks, llama3.2-1b full width ({n_params} params, {len(keys)} leaves x "
+        f"params + master/mu/nu): 4 -> 3 in {times['4->3'] * 1e3:.1f} ms "
+        f"({moved['4->3'] / 2**30:.3f} GiB of new blocks), 3 -> 5 in "
+        f"{times['3->5'] * 1e3:.1f} ms ({moved['3->5'] / 2**30:.3f} GiB); leaves sharded over "
+        f"data at dp 4/3/5: {sharded[4]}/{sharded[3]}/{sharded[5]}; peak "
+        f"{peak / 2**30:.3f} GiB above the start; equal to the direct cut {not bad} [{smi}]")
+    if bad:
+        raise SystemExit(f"18b: re-sharded blocks differ from the direct cut: {bad[:8]}")
+    expect_launches(counts(all_ops), {}, "18b reshard_blocks", dev)
+    phase("reshard-blocks", t)
+    return stats
+
+
+def _flat_items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _at(tree, key: str):
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def elastic_world_phase(t: float, worlds: dict, smi: str) -> dict:
+    """18c. The one-rank world's elastic ``gspmd`` trainer with a
+    checkpointer (:data:`WORLD_RUNNER`): ``ELASTIC_CK_SAVE_AT`` steps and a
+    save, a fresh trainer's ``recover`` and the rest of the steps, against
+    the uninterrupted run.  Gates: the losses equal bit for bit, the
+    resumed trainer at the saved step, no ``mrd_combine`` launch (gspmd
+    runs no MRD plan)."""
+    el = worlds["tp"]["elastic"]
+    got = el["first"] + el["rest"]
+    same = got == el["full"] and el["resumed_at"] == ELASTIC_CK_SAVE_AT
+    save = el["save"]
+    log(f"18c elastic gspmd one-rank world, llama3.2-1b at {ELASTIC_CK_LAYERS} layers: "
+        f"uninterrupted losses {el['full']}, saved at step {ELASTIC_CK_SAVE_AT} and recovered "
+        f"{el['first']} + {el['rest']}: equal {same}; save {save['bytes'] / 2**30:.3f} GiB in "
+        f"{save['write_s']:.2f} s (largest leaf held {save['peak_bytes'] / 2**20:.1f} MiB), "
+        f"restore {el['restore_bytes'] / 2**30:.3f} GiB in {el['restore_s']:.2f} s, peak "
+        f"{el['peak_bytes'] / 2**30:.3f} GiB, launches {el['launches']} [{smi}]")
+    if not same or el["launches"]["mrd_combine"]:
+        raise SystemExit(f"18c: the recovered run differs or mrd_combine ran: {el}")
+    phase("elastic-gspmd-world-checkpoint", t)
+    return el
 
 
 def main() -> int:
@@ -4534,6 +4716,11 @@ def main() -> int:
     el18 = elastic_train_phase(all_ops, time.perf_counter(), smi)
     p18 = el18["launches"]
 
+    # 18b. reshard_blocks at full width; 18c. the one-rank world's elastic
+    # gspmd trainer with a checkpointer (run in 14a's subprocess)
+    el18b = reshard_phase(all_ops, time.perf_counter(), smi)
+    el18c = elastic_world_phase(time.perf_counter(), worlds, smi)
+
     # 19. results
     log(json.dumps({"serve": {k: serve_stats[k] for k in (
         "completed", "decode_ticks", "tokens_out", "throughput_tok_s", "ttft_p50_ms",
@@ -4556,6 +4743,8 @@ def main() -> int:
     log(json.dumps({"overlap": ov16}))
     log(json.dumps({"elastic": el17}))
     log(json.dumps({"elastic_train": el18}))
+    log(json.dumps({"reshard_blocks": el18b}))
+    log(json.dumps({"elastic_gspmd_world": el18c}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "paged_attention",
@@ -4589,12 +4778,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/mrd_combine/csrc/mrd_combine.cu",
         "replaces": "src/repro/kernels/mrd_combine/kernel.py:31",
         "launches": (train_launches + coll_launches + p13 + p14 + p15["mrd_combine"]
-                     + p16["mrd_combine"] + p18["mrd_combine"]),
+                     + p16["mrd_combine"] + p18["mrd_combine"]
+                     + el18c["launches"]["mrd_combine"]),
         "launches_by_path": {"train": train_launches, "collectives": coll_launches,
                              "training_families": p13, "world_and_optimizers": p14,
                              "tp_world_gspmd": p15["mrd_combine"],
                              "overlap": p16["mrd_combine"],
-                             "elastic_train": p18["mrd_combine"]},
+                             "elastic_train": p18["mrd_combine"],
+                             "elastic_gspmd_world": el18c["launches"]["mrd_combine"]},
         "max_abs_err": errs[(COMBINE_CASES[-1], torch.float32)],
         "ms": mc_ms,
         "plain_ms": mc_plain_ms,

@@ -1,10 +1,22 @@
-"""The elastic trainer in a world of one process a rank against the
-stacked-rows elastic trainer under the same chaos script.
+"""The elastic trainer in a world of one process a rank, against the
+stacked-rows elastic trainer under the same chaos script, or at ``--tp``
+> 1 against its own uninterrupted run.
 
   python -m torch.distributed.run --standalone --nproc-per-node 4 \\
-      scripts/elastic_cards.py --mode compressed --out chiprun_out/elastic_cards
-  python scripts/elastic_cards.py --stacked --mode compressed --out chiprun_out/elastic_cards
-  python scripts/elastic_cards.py --compare --mode compressed --out chiprun_out/elastic_cards
+      scripts/elastic_cards.py --grad-sync compressed --out chiprun_out/elastic_cards
+  python scripts/elastic_cards.py --stacked --grad-sync compressed --out chiprun_out/elastic_cards
+  python scripts/elastic_cards.py --compare --grad-sync compressed --out chiprun_out/elastic_cards
+  # a (2, 2) world: 2 steps, rank 1's slice killed, its two ranks rejoining
+  # at step 4, 8 steps in one go; then the same script for 6 steps,
+  # checkpointed, and 2 more steps resumed from the checkpoint, held to
+  # the uninterrupted run
+  python -m torch.distributed.run --standalone --nproc-per-node 4 scripts/elastic_cards.py \\
+      --grad-sync gspmd --tp 2 --kill 2:1 --join 4:0,1 --steps 8
+  python -m torch.distributed.run --standalone --nproc-per-node 4 scripts/elastic_cards.py \\
+      --grad-sync gspmd --tp 2 --kill 2:1 --join 4:0,1 --steps 6 --ckpt-dir ck
+  python -m torch.distributed.run --standalone --nproc-per-node 4 scripts/elastic_cards.py \\
+      --grad-sync gspmd --tp 2 --steps 2 --ckpt-dir ck --resume
+  python scripts/elastic_cards.py --compare --grad-sync gspmd --tp 2
 
 llama3.2-1b at full width (``--layers`` cuts its depth, ``--smoke`` takes
 its reduced config) trains ``--steps`` steps of ``--batch`` x ``--seq``
@@ -13,27 +25,41 @@ and the chaos script of ``--kill``/``--join`` (``runtime.chaos.parse_chaos``;
 by default ``--kill 2:1 --join 4:1``: 4 -> 3 at step 2, back to 4 at step
 4, the killed rank joining again).
 Under ``torch.distributed.run`` each rank (NCCL with a card a rank, gloo
-with ``--device cpu``) writes ``<out>/<mode>_rank<r>.json``: its losses
-(None for a step it sat out), the trajectory, each resize's times, ms a
-step, its peak memory, and the digest of its final view of the state (the
+with ``--device cpu``) writes ``<out>/<name>_rank<r>.json``
+(:func:`record_name`): its losses (None for a step it sat out), the
+trajectory, each resize's times, ms a step, its peak memory, and the
+digest of its final view of the state (the
 params, its EF residual, and its master/moment rows if it owns a ZeRO-1
 segment).  ``--stacked`` runs the stacked-rows trainer on one device and
-writes ``<out>/<mode>_stacked.json`` with every final rank's view's
+writes ``<out>/<grad-sync>_stacked.json`` with every final rank's view's
 digest; ``--compare`` holds every live rank to the stacked trainer's row
 (losses and digest equal) and exits 1 otherwise; every record counts the
 ``mrd_combine`` launches of its run.  The world is launched at
 the largest extent the script reaches (``torch.distributed.run``'s
 process count: the initial ranks and the spares).
+
+``--grad-sync`` takes ``gspmd`` too, and ``--tp`` > 1 makes
+the initial mesh ``("data", "model")`` of ``(4 / tp, tp)`` over ranks
+0-3 (a kill drops its rank's whole slice, a join admits whole slices).
+There the stacked rows have no counterpart: ``--ckpt-dir`` checkpoints
+the run (every :data:`CKPT_EVERY` steps and at its end; the trainer's own
+saves) and records the mesh it ended on; ``--resume`` starts a world on
+that mesh from that checkpoint (the whole state and the data cursor) and
+runs ``--steps`` more with no events; ``--compare --tp N`` holds every
+resumed rank's losses and final digest to the uninterrupted run's (the
+same script, run to the same final step in one go, without
+``--ckpt-dir``) bit for bit.  Each record lists the extent of
+every step (``dps``) beside its time.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -43,14 +69,17 @@ sys.path.insert(0, str(ROOT / "src"))
 ARCH = "llama3.2-1b"
 RANKS = 4  # the initial extent: ranks 0-3
 LR = 5e-3
+CKPT_EVERY = 3  # under the (2, 2) script: a save at (1, 2) and one at (2, 2)
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="scripts/elastic_cards.py")
     ap.add_argument("--smoke", action="store_true", help="the arch's reduced config")
     ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
-    ap.add_argument("--mode", default="compressed",
-                    choices=["compressed", "mrd_zero1", "mrd_paper", "mrd_leaf", "local_sgd"])
+    ap.add_argument("--grad-sync", default="compressed",
+                    choices=["compressed", "mrd_zero1", "mrd_paper", "mrd_leaf", "local_sgd",
+                             "gspmd"])
+    ap.add_argument("--tp", type=int, default=1, help="the model ranks of a data slice")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--batch", type=int, default=12)
     ap.add_argument("--seq", type=int, default=1024)
@@ -60,13 +89,30 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="chiprun_out/elastic_cards")
     ap.add_argument("--stacked", action="store_true", help="the stacked-rows trainer")
-    ap.add_argument("--compare", action="store_true", help="hold the world to the stacked rows")
+    ap.add_argument("--compare", action="store_true",
+                    help="hold the world to the stacked rows (at --tp > 1: the resumed run "
+                         "to the uninterrupted one)")
+    ap.add_argument("--ckpt-dir", default=None, help="checkpoint the run here")
+    ap.add_argument("--resume", action="store_true",
+                    help="start from --ckpt-dir's checkpoint on the mesh it was saved at")
     return ap
+
+
+def record_name(args, part: Optional[str] = None) -> str:
+    """The name of a world's records: ``<grad-sync>``, ``_tp<tp>`` at
+    ``--tp`` > 1, then ``_ckpt`` for a checkpointed run and ``_resume``
+    for a resumed one (``part``, when given, in place of that suffix)."""
+    name = args.grad_sync if args.tp == 1 else f"{args.grad_sync}_tp{args.tp}"
+    if part is None:
+        part = ("_resume" if args.resume else "_ckpt") if args.ckpt_dir else ""
+    return name + part
 
 
 def events_of(args):
     from repro_torch.runtime.chaos import parse_chaos
 
+    if args.resume:
+        return None
     return parse_chaos(kill=args.kill or ["2:1"], join=args.join or ["4:1"])
 
 
@@ -82,7 +128,8 @@ def train_config(args):
     from repro_torch.optim.optimizer import OptimizerConfig
 
     return step_lib.TrainConfig(
-        microbatches=1, remat="full", grad_sync=args.mode, monitor=args.mode != "local_sgd",
+        microbatches=1, remat="full", grad_sync=args.grad_sync,
+        monitor=args.grad_sync != "local_sgd",
         monitor_mode="interval", monitor_threshold=1e-6, bucket_bytes=args.bucket_bytes or None,
         optimizer=OptimizerConfig(lr=LR, schedule="const", warmup_steps=0))
 
@@ -98,6 +145,8 @@ def rank_view(state, mode: str, pos: int, dp: int, stacked: bool) -> dict:
     from repro_torch.distributed.gradsync.mrd_zero1 import zero1_owner_segments
     from repro_torch.runtime.elastic import _rows_of
 
+    if mode == "gspmd":
+        return {"params": state["params"], "opt": state["opt"]}
     if mode in ("mrd_leaf", "local_sgd"):
         if mode == "local_sgd" and stacked:
             return {"params": _rows_of(state["params"], pos), "opt": _rows_of(state["opt"], pos)}
@@ -122,7 +171,9 @@ def view_digest(view) -> str:
 def run(args, mesh=None, device=None) -> tuple:
     """The elastic trainer under ``args``' script: on stacked rows (no
     ``mesh``) or as this process's rank of a world whose initial mesh is
-    ``mesh``.  Returns (trainer, final state, record)."""
+    ``mesh``, checkpointed into ``--ckpt-dir`` when given.  Returns
+    (trainer, final state, record)."""
+    from repro_torch.checkpoint import Checkpointer
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.distributed.gradsync import common
     from repro_torch.kernels.mrd_combine import mrd_combine
@@ -137,21 +188,35 @@ def run(args, mesh=None, device=None) -> tuple:
             return SyntheticPipeline(cfg, dcfg, device)
         return SyntheticPipeline(cfg, dcfg, device, rank=common.mesh_rank(m), dp=common.mesh_dp(m))
 
+    ck = None
+    if args.ckpt_dir:
+        import torch.distributed as dist
+
+        # one step kept: a full-width gspmd snapshot is 14 bytes a parameter
+        ck = Checkpointer(args.ckpt_dir, keep=1, world=(
+            dist.get_rank(), dist.get_world_size()) if mesh is not None else None)
+    # the saves are the trainer's own, at the end of a run call: each call
+    # below is one step, handed the checkpointer every --ckpt-every steps
     tr = ElasticTrainer(mesh if mesh is not None else tuple(range(RANKS)), (cfg, tcfg),
-                        pipe, cfg=ElasticConfig(policy="grow_on_join"), device=device)
+                        pipe, checkpointer=ck, device=device,
+                        cfg=ElasticConfig(policy="grow_on_join", ckpt_every=1 << 30))
     state = tr.init_or_restore(torch.Generator(device=device).manual_seed(0))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    events, losses, ms = events_of(args), [], []
+    events, losses, ms, dps = events_of(args), [], [], []
     launches0 = mrd_combine.launches
-    for _ in range(args.steps):  # one step a call, timed
+    for _ in range(args.steps):  # one step a call, timed (a save ends each call)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t = time.perf_counter()
+        last = len(ms) == args.steps - 1
+        tr.ck = ck if (tr.step + 1) % CKPT_EVERY == 0 or last else None
         state, got = tr.run(state, 1, events=events)
         losses += got
         ms.append((time.perf_counter() - t) * 1e3 if tr.member() else None)
-    rec = {"losses": losses, "ms_per_step": ms,
+        dps.append(tr.dp())
+    rec = {"losses": losses, "ms_per_step": ms, "dps": dps, "tp": tr.tp(),
+           "start_step": tr.step - args.steps,
            "trajectory": [(e.kind, e.old_dp, e.new_dp, e.step) for e in tr.resizes],
            "device_ids": list(tr.device_ids()), "resize_times": tr.resize_times,
            "mrd_combine_launches": mrd_combine.launches - launches0,
@@ -165,50 +230,85 @@ def world_main(args) -> int:
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.distributed.gradsync import common
-    from repro_torch.launch.train import start_world, world_env
+    from repro_torch.launch.train import end_world, start_world, world_env
 
     env = world_env()
     device = start_world(env, args.device)
+    tag = record_name(args)
     try:
-        mesh = DeviceMesh(device.type, list(range(RANKS)), mesh_dim_names=("data",))
+        if args.resume:  # the mesh the checkpoint was saved at
+            grid = json.loads((Path(args.ckpt_dir) / "mesh.json").read_text())
+        else:
+            grid = torch.arange(RANKS).reshape(RANKS // args.tp, args.tp).tolist()
+        names = ("data",) if args.tp == 1 else ("data", "model")
+        shape = (-1,) if args.tp == 1 else (-1, args.tp)
+        mesh = DeviceMesh(device.type, torch.tensor(grid).reshape(shape), mesh_dim_names=names)
         tr, state, rec = run(args, mesh, device)
         rank = dist.get_rank()
         if tr.member():
             pos = common.mesh_rank(tr.mesh)
-            rec["digest"] = view_digest(rank_view(state, args.mode, pos, tr.dp(), False))
+            rec["digest"] = view_digest(rank_view(state, args.grad_sync, pos, tr.dp(), False))
         rec["rank"] = rank
+        if args.ckpt_dir and rank == 0:
+            (Path(args.ckpt_dir) / "mesh.json").write_text(json.dumps(
+                tr.mesh.mesh.reshape(-1, args.tp).tolist()))
         Path(args.out).mkdir(parents=True, exist_ok=True)
-        with open(Path(args.out) / f"{args.mode}_rank{rank}.json", "w") as f:
+        with open(Path(args.out) / f"{tag}_rank{rank}.json", "w") as f:
             json.dump(rec, f)
         if rank == 0:
-            print(f"world {args.mode}: trajectory {rec['trajectory']}, losses {rec['losses']}, "
-                  f"ms a step {rec['ms_per_step']}, resizes {rec['resize_times']}, "
-                  f"mrd_combine launches on rank 0 {rec['mrd_combine_launches']}")
+            print(f"world {tag}: trajectory {rec['trajectory']}, extents {rec['dps']}, losses "
+                  f"{rec['losses']}, ms a step {rec['ms_per_step']}, resizes "
+                  f"{rec['resize_times']}, peak {rec['peak_bytes']}, mrd_combine launches on "
+                  f"rank 0 {rec['mrd_combine_launches']}")
     finally:
-        dist.destroy_process_group()
+        end_world()
     return 0
 
 
 def stacked_main(args) -> int:
+    if args.tp > 1:
+        raise SystemExit("--stacked: the stacked rows have no model ranks (--tp 1)")
     if args.device == "cpu":
         torch.set_num_threads(1)  # as each world rank runs: the same sums, bit for bit
     tr, state, rec = run(args)
     dp = tr.dp()
-    rec["digests"] = {str(w): view_digest(rank_view(state, args.mode, pos, dp, True))
+    rec["digests"] = {str(w): view_digest(rank_view(state, args.grad_sync, pos, dp, True))
                       for pos, w in enumerate(tr.device_ids())}
     Path(args.out).mkdir(parents=True, exist_ok=True)
-    with open(Path(args.out) / f"{args.mode}_stacked.json", "w") as f:
+    with open(Path(args.out) / f"{args.grad_sync}_stacked.json", "w") as f:
         json.dump(rec, f)
-    print(f"stacked {args.mode}: trajectory {rec['trajectory']}, losses {rec['losses']}, "
+    print(f"stacked {args.grad_sync}: trajectory {rec['trajectory']}, losses {rec['losses']}, "
           f"ms a step {rec['ms_per_step']}, resizes {rec['resize_times']}, peak "
           f"{rec['peak_bytes']}, mrd_combine launches {rec['mrd_combine_launches']}")
     return 0
 
 
+def compare_resumed(args) -> int:
+    """``--compare`` at ``--tp`` > 1: every rank of the resumed run against
+    the uninterrupted one: the steps it ran, losses and final digest equal
+    bit for bit."""
+    out, name = Path(args.out), record_name(args, "_resume")
+    paths = sorted(out.glob(f"{name}_rank*.json"))
+    ok = bool(paths)
+    for path in paths:
+        rec = json.load(open(path))
+        full = json.load(open(out / f"{record_name(args, '')}_rank{rec['rank']}.json"))
+        a = rec["start_step"]
+        want = full["losses"][a:a + len(rec["losses"])]
+        same = rec["losses"] == want and rec.get("digest") == full.get("digest")
+        print(f"{name} rank {rec['rank']}: resumed at step {a}, losses {rec['losses']} against "
+              f"{want}, digest equal {rec.get('digest') == full.get('digest')}")
+        ok = ok and same
+    print(f"{name}: the resumed run equals the uninterrupted run bit for bit: {ok}")
+    return 0 if ok else 1
+
+
 def compare_main(args) -> int:
+    if args.tp > 1:
+        return compare_resumed(args)
     out = Path(args.out)
-    stacked = json.load(open(out / f"{args.mode}_stacked.json"))
-    paths = sorted(out.glob(f"{args.mode}_rank*.json"))
+    stacked = json.load(open(out / f"{args.grad_sync}_stacked.json"))
+    paths = sorted(out.glob(f"{args.grad_sync}_rank*.json"))
     ok = bool(paths)
     for path in paths:
         rec = json.load(open(path))
@@ -217,12 +317,12 @@ def compare_main(args) -> int:
         same = same_losses and rec["trajectory"] == stacked["trajectory"] and len(
             rec["losses"]) == len(stacked["losses"]) and (
             not live or rec["digest"] == stacked["digests"][str(rec["rank"])])
-        print(f"{args.mode} rank {rec['rank']} ({'live' if live else 'outside'}): losses equal "
-              f"{same_losses}, digest equal "
+        print(f"{args.grad_sync} rank {rec['rank']} ({'live' if live else 'outside'}): losses "
+              f"equal {same_losses}, digest equal "
               f"{live and rec['digest'] == stacked['digests'][str(rec['rank'])]}, "
               f"mrd_combine launches {rec['mrd_combine_launches']}, peak {rec['peak_bytes']}")
         ok = ok and same
-    print(f"{args.mode}: every live rank equals the stacked trainer's row: {ok}")
+    print(f"{args.grad_sync}: every live rank equals the stacked trainer's row: {ok}")
     return 0 if ok else 1
 
 

@@ -41,7 +41,8 @@ read each other's checkpoints.
   elastic trainer restores (``ElasticTrainer.init_or_restore``, the train
   CLI's ``--elastic-policy``): the params, the step and the data cursor,
   and the optimizer restarted from the restored params; a plain restore
-  of another width is refused (:data:`RESIZE_HINT`).
+  of another width is refused (:data:`RESIZE_HINT`), and a restore onto
+  another ``--tp`` by both.
 - *Worlds* (one process a rank, ``world=(rank, dp)``): a save writes the
   same ``arrays.npz`` as a stacked-rows trainer's, so either trainer
   restores the other's checkpoint.  Each rank stages only what it writes
@@ -53,7 +54,9 @@ read each other's checkpoints.
   shapes; rank 0 writes the headers and, once every rank has left its
   rows' CRC-32s in a marker file, the checksums, the central directory
   and the publish.  A world restore reads a rank's rows out of the file
-  through ``np.memmap`` (:meth:`Checkpointer.restore_rank`).
+  through ``np.memmap`` (:meth:`Checkpointer.restore_rank`).  An elastic
+  world's membership changes with each resize: :meth:`Checkpointer.bind_world`
+  gives a process its part of the next save or restore.
 - *Sharded states* (a ``gspmd`` world, whose leaves are blocks of global
   leaves): :meth:`Checkpointer.save_streamed` writes the global leaves
   one at a time as the ranks gather them, into the archive a one-process
@@ -94,8 +97,8 @@ LAYOUT_VERSION = 2
 RESIZE_HINT = ("a plain restore keeps the saved width's optimizer rows; onto another "
                "data-parallel width the elastic trainer restores the params, step and data "
                "cursor and restarts the optimizer from them (--elastic-policy, "
-               "ElasticTrainer.init_or_restore: ROADMAP queue 1, item 7b); another --tp is "
-               "refused (item 7b2)")
+               "ElasticTrainer.init_or_restore: ROADMAP queue 1, item 7b); a restore keeps "
+               "the saved --tp (its blocks and rows are cut by it): another --tp is refused")
 
 
 def flatten_with_paths(tree, prefix: str = "") -> Dict[str, Any]:
@@ -367,6 +370,13 @@ class Checkpointer:
         self.restores: list[dict] = []
         # {key path: host buffer} of the last save, reused by the next
         self._staging: Dict[str, torch.Tensor] = {}
+
+    def bind_world(self, world: Optional[tuple[int, int]]) -> None:
+        """Take part in the next saves and restores as row ``rank`` of a
+        world of ``dp`` rows (``world=(rank, dp)``), or as the one writer
+        (None).  A save in flight keeps the part it started with."""
+        self.rank, self.dp = world if world is not None else (0, 1)
+        self.world = world is not None
 
     def _stage(self, tree, keep: Callable[[str], bool] = lambda key: True
                ) -> tuple[Dict[str, torch.Tensor], Optional[torch.cuda.Event]]:

@@ -34,10 +34,14 @@ bucket through its plan as its backward segment completes
 
 Elastic resize: each strategy registers a hook in ``GRAD_SYNC_RESIZE``
 that carries a live train state to a new data-parallel extent in place,
-without a checkpoint (:func:`migrate_state`).  In a ``("data",)`` world
-the hooks run on every process of the union of the old and the new
-ranks; ``gspmd`` worlds and resizes at ``tp`` > 1 are refused
-(:data:`NOT_ELASTIC`).
+without a checkpoint (:func:`migrate_state`).  In a world the hooks run
+on every process of the union of the old and the new ranks; at ``tp`` >
+1 each model rank's ``"data"`` column re-lays-out what it holds, and a
+``gspmd`` world re-shards its FSDP blocks over the new ``"data"``
+extent (``gspmd.reshard_blocks``).  Each step's ``save``/``restore``
+(:mod:`.snapshot`) is its checkpoint layout: the reference's nesting on
+stacked rows, a rank's rows in an MRD world, global leaves in a
+``gspmd`` world.
 """
 
 from __future__ import annotations
@@ -48,17 +52,15 @@ GRAD_SYNC: Dict[str, Callable] = {}
 
 # Elastic resize hooks: ``hook(cfg, tcfg, old_mesh, new_mesh, state, keep)
 # -> new_state``, where a mesh is a stacked-rows tuple of replica ids or a
-# world's ``("data",)`` DeviceMesh, and ``keep[i]`` is the old rank now at
-# new rank ``i`` (None: a joiner).  Each hook re-lays-out what its strategy
-# holds a rank (the ZeRO-1 master/moment segments, the EF residuals, the
-# monitor rows, local SGD's replicas) and leaves replicated leaves as they
+# world's ``("data",)`` or ``("data", "model")`` DeviceMesh, and ``keep[i]``
+# is the old ``"data"`` coordinate now at new coordinate ``i`` (None: a
+# joiner).  Each hook re-lays-out what its strategy holds a rank (the
+# ZeRO-1 master/moment segments, the EF residuals, the monitor rows, local
+# SGD's replicas, gspmd's FSDP blocks) and leaves replicated leaves as they
 # are: the elastic trainer sends the params (and a replicated optimizer) to
 # the joiners itself.  In a world ``state`` is the process's own (a joiner's
 # is a fresh one of the new extent) and a removed rank gets None back.
 GRAD_SYNC_RESIZE: Dict[str, Callable] = {}
-
-NOT_ELASTIC = ("elastic worlds of gspmd and resizes at tp > 1 are not ported yet "
-               "(ROADMAP queue 1, item 7b2)")
 
 
 def register(name: str):
@@ -102,8 +104,8 @@ def make_train_step(cfg, tcfg, *, dp: int, device="cuda", mesh=None):
 def make_step_factory(cfg, tcfg, *, device="cuda") -> Callable:
     """``mesh -> train step``, what the elastic trainer rebuilds at every
     resize: ``mesh`` a stacked-rows tuple of replica ids (the step over
-    that many rows on ``device``) or a world's ``("data",)`` DeviceMesh
-    (this process's rank of it)."""
+    that many rows on ``device``) or a world's DeviceMesh (this process's
+    rank of it)."""
     from repro_torch.distributed.gradsync import common
 
     def factory(mesh):

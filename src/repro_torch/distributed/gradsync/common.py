@@ -165,6 +165,21 @@ def replicated_leaves(specs: dict) -> list:
     return [MODEL not in sharded_axes(s) for s in reference_leaves(specs)]
 
 
+def replicated_groups(cfg, mesh) -> Optional[list]:
+    """:attr:`ModelRanks.replicated` of a world's ``mesh`` (the labels
+    ``zero1_layout`` keeps apart at ``tp`` > 1), or None without a
+    ``"model"`` dimension of more than one rank; read from the mesh's
+    sizes alone, so a process outside ``mesh`` gets them too."""
+    from repro_torch.distributed import sharding as shd
+
+    if not is_world(mesh) or shd.MODEL not in mesh.mesh_dim_names:
+        return None
+    if mesh.size(mesh.mesh_dim_names.index(shd.MODEL)) == 1:
+        return None
+    rules = shd.make_rules(cfg, mesh, fsdp=False)
+    return replicated_leaves(shd.param_specs(cfg, rules, transformer.param_shapes(cfg)))
+
+
 def model_ranks(cfg, mesh) -> Optional[ModelRanks]:
     """:class:`ModelRanks` of a world whose mesh has a ``"model"``
     dimension of more than one rank, else None (stacked rows, a

@@ -37,15 +37,25 @@ The ranks run in one of two layouts:
 bucketed gradient path to reorder.  No MRD collective runs in this mode
 (``mrd_combine`` launches no kernel).
 
-Elastic resize on stacked rows moves only the monitor rows (the params
-and optimizer trees do not depend on the extent), as the reference's
-hook; an elastic ``gspmd`` world, whose FSDP blocks would be re-sharded
-over ``"data"``, is refused (``gradsync.NOT_ELASTIC``).
+Elastic resize (:func:`resize`): on stacked rows only the monitor rows
+move (the params and optimizer trees do not depend on the extent), as
+the reference's hook, whose XLA re-partitions its global arrays.  A world
+holds explicit FSDP blocks, so its hook re-shards the params and every
+optimizer tree over the new ``"data"`` extent (:func:`reshard_blocks` is
+the rule on whole lists of blocks; :func:`reshard_world` runs it as one
+MRD sum over the union of the old and the new ranks, where every element
+has one nonzero contributor, so the global leaves stay bit for bit) and
+moves the monitor rows.  A leaf's spec may change with the extent (a dim
+shards over ``"data"`` only where the extent divides it).
+
+A world's checkpoint is global leaves (:func:`save_global`, streamed to
+the mesh's root), read back as each rank's blocks (:func:`restore_global`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Optional
 
 import torch
@@ -54,8 +64,9 @@ import torch.distributed as dist
 from repro_torch.collectives.buckets import tree_flatten, tree_unflatten
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.gradsync import NOT_ELASTIC, common, register, register_resize
+from repro_torch.distributed.gradsync import common, register, register_resize
 from repro_torch.distributed.gradsync.common import TrainConfig
+from repro_torch.distributed.gradsync.snapshot import Snapshot
 from repro_torch.models import convert, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
@@ -92,7 +103,7 @@ def expert_parallel_dims(cfg: ModelConfig, rules: shd.ShardingRules, specs) -> d
 
 
 @dataclasses.dataclass
-class GspmdStep:
+class GspmdStep(Snapshot):
     """``(state, batch) -> (state, metrics)`` of one ``gspmd`` step and
     :meth:`init_state`.  Without a ``mesh`` ``batch`` is the global batch;
     in a world it is this rank's ``"data"`` shard."""
@@ -165,10 +176,10 @@ class GspmdStep:
         """Yield (key path, global leaf) of every leaf of the params and the
         optimizer trees (the port's nesting, ``params/...``,
         ``opt/<name>/...``), each gathered on every rank when it is taken
-        and moved to ``device`` (default: where it was) on rank 0; the
-        other ranks get None.  A rank holds one gathered leaf at a time
-        beside its own state."""
-        keep = self.mesh.get_rank() == 0
+        and moved to ``device`` (default: where it was) on the mesh's root
+        (:func:`sharding.is_mesh_root`); the other ranks get None.  A rank
+        holds one gathered leaf at a time beside its own state."""
+        keep = shd.is_mesh_root(self.mesh)
 
         def walk(tree, spec, prefix):
             for k, v in tree.items():
@@ -186,10 +197,10 @@ class GspmdStep:
 
     def global_monitor(self, state, device=None) -> Optional[dict]:
         """The monitor's ``[dp]`` rows of a world, gathered over ``"data"``,
-        on rank 0 (None on the others, and without a monitor)."""
+        on the mesh's root (None on the others, and without a monitor)."""
         if "monitor" not in state:
             return None
-        keep = self.mesh.get_rank() == 0
+        keep = shd.is_mesh_root(self.mesh)
         ax = shd.ShardingContext(self.cfg, self.rules, self.mesh).axis(shd.DATA)
         mon = state["monitor"]
 
@@ -205,12 +216,12 @@ class GspmdStep:
 
     def global_state(self, state, device=None) -> Optional[dict]:
         """The stacked-layout state of a world (global leaves, the
-        monitor's ``[dp]`` rows) on rank 0, None on the others: every leaf
+        monitor's ``[dp]`` rows) on the mesh's root, None on the others: every leaf
         of :meth:`global_leaves` kept (a test's whole small state; a
         checkpoint streams the leaves instead)."""
         leaves = dict(self.global_leaves(state, device))
         mon = self.global_monitor(state, device)
-        if self.mesh.get_rank() != 0:
+        if not shd.is_mesh_root(self.mesh):
             return None
         out: dict = {"step": state["step"]}
         for key, leaf in leaves.items():
@@ -222,6 +233,36 @@ class GspmdStep:
         if mon is not None:
             out["monitor"] = mon
         return out
+
+    # ------------------------------------------------------------ snapshots
+    def bind(self, ck) -> None:
+        """One writer: the mesh's root streams a world's global leaves."""
+        ck.bind_world(None)
+
+    def save(self, ck, step: int, state, extra: dict, *, block: bool) -> None:
+        """:meth:`Snapshot.save`; a world's global leaves
+        (:func:`save_global`, blocking)."""
+        if self.mesh is None:
+            return super().save(ck, step, state, extra, block=block)
+        self.bind(ck)
+        save_global(ck, state, self, extra)
+
+    def restore(self, ck, state, *, params_only: bool = False) -> tuple:
+        """:meth:`Snapshot.restore`; in a world this rank's blocks of the
+        global leaves (:func:`global_reads`)."""
+        if self.mesh is None:
+            return super().restore(ck, state, params_only=params_only)
+        from repro_torch.runtime.fault_tolerance import recover
+
+        tree, blocks = global_reads(self, params_only)
+        if params_only:
+            got, report = recover(ck, tree, self.device, blocks=blocks, new_dp=self.dp,
+                                  old_dp=ck.manifest(ck.latest_step())["extra"].get("dp"))
+            return convert.port_tree(got["params"]), report
+        self.bind(ck)
+        state.clear()
+        got, report = recover(ck, tree, "cpu", old_dp=self.dp, new_dp=self.dp, blocks=blocks)
+        return state_from_global(got, self, self.device), report
 
     def init_state(self, generator: torch.Generator):
         """Random params from ``generator`` (the same draws on every rank),
@@ -290,8 +331,8 @@ class GspmdStep:
         for axes, s in sorted(groups.items()):
             if axes:
                 s = s.clone()
-                group = None if len(axes) == 2 else self.mesh.get_group(axes[0])
-                dist.all_reduce(s, group=group)
+                for a in axes:  # axis by axis: a mesh may be short of the world
+                    dist.all_reduce(s, group=self.mesh.get_group(a))
             total = s if total is None else total + s
         return total
 
@@ -370,14 +411,245 @@ def _map_tensors(fn, tree):
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints of a world: global leaves
+# ---------------------------------------------------------------------------
+
+
+def reference_keys(cfg) -> dict:
+    """{the port's key path: the reference's} of every leaf of a train
+    state's params and optimizer trees (``params/...``, ``opt/<name>/...``;
+    ``convert.reference_tree`` moves leaves, it does not change them)."""
+    from repro_torch.checkpoint.checkpointer import flatten_with_paths
+
+    def paths(tree, prefix):
+        return {k: paths(v, f"{prefix}/{k}") if isinstance(v, dict) else f"{prefix}/{k}"
+                for k, v in tree.items()}
+
+    shapes = transformer.param_shapes(cfg)
+    out = {}
+    for prefix in ("params", "opt/master", "opt/mu", "opt/nu"):
+        nested = convert.reference_tree(paths(shapes, prefix))
+        out.update({port: f"{prefix}/{ref}" for ref, port in flatten_with_paths(nested).items()})
+    return out
+
+
+def global_template(train_step) -> dict:
+    """Meta tensors of a ``gspmd`` world's stacked-layout state: the
+    global params, fp32 optimizer trees and the monitor's ``[dp]`` rows."""
+    def meta(tree, dtype=None):
+        return {k: meta(v, dtype) if isinstance(v, dict) else
+                torch.empty(v.shape, dtype=dtype or v.dtype, device="meta")
+                for k, v in tree.items()}
+
+    params = meta(transformer.param_shapes(train_step.cfg))
+    state = {"params": params, "opt": {k: meta(params, torch.float32)
+                                       for k in ("master", "mu", "nu")}, "step": 0}
+    if train_step.monitor is not None:
+        mon = common.build_monitor(train_step.tcfg, train_step.dp)
+        state["monitor"] = mon.init(device="cpu")
+    return state
+
+
+def save_global(ck, state, train_step, extra: dict) -> None:
+    """A ``gspmd`` world's snapshot, the file a one-process trainer writes
+    (global leaves, nested as the reference nests them): every rank
+    gathers the leaves one at a time (``GspmdStep.global_leaves``) and
+    the mesh's root writes each into the archive as it comes
+    (``Checkpointer.save_streamed``), so no rank holds more than one
+    global leaf beside its own blocks.  The save is done when it returns."""
+    from repro_torch.checkpoint.checkpointer import flatten_with_paths
+
+    leaves = train_step.global_leaves(state, "cpu")
+    mon = train_step.global_monitor(state, "cpu")
+    if not shd.is_mesh_root(train_step.mesh):
+        for _ in leaves:  # the gathers, in step with the root's
+            pass
+        return
+    template = convert.train_state_to_reference(global_template(train_step))
+    specs = {k: (tuple(v.shape), v.dtype) for k, v in flatten_with_paths(template).items()}
+    keys = reference_keys(train_step.cfg)
+    small = {"step": state["step"], "params": {}, "opt": {}}
+    if mon is not None:
+        small["monitor"] = mon
+    rest = flatten_with_paths(convert.train_state_to_reference(small))
+    ck.save_streamed(state["step"], specs, itertools.chain(
+        ((keys[k], leaf) for k, leaf in leaves), rest.items()), extra=extra)
+
+
+def global_reads(train_step, params_only: bool = False) -> tuple:
+    """(template, blocks) of a world rank's read of a checkpoint of global
+    leaves (``Checkpointer.restore_blocks``): the template the saved
+    state's (the reference's nesting, meta tensors of the global shapes)
+    and each params and optimizer leaf's block (``GspmdStep.blocks``);
+    ``params_only`` reads the params and the step alone."""
+    template = convert.train_state_to_reference(global_template(train_step))
+    if params_only:
+        template = {"params": template["params"], "step": template["step"]}
+    keys = reference_keys(train_step.cfg)
+    blocks = {keys[k]: index for k, index in train_step.blocks().items()
+              if not params_only or k.startswith("params/")}
+    return template, blocks
+
+
+def state_from_global(restored, train_step, device) -> dict:
+    """A world rank's state from its read of a checkpoint of global leaves
+    (:func:`global_reads`) on ``device``: its blocks, the step and its row
+    of the monitor (a params-only read: the params and the step)."""
+    state = {"params": convert.port_tree(restored["params"]), "step": int(restored["step"])}
+    if "opt" in restored:
+        state["opt"] = {k: convert.port_tree(v) for k, v in restored["opt"].items()}
+    if "monitor" in restored:
+        state["monitor"] = train_step.rank_monitor(
+            convert.monitor_from_reference(restored["monitor"], "cpu"))
+    return _to_device(state, device)
+
+
+def restore_global(ck, step0: int, train_step, device) -> dict:
+    """A ``gspmd`` world rank's state from a checkpoint of global leaves:
+    each leaf's block read straight out of the file
+    (``Checkpointer.restore_blocks``, through ``np.memmap``), so a rank
+    reads its own blocks and no whole leaf of the params or optimizer,
+    then placed on ``device``."""
+    template, blocks = global_reads(train_step)
+    restored = ck.restore_blocks(step0, template, blocks, "cpu", dp=train_step.dp)
+    return state_from_global(restored, train_step, device)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+# ---------------------------------------------------------------------------
+# Elastic resize: the FSDP blocks re-sharded over the new "data" extent
+# ---------------------------------------------------------------------------
+
+
+def _data_only(spec: tuple) -> tuple:
+    return tuple(e if shd.DATA in shd.spec_axes(e) else None for e in spec)
+
+
+def data_sharded(spec: tuple) -> bool:
+    """Does ``spec`` shard a dim over ``"data"``?"""
+    return shd.DATA in shd.sharded_axes(spec)
+
+
+def data_index(shape, spec: tuple, coord: int, dp: int) -> tuple:
+    """The slices of ``"data"`` coordinate ``coord``'s block (of ``dp``)
+    within a leaf's *model block* of ``shape`` (the leaf cut along its
+    ``"model"`` dims alone, what :func:`sharding.gather_fsdp` gives) under
+    ``spec``; the whole block where ``spec`` shards no dim over
+    ``"data"``."""
+    return shd.local_index(tuple(shape), _data_only(spec), {shd.DATA: coord}, {shd.DATA: dp})
+
+
+def model_block_shape(shape, spec: tuple, sizes) -> tuple:
+    """A global leaf's ``shape`` cut along its ``"model"`` dims."""
+    out = []
+    for n, e in zip(shape, spec):
+        for a in shd.spec_axes(e):
+            if a != shd.DATA:
+                n //= sizes[a]
+        out.append(n)
+    return tuple(out)
+
+
+def reshard_blocks(old_blocks: list, specs: tuple, dp_new: int) -> list:
+    """One leaf's ``"data"`` blocks of one model coordinate carried to a
+    new extent: ``old_blocks`` by old ``"data"`` coordinate under spec
+    ``specs[0]`` (each the whole model block where it shards no dim over
+    ``"data"``) -> ``dp_new`` contiguous blocks under ``specs[1]``.  A
+    copy of every element, so the model block (and the global leaf) is
+    the same bit for bit."""
+    spec_o, spec_n = specs
+    dp_o = len(old_blocks)
+    first = old_blocks[0]
+    if data_sharded(spec_o):
+        shape = tuple(n * dp_o if shd.DATA in shd.spec_axes(e) else n
+                      for n, e in zip(first.shape, spec_o))
+        whole = first.new_empty(shape)
+        for d, b in enumerate(old_blocks):
+            whole[data_index(shape, spec_o, d, dp_o)] = b
+    else:
+        whole = first
+    return [whole[data_index(whole.shape, spec_n, d, dp_new)].contiguous().clone()
+            for d in range(dp_new)]
+
+
+def _union_sum_(buf: torch.Tensor, plan) -> torch.Tensor:
+    """``buf`` summed over ``plan``'s ranks in place, a piece of
+    ``distributed.serve.BROADCAST_CHUNK`` elements at a time (bools as
+    uint8)."""
+    from repro_torch.distributed.serve import BROADCAST_CHUNK
+
+    flat = buf.view(-1)
+    if flat.dtype == torch.bool:
+        flat = flat.view(torch.uint8)
+    for i in range(0, flat.numel(), BROADCAST_CHUNK):
+        piece = flat[i:i + BROADCAST_CHUNK]
+        piece.copy_(plan.run(piece.clone()))
+    return buf
+
+
+def reshard_world(cfg: ModelConfig, tcfg: TrainConfig, old_mesh, new_mesh, state, keep):
+    """:func:`reshard_blocks` in a world, run by every process of the union
+    of the old and the new ranks: leaf by leaf, of the params and of every
+    optimizer tree, an old member writes its block into zeros of the
+    leaf's model block (a leaf that shards no dim over ``"data"``: old
+    ``"data"`` rank 0 only), an MRD sum over the union's ``"data"``
+    column adds them (one nonzero term an element: exact), and a member
+    of the new mesh keeps its new block.  A joiner's ``state`` (a fresh
+    one) contributes nothing; the monitor rows migrate as on stacked rows.
+    Returns the new state, or None on a rank the resize removed."""
+    from repro_torch.collectives import plans
+
+    d_o, d_n = common.mesh_rank(old_mesh), common.mesh_rank(new_mesh)
+    dp_o, dp_n = common.mesh_dp(old_mesh), common.mesh_dp(new_mesh)
+    joiner = d_n is not None and keep[d_n] is None
+    src = None if joiner else d_o
+    union = new_mesh if any(k is None for k in keep) else old_mesh
+    plan = plans.allreduce_plan(schedule="mrd", op="sum", executor="device",
+                                **common.plan_binding(common.mesh_dp(union), union))
+    shapes = transformer.param_shapes(cfg)
+    rules_o, rules_n = shd.make_rules(cfg, old_mesh), shd.make_rules(cfg, new_mesh)
+    specs_o = shd.param_specs(cfg, rules_o, shapes)
+    specs_n = shd.param_specs(cfg, rules_n, shapes)
+    sizes = dict(rules_n.sizes)
+
+    def leaf(block, shape, spec_o, spec_n):
+        whole = model_block_shape(shape, spec_o, sizes)
+        buf = torch.zeros(whole, dtype=block.dtype, device=block.device)
+        if src is not None and (data_sharded(spec_o) or src == 0):
+            buf[data_index(whole, spec_o, src, dp_o)] = block
+        _union_sum_(buf, plan)
+        if d_n is None:
+            return None
+        return buf[data_index(whole, spec_n, d_n, dp_n)].contiguous().clone()
+
+    def walk(tree, shp, so, sn):
+        return {k: walk(v, shp[k], so[k], sn[k]) if isinstance(v, dict) else
+                leaf(v, tuple(shp[k].shape), so[k], sn[k]) for k, v in tree.items()}
+
+    params = walk(state["params"], shapes, specs_o, specs_n)
+    opt = {name: walk(tree, shapes, specs_o, specs_n) for name, tree in state["opt"].items()}
+    if d_n is None:
+        return None
+    out = {**state, "params": params, "opt": opt}
+    if "monitor" in state:
+        out["monitor"] = common.monitor_rows_migrate(tcfg, dp_n, state["monitor"], keep, new_mesh)
+    return out
+
+
 @register_resize("gspmd")
 def resize(cfg, tcfg, old_mesh, new_mesh, state, keep):
-    """Stacked rows: only the monitor's ``[dp]`` rows move.  A world's
-    FSDP blocks would have to be re-sharded: refused."""
+    """Stacked rows: only the monitor's ``[dp]`` rows move.  A world:
+    :func:`reshard_world`."""
     from repro_torch.distributed.gradsync.mrd_leaf import monitor_only_resize
 
     if common.is_world(new_mesh):
-        raise NotImplementedError(NOT_ELASTIC)
+        return reshard_world(cfg, tcfg, old_mesh, new_mesh, state, keep)
     return monitor_only_resize(cfg, tcfg, old_mesh, new_mesh, state, keep)
 
 

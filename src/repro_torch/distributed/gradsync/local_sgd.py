@@ -45,6 +45,7 @@ from repro_torch.collectives import plans
 from repro_torch.device import resolve_device
 from repro_torch.distributed.gradsync import common, register, register_resize
 from repro_torch.distributed.gradsync.common import TrainConfig
+from repro_torch.distributed.gradsync.snapshot import Snapshot
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
@@ -62,7 +63,7 @@ def _replica(tree, i: int, rank):
 
 
 @dataclasses.dataclass
-class LocalSGDStep:
+class LocalSGDStep(Snapshot):
     """``(state, batch) -> (state, metrics)`` of one ``local_sgd`` step over
     ``dp`` replicas, and :meth:`init_state`."""
 

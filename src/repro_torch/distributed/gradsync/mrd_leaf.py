@@ -37,6 +37,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.gradsync import common, register, register_resize
 from repro_torch.distributed.gradsync import overlap as overlap_lib
 from repro_torch.distributed.gradsync.common import TrainConfig
+from repro_torch.distributed.gradsync.snapshot import Snapshot
 from repro_torch.models import convert
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
@@ -44,7 +45,7 @@ from repro_torch.optim import optimizer as opt_lib
 
 
 @dataclasses.dataclass
-class LeafStep:
+class LeafStep(Snapshot):
     """``(state, batch) -> (state, metrics)`` of one ``mrd_leaf`` step over
     ``dp`` ranks, and :meth:`init_state`.  The optimizer trees are updated
     in place."""

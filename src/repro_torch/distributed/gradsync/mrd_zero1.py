@@ -63,7 +63,10 @@ and new ranks gathers the bucket (exact: one term a slot is nonzero).  A
 rank the resize removes still hands over its segments, as the
 reference's simulated kill leaves a removed device's shard readable: its
 process lives through the resize, then idles.  A real crash loses that
-segment, and only a checkpoint restore recovers from it.
+segment, and only a checkpoint restore recovers from it.  At ``tp`` > 1
+each model rank's ``"data"`` column re-lays-out its own rows over its
+local layout (the plans run over the column; the keep map is per
+``"data"`` coordinate).
 """
 
 from __future__ import annotations
@@ -80,6 +83,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.gradsync import common, register, register_resize
 from repro_torch.distributed.gradsync import overlap as overlap_lib
 from repro_torch.distributed.gradsync.common import TrainConfig
+from repro_torch.distributed.gradsync.snapshot import Snapshot
 from repro_torch.models import convert, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
@@ -179,7 +183,7 @@ def global_leaves(cfg: ModelConfig, vec: torch.Tensor, dp: int, *,
 
 
 @dataclasses.dataclass
-class Zero1Step:
+class Zero1Step(Snapshot):
     """``(state, batch) -> (state, metrics)`` of one ZeRO-1 train step
     over ``dp`` ranks, and :meth:`init_state`.  Without a ``mesh`` the
     ranks are stacked rows and ``batch`` is the global batch; in a world
@@ -506,7 +510,8 @@ def resize_zero1(cfg: ModelConfig, tcfg: TrainConfig, old_mesh, new_mesh, state,
     (:func:`regrid_row`; a joiner's is zeros); the monitor rows migrate
     through the detection layer."""
     dp_o, dp_n = common.mesh_dp(old_mesh), common.mesh_dp(new_mesh)
-    kw = dict(bucket_bytes=tcfg.bucket_bytes)
+    # at tp > 1 the buckets keep the leaves replicated over "model" apart
+    kw = dict(bucket_bytes=tcfg.bucket_bytes, groups=common.replicated_groups(cfg, old_mesh))
     layout_o, _ = zero1_layout(state["params"], dp_o, **kw)
     layout_n, _ = zero1_layout(state["params"], dp_n, **kw)
     opt = state["opt"]

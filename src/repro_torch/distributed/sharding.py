@@ -326,8 +326,32 @@ class Placer:
 
 
 def mesh_coords(mesh) -> dict:
-    """{axis name: this process's coordinate} of a ``DeviceMesh``."""
-    return {n: mesh.get_local_rank(n) for n in mesh.mesh_dim_names}
+    """{axis name: this process's coordinate} of a ``DeviceMesh`` (its
+    place in the mesh, not its rank in the axis's process group: a grown
+    mesh lists its ranks out of order, a process group sorts them)."""
+    return dict(zip(mesh.mesh_dim_names, (int(c) for c in mesh.get_coordinate())))
+
+
+def mesh_axis(mesh, name: str) -> "Axis":
+    """This process's :class:`Axis` ``name`` of ``mesh``, numbered by
+    coordinate (``executors.axis_ranks``'s rule): its ``order`` maps the
+    process group's ranks (sorted global ranks) to coordinates when the
+    two differ, and the collectives below put every rank's part at its
+    coordinate."""
+    d = mesh.mesh_dim_names.index(name)
+    coord = [int(c) for c in mesh.get_coordinate()]
+    where = tuple(coord[:d]) + (slice(None),) + tuple(coord[d + 1:])
+    ranks = [int(r) for r in mesh.mesh[where].tolist()]
+    order = tuple(ranks.index(r) for r in sorted(ranks))
+    return Axis(name, mesh.get_group(name), coord[d], len(ranks),
+                None if order == tuple(range(len(ranks))) else order)
+
+
+def is_mesh_root(mesh) -> bool:
+    """Is this process at coordinate 0 of every axis of ``mesh`` (the rank
+    that writes what the mesh gathers)?"""
+    coord = mesh.get_coordinate()
+    return coord is not None and not any(coord)
 
 
 # ---------------------------------------------------------------------------
@@ -340,12 +364,14 @@ _ACTIVE: list["ShardingContext"] = []
 @dataclasses.dataclass(frozen=True)
 class Axis:
     """One mesh axis as this process sees it: its group, the rank's
-    coordinate along it and its size."""
+    coordinate along it and its size; ``order[g]`` is the coordinate of
+    the group's rank ``g`` where they differ (None: the same)."""
 
     name: str
     group: Any
     rank: int
     size: int
+    order: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -402,10 +428,9 @@ class ShardingContext:
     def _lookup(self, name: Optional[str]) -> Optional[Axis]:
         if self.mesh is None or name is None or name not in self.mesh.mesh_dim_names:
             return None
-        size = self.mesh.size(self.mesh.mesh_dim_names.index(name))
-        if size == 1:
+        if self.mesh.size(self.mesh.mesh_dim_names.index(name)) == 1:
             return None
-        return Axis(name, self.mesh.get_group(name), self.mesh.get_local_rank(name), size)
+        return mesh_axis(self.mesh, name)
 
 
 @contextlib.contextmanager
@@ -523,10 +548,27 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 _all_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
+def _by_group(parts: list, ax: Axis) -> list:
+    """Parts in coordinate order -> in the order of ``ax``'s process group."""
+    return parts if ax.order is None else [parts[c] for c in ax.order]
+
+
+def _by_coordinate(parts: list, ax: Axis) -> list:
+    """Parts in the order of ``ax``'s process group -> in coordinate order."""
+    if ax.order is None:
+        return parts
+    out = [None] * len(parts)
+    for g, c in enumerate(ax.order):
+        out[c] = parts[g]
+    return out
+
+
 def _all_gather(x, dim: int, ax: Axis):
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((ax.size * x.shape[0],) + x.shape[1:])
     _all_gather_into(out, x, group=ax.group)
+    if ax.order is not None:
+        out = torch.cat(_by_coordinate(list(out.chunk(ax.size)), ax))
     return out.movedim(0, dim).contiguous()
 
 
@@ -605,16 +647,18 @@ class _GatherScatter(torch.autograd.Function):
         g = g.movedim(ctx.dim, 0).contiguous()
         if dtype in _WIDEN:  # added in fp32, as _all_reduce
             g = g.float()
+        if ctx.ax.order is not None:
+            g = torch.cat(_by_group(list(g.chunk(ctx.ax.size)), ctx.ax))
         out = g.new_empty((g.shape[0] // ctx.ax.size,) + g.shape[1:])
         _reduce_scatter(out, g, group=ctx.ax.group)
         return out.movedim(0, ctx.dim).to(dtype).contiguous(), None, None
 
 
 def _all_to_all(x, split_dim: int, cat_dim: int, ax: Axis):
-    parts = [p.contiguous() for p in x.chunk(ax.size, split_dim)]
+    parts = _by_group([p.contiguous() for p in x.chunk(ax.size, split_dim)], ax)
     out = [torch.empty_like(p) for p in parts]
     dist.all_to_all(out, parts, group=ax.group)
-    return torch.cat(out, cat_dim)
+    return torch.cat(_by_coordinate(out, ax), cat_dim)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -696,8 +740,6 @@ def gather_global(x, spec: tuple, mesh):
     names = mesh.mesh_dim_names
     for dim, entry in reversed(list(enumerate(spec))):
         for a in reversed(spec_axes(entry)):
-            i = names.index(a)
-            if mesh.size(i) > 1:
-                ax = Axis(a, mesh.get_group(a), mesh.get_local_rank(a), mesh.size(i))
-                x = _all_gather(x, dim, ax)
+            if mesh.size(names.index(a)) > 1:
+                x = _all_gather(x, dim, mesh_axis(mesh, a))
     return x

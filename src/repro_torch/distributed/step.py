@@ -15,7 +15,6 @@ from __future__ import annotations
 from repro_torch.distributed.gradsync import (  # noqa: F401
     GRAD_SYNC,
     GRAD_SYNC_RESIZE,
-    NOT_ELASTIC,
     available as available_grad_sync,
     make_step_factory,
     make_train_step,

@@ -111,7 +111,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import step as step_lib
 from repro_torch.models import transformer
 from repro_torch.runtime import ElasticServeController, SlaAutoscalePolicy
-from repro_torch.runtime.chaos import parse_chaos
+from repro_torch.runtime.chaos import Kill, parse_chaos, scripted_extents
 from repro_torch.serving import (
     SCHEDULERS,
     TERMINATION,
@@ -302,10 +302,19 @@ def serve(args: argparse.Namespace, mesh=None):
     script = parse_chaos(args.kill, args.join, args.stall, args.unstall, log=print)
     if not (args.autoscale or args.elastic_policy or script is not None):
         return eng, wl, eng.run(reqs)
+    if script is not None and args.workload == "fixedpoint_solve":
+        # refuse at the start an extent the residual's blocks cannot take
+        for ev, extent in scripted_extents(script, range(args.dp), args.min_extent):
+            if args.n % extent:
+                kind = "kill" if isinstance(ev, Kill) else "join"
+                raise SystemExit(
+                    f"--n {args.n}: the chaos script's {kind} at tick {ev.step} leaves "
+                    f"{extent} replicas, and fixedpoint_solve's residual needs n divisible by "
+                    f"every extent (n={args.n} does not split into {extent} blocks)")
     policy = args.elastic_policy or "grow_on_join"
     if args.autoscale:
         policy = SlaAutoscalePolicy(min_extent=args.min_extent, max_extent=args.max_extent)
-    ctl = ElasticServeController(eng, policy=policy, min_extent=args.min_extent)
+    ctl = ElasticServeController(eng, policy=policy, min_extent=args.min_extent, log=print)
     res = ctl.run(reqs, events=script)
     for ev in ctl.resizes:
         print(f"# resize: {ev.kind} {ev.old_dp} -> {ev.new_dp} @tick {ev.step} ({ev.reason})")
@@ -464,7 +473,7 @@ def main(argv=None):
         with quiet:
             return run(args, mesh)
     finally:
-        dist.destroy_process_group()
+        train_cli.end_world()
 
 
 def kernel_launches() -> dict:

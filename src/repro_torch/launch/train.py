@@ -33,10 +33,13 @@ it, and the MRD plans keep every extent, non-power-of-two included,
 correct.  Like the reference's, the CLI takes no kill or join flags, so it
 resizes only when a worker is reported; with ``--ckpt-dir`` the run starts
 from the latest checkpoint at any ``--dp`` (params, step and data cursor;
-the optimizer restarts from the restored params).  Under
-``torch.distributed.run`` the world may be larger than ``--dp``: ranks
-``0..dp-1`` train and the rest wait as spares (no checkpointer there, and
-no ``gspmd`` or ``--tp`` > 1 world: ``gradsync.NOT_ELASTIC``).
+the optimizer restarts from the restored params; at the saved ``--dp`` the
+whole state).  Under ``torch.distributed.run`` the world may be larger
+than ``--dp`` x ``--tp``: ranks ``0..dp*tp-1`` train, as a ``("data",
+"model")`` mesh of ``(--dp, --tp)`` when ``--tp`` > 1, and the rest wait
+as spares; every process runs the same controller.  A resize there drops
+or admits whole ``"data"`` slices (``--tp`` ranks each), and
+``--ckpt-dir`` checkpoints the world as the plain loop's world does.
 
 ``--overlap`` (the gradient-scale modes ``mrd_paper``, ``mrd_zero1``,
 ``compressed`` and ``mrd_leaf``) runs the backward in three segments
@@ -81,7 +84,6 @@ from __future__ import annotations
 import argparse
 import datetime
 import hashlib
-import itertools
 import json
 import os
 import time
@@ -97,6 +99,7 @@ from repro_torch.configs import registry
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.device import rank_device, resolve_device
 from repro_torch.distributed import step as step_lib
+from repro_torch.distributed.gradsync.gspmd import restore_global, save_global
 from repro_torch.distributed.sharding import MODEL
 from repro_torch.kernels.mrd_combine import mrd_combine
 from repro_torch.models import convert
@@ -204,6 +207,31 @@ def start_world(env, device: str) -> torch.device:
     return device
 
 
+def teardown_order() -> list:
+    """The process groups this process holds, in the order :func:`end_world`
+    shuts them down: the newest first, the default group last."""
+    from torch.distributed import distributed_c10d as c10d
+
+    default = c10d._get_default_group()
+    return [pg for pg in reversed(list(c10d._world.pg_names)) if pg is not default] + [default]
+
+
+def end_world() -> None:
+    """Leave the world :func:`start_world` joined: each process group this
+    process holds is shut down in the reverse order of its making, one
+    at a time, the default group last.  On NCCL a communicator's shutdown
+    may wait for its other members, and ``destroy_process_group()`` alone
+    takes the groups sorted by name.  A group split off the default one
+    is named after its ranks and the count of groups its maker holds.  A
+    rank outside an elastic mesh holds none of its groups, so after a
+    shrink and a grow two members of one group can name it apart, sort
+    it at different places and each wait in a group the other has not
+    reached.  The order of making is the same on every member: every
+    process builds every mesh, in the same order."""
+    for pg in teardown_order():
+        dist.destroy_process_group(pg)
+
+
 def init_world(args, env) -> tuple:
     """Join the world of ``env`` (:func:`start_world` on ``args.device``)
     and build its mesh of ``(--dp, --tp)`` (:func:`build_mesh`).  Returns
@@ -270,92 +298,6 @@ def gspmd_world(train_step, mesh) -> bool:
     return mesh is not None and train_step.tcfg.grad_sync == "gspmd"
 
 
-def save_global(ck: Checkpointer, state, train_step, extra: dict) -> None:
-    """A ``gspmd`` world's snapshot, the file a one-process trainer writes
-    (global leaves, nested as the reference nests them): every rank
-    gathers the leaves one at a time (``GspmdStep.global_leaves``) and
-    rank 0 writes each into the archive as it comes
-    (``Checkpointer.save_streamed``), so no rank holds more than one
-    global leaf beside its own blocks.  The save is done when it returns."""
-    leaves = train_step.global_leaves(state, "cpu")
-    mon = train_step.global_monitor(state, "cpu")
-    if train_step.mesh.get_rank() != 0:
-        for _ in leaves:  # the gathers, in step with rank 0's
-            pass
-        return
-    template = convert.train_state_to_reference(global_template(train_step))
-    specs = {k: (tuple(v.shape), v.dtype) for k, v in flatten_with_paths(template).items()}
-    keys = reference_keys(train_step.cfg)
-    small = {"step": state["step"], "params": {}, "opt": {}}
-    if mon is not None:
-        small["monitor"] = mon
-    rest = flatten_with_paths(convert.train_state_to_reference(small))
-    ck.save_streamed(state["step"], specs, itertools.chain(
-        ((keys[k], leaf) for k, leaf in leaves), rest.items()), extra=extra)
-
-
-def restore_global(ck: Checkpointer, step0: int, train_step, cfg, device) -> dict:
-    """A ``gspmd`` world rank's state from a checkpoint of global leaves:
-    each leaf's block (``GspmdStep.blocks``) read straight out of the file
-    (``Checkpointer.restore_blocks``, through ``np.memmap``), so a rank
-    reads its own blocks and no whole leaf of the params or optimizer,
-    then placed on ``device``."""
-    template = convert.train_state_to_reference(global_template(train_step))
-    keys = reference_keys(cfg)
-    blocks = {keys[k]: index for k, index in train_step.blocks().items()}
-    restored = ck.restore_blocks(step0, template, blocks, "cpu", dp=train_step.dp)
-    state = {"params": convert.port_tree(restored["params"]),
-             "opt": {k: convert.port_tree(v) for k, v in restored["opt"].items()},
-             "step": int(restored["step"])}
-    if "monitor" in restored:
-        state["monitor"] = train_step.rank_monitor(
-            convert.monitor_from_reference(restored["monitor"], "cpu"))
-    return _to_device(state, device)
-
-
-def reference_keys(cfg) -> dict:
-    """{the port's key path: the reference's} of every leaf of a train
-    state's params and optimizer trees (``params/...``, ``opt/<name>/...``;
-    ``convert.reference_tree`` moves leaves, it does not change them)."""
-    from repro_torch.models import transformer
-
-    def paths(tree, prefix):
-        return {k: paths(v, f"{prefix}/{k}") if isinstance(v, dict) else f"{prefix}/{k}"
-                for k, v in tree.items()}
-
-    shapes = transformer.param_shapes(cfg)
-    out = {}
-    for prefix in ("params", "opt/master", "opt/mu", "opt/nu"):
-        nested = convert.reference_tree(paths(shapes, prefix))
-        out.update({port: f"{prefix}/{ref}" for ref, port in flatten_with_paths(nested).items()})
-    return out
-
-
-def global_template(train_step) -> dict:
-    """Meta tensors of a ``gspmd`` world's stacked-layout state: the
-    global params, fp32 optimizer trees and the monitor's ``[dp]`` rows."""
-    from repro_torch.models import transformer
-
-    def meta(tree, dtype=None):
-        return {k: meta(v, dtype) if isinstance(v, dict) else
-                torch.empty(v.shape, dtype=dtype or v.dtype, device="meta")
-                for k, v in tree.items()}
-
-    params = meta(transformer.param_shapes(train_step.cfg))
-    state = {"params": params, "opt": {k: meta(params, torch.float32)
-                                       for k in ("master", "mu", "nu")}, "step": 0}
-    if train_step.monitor is not None:
-        mon = step_lib.build_monitor(train_step.tcfg, train_step.dp)
-        state["monitor"] = mon.init(device="cpu")
-    return state
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
-
-
 def resume(ck: Checkpointer, state, cfg, pipe, dp: int, device, grad_sync: str,
            train_step=None, mesh=None, tp: int = 1):
     """The state of ``ck``'s latest step in place of ``state`` (which the
@@ -374,7 +316,7 @@ def resume(ck: Checkpointer, state, cfg, pipe, dp: int, device, grad_sync: str,
                          f"tp={tp}: {RESIZE_HINT}")
     if train_step is not None and gspmd_world(train_step, mesh):
         del state
-        state = restore_global(ck, step0, train_step, cfg, device)
+        state = restore_global(ck, step0, train_step, device)
         pipe.load_state_dict(ck.manifest(step0)["extra"]["data"])
         return state, step0
     template, rows = to_reference(state, ck, grad_sync, tp)
@@ -510,30 +452,39 @@ def main(argv=None) -> dict:
     try:
         return train(args, device, mesh)
     finally:
-        dist.destroy_process_group()
+        end_world()
 
 
 def elastic_main(args, env) -> dict:
     """``--elastic-policy``: :func:`elastic_train` on stacked rows, or in
-    the world of ``env`` over the initial ranks ``0..dp-1`` (the rest of
-    the world spares)."""
+    the world of ``env`` over the initial ranks ``0..dp*tp-1`` (a
+    ``("data", "model")`` mesh at ``--tp`` > 1; the rest of the world
+    spares)."""
     from repro_torch.runtime import get_policy
 
     get_policy(args.elastic_policy)  # fail fast on an unknown name
-    if args.tp > 1:
-        raise SystemExit(f"--elastic-policy with --tp {args.tp}: {step_lib.NOT_ELASTIC}")
     if env is None:
+        if args.tp > 1:
+            raise SystemExit(f"--tp {args.tp} needs a world of at least --dp x --tp = "
+                             f"{args.dp * args.tp} ranks (python -m torch.distributed.run "
+                             f"--nproc-per-node {args.dp * args.tp} ...)")
         return elastic_train(args)
     from torch.distributed.device_mesh import DeviceMesh
 
     device = start_world(env, args.device)
     try:
-        if args.dp > dist.get_world_size():
-            raise SystemExit(f"--dp {args.dp} but the world has {dist.get_world_size()} ranks")
-        mesh = DeviceMesh(device.type, list(range(args.dp)), mesh_dim_names=(step_lib.DATA,))
+        n = args.dp * args.tp
+        if n > dist.get_world_size():
+            what = "--dp" if args.tp == 1 else "--dp x --tp"
+            raise SystemExit(f"{what} {n} but the world has {dist.get_world_size()} ranks")
+        if args.tp > 1:
+            mesh = DeviceMesh(device.type, torch.arange(n).reshape(args.dp, args.tp),
+                              mesh_dim_names=(step_lib.DATA, MODEL))
+        else:
+            mesh = DeviceMesh(device.type, list(range(n)), mesh_dim_names=(step_lib.DATA,))
         return elastic_train(args, device, mesh)
     finally:
-        dist.destroy_process_group()
+        end_world()
 
 
 def elastic_train(args, device=None, mesh=None) -> dict:
@@ -557,8 +508,12 @@ def elastic_train(args, device=None, mesh=None) -> dict:
             return SyntheticPipeline(cfg, dcfg, device)
         return SyntheticPipeline(cfg, dcfg, device, rank=common.mesh_rank(m), dp=common.mesh_dp(m))
 
+    # in a world the trainer binds each save to the current mesh; the
+    # world's rank 0 alone sweeps stale temporaries at the start
     ck = (Checkpointer(args.ckpt_dir, save_every_steps=args.ckpt_every,
-                       save_every_seconds=args.ckpt_every_seconds) if args.ckpt_dir else None)
+                       save_every_seconds=args.ckpt_every_seconds,
+                       world=None if mesh is None else (rank, world))
+          if args.ckpt_dir else None)
     trainer = ElasticTrainer(tuple(range(args.dp)) if mesh is None else mesh, (cfg, tcfg), pipe,
                              checkpointer=ck, device=device,
                              cfg=ElasticConfig(ckpt_every=args.ckpt_every,
@@ -566,7 +521,7 @@ def elastic_train(args, device=None, mesh=None) -> dict:
     state = trainer.init_or_restore(torch.Generator(device=device).manual_seed(args.seed))
     say(f"train {cfg.name}{' smoke' if args.smoke else ''} x {args.grad_sync} elastic "
         f"({args.elastic_policy}, dp={args.dp}"
-        + ("" if mesh is None else f" of a world of {world}")
+        + ("" if mesh is None else f" x tp={args.tp} of a world of {world}")
         + f", batch {args.batch} x seq {args.seq}, {device}) from step {trainer.step}")
     state, losses = trainer.run(state, args.steps)
     last = losses[-1] if losses else None

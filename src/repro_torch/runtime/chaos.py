@@ -156,6 +156,27 @@ def parse_chaos(kill=(), join=(), stall=(), unstall=(), *,
     return ChaosScript(events, log=log) if events else None
 
 
+def scripted_extents(script: ChaosScript, initial_ids: Sequence[int],
+                     min_extent: int = 1) -> list:
+    """(event, extent after it) for each kill and join of ``script`` in its
+    order, from the live replicas ``initial_ids``: a kill drops a live id
+    (never below ``min_extent``, as ``policies.clamp_min_extent`` spares
+    one), a join appends the ids not live.  The extents a policy that acts
+    on every report and admits every joiner passes through."""
+    live = list(initial_ids)
+    out = []
+    for ev in script.events:
+        if isinstance(ev, Kill):
+            if ev.device in live and len(live) > min_extent:
+                live.remove(ev.device)
+        elif isinstance(ev, Join):
+            live += [d for d in ev.devices if d not in live]
+        else:
+            continue
+        out.append((ev, len(live)))
+    return out
+
+
 def kill_join_script() -> ChaosScript:
     """The reference chaos suite's headline training script from replicas
     0-3: 4 -> 3 at step 2, 3 -> 5 at step 4 (the killed worker rejoins

@@ -31,20 +31,26 @@ turns that into a runtime for the serving engine:
   ``distributed.serve.mrd_broadcast_stacked`` on stacked rows), bit for
   bit the source's.  The checkpointer stays the path for a step factory
   the trainer cannot migrate (``restores`` counts its use) and for cold
-  starts.
+  starts, and the trainer saves every ``ckpt_every`` steps and at the end
+  of a run, as the reference's.
 
 The trainer runs in either layout of the ranks.  On stacked rows (one
-device) the mesh is the tuple of live replica ids.  In a ``("data",)``
-world (one process a rank) it is a ``DeviceMesh`` over the live global
-ranks: the world is launched at the largest extent the script reaches
-(the initial ranks and the spares), every process runs the same
-controller on the same clock and script and so reaches the same
-decisions without communicating, and a process outside the mesh skips
-the step.  A kill is simulated, as in the reference: the removed rank's
-process lives through the resize and hands over its ZeRO-1 segments,
-then idles; a rank that joins again drops its old state and is sent
-the current one.  ``gspmd`` worlds and resizes at ``tp`` > 1 are refused
-(``gradsync.NOT_ELASTIC``).
+device) the mesh is the tuple of live replica ids.  In a world (one
+process a rank) it is a ``DeviceMesh`` over the live global ranks,
+``("data",)`` or ``("data", "model")``: the world is launched at the
+largest extent the script reaches (the initial ranks and the spares),
+every process runs the same controller on the same clock and script and
+so reaches the same decisions without communicating, and a process
+outside the mesh skips the step.  A resize drops or appends whole
+``"data"`` slices (a TP group of ``tp`` workers), the keep map is per
+``"data"`` coordinate, and each model rank's ``"data"`` column migrates
+its own blocks and rows; a ``gspmd`` world re-shards its FSDP blocks.  A
+kill is simulated, as in the reference: the removed rank's process lives
+through the resize and hands over its ZeRO-1 segments or FSDP blocks,
+then idles; a rank that joins again drops its old state and is sent the
+current one.  A world's checkpoint is the file a one-process trainer of
+its strategy writes (a ``gspmd`` world's global leaves, streamed to the
+mesh's root; an MRD world's rows, each rank writing its own).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpointer import RESIZE_HINT
 from repro_torch.runtime.fault_tolerance import (
     FailureDetector,
     HeartbeatConfig,
@@ -63,7 +70,6 @@ from repro_torch.runtime.fault_tolerance import (
     StepClock,
     grow_mesh,
     mesh_ids,
-    recover,
     shrink_mesh,
 )
 from repro_torch.runtime.policies import (
@@ -157,13 +163,19 @@ class ElasticServeController:
     ``steps_per_dispatch`` ticks); chaos events match the engine's tick
     clock through ``apply_due``, so an event due inside a dispatch fires
     at the next dispatch boundary, the first point a control plane could
-    act."""
+    act.
+
+    A resize the workload cannot take (``dp_refusal``: a fixed-point
+    pool's residual blocks must split ``n``) is declined: the extent stays,
+    the reason goes to ``log`` (once until it changes) and to
+    :attr:`declined`, and the policy is asked again at the next step."""
 
     def __init__(self, engine, policy="grow_on_join", *,
                  heartbeat: Optional[HeartbeatConfig] = None,
                  clock: Optional[StepClock] = None,
                  replica_ids: Optional[Sequence[int]] = None, min_extent: int = 1,
-                 base_step_time: float = 1.0, max_resizes: int = 32):
+                 base_step_time: float = 1.0, max_resizes: int = 32,
+                 log: Optional[Callable[[str], None]] = None):
         self.engine = engine
         ids = list(replica_ids) if replica_ids is not None else list(range(engine.dp))
         if len(ids) != engine.dp:
@@ -179,6 +191,8 @@ class ElasticServeController:
         self.health: dict[int, str] = {r: "ok" for r in ids}
         self.stall_factor: dict[int, float] = {}
         self.pending_joins: list[int] = []
+        self.log = log
+        self.declined: list[tuple] = []  # (tick, action, new extent, reason)
 
     # -- what a chaos script pokes ------------------------------------------
 
@@ -214,6 +228,20 @@ class ElasticServeController:
     def _load(self) -> LoadSnapshot:
         return self.engine.load_snapshot()
 
+    def _declines(self, action: str, new_dp: int) -> bool:
+        """Does the workload refuse the extent ``new_dp``?  Records and logs
+        the refusal."""
+        refusal = getattr(self.engine.workload, "dp_refusal", None)
+        why = None if refusal is None else refusal(new_dp)
+        if why is None:
+            return False
+        entry = (self.engine.tick, action, new_dp, why)
+        if self.log is not None and (not self.declined or self.declined[-1][1:] != entry[1:]):
+            self.log(f"# resize declined @tick {entry[0]}: {action} to {new_dp} replicas "
+                     f"({why}); the extent stays {self.replicas.dp}")
+        self.declined.append(entry)
+        return True
+
     # -- one controller step ------------------------------------------------
 
     def step(self, events=None) -> np.ndarray:
@@ -235,6 +263,12 @@ class ElasticServeController:
         decision = clamped
         if decision.action == "abort":
             raise RuntimeError(f"elastic policy abort: {decision.reason}")
+        if decision.action in ("shrink", "grow"):
+            ids = set(self.replicas.ids)
+            new_dp = len(ids - set(decision.remove) if decision.action == "shrink"
+                         else ids | set(decision.admit))
+            if self._declines(decision.action, new_dp):
+                decision = ResizeDecision()
         if decision.action == "shrink":
             if len(self.resizes) >= self.max_resizes:
                 raise RuntimeError("resize budget exhausted")
@@ -365,20 +399,24 @@ class ElasticTrainer:
     """Drive training across topology changes.
 
     ``step_fn_factory(mesh) -> train step`` (a step object with
-    ``init_state`` and ``opt_from_params``; ``gradsync.make_step_factory``
+    ``init_state``, ``opt_from_params`` and the checkpoint layout's
+    ``save``/``restore``, ``gradsync.snapshot``; ``gradsync.make_step_factory``
     builds one), or ``(model_cfg, tcfg)``: then the factory is built from
     the ``GRAD_SYNC`` registry on ``device`` and a resize migrates the
     state in place through the strategy's resize hook.  With an opaque
     factory every resize restores the latest checkpoint instead
     (``restores`` counts them).  ``mesh`` is the tuple of replica ids of
-    stacked rows, or a world's ``("data",)`` ``DeviceMesh`` over the
-    initial ranks (a world takes ``(model_cfg, tcfg)`` and no
-    checkpointer).
+    stacked rows, or a world's ``("data",)`` or ``("data", "model")``
+    ``DeviceMesh`` over the initial ranks (a world takes ``(model_cfg,
+    tcfg)``).
 
     ``pipe_factory(mesh)`` builds the data pipeline (in a world, the
     rank's); its state is the step, so the stream goes on where it stopped
-    at any extent.  Each resize's wall time, and its migrate and broadcast
-    parts, are kept in :attr:`resize_times`."""
+    at any extent.  Each resize's wall time and its parts are kept in
+    :attr:`resize_times`: ``mesh_s`` (the new mesh and, in a world, its
+    communicators), ``build_s`` (the step and pipeline rebuilt, a
+    joiner's fresh state), ``migrate_s`` (the hook) and ``broadcast_s``
+    (the joiners' transfer)."""
 
     def __init__(self, mesh, step_fn_factory, pipe_factory: Callable, checkpointer=None,
                  cfg: Optional[ElasticConfig] = None, clock: Optional[StepClock] = None, *,
@@ -394,13 +432,8 @@ class ElasticTrainer:
         if isinstance(step_fn_factory, tuple):
             self.train_cfgs = step_fn_factory
             step_fn_factory = gradsync.make_step_factory(*self.train_cfgs, device=self.device)
-        if self.world:
-            if self.train_cfgs is None or checkpointer is not None:
-                raise ValueError("an elastic world migrates in place: pass (model_cfg, tcfg) "
-                                 "and no checkpointer")
-            if (self.train_cfgs[1].grad_sync == "gspmd"
-                    or tuple(mesh.mesh_dim_names) != (cfg.dp_axis,)):
-                raise NotImplementedError(gradsync.NOT_ELASTIC)
+        if self.world and self.train_cfgs is None:
+            raise ValueError("an elastic world migrates in place: pass (model_cfg, tcfg)")
         self.mesh = mesh
         self.step_fn_factory = step_fn_factory
         self.pipe_factory = pipe_factory
@@ -426,6 +459,7 @@ class ElasticTrainer:
         return len(self.resizes)
 
     def device_ids(self) -> tuple:
+        """The mesh's worker ids, row-major (the reference's order)."""
         return mesh_ids(self.mesh)
 
     def dp(self) -> int:
@@ -439,6 +473,16 @@ class ElasticTrainer:
         from repro_torch.distributed.gradsync import common
 
         return not self.world or common.mesh_rank(self.mesh) is not None
+
+    def tp(self) -> int:
+        """The mesh's ``"model"`` extent (1 on stacked rows and in a
+        ``("data",)`` world)."""
+        from repro_torch.distributed.gradsync.snapshot import mesh_tp
+
+        return mesh_tp(self.mesh)
+
+    def _mode(self) -> Optional[str]:
+        return None if self.train_cfgs is None else self.train_cfgs[1].grad_sync
 
     def _build(self):
         member = self.member()
@@ -461,54 +505,40 @@ class ElasticTrainer:
             self.health.setdefault(d, "ok")
 
     def init_or_restore(self, generator: torch.Generator):
-        """A fresh state from ``generator``, or with a checkpoint the
-        latest one's params, step and data cursor onto the current extent
-        (another extent than the one that saved it included).  The
-        optimizer restarts from the restored params: fp32 masters of them,
-        zero moments and EF residuals.  (The reference keeps the fresh
-        init's masters there, so its ZeRO-1 and tree optimizers write the
-        fresh params back at the first step.)  None on a world process
-        outside the mesh."""
+        """A fresh state from ``generator``, or with a checkpoint its latest
+        step onto the current mesh in the train step's layout
+        (``train_step.restore``, ``gradsync.snapshot``): at the saved
+        ``"data"`` extent and strategy the whole state (params, optimizer,
+        monitor, step) and the data cursor; at another extent the params,
+        the step and the data cursor, with the optimizer restarted from the
+        restored params: fp32 masters of them, zero moments and EF
+        residuals.  (The reference keeps the fresh init's masters there,
+        so its ZeRO-1 and tree optimizers write the fresh params back at
+        the first step.)  A checkpoint of another ``tp`` is refused.  None
+        on a world process outside the mesh."""
         self.step = 0
         if not self.member():
             return None
         state = self.train_step.init_state(generator)
-        if self.ck is not None and self.ck.latest_step() is not None:
-            params, report = self._restore_params(state["params"])
+        latest = None if self.ck is None else self.ck.latest_step()
+        if latest is None:
+            return state
+        extra = self.ck.manifest(latest)["extra"]
+        saved_tp = extra.get("tp", 1)
+        if saved_tp != self.tp():
+            raise ValueError(f"checkpoint step {latest} was saved at tp={saved_tp}, this run has "
+                             f"tp={self.tp()}: {RESIZE_HINT}")
+        if (self.train_cfgs is not None and extra.get("dp") == self.dp()
+                and extra.get("grad_sync") == self._mode()):
+            state, report = self.train_step.restore(self.ck, state)
+        else:
+            params, report = self.train_step.restore(self.ck, state, params_only=True)
             state["params"] = params
             state["step"] = report.restored_step
             state["opt"] = self.train_step.opt_from_params(params)
-            self.pipe.load_state_dict(self.ck.manifest(report.restored_step)["extra"]["data"])
-            self.step = report.restored_step
+        self.pipe.load_state_dict(extra["data"])
+        self.step = report.restored_step
         return state
-
-    def _restore_params(self, params) -> tuple:
-        """(params, RestartReport) of the latest checkpoint through
-        :func:`recover`, in the layout of ``params``: the leaves read whole
-        out of the archive, or under ``local_sgd`` (whose ``[dp, ...]``
-        rows were saved at some extent) the first saved replica, repeated
-        onto every row."""
-        import os
-
-        from repro_torch.checkpoint.checkpointer import _unflatten, flatten_with_paths, npz_members
-        from repro_torch.models import convert
-
-        leaves = flatten_with_paths({"params": convert.reference_tree(params)})
-        replica = self.train_cfgs is not None and self.train_cfgs[1].grad_sync == "local_sgd"
-        latest = self.ck.latest_step()
-        if replica:
-            saved = npz_members(os.path.join(self.ck.dir, f"step_{latest}", "arrays.npz"))
-            leaves = {k: torch.empty(saved[k][0], dtype=v.dtype, device="meta")
-                      for k, v in leaves.items()}
-        got, report = recover(self.ck, _unflatten(leaves), self.device,
-                              old_dp=self.ck.manifest(latest)["extra"].get("dp"),
-                              new_dp=self.dp(), blocks={k: 0 for k in leaves} if replica else None)
-        out = got["params"]
-        if replica:
-            dp = self.dp()
-            out = _unflatten({k: v[None].expand((dp,) + tuple(v.shape)).clone()
-                              for k, v in flatten_with_paths(out).items()})
-        return convert.port_tree(out), report
 
     # -- what a chaos script pokes --------------------------------------------
 
@@ -552,8 +582,10 @@ class ElasticTrainer:
     # -- the ResizeEvent lifecycle --------------------------------------------
 
     def _clamp_grow(self, decision: ResizeDecision) -> ResizeDecision:
-        """Admit only whole DP slices (with TP a joiner set short of a slice
-        stays pending); every mesh here has one worker a slice."""
+        """Admit only whole DP slices: ``tp`` workers a slice (one on stacked
+        rows and in a ``("data",)`` world).  A joiner set short of a slice
+        stays pending (admitting it would make ``grow_mesh`` raise); the
+        rest is admitted once enough joiners have come."""
         per_slice = len(self.device_ids()) // self.dp()
         n = (len(decision.admit) // per_slice) * per_slice
         if n == 0:
@@ -567,7 +599,7 @@ class ElasticTrainer:
         in place (or restore a checkpoint where no hook applies), rebuild
         the step and the pipeline, record the :class:`ResizeEvent`."""
         t0 = time.perf_counter()
-        times: dict = {"migrate_s": 0.0, "broadcast_s": 0.0}
+        times: dict = {"build_s": 0.0, "migrate_s": 0.0, "broadcast_s": 0.0}
         state = self._resize_impl(state, decision, times)
         _sync(self.device)
         ev = self.resizes[-1]
@@ -583,6 +615,7 @@ class ElasticTrainer:
             raise RuntimeError("resize budget exhausted")
         axis = self.cfg.dp_axis
         old_mesh, old_dp, step = self.mesh, self.dp(), self.step
+        t = time.perf_counter()
         if decision.action == "shrink":
             new_mesh, kept = shrink_mesh(old_mesh, set(decision.remove), axis)
             keep = flat_keep_for_shrink({axis: old_dp}, (axis,), axis, kept)
@@ -595,15 +628,13 @@ class ElasticTrainer:
             self.pending_joins = [d for d in self.pending_joins if d not in set(decision.admit)]
         else:
             raise ValueError(f"resize cannot execute action {decision.action!r}")
+        times["mesh_s"] = time.perf_counter() - t
         # the old extent's memoized stage tables and backends go
         plans.invalidate_all_plans()
 
         restored = False
         if self.train_cfgs is not None:
-            t = time.perf_counter()
-            state = self._migrate(state, old_mesh, new_mesh, keep)
-            _sync(self.device)
-            times["migrate_s"] = time.perf_counter() - t
+            state = self._migrate(state, old_mesh, new_mesh, keep, times)
             if decision.action == "grow" and self.member():
                 t = time.perf_counter()
                 state = self._send_to_joiners(state, keep)
@@ -626,9 +657,10 @@ class ElasticTrainer:
             restored_from_checkpoint=restored))
         return state
 
-    def _migrate(self, state, old_mesh, new_mesh, keep):
+    def _migrate(self, state, old_mesh, new_mesh, keep, times: dict):
         """The state on the new mesh through ``gradsync.migrate_state``, and
-        the step and pipeline rebuilt.  In a world the process of a joiner
+        the step and pipeline rebuilt (``times``' ``build_s`` and
+        ``migrate_s``, the hook's).  In a world the process of a joiner
         starts from a fresh state of the new extent (a rank that was
         removed before drops what it held), a process of the union of the
         old and new ranks runs the hook, and one outside it holds None."""
@@ -637,21 +669,21 @@ class ElasticTrainer:
 
         cfg, tcfg = self.train_cfgs
         pipe_state = self.pipe.state_dict() if self.pipe is not None else None
-        if not self.world:
-            state = gradsync.migrate_state(cfg, tcfg, old_mesh, new_mesh, state, keep)
-            self.mesh = new_mesh
-            self._build()
-            self.pipe.load_state_dict(pipe_state)
-            return state
-        in_old = common.mesh_rank(old_mesh) is not None
+        rank = common.mesh_rank(new_mesh) if self.world else 0
+        in_old = not self.world or common.mesh_rank(old_mesh) is not None
+        t = time.perf_counter()
         self.mesh = new_mesh
         self._build()
-        rank = common.mesh_rank(new_mesh)
-        if rank is not None and keep[rank] is None:  # a joiner: a fresh state
+        if self.world and rank is not None and keep[rank] is None:  # a joiner: a fresh state
             state = self.train_step.init_state(torch.Generator(device=self.device).manual_seed(0))
+        _sync(self.device)
+        times["build_s"] = time.perf_counter() - t
         if not in_old and rank is None:
             return None
+        t = time.perf_counter()
         state = gradsync.migrate_state(cfg, tcfg, old_mesh, new_mesh, state, keep)
+        _sync(self.device)
+        times["migrate_s"] = time.perf_counter() - t
         if rank is not None and keep[rank] is not None:
             self.pipe.load_state_dict(pipe_state)
         return state
@@ -661,8 +693,10 @@ class ElasticTrainer:
         on stacked rows ``mrd_broadcast_stacked`` into the params (under
         ``local_sgd`` into each joiner's replica row of params and
         optimizer, which the hook filled from the first survivor); in a
-        world :func:`mrd_broadcast` of the params (every rank's but under
-        ``local_sgd`` only the joiners'), of the replicated optimizer trees
+        world :func:`mrd_broadcast` over each model rank's ``"data"``
+        column (its own TP blocks) of the params (every rank's but under
+        ``local_sgd`` only the joiners'; none under ``gspmd``, whose hook
+        re-sharded them over the union), of the replicated optimizer trees
         of ``mrd_leaf`` and ``local_sgd`` (the joiners'), and of the step
         and the data cursor.  All in place."""
         from repro_torch.distributed import serve as dserve
@@ -682,7 +716,8 @@ class ElasticTrainer:
                 dserve.mrd_broadcast_stacked(state["params"], dp, src=0)
             return state
         joiner = keep[common.mesh_rank(self.mesh)] is None
-        mrd_broadcast(state["params"], self.mesh, src=0, receive=joiner or not replica)
+        if mode != "gspmd":
+            mrd_broadcast(state["params"], self.mesh, src=0, receive=joiner or not replica)
         if mode in ("local_sgd", "mrd_leaf"):
             mrd_broadcast(state["opt"], self.mesh, src=0, receive=joiner)
         host = mrd_broadcast({"step": state["step"], "data": self.pipe.state_dict()},
@@ -703,20 +738,21 @@ class ElasticTrainer:
                                                  reason="handle_failure"))
 
     def _save(self, state, block) -> None:
-        from repro_torch.models import convert
-
-        extra = {"data": self.pipe.state_dict(), "dp": self.dp(),
-                 "grad_sync": None if self.train_cfgs is None else self.train_cfgs[1].grad_sync}
-        self.ck.save(self.step, convert.train_state_to_reference(state), extra=extra,
-                     block=block)
+        """Snapshot the state (a world's members each their part), the data
+        cursor and the extent, in the train step's layout
+        (``gradsync.snapshot``)."""
+        extra = {"data": self.pipe.state_dict(), "dp": self.dp(), "tp": self.tp(),
+                 "grad_sync": self._mode()}
+        self.train_step.save(self.ck, self.step, state, extra, block=block)
 
     def run(self, state, n_steps: int, *, fail_at: Optional[dict] = None, events=None):
         """Train ``n_steps`` steps; returns ``(state, losses)``.  Before
         each step, in the reference's order: ``fail_at`` ({step: {ids}})
         kills, the chaos script's ``events.apply(trainer, step)``, the
         heartbeats on the injected clock, the policy's decision, the resize.
-        In a world a process outside the mesh skips the step and records
-        None for its loss."""
+        With a checkpointer it saves every ``ckpt_every`` steps and once,
+        blocking, at the end.  In a world a process outside the mesh skips
+        the step, and its save, and records None for its loss."""
         losses: list = []
         i = self.step
         target = i + n_steps
@@ -746,8 +782,8 @@ class ElasticTrainer:
                 losses.append(None)
             i += 1
             self.step = i
-            if self.ck is not None and i % self.cfg.ckpt_every == 0:
+            if self.ck is not None and self.member() and i % self.cfg.ckpt_every == 0:
                 self._save(state, block=False)
-        if self.ck is not None:
+        if self.ck is not None and self.member():
             self._save(state, block=True)
         return state, losses

@@ -20,11 +20,11 @@ for a replacement.
 - :func:`shrink_mesh` / :func:`grow_mesh` rebuild the elastic trainer's
   mesh without the failed workers or with the joiners appended.  On
   stacked rows a mesh is the ordered tuple of replica ids; in a world it
-  is a ``("data",)`` :class:`DeviceMesh` over the live global ranks.
-  Every process of the world builds each new mesh (``new_group`` is
-  collective over the default group); a rank outside it has coordinate
-  None.  Meshes with a ``"model"`` dimension are not resized in this
-  port yet (``gradsync.NOT_ELASTIC``).
+  is a ``("data",)`` or ``("data", "model")`` :class:`DeviceMesh` over
+  the live global ranks, resized a whole data-parallel slice (a TP group)
+  at a time.  Every process of the world builds each new mesh
+  (``new_group`` is collective over the default group); a rank outside
+  it has coordinate None.
 - :func:`recover` restores the latest checkpoint onto a template of the
   new extent: the trainer's one restore route (``init_or_restore``, and
   the resize of a step factory it cannot migrate).
@@ -37,6 +37,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -151,42 +152,66 @@ class StepClock:
 
 def mesh_ids(mesh) -> tuple:
     """The worker ids of an elastic mesh, in rank order: a stacked-rows
-    tuple's replica ids, a world ``DeviceMesh``'s global ranks."""
+    tuple's replica ids, a world ``DeviceMesh``'s global ranks (row-major
+    over its dimensions)."""
     if hasattr(mesh, "mesh_dim_names"):
         return tuple(int(r) for r in mesh.mesh.reshape(-1).tolist())
     return tuple(mesh)
 
 
-def _rebuild(mesh, ids: list, dp_axis: str):
-    """A mesh like ``mesh`` over the worker ids ``ids``."""
+def _slices(mesh, dp_axis: str) -> np.ndarray:
+    """The worker ids of ``mesh`` with the ``dp_axis`` dimension first: a
+    row a data-parallel slice (one id a row on stacked rows and in a
+    ``("data",)`` world; a TP group's ``tp`` ids in a ``("data",
+    "model")`` world)."""
     if not hasattr(mesh, "mesh_dim_names"):
-        return tuple(ids)
+        return np.asarray(mesh, dtype=np.int64).reshape(-1, 1)
+    grid = np.asarray(mesh.mesh.tolist(), dtype=np.int64)
+    grid = np.moveaxis(grid, list(mesh.mesh_dim_names).index(dp_axis), 0)
+    return grid.reshape(grid.shape[0], -1)
+
+
+def _rebuild(mesh, rows: np.ndarray, dp_axis: str):
+    """A mesh like ``mesh`` over the slices ``rows`` (as :func:`_slices`
+    gives them).  In a world every process must call it: ``new_group`` is
+    collective over the default group."""
+    if not hasattr(mesh, "mesh_dim_names"):
+        return tuple(int(r) for r in rows.reshape(-1))
     from torch.distributed.device_mesh import DeviceMesh
 
-    from repro_torch.distributed.gradsync import NOT_ELASTIC
-
-    if tuple(mesh.mesh_dim_names) != (dp_axis,):
-        raise NotImplementedError(f"mesh {mesh.mesh_dim_names}: {NOT_ELASTIC}")
-    return DeviceMesh(mesh.device_type, ids, mesh_dim_names=(dp_axis,))
+    names = list(mesh.mesh_dim_names)
+    d = names.index(dp_axis)
+    shape = list(mesh.mesh.shape)
+    moved = [shape[d]] + shape[:d] + shape[d + 1:]
+    moved[0] = rows.shape[0]
+    grid = np.moveaxis(rows.reshape(moved), 0, d)
+    return DeviceMesh(mesh.device_type, torch.as_tensor(grid.tolist(), dtype=torch.int64),
+                      mesh_dim_names=tuple(names))
 
 
 def shrink_mesh(mesh, failed_device_ids, dp_axis: str = "data"):
-    """The mesh without the failed workers: the survivors keep their order,
-    and the extent may be any count, non-power-of-two included.  Returns
-    ``(new_mesh, kept)``, the old ranks kept."""
-    ids = mesh_ids(mesh)
+    """The mesh without every data-parallel slice that holds a failed
+    worker (a TP group with a dead member is unusable): the surviving
+    slices keep their order, and the extent may be any count,
+    non-power-of-two included.  Returns ``(new_mesh, kept)``, the old
+    ``dp_axis`` coordinates kept."""
+    rows = _slices(mesh, dp_axis)
     failed = set(failed_device_ids)
-    kept = [i for i, d in enumerate(ids) if d not in failed]
+    kept = [i for i, row in enumerate(rows.tolist()) if not failed & set(row)]
     if not kept:
         raise RuntimeError("no healthy DP slices left")
-    return _rebuild(mesh, [ids[i] for i in kept], dp_axis), kept
+    return _rebuild(mesh, rows[kept], dp_axis), kept
 
 
 def grow_mesh(mesh, joining_device_ids, dp_axis: str = "data"):
-    """The mesh with the joiners appended as new trailing ranks (the
-    inverse of :func:`shrink_mesh`: the survivors keep their ranks).
-    Returns ``(new_mesh, n_new)``."""
-    ids = mesh_ids(mesh)
+    """The mesh with the joiners appended as new trailing data-parallel
+    slices (the inverse of :func:`shrink_mesh`: the survivors keep their
+    coordinates), ``tp`` joiners a slice in their given order.  The joiner
+    count must be a positive multiple of a slice's worker count.  Returns
+    ``(new_mesh, n_new)``, the slices added."""
+    rows = _slices(mesh, dp_axis)
+    ids = set(rows.reshape(-1).tolist())
+    per_slice = rows.shape[1]
     world = None
     if hasattr(mesh, "mesh_dim_names"):
         import torch.distributed as dist
@@ -199,10 +224,11 @@ def grow_mesh(mesh, joining_device_ids, dp_axis: str = "data"):
         if world is not None and not 0 <= d < world:
             raise ValueError(f"no such device id {d}: the world has {world} ranks")
         joiners.append(int(d))
-    if not joiners:
-        raise ValueError("need a positive multiple of 1 joining devices to form whole DP "
-                         "slices, got 0")
-    return _rebuild(mesh, list(ids) + joiners, dp_axis), len(joiners)
+    if not joiners or len(joiners) % per_slice:
+        raise ValueError(f"need a positive multiple of {per_slice} joining devices to form "
+                         f"whole DP slices, got {len(joiners)}")
+    new = np.asarray(joiners, dtype=np.int64).reshape(-1, per_slice)
+    return _rebuild(mesh, np.concatenate([rows, new]), dp_axis), new.shape[0]
 
 
 @dataclasses.dataclass
@@ -214,17 +240,21 @@ class RestartReport:
 
 
 def recover(checkpointer, template_state, device="cpu", *, old_dp: int, new_dp: int,
-            blocks: Optional[dict] = None):
+            blocks: Optional[dict] = None, rows: Optional[tuple] = None):
     """Restore the latest checkpoint onto ``template_state`` (the leaves to
     read, nested as saved: their structure, shapes and types) on
     ``device``.  ``blocks`` ({leaf key: index}) reads those leaves cut to a
     block of the saved one (``Checkpointer.restore_blocks``; the template
-    then has the saved shapes).  Returns ``(state, RestartReport)``."""
+    then has the saved shapes); ``rows`` (top-level parts) reads a world
+    rank's rows of them (``Checkpointer.restore_rank``, at ``new_dp``).
+    Returns ``(state, RestartReport)``."""
     t0 = time.time()
     step = checkpointer.latest_step()
     if step is None:
         raise RuntimeError("no checkpoint to recover from")
-    if blocks is None:
+    if rows is not None:
+        state = checkpointer.restore_rank(step, template_state, rows, device, dp=new_dp)
+    elif blocks is None:
         state = checkpointer.restore(step, template_state, device)
     else:
         state = checkpointer.restore_blocks(step, template_state, blocks, device)

@@ -35,7 +35,7 @@ the paper's detection protocols certifying each request's convergence.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -218,6 +218,12 @@ class FixedPointWorkload:
     @wstate.setter
     def wstate(self, value: dict) -> None:
         self.pool.state = value
+
+    def dp_refusal(self, new_dp: int) -> Optional[str]:
+        """Why :meth:`migrate_dp` cannot take ``new_dp`` (the residual's
+        blocks must split ``n`` evenly), or None."""
+        n = self.pool.n
+        return None if n % new_dp == 0 else f"n={n} must divide into dp={new_dp} blocks"
 
     def migrate_dp(self, new_dp: int) -> None:
         """Elastic resize: the iterates stay as they are; only the pool's

@@ -30,7 +30,8 @@ rows (the ``("data",)`` worlds are ``test_torch_elastic_world.py``'s).
   e is not copied: the first step after the restore starts from the
   restored params.  An opaque step factory resizes through the checkpoint.
 - (e) The train CLI's ``--elastic-policy`` with no event equals the plain
-  loop bit for bit; an unknown policy is refused.
+  loop bit for bit; an unknown policy is refused; ``--tp`` 2 runs in a
+  world of 4 (``gspmd``, checkpointed) and is refused outside one.
 - (f) ``CollectivePlan.invalidate`` drops the memo and the plan derives it
   again; the live-plan registry holds weak references (a dropped plan is
   freed) and prunes the dead ones as plans are built; ``recover`` restores
@@ -491,11 +492,27 @@ def test_cli_elastic_policy_without_events_is_the_plain_loop(mode, capsys):
     assert "done (0 resizes, 0 checkpoint restores). final loss:" in capsys.readouterr().out
 
 
-def test_cli_refuses_an_unknown_policy_and_tp():
+def test_cli_refuses_an_unknown_policy_and_tp(tmp_path):
+    """An unknown policy is refused; ``--tp`` 2 runs in a world (here 4
+    gloo processes at ``--dp 2 --tp 2``, ``gspmd`` with a checkpoint) and
+    outside one is refused as the plain loop refuses it."""
     with pytest.raises(ValueError, match="unknown elastic policy 'nope'"):
         train_cli.main(CLI + ["--elastic-policy", "nope"])
-    with pytest.raises(SystemExit, match="7b2"):
+    with pytest.raises(SystemExit, match="--tp 2 needs a world of at least"):
         train_cli.main(CLI + ["--elastic-policy", "grow_on_join", "--tp", "2"])
+    argv = ["--arch", ARCH, "--smoke", "--steps", "2", "--batch", "4", "--seq", "8", "--dp",
+            "2", "--tp", "2", "--device", "cpu", "--schedule", "const", "--remat", "none",
+            "--elastic-policy", "grow_on_join", "--ckpt-dir", str(tmp_path / "ck"),
+            "--ckpt-every", "1"]
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", "4", "-m", "repro_torch.launch.train"] + argv,
+                          capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "elastic (grow_on_join, dp=2 x tp=2 of a world of 4" in proc.stdout
+    assert "done (0 resizes, 0 checkpoint restores)" in proc.stdout
+    assert json.loads(open(tmp_path / "ck" / "step_2" / "manifest.json").read())["extra"][
+        "tp"] == 2
 
 
 # ---------------------------------------------------------------------------

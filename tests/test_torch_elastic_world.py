@@ -20,10 +20,10 @@ segment: a non-owner's are not updated in a world, where the stacked
 rows update them from stale values nothing reads) and the monitor's
 value and latch.
 
-The same file checks that an elastic ``gspmd`` world and a resize of a
-mesh with a ``"model"`` dimension are refused with the ROADMAP item that
-will port them, and that ``scripts/elastic_cards.*`` import neither
-``jax`` nor the reference package.
+The same world checks that an elastic ``gspmd`` world with a checkpointer
+and a resize of a mesh with a ``"model"`` dimension now run, and what is
+still refused; the file also checks that ``scripts/elastic_cards.*``
+import neither ``jax`` nor the reference package.
 """
 
 import datetime
@@ -41,9 +41,8 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 import elastic_cards as EC  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.distributed import gradsync  # noqa: E402
 from repro_torch.distributed import step as step_lib  # noqa: E402
-from repro_torch.runtime import ElasticTrainer, shrink_mesh  # noqa: E402
+from repro_torch.runtime import ElasticTrainer, ResizeDecision  # noqa: E402
 from test_torch_hygiene import FORBIDDEN, _imported_roots, _shell_python  # noqa: E402
 from torch_chaos import KILL_JOIN_TRAJECTORY  # noqa: E402
 
@@ -54,7 +53,7 @@ ARGV = ["--smoke", "--device", "cpu", "--steps", "10", "--batch", "60", "--seq",
 
 
 def _args(mode):
-    return EC.build_parser().parse_args(ARGV + ["--mode", mode])
+    return EC.build_parser().parse_args(ARGV + ["--grad-sync", mode])
 
 
 def _rank(rank, store, out_dir):
@@ -77,12 +76,88 @@ def _rank(rank, store, out_dir):
                 if tr.member():
                     view = EC.rank_view(state, mode, common.mesh_rank(tr.mesh), tr.dp(), False)
                 out[mode] = {"rec": rec, "view": view, "ids": list(tr.device_ids())}
+            out["accepted"] = _accepted(rank)
             torch.save(out, out_dir / f"rank{rank}.pt")
         finally:
             dist.destroy_process_group()
     except BaseException:
         (out_dir / f"rank{rank}.err").write_text(traceback.format_exc())
         raise
+
+
+def _accepted(rank) -> dict:
+    """What an elastic world accepts now (run on every process of the
+    world of 5): a ``gspmd`` trainer on a ``("data",)`` mesh of ranks 0-3
+    with a checkpointer, shrunk by a failure, then a ``mrd_zero1`` trainer
+    on a ``("data", "model")`` mesh ``[[0, 1], [2, 3]]`` whose failure of
+    rank 1 drops its slice, and the ``gspmd`` hook on a ``(data,)`` world
+    of 4 -> 3; and what it still refuses: an opaque step factory, a joiner
+    count short of a slice (``grow_mesh`` raises, the trainer keeps it
+    pending), a checkpoint of another ``tp``."""
+    import tempfile
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.distributed.gradsync import common
+    from repro_torch.runtime import ElasticConfig, grow_mesh
+
+    cfg = registry.get_smoke_config("llama3.2-1b")
+    dcfg = DataConfig(batch=12, seq_len=8, seed=0)
+
+    def pipe(m):
+        return SyntheticPipeline(cfg, dcfg, "cpu", rank=common.mesh_rank(m), dp=common.mesh_dp(m))
+
+    out: dict = {}
+    ck_dir = tempfile.mkdtemp() if rank == 0 else None
+    ck_dir = _broadcast_str(ck_dir)
+    gspmd = step_lib.TrainConfig(grad_sync="gspmd", remat="none")
+    data = DeviceMesh("cpu", [0, 1, 2, 3], mesh_dim_names=("data",))
+    tr = ElasticTrainer(data, (cfg, gspmd), pipe, device="cpu",
+                        checkpointer=Checkpointer(ck_dir, world=(rank, WORLD)),
+                        cfg=ElasticConfig(policy="grow_on_join", ckpt_every=1))
+    state, losses = tr.run(tr.init_or_restore(torch.Generator().manual_seed(0)), 1)
+    state = tr.handle_failure(state, {2})
+    out["gspmd"] = {"losses": losses, "ids": tr.device_ids(), "member": tr.member(),
+                    "saved": tr.ck.latest_step()}
+    zero1 = step_lib.TrainConfig(grad_sync="mrd_zero1", remat="none")
+    grid = DeviceMesh("cpu", torch.tensor([[0, 1], [2, 3]]), mesh_dim_names=("data", "model"))
+    tr = ElasticTrainer(grid, (cfg, zero1), pipe, device="cpu",
+                        cfg=ElasticConfig(policy="grow_on_join"))
+    state = tr.handle_failure(tr.init_or_restore(torch.Generator().manual_seed(0)), {1})
+    out["tp"] = {"ids": tr.device_ids(), "keep": tr.resizes[-1].keep, "dp": tr.dp(),
+                 "tp": tr.tp()}
+    refusals = []
+    try:
+        ElasticTrainer(data, lambda m: None, pipe, device="cpu")
+    except ValueError as e:
+        refusals.append(str(e))
+    try:
+        grow_mesh(tr.mesh, [4])
+    except ValueError as e:
+        refusals.append(str(e))
+    pending = tr._clamp_grow(ResizeDecision("grow", admit=(4,)))
+    out["pending_kept"] = pending.action
+    if tr.member():
+        ck = Checkpointer(ck_dir)
+        ck.bind_world(None)
+        tr.ck = ck
+        try:
+            tr.init_or_restore(torch.Generator().manual_seed(0))
+        except ValueError as e:
+            refusals.append(str(e))
+        tr.ck = None
+    out["refusals"] = refusals
+    return out
+
+
+def _broadcast_str(value):
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 @pytest.fixture(scope="module")
@@ -152,27 +227,29 @@ def test_every_live_rank_equals_the_stacked_row(world, mode):
     assert live == 4
 
 
-def test_gspmd_worlds_and_tp_meshes_are_refused():
-    cfg = registry.get_smoke_config("llama3.2-1b")
-
-    class _Mesh:  # what the refusals read of a DeviceMesh
-        def __init__(self, names):
-            self.mesh_dim_names = names
-            self.mesh = torch.arange(4).reshape((2, 2) if len(names) == 2 else (4,))
-
-    gspmd = step_lib.TrainConfig(grad_sync="gspmd")
-    with pytest.raises(NotImplementedError, match="item 7b2"):
-        ElasticTrainer(_Mesh(("data",)), (cfg, gspmd), lambda m: None, device="cpu")
-    zero1 = step_lib.TrainConfig(grad_sync="mrd_zero1")
-    with pytest.raises(NotImplementedError, match="item 7b2"):
-        ElasticTrainer(_Mesh(("data", "model")), (cfg, zero1), lambda m: None, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b2"):
-        shrink_mesh(_Mesh(("data", "model")), {1})
-    with pytest.raises(NotImplementedError, match="item 7b2"):
-        gradsync.migrate_state(cfg, gspmd, _Mesh(("data",)), _Mesh(("data",)), {}, (0, 1, 2))
-    with pytest.raises(ValueError, match="no checkpointer"):
-        ElasticTrainer(_Mesh(("data",)), (cfg, zero1), lambda m: None, checkpointer=object(),
-                       device="cpu")
+def test_gspmd_worlds_and_tp_meshes_are_refused(world):
+    """No longer refused: an elastic ``gspmd`` world with a checkpointer
+    trains, saves and shrinks (4 -> 3), and a ``("data", "model")`` world
+    shrinks by whole slices (rank 1's failure drops slice 0).  Still
+    refused: an elastic world of an opaque step factory, a joiner count
+    short of a slice (kept pending by the trainer), a restore onto another
+    ``tp``."""
+    ranks, _ = world
+    for r, out in enumerate(ranks):
+        got = out["accepted"]
+        g = got["gspmd"]
+        assert g["ids"] == (0, 1, 3) and g["member"] == (r in (0, 1, 3)), r
+        if r < 4:
+            assert len(g["losses"]) == 1 and g["losses"][0] is not None and g["saved"] == 1, r
+        assert got["tp"] == {"ids": (2, 3), "keep": (1,), "dp": 1, "tp": 2}, r
+        assert got["pending_kept"] == "none", r
+        refusals = got["refusals"]
+        assert "migrates in place" in refusals[0], r
+        assert "multiple of 2 joining devices" in refusals[1], r
+        if r in (2, 3):  # the (1, 2) mesh's members: a checkpoint saved at tp=1
+            assert "saved at tp=1, this run has tp=2" in refusals[2], r
+        else:
+            assert len(refusals) == 2, r
 
 
 @pytest.mark.parametrize("name", ["elastic_cards.sh", "elastic_cards.py"])

@@ -474,7 +474,7 @@ def gspmd_checkpoint(mesh, device, *, arch: str, tcfg, batches: list, directory:
         out["ckpt/save"] = torch.tensor([ck.saves[0]["bytes"], ck.saves[0]["peak_bytes"]])
     # the restore reads the rank's blocks through np.memmap, never the archive whole
     with mock.patch.object(np, "load", side_effect=AssertionError("np.load of the archive")):
-        state = train_cli.restore_global(ck, 1, step, cfg, device)
+        state = train_cli.restore_global(ck, 1, step, device)
     out["ckpt/read"] = torch.tensor([ck.restores[0]["bytes"], mine])
     for i in range(1, len(shards)):
         state, m = step(state, shards[i])
